@@ -1,0 +1,469 @@
+"""Fused wavefront traversal (counterpart of ``owl_path_tracer_tpu/ops/fused2.py``).
+
+Fat SAH clusters (C up to 512 triangles) in component planes, a per-block
+cluster frontier, and the winner's shading attributes read straight from the
+cluster attribute planes, so the integrator needs no per-ray gather of
+surface data.
+
+The traversal is one hand-written CUDA kernel, ``csrc/fused2_traverse.cu``
+(the closest-hit + attributes mode of the JAX package's Pallas ``_kernel``).
+:func:`fused2_traverse_packed` launches it for CUDA tensors and raises if it
+cannot; for CPU tensors it takes the plain version,
+:func:`fused2_traverse_packed_plain` (the exact per-ray cluster query, same
+[N,32] output contract).  Rays a kernel block leaves unresolved (its
+retirement loop hit ``max_steps``) go through the exact cluster query in
+:func:`fused2_closest_hit`, as in the reference.
+
+Not ported yet (ROADMAP queue 2): the MXU feature layout and bf16 planes
+(K1b), the any-hit mode (K2), the mixed sweep (K3) and fanout > 1.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import pathlib
+
+import numpy as np
+import torch
+
+from ..native import build_cuda_library
+from ..utils.tensors import TensorBundle
+from . import math as m
+from .cluster import ClusterBVH, build_cluster_arrays, cluster_closest_hit, cluster_query
+from .intersect import HitRecord
+
+BLOCK_RAYS = 128
+# retirement-loop bound per block; a block that reaches it marks its rays
+# unresolved and the wrapper answers them with the exact cluster query
+MAX_STEPS = 512
+# per-ray frontier refresh interval, in retired clusters
+REFRESH_CLUSTERS = 16
+
+# attr plane row layout (32 rows x C slots per cluster, f32)
+#   0:3 n0  3:6 n1  6:9 n2  9:11 tc0  11:13 tc1  13:15 tc2  15 material id
+#   16 tri id (exact f32 < 2^24)  17:20 p0  20:23 e1  23:26 e2  26:32 zero
+ATTR_ROWS = 32
+# kernel output columns [N,32]:
+#   0 t  1 u  2 v  3 tri  4 hit  5 resolved  6 steps  7 winner cluster
+#   8 winner slot  9:16 zero  16:32 attr rows 0-15 of the winner
+OUT_COLS = 32
+
+# sort keys: origin Morton bits and direction bits per axis (3*(5+4) < 30)
+SORT_O_BITS = 5
+SORT_D_BITS = 4
+# candidate-scan K-chunk width and meta-box coarsening of the cid2 key
+CID_CHUNK = 512
+CID_META = 4
+
+# rays per exact cluster query in the plain version (bounds its [n,C] temporaries)
+PLAIN_CHUNK = 16384
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "fused2_traverse.cu"
+
+# launches of the CUDA kernel (one per wrapper call that ran it)
+KERNEL_LAUNCHES = 0
+# rays answered by the exact cluster query because their block overflowed
+UNRESOLVED_RAYS = 0
+
+_cuda_lib = None
+
+
+@dataclasses.dataclass
+class Fused2BVH(TensorBundle):
+    boxes: torch.Tensor  # [8,K]: rows 0-2 cmin.xyz, 3-5 cmax.xyz
+    planes: torch.Tensor  # [K,16,C]: rows 0-8 p0/e1/e2 components, 9 tid, 10-15 zero
+    attrs: torch.Tensor  # [K,ATTR_ROWS,C] shading payload planes
+    attr_table: torch.Tensor  # [T,ATTR_ROWS] the same payload by tri id
+    bounds: torch.Tensor  # [2,3] scene AABB (sort-key quantization)
+    cluster: ClusterBVH  # exact per-ray query (plain version, unresolved rays)
+
+    @property
+    def num_clusters(self) -> int:
+        return self.boxes.shape[1]
+
+    @property
+    def cluster_size(self) -> int:
+        return self.attrs.shape[2]
+
+
+def build_fused2_arrays(vertices, tri_idx, cluster_size: int = 512, normals=None,
+                        texcoords=None, tri_mat=None) -> dict:
+    """Host build -> dict of numpy arrays (the Fused2BVH fields, ``cluster``
+    as a nested dict).  Component planes only."""
+    vertices = np.asarray(vertices, np.float32)
+    tri_idx = np.asarray(tri_idx, np.int32)
+    cmin, cmax, tri_planes, tid = build_cluster_arrays(vertices, tri_idx, cluster_size)
+    k, c = cmin.shape[0], tri_planes.shape[2]
+    if tid.max() >= (1 << 24):
+        raise ValueError("triangle ids exceed the exact float32 range")
+
+    boxes = np.zeros((8, k), np.float32)
+    boxes[0:3] = cmin.T
+    boxes[3:6] = cmax.T
+    planes = np.zeros((k, 16, c), np.float32)
+    planes[:, 0:9] = tri_planes
+    planes[:, 9] = tid.astype(np.float32)
+
+    t_count = tri_idx.shape[0]
+    attr_table = np.zeros((t_count, ATTR_ROWS), np.float32)
+    nrm = np.asarray(normals if normals is not None else np.zeros((len(vertices), 3)), np.float32)
+    tc = np.asarray(texcoords if texcoords is not None else np.zeros((len(vertices), 2)), np.float32)
+    mat = np.asarray(tri_mat if tri_mat is not None else np.zeros((t_count,)), np.float32)
+    for v_i in range(3):
+        attr_table[:, 3 * v_i : 3 * v_i + 3] = nrm[tri_idx[:, v_i]]
+        attr_table[:, 9 + 2 * v_i : 11 + 2 * v_i] = tc[tri_idx[:, v_i]]
+    attr_table[:, 15] = mat
+    attr_table[:, 16] = np.arange(t_count, dtype=np.float32)
+    # winner geometry comes from the same plane bits the intersectors read
+    valid = tid >= 0
+    attr_table[tid[valid], 17:26] = tri_planes.transpose(0, 2, 1)[valid]
+    attrs = attr_table[np.maximum(tid, 0)].transpose(0, 2, 1).copy()
+    bounds = np.stack([vertices.min(0), vertices.max(0)]).astype(np.float32)
+    return dict(
+        boxes=boxes, planes=planes, attrs=attrs, attr_table=attr_table, bounds=bounds,
+        cluster=dict(cmin=cmin, cmax=cmax, tri_planes=tri_planes, tri_id=tid),
+    )
+
+
+def build_fused2(vertices, tri_idx, cluster_size: int = 512, normals=None, texcoords=None,
+                 tri_mat=None, *, device) -> Fused2BVH:
+    """SAH-leaf clusters + component planes + shading-attribute planes."""
+    from ..convert import fused2_from_numpy
+
+    arrays = build_fused2_arrays(vertices, tri_idx, cluster_size, normals, texcoords, tri_mat)
+    return fused2_from_numpy(arrays, device=device)
+
+
+def build_fused2_scene(scene, cluster_size: int = 512) -> Fused2BVH:
+    """Build from a compiled Scene, with its shading attributes, on its device."""
+    host = lambda x: x.cpu().numpy()  # noqa: E731
+    return build_fused2(
+        host(scene.vertices), host(scene.tri_idx), cluster_size=cluster_size,
+        normals=host(scene.normals), texcoords=host(scene.texcoords),
+        tri_mat=host(scene.tri_mat), device=scene.vertices.device,
+    )
+
+
+# ── rays ──────────────────────────────────────────────────────────────────
+
+
+def pack_rays(ray_o, ray_d, t_max):
+    """[N,8] kernel ray layout: o(3) d(3) tmax flag(=0)."""
+    n = ray_o.shape[0]
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=ray_o.device).expand(n)
+    flag = torch.zeros((n, 1), dtype=torch.float32, device=ray_o.device)
+    return torch.cat([ray_o, ray_d, t_max[:, None], flag], dim=1).contiguous()
+
+
+def _pad_rays(ray_o, ray_d, t_max, block: int):
+    """Pad to a whole number of blocks; pad rays get t_max = T_MIN (no hits)."""
+    n = ray_o.shape[0]
+    dev = ray_o.device
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(n)
+    pad = (-n) % block
+    if not pad:
+        return ray_o, ray_d, t_max, n
+    ray_o = torch.cat([ray_o, torch.zeros((pad, 3), dtype=torch.float32, device=dev)])
+    up = torch.tensor([0.0, 0.0, 1.0], device=dev).expand(pad, 3)
+    ray_d = torch.cat([ray_d, up])
+    t_max = torch.cat([t_max, torch.full((pad,), m.T_MIN, dtype=torch.float32, device=dev)])
+    return ray_o, ray_d, t_max, n
+
+
+# ── coherence sort ────────────────────────────────────────────────────────
+
+
+def _morton3(x, y, z, bits: int = 4):
+    key = torch.zeros_like(x)
+    for i in range(bits):
+        key = (
+            key
+            | (((x >> i) & 1) << (3 * i + 2))
+            | (((y >> i) & 1) << (3 * i + 1))
+            | (((z >> i) & 1) << (3 * i))
+        )
+    return key
+
+
+def ray_sort_keys(ray_o, ray_d, bounds):
+    """Origin Morton cell (major) + direction cell (minor), int64 < 2^27."""
+    ob, db = SORT_O_BITS, SORT_D_BITS
+    lo = bounds[0]
+    ext = torch.clamp(bounds[1] - bounds[0], min=1e-6)
+    cells = float(1 << ob)
+    q = torch.clamp(((ray_o - lo) / ext) * cells, 0.0, cells - 1.0).to(torch.int64)
+    mk = _morton3(q[:, 0], q[:, 1], q[:, 2], bits=ob)
+    dcells = float(1 << db)
+    dq = torch.clamp((ray_d * 0.5 + 0.5) * dcells, 0.0, dcells - 1.0).to(torch.int64)
+    dk = (dq[:, 0] << (2 * db)) | (dq[:, 1] << db) | dq[:, 2]
+    return (mk << (3 * db)) | dk
+
+
+def _top2_candidates(ray_o, ray_d, t_max, boxes, k: int):
+    """Per-ray ids of the two nearest candidate boxes (slab entry order);
+    rays with fewer candidates get the sentinel ``k``.  Scans K in chunks
+    of CID_CHUNK so memory stays [N, CID_CHUNK]."""
+    n = ray_o.shape[0]
+    dev = ray_o.device
+    ch = min(CID_CHUNK, k)
+    kp = (k + ch - 1) // ch * ch
+    bx = boxes
+    if kp != k:
+        pad = torch.cat([
+            torch.full((6, kp - k), 3e37, dtype=torch.float32, device=dev),
+            torch.zeros((2, kp - k), dtype=torch.float32, device=dev),
+        ])
+        bx = torch.cat([boxes, pad], 1)
+    inv = 1.0 / torch.where(torch.abs(ray_d) < 1e-12, torch.where(ray_d < 0, -1e-12, 1e-12), ray_d)
+    ia = [inv[:, a : a + 1] for a in range(3)]
+    oa = [ray_o[:, a : a + 1] for a in range(3)]
+    tmax_col = t_max[:, None]
+    col = torch.arange(ch, device=dev)[None, :]
+    e1 = torch.full((n, 1), torch.inf, device=dev)
+    e2 = e1.clone()
+    i1 = torch.full((n, 1), kp, dtype=torch.int64, device=dev)
+    i2 = i1.clone()
+    for k0 in range(0, kp, ch):
+        cb = bx[:, k0 : k0 + ch]
+        tn = torch.full((n, ch), -torch.inf, device=dev)
+        tf = torch.full((n, ch), torch.inf, device=dev)
+        for a in range(3):
+            t0 = ia[a] * cb[a : a + 1] - oa[a] * ia[a]
+            t1 = ia[a] * cb[3 + a : 4 + a] - oa[a] * ia[a]
+            tn = torch.maximum(tn, torch.minimum(t0, t1))
+            tf = torch.minimum(tf, torch.maximum(t0, t1))
+        enter = torch.clamp(tn, min=m.T_MIN)
+        ent = torch.where(enter <= torch.minimum(tf, tmax_col), enter, torch.inf)
+        c1, a1 = torch.min(ent, dim=1, keepdim=True)  # first index of the minimum
+        ent2 = torch.where(col == a1, torch.inf, ent)
+        c2, a2 = torch.min(ent2, dim=1, keepdim=True)
+        g1, g2 = a1 + k0, a2 + k0
+        # merge {(e1,i1),(e2,i2)} with {(c1,g1),(c2,g2)}; ties keep the carry
+        take_c = c1 < e1
+        ne1 = torch.where(take_c, c1, e1)
+        ni1 = torch.where(take_c, g1, i1)
+        lo2 = torch.where(take_c, e1, c1)
+        li2 = torch.where(take_c, i1, g1)
+        take_c2 = torch.minimum(e2, c2) < lo2
+        use_e2 = e2 <= c2
+        ne2 = torch.where(take_c2, torch.minimum(e2, c2), lo2)
+        ni2 = torch.where(take_c2, torch.where(use_e2, i2, g2), li2)
+        e1, i1, e2, i2 = ne1, ni1, ne2, ni2
+    first = torch.where(torch.isinf(e1[:, 0]), k, torch.clamp(i1[:, 0], max=k))
+    second = torch.where(torch.isinf(e2[:, 0]), k, torch.clamp(i2[:, 0], max=k))
+    return first, second
+
+
+def _meta_boxes(boxes, k: int, meta: int):
+    """[8,K] boxes -> [8,KM] unions of ``meta`` consecutive clusters; pads
+    (cmin >= 1e30) are left out, all-pad groups become far point boxes."""
+    if meta <= 1:
+        return boxes, k
+    km = (k + meta - 1) // meta
+    kp = km * meta
+    bx = boxes
+    if kp != k:
+        bx = torch.cat([boxes, torch.full((8, kp - k), 3e37, device=boxes.device)], 1)
+    real = bx[0:1] < 1e30
+    lo = torch.where(real, bx[0:3], torch.inf).reshape(3, km, meta).amin(-1)
+    hi = torch.where(real, bx[3:6], -torch.inf).reshape(3, km, meta).amax(-1)
+    none = ~real.reshape(1, km, meta).any(-1)
+    lo = torch.where(none, 3e37, lo)
+    hi = torch.where(none, 3e37, hi)
+    return torch.cat([lo, hi, torch.zeros((2, km), device=boxes.device)]), km
+
+
+def auto_sort_mode(scene) -> str:
+    """Sort mode for ``sort=True``: "cid2" for enclosed scenes (triangle
+    area over AABB surface area > 0.6, e.g. cornell-box), else "morton"."""
+    v = scene.vertices.cpu().numpy()
+    tri = scene.tri_idx.cpu().numpy()
+    p0 = v[tri[:, 0]]
+    e1 = v[tri[:, 1]] - p0
+    e2 = v[tri[:, 2]] - p0
+    tri_area = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1).sum()
+    ext = np.maximum(v.max(0) - v.min(0), 1e-6)
+    aabb_area = 2.0 * (ext[0] * ext[1] + ext[1] * ext[2] + ext[0] * ext[2])
+    return "cid2" if tri_area / aabb_area > 0.6 else "morton"
+
+
+def resolve_sort(sort) -> str | None:
+    """False -> None, True -> "morton", else the mode string."""
+    if not sort:
+        return None
+    mode = "morton" if sort is True else sort
+    if mode not in ("cid2", "morton"):
+        raise ValueError(f"unknown sort mode {mode!r}")
+    return mode
+
+
+def wave_sort_keys(ray_o, ray_d, t_max, fb: Fused2BVH, mode: str = "morton"):
+    """Coherence key (< 2^30).  ``cid2``: (first candidate meta-cluster,
+    second candidate, coarse morton) lexicographic; ``morton``: origin and
+    direction cells."""
+    if mode == "morton":
+        return ray_sort_keys(ray_o, ray_d, fb.bounds)
+    boxes, k = _meta_boxes(fb.boxes, fb.num_clusters, CID_META)
+    first, second = _top2_candidates(ray_o, ray_d, t_max, boxes, k)
+    kb = max(1, (k + 1).bit_length())  # bits for ids in [0, k]
+    mb = 30 - 2 * kb  # leftover minor-key bits
+    if mb < 0:  # beyond ~23k clusters: first candidate only
+        kb = min(kb, 30)
+        return first << (30 - kb)
+    key = (first << (kb + mb)) | (second << mb)
+    if mb > 0:
+        morton = ray_sort_keys(ray_o, ray_d, fb.bounds)
+        key = key | (morton >> max(0, 3 * (SORT_O_BITS + SORT_D_BITS) - mb))
+    return key
+
+
+def _inverse_perm(perm):
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], device=perm.device)
+    return inv
+
+
+# ── traversal: kernel and plain version ───────────────────────────────────
+
+
+def fused2_traverse_packed_plain(rays, fb: Fused2BVH):
+    """Plain PyTorch version of the kernel: [N,8] rays -> [N,32].
+
+    The exact per-ray cluster query, PLAIN_CHUNK rays at a time.  Every ray is
+    resolved (col 5 = 1) and the steps column stays 0; t/u/v, tri, hit,
+    winner cluster and slot, and the winner's attribute row follow the
+    kernel's contract (misses: t = tmax, tri/cluster/slot = -1, zeros).
+    """
+    n = rays.shape[0]
+    out = torch.zeros((n, OUT_COLS), dtype=torch.float32, device=rays.device)
+    for lo in range(0, n, PLAIN_CHUNK):
+        r = rays[lo : lo + PLAIN_CHUNK]
+        t, tri, uv, cid, slot = cluster_query(r[:, 0:3], r[:, 3:6], fb.cluster, m.T_MIN, r[:, 6])
+        hit = tri >= 0
+        o = out[lo : lo + PLAIN_CHUNK]
+        o[:, 0] = t
+        o[:, 1:3] = uv
+        o[:, 3] = tri.to(torch.float32)
+        o[:, 4] = hit.to(torch.float32)
+        o[:, 5] = 1.0
+        o[:, 7] = cid.to(torch.float32)
+        o[:, 8] = slot.to(torch.float32)
+        o[:, 16:32] = torch.where(hit[:, None], fb.attr_table[tri.clamp(min=0)][:, :16], 0.0)
+    return out
+
+
+def build_kernels() -> tuple:
+    """Build (if needed) and load the kernel library -> (path, seconds, log)."""
+    global _cuda_lib
+    path, seconds, log = build_cuda_library("owlpt_fused2", [CSRC])
+    if _cuda_lib is None:
+        lib = ctypes.CDLL(str(path))
+        fn = lib.owlpt_fused2_closest_hit
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        _cuda_lib = lib
+    return path, seconds, log
+
+
+def _check_operand(name, x, shape, device):
+    if x.device != device or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"{name}: need a contiguous float32 tensor on {device}, "
+                         f"got {x.dtype} on {x.device} (contiguous={x.is_contiguous()})")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel reads 16-byte aligned rows; data_ptr is not")
+
+
+def _fused2_traverse_cuda(rays, fb: Fused2BVH, block: int, max_steps: int):
+    """Launch the CUDA kernel on the current stream -> [N,32] (no sync)."""
+    global KERNEL_LAUNCHES
+    if rays.device.type != "cuda" or not torch.cuda.is_available():
+        raise RuntimeError(f"the fused2 kernel needs CUDA tensors on a CUDA device; got {rays.device}")
+    n = rays.shape[0]
+    k, c = fb.num_clusters, fb.cluster_size
+    if block % 32 or not 32 <= block <= 1024 or n % block:
+        raise ValueError(f"block {block} must be a multiple of 32 in [32, 1024] dividing N={n}")
+    _check_operand("rays", rays, (n, 8), rays.device)
+    _check_operand("boxes", fb.boxes, (8, k), rays.device)
+    _check_operand("planes", fb.planes, (k, 16, c), rays.device)
+    _check_operand("attrs", fb.attrs, (k, ATTR_ROWS, c), rays.device)
+    out = torch.empty((n, OUT_COLS), dtype=torch.float32, device=rays.device)
+    if n == 0:
+        return out
+    if _cuda_lib is None:
+        build_kernels()
+    with torch.cuda.device(rays.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _cuda_lib.owlpt_fused2_closest_hit(
+            rays.data_ptr(), fb.boxes.data_ptr(), fb.planes.data_ptr(), fb.attrs.data_ptr(),
+            out.data_ptr(), n, k, c, block, max_steps, REFRESH_CLUSTERS, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"fused2 kernel launch failed: CUDA error {err}")
+    KERNEL_LAUNCHES += 1
+    return out
+
+
+def fused2_traverse_packed(rays, fb: Fused2BVH, block: int = BLOCK_RAYS, max_steps: int = MAX_STEPS):
+    """[N,8] packed rays -> [N,32]: the kernel for CUDA tensors, the plain
+    version for CPU tensors.  N must be a multiple of ``block``."""
+    if rays.device.type == "cpu":
+        return fused2_traverse_packed_plain(rays, fb)
+    return _fused2_traverse_cuda(rays, fb, block, max_steps)
+
+
+def _hits_from_output(out, ray_o, ray_d, fb: Fused2BVH, t_min, t_max):
+    """[N,32] traversal output -> (HitRecord, attr blob [N,16]).
+
+    Rows the kernel left unresolved get the exact cluster query's answer and
+    the attribute-table row of its winner; a miss keeps a zero payload, as
+    on the resolved path (the JAX package gives such a miss row 0 of the
+    table, which no caller reads)."""
+    global UNRESOLVED_RAYS
+    t = out[:, 0].clone()
+    hit = out[:, 4] > 0.0
+    tri = torch.where(hit, out[:, 3].to(torch.int64), -1)
+    uv = out[:, 1:3].clone()
+    blob = out[:, 16:32].clone()
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=out.device).expand(out.shape[0])
+    rows = torch.nonzero(out[:, 5] <= 0.0).squeeze(1)
+    if rows.numel():
+        UNRESOLVED_RAYS += rows.numel()
+        rec = cluster_closest_hit(ray_o[rows], ray_d[rows], fb.cluster, t_min=t_min, t_max=t_max[rows])
+        t[rows] = rec.t
+        tri[rows] = rec.tri
+        uv[rows] = rec.uv
+        blob[rows] = torch.where(rec.hit[:, None], fb.attr_table[rec.tri.clamp(min=0)][:, :16], 0.0)
+    t = torch.where(tri >= 0, t, t_max)
+    return HitRecord(t=t, tri=tri, uv=uv), blob
+
+
+def fused2_closest_hit(ray_o, ray_d, fb: Fused2BVH, t_min: float = m.T_MIN, t_max=m.T_MAX,
+                       sort=False, block: int = BLOCK_RAYS, max_steps: int = MAX_STEPS):
+    """Exact closest hit + shading payload -> (HitRecord, attr_blob [N,16]).
+
+    Pads to whole blocks; with ``sort`` ("morton", "cid2" or True) stably
+    sorts the packed rays by a coherence key before the traversal and
+    unsorts after."""
+    n0 = ray_o.shape[0]
+    ray_o_p, ray_d_p, t_max_p, _ = _pad_rays(ray_o, ray_d, t_max, block)
+    rays = pack_rays(ray_o_p, ray_d_p, t_max_p)
+    mode = resolve_sort(sort)
+    if mode:
+        keys = wave_sort_keys(ray_o_p, ray_d_p, t_max_p, fb, mode=mode)
+        perm = torch.sort(keys, stable=True).indices
+        out = fused2_traverse_packed(rays[perm], fb, block=block, max_steps=max_steps)
+        out = out[_inverse_perm(perm)]
+    else:
+        out = fused2_traverse_packed(rays, fb, block=block, max_steps=max_steps)
+    return _hits_from_output(out[:n0], ray_o, ray_d, fb, t_min, t_max)
+
+
+def make_fused2_intersector(fb: Fused2BVH, **kw):
+    """Intersector returning (HitRecord, attr_blob)."""
+
+    def intersect(ray_o, ray_d):
+        return fused2_closest_hit(ray_o, ray_d, fb, **kw)
+
+    return intersect

@@ -1,0 +1,181 @@
+"""Persistent-wavefront renderer with path regeneration (counterpart of
+``owl_path_tracer_tpu/render/wavefront.py``, queue film).
+
+A fixed pool of lanes traces one bounce per step; finished paths are added
+into the film and their lanes respawn on the next (pixel, sample) work item
+of a global queue.  Each work item seeds its LCG stream from
+(pixel, sample + sample_base), so the image does not depend on the pool size
+or on which lane ran which item.
+
+Differences from the JAX package, all exact in value:
+  * the film is banked with ``index_add_`` (its ``film_mode="scatter"``), in
+    place into the pool's accumulator;
+  * the ray counter and work ids are int64, so they cannot wrap;
+  * the host loop reads each launch's status before the next launch: the
+    fused2 wrapper synchronizes every step (to find unresolved rays), so the
+    JAX package's overlap of the next dispatch with the previous status read
+    would buy nothing.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..models.camera import primary_rays
+from ..models.scene import RenderSettings, Scene
+from ..ops import disney
+from ..ops import rng as rng_mod
+from ..ops.fused2 import auto_sort_mode
+from ..utils.tensors import TensorBundle
+from . import integrator
+from .film import scene_has_textures
+
+# ray origin of parked (dead) lanes: far outside every scene AABB, so their
+# traversal blocks retire at the scene gate
+PARK = 1e8
+
+
+@dataclasses.dataclass
+class PoolState(TensorBundle):
+    pixel: torch.Tensor  # [L] int64 linear pixel index of each lane's path
+    ray_o: torch.Tensor  # [L,3]
+    ray_d: torch.Tensor  # [L,3]
+    throughput: torch.Tensor  # [L,3]
+    result: torch.Tensor  # [L,3]
+    rng: torch.Tensor  # [L] int64 LCG state
+    alive: torch.Tensor  # [L] bool: lane is tracing a live path
+    prev_lobe: torch.Tensor  # [L] int64
+    depth: torch.Tensor  # [L] int64
+    prev_pdf: torch.Tensor  # [L] f32
+    work_counter: torch.Tensor  # [] int64 next work item of the queue
+    acc: torch.Tensor  # [W*H,3] film accumulator
+    rays: torch.Tensor  # [] int64 live rays traced
+
+
+def _spawn(scene: Scene, settings: RenderSettings, lane_work_id, sample_base: int = 0):
+    """Work item -> (pixel, primary ray origin and direction, LCG state)."""
+    spp = settings.max_samples
+    pixel_lin = lane_work_id // spp
+    sample = lane_work_id % spp
+    px = pixel_lin % settings.width
+    py = pixel_lin // settings.width
+    st = rng_mod.seed(pixel_lin, (sample + sample_base) & rng_mod.MASK32)
+    j0, st = rng_mod.next_f32(st)
+    j1, st = rng_mod.next_f32(st)
+    o, d = primary_rays(
+        scene.camera, torch.stack([px, py], -1), torch.stack([j0, j1], -1),
+        (settings.width, settings.height),
+    )
+    return pixel_lin, o, d, st
+
+
+def wavefront_step(scene: Scene, settings: RenderSettings, st: PoolState, intersect_fn,
+                   enable_textures: bool, total_work: int, sample_base: int = 0) -> PoolState:
+    """One bounce for every lane, banking of finished paths (in place into
+    ``st.acc``) and regeneration of idle lanes."""
+    ray_o_t = torch.where(st.alive[:, None], st.ray_o, PARK)
+    ps = integrator.PathState(
+        ray_o=ray_o_t, ray_d=st.ray_d, result=st.result, throughput=st.throughput,
+        rng=st.rng, alive=st.alive, prev_lobe=st.prev_lobe, depth=st.depth,
+        prev_pdf=st.prev_pdf,
+    )
+    rays = st.rays + ps.alive.sum()
+    ps = integrator.trace_bounce(scene, settings, ps, intersect_fn, enable_textures)
+    exhausted = ps.alive & (ps.depth >= settings.max_path_depth)
+    path_done = st.alive & (~ps.alive | exhausted)
+    idle = path_done | ~st.alive
+
+    # bank finished paths into the film
+    acc = st.acc.index_add_(0, st.pixel, torch.where(path_done[:, None], ps.result, 0.0))
+
+    # regenerate idle lanes on fresh work items
+    order = torch.cumsum(idle.to(torch.int64), 0) - 1
+    new_ids = st.work_counter + order
+    can_spawn = idle & (new_ids < total_work)
+    handed_out = torch.minimum(idle.sum(), torch.clamp(total_work - st.work_counter, min=0))
+    pixel_s, o_s, d_s, rng_s = _spawn(scene, settings, torch.clamp(new_ids, min=0), sample_base)
+
+    def sel(new, old):
+        mask = can_spawn[:, None] if old.dim() > 1 else can_spawn
+        return torch.where(mask, new, old)
+
+    return PoolState(
+        pixel=sel(pixel_s, st.pixel),
+        ray_o=sel(o_s, ps.ray_o),
+        ray_d=sel(d_s, ps.ray_d),
+        throughput=sel(1.0, ps.throughput),
+        result=sel(0.0, ps.result),
+        rng=sel(rng_s, ps.rng),
+        alive=can_spawn | (ps.alive & ~path_done),
+        prev_lobe=sel(disney.LOBE_NONE, ps.prev_lobe),
+        depth=sel(0, ps.depth),
+        prev_pdf=sel(0.0, ps.prev_pdf),
+        work_counter=st.work_counter + handed_out,
+        acc=acc,
+        rays=rays,
+    )
+
+
+def _run_chunk(scene: Scene, settings: RenderSettings, st: PoolState, accel,
+               enable_textures: bool, work_hi: int, iters: int, fused2_block=None,
+               fused2_sort=False, sample_base: int = 0):
+    """``iters`` wavefront steps -> (pool, status [work_done, busy])."""
+    intersect_fn, _ = integrator.make_intersectors(
+        scene, accel, fused2_block=fused2_block, fused2_sort=fused2_sort
+    )
+    for _ in range(iters):
+        st = wavefront_step(scene, settings, st, intersect_fn, enable_textures, work_hi, sample_base)
+    return st, torch.stack([st.work_counter >= work_hi, st.alive.any()])
+
+
+def render_image_wavefront(scene: Scene, settings: RenderSettings, accel, lanes: int = 131072,
+                           iters_per_launch: int = 32, max_launches: int = 1000,
+                           fused2_block: int | None = None, fused2_sort=False,
+                           sample_base: int = 0) -> tuple:
+    """Full frame via the persistent pool -> (image [H,W,3] top row first, on
+    the scene's device; live rays traced).
+
+    ``fused2_sort=True`` picks the sort mode from the scene (cid2 for
+    enclosed scenes, else morton).  Launch size adapts to the frame: the
+    expected step count (work / lanes + depth + 3) caps ``iters_per_launch``.
+    """
+    if settings.use_nee:
+        raise NotImplementedError("NEE is not ported yet: ROADMAP queue 1, NEE slice")
+    enable_textures = scene_has_textures(scene)
+    if fused2_sort is True:
+        fused2_sort = auto_sort_mode(scene)
+    total_work = settings.width * settings.height * settings.max_samples
+    st = new_pool(settings, lanes, device=scene.vertices.device)
+    est_steps = (total_work + lanes - 1) // lanes + settings.max_path_depth + 3
+    iters = max(2, min(iters_per_launch, est_steps))
+    for _ in range(max_launches):
+        st, status = _run_chunk(
+            scene, settings, st, accel, enable_textures, total_work, iters,
+            fused2_block=fused2_block, fused2_sort=fused2_sort, sample_base=sample_base,
+        )
+        work_done, busy = status.tolist()
+        if work_done and not busy:
+            break
+    img = st.acc.reshape(settings.height, settings.width, 3) / settings.max_samples
+    return img.flip(0), int(st.rays)
+
+
+def new_pool(settings: RenderSettings, lanes: int, work_lo: int = 0, *, device) -> PoolState:
+    """Fresh all-idle pool; lanes spawn on the first step from work item ``work_lo``."""
+    z = lambda *shape, dtype=torch.float32: torch.zeros(shape, dtype=dtype, device=device)  # noqa: E731
+    return PoolState(
+        pixel=z(lanes, dtype=torch.int64),
+        ray_o=z(lanes, 3),
+        ray_d=torch.tensor([0.0, 0.0, 1.0], device=device).repeat(lanes, 1),
+        throughput=torch.ones((lanes, 3), device=device),
+        result=z(lanes, 3),
+        rng=z(lanes, dtype=torch.int64),
+        alive=z(lanes, dtype=torch.bool),
+        prev_lobe=torch.full((lanes,), disney.LOBE_NONE, dtype=torch.int64, device=device),
+        depth=z(lanes, dtype=torch.int64),
+        prev_pdf=z(lanes),
+        work_counter=torch.tensor(work_lo, dtype=torch.int64, device=device),
+        acc=z(settings.width * settings.height, 3),
+        rays=torch.tensor(0, dtype=torch.int64, device=device),
+    )

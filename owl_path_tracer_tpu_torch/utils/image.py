@@ -1,0 +1,84 @@
+"""Image loading: LDR textures (RGBA8) and Radiance HDR environment maps.
+
+Counterpart of ``owl_path_tracer_tpu/utils/image.py`` (``load_texture_rgba8``
+and ``load_environment``).  Textures are flipped vertically on load; the
+environment map is read as true float HDR and flipped the same way.
+"""
+from __future__ import annotations
+
+import pathlib
+
+import numpy as np
+
+
+def read_png(path) -> np.ndarray:
+    from PIL import Image
+
+    return np.asarray(Image.open(str(path)).convert("RGBA"))
+
+
+def load_texture_rgba8(path, flip_vertical: bool = True) -> np.ndarray:
+    """LDR texture, uint8 [H,W,4], flipped vertically on load."""
+    img = read_png(path)
+    if flip_vertical:
+        img = img[::-1].copy()
+    return img
+
+
+def _rgbe_to_float(rgbe: np.ndarray) -> np.ndarray:
+    """uint8 [H,W,4] RGBE -> f32 [H,W,3]."""
+    rgbe = rgbe.astype(np.int32)
+    exp = rgbe[..., 3]
+    scale = np.where(exp == 0, 0.0, np.ldexp(1.0, exp - 128 - 8)).astype(np.float32)
+    return rgbe[..., :3].astype(np.float32) * scale[..., None]
+
+
+def read_hdr(path) -> np.ndarray:
+    """Radiance .hdr (``-Y H +X W``, adaptive RLE or flat scanlines) -> f32 [H,W,3]."""
+    data = pathlib.Path(path).read_bytes()
+    pos = data.find(b"\n\n")  # the header ends at a blank line
+    if pos < 0:
+        raise ValueError("bad hdr header")
+    header = data[:pos].decode("latin-1")
+    if "32-bit_rle_rgbe" not in header and not header.startswith("#?"):
+        raise ValueError("not an RGBE hdr file")
+    body = data[pos + 2 :]
+    nl = body.find(b"\n")
+    dims = body[:nl].decode("latin-1").split()
+    if dims[0] != "-Y" or dims[2] != "+X":
+        raise ValueError(f"unsupported orientation {dims}")
+    h, w = int(dims[1]), int(dims[3])
+    buf = np.frombuffer(body[nl + 1 :], np.uint8)
+    img = np.zeros((h, w, 4), np.uint8)
+    p = 0
+    for y in range(h):
+        if w >= 8 and w < 32768 and p + 4 <= len(buf) and buf[p] == 2 and buf[p + 1] == 2:
+            p += 4  # adaptive RLE scanline
+            for c in range(4):
+                x = 0
+                while x < w:
+                    count = int(buf[p])
+                    p += 1
+                    if count > 128:  # run
+                        img[y, x : x + count - 128, c] = buf[p]
+                        p += 1
+                        x += count - 128
+                    else:  # literal
+                        img[y, x : x + count, c] = buf[p : p + count]
+                        p += count
+                        x += count
+        else:
+            img[y] = buf[p : p + w * 4].reshape(w, 4)
+            p += w * 4
+    return _rgbe_to_float(img)
+
+
+def load_environment(path) -> np.ndarray:
+    """Environment map -> linear f32 [H,W,3] (zeros [1,1,3] if the file is missing)."""
+    p = pathlib.Path(path)
+    if not p.exists():
+        return np.zeros((1, 1, 3), np.float32)
+    if p.suffix.lower() == ".hdr":
+        return read_hdr(p)[::-1].copy()
+    img = load_texture_rgba8(p)
+    return img[..., :3].astype(np.float32) / 255.0
