@@ -1,10 +1,16 @@
-// Fused closest-hit traversal over fat triangle clusters, for Hopper (sm_90a).
+// Fused traversal over fat triangle clusters, for Hopper (sm_90a).
 //
-// Replaces the closest-hit + attributes mode of the Pallas kernel
-// owl_path_tracer_tpu/ops/fused2.py:_kernel (launched by fused2_traverse_packed),
-// on the component-plane layout: planes [K,16,C] (rows 0-8 p0/e1/e2, row 9
-// tri id), attrs [K,32,C], boxes [8,K]; rays [N,8] (o, d, tmax, flag) ->
+// Replaces the component-plane modes of the Pallas kernel
+// owl_path_tracer_tpu/ops/fused2.py:_kernel (launched by fused2_traverse_packed):
+//   closest  closest hit + attributes  (with_attrs=True)          -> K1
+//   any-hit  occlusion only            (any_hit=True, no attrs)   -> K2
+//   mixed    closest hit + attributes for lanes with ray col 7 = 0,
+//            occlusion for lanes with col 7 > 0 (mixed=True)      -> K3
+// on the layout planes [K,16,C] (rows 0-8 p0/e1/e2, row 9 tri id),
+// attrs [K,32,C], boxes [8,K]; rays [N,8] (o, d, tmax, shadow flag) ->
 // out [N,32] (t u v tri hit resolved steps wcid wslot, 0..., attr rows 0-15).
+// One templated body serves the three modes, as the Pallas kernel's static
+// flags do; each mode has its own extern "C" entry point.
 //
 // One CUDA block per `block` rays, one thread per ray:
 //   1. scene gate: the block skips everything when no ray enters the scene AABB;
@@ -13,30 +19,49 @@
 //      j = tid, tid + B, ... and slab-tests them against every ray, whose
 //      origin, 1/d, tmax and cap sit in shared memory;
 //   3. retirement loop (at most max_steps): retire the current cluster, pick
-//      the next one (nearest entry below the block's largest best t; ties to
-//      the lowest id) with the best t from before this cluster's test, stage
-//      the current cluster's 10 x C plane rows in shared memory, run
+//      the next one (nearest entry below the block's prune bound; ties to
+//      the lowest id) with the prune bound from before this cluster's test,
+//      stage the current cluster's 10 x C plane rows in shared memory, run
 //      Moller-Trumbore per ray over the C slots (strict <, so the lowest slot
 //      wins a tie); every `refresh` iterations the frontier is recomputed with
-//      each ray's own best t as cap (retired clusters stay retired);
-//   4. a block that ends at max_steps with a candidate nearer than its largest
-//      best t marks all its rays unresolved (the wrapper answers them with the
+//      each ray's own cap (retired clusters stay retired);
+//   4. a block that ends at max_steps with a candidate nearer than its prune
+//      bound marks all its rays unresolved (the wrapper answers them with the
 //      exact cluster query);
-//   5. the winner's 32-float attribute row is read straight from attrs, and
-//      its (t, u, v) replayed from the winner geometry rows 17-25.
+//   5. closest and mixed: the winner's 32-float attribute row is read straight
+//      from attrs, and its (t, u, v) replayed from the winner geometry rows
+//      17-25.
+//
+// The prune bound and the refresh cap are where the modes differ:
+//   closest  bound = max over rays of best t; cap = best t.
+//   any-hit  best t is never lowered (column 0 stays tmax); an occluded ray
+//            leaves the bound (it counts as -inf, so a block whose rays are
+//            all occluded picks nothing and stops) and gets cap 0, so the
+//            refresh finds no cluster it needs; an occluded thread skips its
+//            Moller-Trumbore loop, and a thread stops its loop at its first
+//            valid hit -- both exact for the flag.
+//   mixed    the closest-hit chain on every lane; after each retired cluster
+//            a shadow lane with a hit gets best t := t_min, which takes it out
+//            of the bound and of any later hit, and (cap t_min <= every entry)
+//            out of the refresh; its thread then skips its loop.  Pruning is
+//            conservative, so a closest-hit lane gets K1's answer whatever
+//            shares its block (up to the visiting order of an exact t tie).
 //
 // Intersection arithmetic follows ops/intersect.py mt_components operation
 // for operation (1/det then multiply, sums left to right).  Built with
 // --fmad=false and IEEE division, so no product is contracted into an FMA and
 // the kernel's t/u/v are bit-equal to the plain PyTorch version's.
 //
-// What bounds it on the card: the Moller-Trumbore arithmetic (about 40 fp32
-// operations per ray and slot, C slots per retired cluster, no FMA), and for
-// coherent blocks the per-iteration block reductions (pick over K, max of
-// best t).  Plane bytes per retired cluster (10 x C floats, 20 KB at C=512)
-// are read once per block, not once per ray, and stay L2-resident for the
-// scene sizes of the main path.  No cp.async/TMA double buffering, no fanout
-// and no bf16 planes yet: this is the simple, exact form of the kernel.
+// What bounds it on the card: the Moller-Trumbore arithmetic, about 45 fp32
+// operations per ray and slot (C slots per cluster).  A ray tests every
+// cluster its block retires while it is still searching, which is at least
+// the clusters its own exact query needs (chip_smoke.py's bound counts
+// those); any-hit and shadow lanes stop at their first hit.  For
+// coherent blocks the per-iteration block reductions (pick over K, max of the
+// bound) come next.  Plane bytes per retired cluster (10 x C floats, 20 KB at
+// C=512) are read once per block, not once per ray, and stay L2-resident for
+// the scene sizes of the main path.  No cp.async/TMA double buffering, no
+// fanout and no bf16 planes yet: this is the simple, exact form of the kernel.
 
 #include <cuda_runtime.h>
 #include <cmath>
@@ -50,6 +75,8 @@ constexpr int kOutCols = 32;
 constexpr float kTMin = 1e-3f;
 constexpr float kEpsDet = 1e-12f;
 constexpr float kInf = INFINITY;
+
+enum Mode { kClosest = 0, kAnyHit = 1, kMixed = 2 };
 
 __device__ __forceinline__ float inv_dir(float dc) {
   const float safe = fabsf(dc) < 1e-12f ? (dc < 0.0f ? -1e-12f : 1e-12f) : dc;
@@ -199,7 +226,8 @@ __device__ void frontier_update(float* bent, const float* __restrict__ boxes, in
   __syncthreads();
 }
 
-__global__ void fused2_closest_hit_kernel(
+template <int kMode>
+__global__ void fused2_kernel(
     const float* __restrict__ rays, const float* __restrict__ boxes,
     const float* __restrict__ planes, const float* __restrict__ attrs,
     float* __restrict__ out, int k, int c, int max_steps, int refresh) {
@@ -217,6 +245,7 @@ __global__ void fused2_closest_hit_kernel(
   const float ox = r[0], oy = r[1], oz = r[2];
   const float dx = r[3], dy = r[4], dz = r[5];
   const float tmax = r[6];
+  const bool shadow = kMode == kMixed && r[7] > 0.0f;
   const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
 
   // ── scene gate: the AABB of all real boxes (pads sit at >= 1e30) ──
@@ -243,6 +272,14 @@ __global__ void fused2_closest_hit_kernel(
   bool resolved = true;
 
   if (scene_live) {
+    // this ray's share of the block prune bound, and its refresh cap
+    auto bound_t = [&]() { return kMode == kAnyHit && hit ? -kInf : best_t; };
+    auto cap_t = [&]() { return kMode == kAnyHit && hit ? 0.0f : best_t; };
+    // a ray that is done needs no more Moller-Trumbore tests
+    auto searching = [&]() {
+      return kMode == kClosest || !hit || (kMode == kMixed && !shadow);
+    };
+
     s_ray[tid] = ox;
     s_ray[b + tid] = oy;
     s_ray[2 * b + tid] = oz;
@@ -253,19 +290,19 @@ __global__ void fused2_closest_hit_kernel(
     s_ray[7 * b + tid] = tmax;
     __syncthreads();
     frontier_update(bent, boxes, k, s_ray, b, true);
-    int cur = pick_cluster(bent, k, block_max(best_t, red_f), red_f, red_i);
+    int cur = pick_cluster(bent, k, block_max(bound_t(), red_f), red_f, red_i);
     bool done = cur >= k;
     int i = 0;
     while (!done && i < max_steps) {
       if (i % refresh == refresh - 1) {
-        s_ray[7 * b + tid] = best_t;
+        s_ray[7 * b + tid] = cap_t();
         __syncthreads();
         frontier_update(bent, boxes, k, s_ray, b, false);
       }
       if (tid == 0) bent[cur] = kInf;  // retire the current cluster
       __syncthreads();
-      // the next pick uses the best t from BEFORE this cluster's test
-      const int nxt = pick_cluster(bent, k, block_max(best_t, red_f), red_f, red_i);
+      // the next pick uses the bound from BEFORE this cluster's test
+      const int nxt = pick_cluster(bent, k, block_max(bound_t(), red_f), red_f, red_i);
 
       // stage the current cluster's plane rows 0-9 (contiguous) in smem
       const float* src = planes + static_cast<long long>(cur) * kPlaneRows * c;
@@ -278,23 +315,29 @@ __global__ void fused2_closest_hit_kernel(
       }
       __syncthreads();
 
-      float tc = kInf, tu = 0.0f, tv = 0.0f;
-      int wcol = 0;
-      for (int s = 0; s < c; ++s) {
-        float t, u, v, det;
-        const bool ok = mt_components(
-            ox, oy, oz, dx, dy, dz,
-            s_plane[s], s_plane[c + s], s_plane[2 * c + s],
-            s_plane[3 * c + s], s_plane[4 * c + s], s_plane[5 * c + s],
-            s_plane[6 * c + s], s_plane[7 * c + s], s_plane[8 * c + s],
-            kTMin, best_t, t, u, v, det);
-        if (ok && s_plane[9 * c + s] >= 0.0f && t < tc) {
-          tc = t; tu = u; tv = v; wcol = s;
+      if (searching()) {
+        float tc = kInf, tu = 0.0f, tv = 0.0f;
+        int wcol = 0;
+        for (int s = 0; s < c; ++s) {
+          float t, u, v, det;
+          const bool ok = mt_components(
+              ox, oy, oz, dx, dy, dz,
+              s_plane[s], s_plane[c + s], s_plane[2 * c + s],
+              s_plane[3 * c + s], s_plane[4 * c + s], s_plane[5 * c + s],
+              s_plane[6 * c + s], s_plane[7 * c + s], s_plane[8 * c + s],
+              kTMin, best_t, t, u, v, det) && s_plane[9 * c + s] >= 0.0f;
+          if (kMode == kAnyHit) {
+            if (ok) { hit = true; break; }
+          } else if (ok && t < tc) {
+            tc = t; tu = u; tv = v; wcol = s;
+          }
         }
-      }
-      if (tc < best_t) {
-        best_t = tc; best_u = tu; best_v = tv;
-        hit = true; wcid = cur; wslot = wcol;
+        if (kMode != kAnyHit && tc < best_t) {
+          best_t = tc; best_u = tu; best_v = tv;
+          hit = true; wcid = cur; wslot = wcol;
+        }
+        // a shadow lane with a hit is done: t -> t_min
+        if (kMode == kMixed && shadow && hit) best_t = kTMin;
       }
       ++steps;
       ++i;
@@ -303,19 +346,19 @@ __global__ void fused2_closest_hit_kernel(
       __syncthreads();  // s_plane is restaged next iteration
     }
     if (!done) {
-      // max_steps overflow: a candidate nearer than the block's largest best
-      // t taints the whole block
+      // max_steps overflow: a candidate nearer than the block's prune bound
+      // taints the whole block
       float near_j = kInf;
       for (int j = tid; j < k; j += b) near_j = fminf(near_j, bent[j]);
       const float nearest = block_min(near_j, red_f);
-      resolved = !(nearest < block_max(best_t, red_f));
+      resolved = !(nearest < block_max(bound_t(), red_f));
     }
   }
 
   float* o = out + ray * kOutCols;
   float tri = -1.0f;
   float t_out = best_t, u_out = best_u, v_out = best_v;
-  if (hit) {
+  if (kMode != kAnyHit && hit) {
     // winner payload, and (t, u, v) replayed from its geometry rows
     const float* a = attrs + static_cast<long long>(wcid) * kAttrRows * c + wslot;
 #pragma unroll
@@ -343,12 +386,10 @@ __global__ void fused2_closest_hit_kernel(
   for (int col = 9; col < 16; ++col) o[col] = 0.0f;
 }
 
-}  // namespace
-
-extern "C" int owlpt_fused2_closest_hit(
-    const float* rays, const float* boxes, const float* planes, const float* attrs,
-    float* out, long long n, int k, int c, int block, int max_steps, int refresh,
-    void* stream) {
+template <int kMode>
+int launch(const float* rays, const float* boxes, const float* planes, const float* attrs,
+           float* out, long long n, int k, int c, int block, int max_steps, int refresh,
+           void* stream) {
   if (n <= 0 || block < 32 || block > 1024 || (block & 31) || n % block || k <= 0 ||
       c <= 0 || refresh <= 0 || n / block > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -356,12 +397,26 @@ extern "C" int owlpt_fused2_closest_hit(
                        8 * static_cast<size_t>(block) + 64) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fused2_closest_hit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fused2_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  fused2_closest_hit_kernel<<<static_cast<unsigned>(n / block), block, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
+  fused2_kernel<kMode><<<static_cast<unsigned>(n / block), block, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
       rays, boxes, planes, attrs, out, k, c, max_steps, refresh);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+#define OWLPT_FUSED2_ENTRY(name, mode)                                                     \
+  extern "C" int name(const float* rays, const float* boxes, const float* planes,          \
+                      const float* attrs, float* out, long long n, int k, int c, int block, \
+                      int max_steps, int refresh, void* stream) {                           \
+    return launch<mode>(rays, boxes, planes, attrs, out, n, k, c, block, max_steps,        \
+                        refresh, stream);                                                   \
+  }
+
+OWLPT_FUSED2_ENTRY(owlpt_fused2_closest_hit, kClosest)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_occluded, kAnyHit)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_sweep_mixed, kMixed)

@@ -59,7 +59,7 @@ class RenderSettings:
     environment_color: Tuple[float, float, float] = (1.0, 1.0, 1.0)
     environment_intensity: float = 1.0
     parity: bool = True  # reproduce the reference BSDF's quirks (ops/disney.py)
-    use_nee: bool = False  # next-event estimation: not ported yet (ROADMAP)
+    use_nee: bool = False  # next-event estimation + MIS (integrator.trace_bounce_nee)
     rr_start_depth: int = 3  # Russian roulette applies when depth > this
 
 

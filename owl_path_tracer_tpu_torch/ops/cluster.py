@@ -9,8 +9,8 @@ entry is nearer than its best hit), and the exact overflow walk continues,
 ``MAX_CANDIDATES`` at a time, for any ray that still has a nearer candidate.
 
 It is the reference query the fused2 traversal kernel is held against, the
-query its wrapper uses for rays the kernel leaves unresolved, and the plain
-version of the kernel on the CPU.
+query its wrappers use for rays the kernel leaves unresolved, and the plain
+version of the kernel on the CPU; ``cluster_occluded`` is its occlusion flag.
 """
 from __future__ import annotations
 
@@ -218,3 +218,12 @@ def cluster_closest_hit(ray_o, ray_d, cb: ClusterBVH, t_min=m.T_MIN, t_max=m.T_M
                         max_candidates: int = MAX_CANDIDATES) -> HitRecord:
     t, tri, uv, _, _ = cluster_query(ray_o, ray_d, cb, t_min, t_max, max_candidates)
     return HitRecord(t=t, tri=tri, uv=uv)
+
+
+def cluster_occluded(ray_o, ray_d, cb: ClusterBVH, t_min=m.T_MIN, t_max=m.T_MAX):
+    """Any valid hit in (t_min, t_max) -> [N] bool.
+
+    Exactly the closest-hit query's ``tri >= 0`` for the same window: a valid
+    hit exists iff a closest one does.  (The JAX package walks with an
+    any-hit early stop; the flag is the same.)"""
+    return cluster_query(ray_o, ray_d, cb, t_min, t_max)[1] >= 0

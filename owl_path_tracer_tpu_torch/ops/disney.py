@@ -402,3 +402,60 @@ def sample(mat, wo, state, prev_lobe, corrected: bool = False) -> BsdfSample:
     )
     f = f + eval_sheen(mat, wo, wi)
     return BsdfSample(f=f, wi=wi, pdf=pdf, lobe=lobe, state=new_state)
+
+
+# ── combined eval for NEE/MIS ─────────────────────────────────────────────
+
+
+def eval_all(mat, wo, wi):
+    """Full-BSDF value and mixture pdf for a given ``wi`` -> (f [N,3], pdf [N]).
+
+    The parity sampler's per-lobe pdf (no selection probability) makes its
+    estimator integrate f_eff = sum_k p_k f_k (+ sheen), so each lobe's f is
+    weighted by its selection probability here too, and the pdf is the
+    mixture sum_k p_k pdf_k: NEE and BSDF sampling then estimate the same
+    transport.
+    """
+    p_metal, p_diff, p_cc, p_glass = lobe_probabilities(mat)
+    refl = m.same_hemisphere(wo, wi)
+
+    # reflection half-vector, oriented towards wo's hemisphere
+    wh_r = wo + wi
+    wh_len = torch.sqrt(torch.clamp(m.dot(wh_r, wh_r), min=1e-20))
+    wh_r = wh_r / wh_len[..., None]
+    wh_r = torch.where((m.dot(wh_r, wo) < 0.0)[..., None], -wh_r, wh_r)
+
+    f_d, pdf_d = eval_diffuse(mat, wo, wi)
+    f_m, pdf_m = eval_specular_brdf(mat, wo, wh_r, wi)
+    f_c, pdf_c = eval_clearcoat(mat, wo, wh_r, wi)
+
+    both_up = refl & (m.cos_theta(wo) > 0.0) & (m.cos_theta(wi) > 0.0)
+    f_d = torch.where(both_up[..., None], f_d, 0.0)
+    pdf_d = torch.where(both_up, pdf_d, 0.0)
+    f_m = torch.where(both_up[..., None], f_m, 0.0)
+    pdf_m = torch.where(both_up, pdf_m, 0.0)
+    f_c = torch.where(both_up[..., None], f_c, 0.0)
+    pdf_c = torch.where(both_up, pdf_c, 0.0)
+
+    # glass: transmission half-vector -(eta_i wo + eta_t wi) (Walter eq. 16)
+    eta_i, eta_t, _ = relative_eta(wo, mat.ior)
+    wh_t = -(eta_i[..., None] * wo + eta_t[..., None] * wi)
+    wh_t_len = torch.sqrt(torch.clamp(m.dot(wh_t, wh_t), min=1e-20))
+    wh_t = wh_t / wh_t_len[..., None]
+    wh_g = torch.where(refl[..., None], wh_r, wh_t)
+    f_g, pdf_g = eval_specular_bsdf(mat, wo, wh_g, wi)
+
+    f = (
+        p_diff[..., None] * f_d
+        + p_metal[..., None] * f_m
+        + p_cc[..., None] * f_c
+        + torch.where((p_glass > 0.0)[..., None], p_glass[..., None] * f_g, 0.0)
+    )
+    pdf = (
+        p_diff * pdf_d
+        + p_metal * pdf_m
+        + p_cc * pdf_c
+        + p_glass * torch.where(p_glass > 0.0, pdf_g, 0.0)
+    )
+    f = f + torch.where(refl[..., None], eval_sheen(mat, wo, wi), 0.0)
+    return f, pdf

@@ -5,17 +5,20 @@ cluster frontier, and the winner's shading attributes read straight from the
 cluster attribute planes, so the integrator needs no per-ray gather of
 surface data.
 
-The traversal is one hand-written CUDA kernel, ``csrc/fused2_traverse.cu``
-(the closest-hit + attributes mode of the JAX package's Pallas ``_kernel``).
-:func:`fused2_traverse_packed` launches it for CUDA tensors and raises if it
-cannot; for CPU tensors it takes the plain version,
-:func:`fused2_traverse_packed_plain` (the exact per-ray cluster query, same
-[N,32] output contract).  Rays a kernel block leaves unresolved (its
-retirement loop hit ``max_steps``) go through the exact cluster query in
-:func:`fused2_closest_hit`, as in the reference.
+The traversal is one hand-written CUDA kernel, ``csrc/fused2_traverse.cu``,
+in the three component-plane modes of the JAX package's Pallas ``_kernel``:
+``closest`` (closest hit + attributes, K1), ``any_hit`` (occlusion, K2) and
+``mixed`` (closest hit for lanes whose ray column 7 is 0, occlusion for the
+shadow lanes whose column 7 is 1, K3).  :func:`fused2_traverse_packed`
+launches it for CUDA tensors and raises if it cannot; for CPU tensors it takes
+the plain version, :func:`fused2_traverse_packed_plain` (the exact per-ray
+cluster query, same [N,32] output contract).  Rays a kernel block leaves
+unresolved (its retirement loop hit ``max_steps``) go through the exact
+cluster query in the wrappers (:func:`fused2_closest_hit`,
+:func:`fused2_occluded`, :func:`fused2_sweep_mixed`), as in the reference.
 
 Not ported yet (ROADMAP queue 2): the MXU feature layout and bf16 planes
-(K1b), the any-hit mode (K2), the mixed sweep (K3) and fanout > 1.
+(K1b), the no-attributes closest-hit probe mode (K4) and fanout > 1.
 """
 from __future__ import annotations
 
@@ -29,7 +32,9 @@ import torch
 from ..native import build_cuda_library
 from ..utils.tensors import TensorBundle
 from . import math as m
-from .cluster import ClusterBVH, build_cluster_arrays, cluster_closest_hit, cluster_query
+from .cluster import (
+    ClusterBVH, build_cluster_arrays, cluster_closest_hit, cluster_occluded, cluster_query,
+)
 from .intersect import HitRecord
 
 BLOCK_RAYS = 128
@@ -48,9 +53,12 @@ ATTR_ROWS = 32
 #   8 winner slot  9:16 zero  16:32 attr rows 0-15 of the winner
 OUT_COLS = 32
 
-# sort keys: origin Morton bits and direction bits per axis (3*(5+4) < 30)
+# sort keys: origin Morton bits and direction bits per axis (3*(5+4) < 30);
+# coherence keys stay below 2^30, and the mixed sweep puts the shadow class
+# on bit 30 so that sorted blocks are pure bounce or pure shadow
 SORT_O_BITS = 5
 SORT_D_BITS = 4
+SHADOW_CLASS_BIT = 30
 # candidate-scan K-chunk width and meta-box coarsening of the cid2 key
 CID_CHUNK = 512
 CID_META = 4
@@ -60,9 +68,21 @@ PLAIN_CHUNK = 16384
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "fused2_traverse.cu"
 
-# launches of the CUDA kernel (one per wrapper call that ran it)
+# kernel modes -- closest hit + attributes (K1), any-hit (K2), mixed sweep
+# (K3) -- and their entry points in the kernel library
+_ENTRY = {
+    "closest": "owlpt_fused2_closest_hit",
+    "any_hit": "owlpt_fused2_occluded",
+    "mixed": "owlpt_fused2_sweep_mixed",
+}
+MODES = tuple(_ENTRY)
+
+# launches of the CUDA kernel, one count per mode (one per call that ran it)
 KERNEL_LAUNCHES = 0
-# rays answered by the exact cluster query because their block overflowed
+OCCLUDE_LAUNCHES = 0
+MIXED_LAUNCHES = 0
+# rays (of every mode) answered by the exact cluster query because their
+# block overflowed
 UNRESOLVED_RAYS = 0
 
 _cuda_lib = None
@@ -147,11 +167,15 @@ def build_fused2_scene(scene, cluster_size: int = 512) -> Fused2BVH:
 # ── rays ──────────────────────────────────────────────────────────────────
 
 
-def pack_rays(ray_o, ray_d, t_max):
-    """[N,8] kernel ray layout: o(3) d(3) tmax flag(=0)."""
+def pack_rays(ray_o, ray_d, t_max, shadow=None):
+    """[N,8] kernel ray layout: o(3) d(3) tmax flag.  The flag column marks
+    the shadow (any-hit) lanes of a mixed sweep; 0 otherwise."""
     n = ray_o.shape[0]
     t_max = torch.as_tensor(t_max, dtype=torch.float32, device=ray_o.device).expand(n)
-    flag = torch.zeros((n, 1), dtype=torch.float32, device=ray_o.device)
+    if shadow is None:
+        flag = torch.zeros((n, 1), dtype=torch.float32, device=ray_o.device)
+    else:
+        flag = shadow.to(torch.float32)[:, None]
     return torch.cat([ray_o, ray_d, t_max[:, None], flag], dim=1).contiguous()
 
 
@@ -326,26 +350,46 @@ def _inverse_perm(perm):
 # ── traversal: kernel and plain version ───────────────────────────────────
 
 
-def fused2_traverse_packed_plain(rays, fb: Fused2BVH):
+def _check_mode(mode: str):
+    if mode not in MODES:
+        raise ValueError(f"unknown traversal mode {mode!r}; expected one of {MODES}")
+
+
+def fused2_traverse_packed_plain(rays, fb: Fused2BVH, mode: str = "closest"):
     """Plain PyTorch version of the kernel: [N,8] rays -> [N,32].
 
     The exact per-ray cluster query, PLAIN_CHUNK rays at a time.  Every ray is
-    resolved (col 5 = 1) and the steps column stays 0; t/u/v, tri, hit,
-    winner cluster and slot, and the winner's attribute row follow the
-    kernel's contract (misses: t = tmax, tri/cluster/slot = -1, zeros).
+    resolved (col 5 = 1) and the steps column stays 0.
+
+    * ``closest``: t/u/v, tri, hit, winner cluster and slot, and the winner's
+      attribute row follow the kernel's contract (misses: t = tmax,
+      tri/cluster/slot = -1, zeros).
+    * ``any_hit``: col 0 = tmax, col 4 = ``cluster_occluded`` (any valid hit
+      in (T_MIN, tmax)), tri/cluster/slot = -1, everything else 0.
+    * ``mixed``: the ``closest`` rows for every lane.  A shadow lane reads
+      only col 4, and the closest-hit row's hit flag is its occlusion flag
+      (a valid hit in the window exists iff a closest one does); the kernel's
+      other columns of a shadow lane are not part of the contract.
     """
+    _check_mode(mode)
     n = rays.shape[0]
     out = torch.zeros((n, OUT_COLS), dtype=torch.float32, device=rays.device)
     for lo in range(0, n, PLAIN_CHUNK):
         r = rays[lo : lo + PLAIN_CHUNK]
+        o = out[lo : lo + PLAIN_CHUNK]
+        o[:, 5] = 1.0
+        if mode == "any_hit":
+            o[:, 0] = r[:, 6]
+            o[:, 3] = -1.0
+            o[:, 4] = cluster_occluded(r[:, 0:3], r[:, 3:6], fb.cluster, m.T_MIN, r[:, 6]).to(torch.float32)
+            o[:, 7:9] = -1.0
+            continue
         t, tri, uv, cid, slot = cluster_query(r[:, 0:3], r[:, 3:6], fb.cluster, m.T_MIN, r[:, 6])
         hit = tri >= 0
-        o = out[lo : lo + PLAIN_CHUNK]
         o[:, 0] = t
         o[:, 1:3] = uv
         o[:, 3] = tri.to(torch.float32)
         o[:, 4] = hit.to(torch.float32)
-        o[:, 5] = 1.0
         o[:, 7] = cid.to(torch.float32)
         o[:, 8] = slot.to(torch.float32)
         o[:, 16:32] = torch.where(hit[:, None], fb.attr_table[tri.clamp(min=0)][:, :16], 0.0)
@@ -358,9 +402,10 @@ def build_kernels() -> tuple:
     path, seconds, log = build_cuda_library("owlpt_fused2", [CSRC])
     if _cuda_lib is None:
         lib = ctypes.CDLL(str(path))
-        fn = lib.owlpt_fused2_closest_hit
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        for name in _ENTRY.values():
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         _cuda_lib = lib
     return path, seconds, log
 
@@ -375,9 +420,19 @@ def _check_operand(name, x, shape, device):
         raise ValueError(f"{name}: the kernel reads 16-byte aligned rows; data_ptr is not")
 
 
-def _fused2_traverse_cuda(rays, fb: Fused2BVH, block: int, max_steps: int):
-    """Launch the CUDA kernel on the current stream -> [N,32] (no sync)."""
-    global KERNEL_LAUNCHES
+def _count_launch(mode: str):
+    global KERNEL_LAUNCHES, OCCLUDE_LAUNCHES, MIXED_LAUNCHES
+    if mode == "closest":
+        KERNEL_LAUNCHES += 1
+    elif mode == "any_hit":
+        OCCLUDE_LAUNCHES += 1
+    else:
+        MIXED_LAUNCHES += 1
+
+
+def _fused2_traverse_cuda(rays, fb: Fused2BVH, block: int, max_steps: int, mode: str = "closest"):
+    """Launch the CUDA kernel in ``mode`` on the current stream -> [N,32] (no sync)."""
+    _check_mode(mode)
     if rays.device.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError(f"the fused2 kernel needs CUDA tensors on a CUDA device; got {rays.device}")
     n = rays.shape[0]
@@ -395,22 +450,44 @@ def _fused2_traverse_cuda(rays, fb: Fused2BVH, block: int, max_steps: int):
         build_kernels()
     with torch.cuda.device(rays.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _cuda_lib.owlpt_fused2_closest_hit(
+        err = getattr(_cuda_lib, _ENTRY[mode])(
             rays.data_ptr(), fb.boxes.data_ptr(), fb.planes.data_ptr(), fb.attrs.data_ptr(),
             out.data_ptr(), n, k, c, block, max_steps, REFRESH_CLUSTERS, stream,
         )
     if err != 0:
-        raise RuntimeError(f"fused2 kernel launch failed: CUDA error {err}")
-    KERNEL_LAUNCHES += 1
+        raise RuntimeError(f"fused2 {mode} kernel launch failed: CUDA error {err}")
+    _count_launch(mode)
     return out
 
 
-def fused2_traverse_packed(rays, fb: Fused2BVH, block: int = BLOCK_RAYS, max_steps: int = MAX_STEPS):
-    """[N,8] packed rays -> [N,32]: the kernel for CUDA tensors, the plain
-    version for CPU tensors.  N must be a multiple of ``block``."""
+def fused2_traverse_packed(rays, fb: Fused2BVH, block: int = BLOCK_RAYS, max_steps: int = MAX_STEPS,
+                           mode: str = "closest"):
+    """[N,8] packed rays -> [N,32] in ``mode``: the kernel for CUDA tensors,
+    the plain version for CPU tensors.  N must be a multiple of ``block``."""
     if rays.device.type == "cpu":
-        return fused2_traverse_packed_plain(rays, fb)
-    return _fused2_traverse_cuda(rays, fb, block, max_steps)
+        return fused2_traverse_packed_plain(rays, fb, mode)
+    return _fused2_traverse_cuda(rays, fb, block, max_steps, mode)
+
+
+def _sweep(ray_o, ray_d, t_max, fb: Fused2BVH, sort, block: int, max_steps: int, mode: str,
+           shadow=None):
+    """Pad to whole blocks, pack, optionally sort by the coherence key (the
+    shadow class on key bit 30), traverse in ``mode`` and unsort -> [N,32]
+    rows of the first N (unpadded) rays."""
+    n0 = ray_o.shape[0]
+    ray_o_p, ray_d_p, t_max_p, _ = _pad_rays(ray_o, ray_d, t_max, block)
+    if shadow is not None:
+        shadow = torch.cat([shadow, shadow.new_zeros(ray_o_p.shape[0] - n0)])
+    rays = pack_rays(ray_o_p, ray_d_p, t_max_p, shadow)
+    sort_mode = resolve_sort(sort)
+    if not sort_mode:
+        return fused2_traverse_packed(rays, fb, block=block, max_steps=max_steps, mode=mode)[:n0]
+    keys = wave_sort_keys(ray_o_p, ray_d_p, t_max_p, fb, mode=sort_mode)
+    if shadow is not None:
+        keys = keys | (shadow.to(torch.int64) << SHADOW_CLASS_BIT)
+    perm = torch.sort(keys, stable=True).indices
+    out = fused2_traverse_packed(rays[perm], fb, block=block, max_steps=max_steps, mode=mode)
+    return out[_inverse_perm(perm)][:n0]
 
 
 def _hits_from_output(out, ray_o, ray_d, fb: Fused2BVH, t_min, t_max):
@@ -446,18 +523,45 @@ def fused2_closest_hit(ray_o, ray_d, fb: Fused2BVH, t_min: float = m.T_MIN, t_ma
     Pads to whole blocks; with ``sort`` ("morton", "cid2" or True) stably
     sorts the packed rays by a coherence key before the traversal and
     unsorts after."""
-    n0 = ray_o.shape[0]
-    ray_o_p, ray_d_p, t_max_p, _ = _pad_rays(ray_o, ray_d, t_max, block)
-    rays = pack_rays(ray_o_p, ray_d_p, t_max_p)
-    mode = resolve_sort(sort)
-    if mode:
-        keys = wave_sort_keys(ray_o_p, ray_d_p, t_max_p, fb, mode=mode)
-        perm = torch.sort(keys, stable=True).indices
-        out = fused2_traverse_packed(rays[perm], fb, block=block, max_steps=max_steps)
-        out = out[_inverse_perm(perm)]
-    else:
-        out = fused2_traverse_packed(rays, fb, block=block, max_steps=max_steps)
-    return _hits_from_output(out[:n0], ray_o, ray_d, fb, t_min, t_max)
+    out = _sweep(ray_o, ray_d, t_max, fb, sort, block, max_steps, "closest")
+    return _hits_from_output(out, ray_o, ray_d, fb, t_min, t_max)
+
+
+def fused2_occluded(ray_o, ray_d, fb: Fused2BVH, t_min: float = m.T_MIN, t_max=m.T_MAX,
+                    sort=False, block: int = BLOCK_RAYS, max_steps: int = MAX_STEPS):
+    """Any-hit occlusion -> [N] bool: is there a valid hit in (t_min, t_max)?
+
+    The first valid hit retires a ray (terminate-on-first-hit).  Pads, sorts
+    and unsorts like :func:`fused2_closest_hit`; rows a block leaves
+    unresolved take ``cluster_occluded``."""
+    global UNRESOLVED_RAYS
+    out = _sweep(ray_o, ray_d, t_max, fb, sort, block, max_steps, "any_hit")
+    occ = out[:, 4] > 0.0
+    rows = torch.nonzero(out[:, 5] <= 0.0).squeeze(1)
+    if rows.numel():
+        UNRESOLVED_RAYS += rows.numel()
+        t_max = torch.as_tensor(t_max, dtype=torch.float32, device=out.device).expand(out.shape[0])
+        occ[rows] = cluster_occluded(ray_o[rows], ray_d[rows], fb.cluster, t_min, t_max[rows])
+    return occ
+
+
+def fused2_sweep_mixed(ray_o, ray_d, t_max, shadow, fb: Fused2BVH, t_min: float = m.T_MIN,
+                       sort=False, block: int = BLOCK_RAYS, max_steps: int = MAX_STEPS):
+    """One kernel sweep over closest-hit and shadow (any-hit) lanes.
+
+    ``shadow`` [N] bool marks the any-hit lanes.  Returns (HitRecord,
+    attr_blob, occluded): the hit record and blob are meaningful for
+    closest-hit lanes (misses get t = T_MAX), ``occluded`` for shadow lanes.
+    The deferred-NEE wavefront pairs each lane's bounce ray with the previous
+    vertex's shadow ray; with ``sort`` the shadow class is the top key bit,
+    so sorted blocks stay pure and keep the any-hit early exit.  Unresolved
+    rows get the exact cluster query, whose closest hit gives both answers
+    (occluded iff it hit)."""
+    out = _sweep(ray_o, ray_d, t_max, fb, sort, block, max_steps, "mixed", shadow=shadow)
+    rec, blob = _hits_from_output(out, ray_o, ray_d, fb, t_min, t_max)
+    occluded = rec.tri >= 0
+    t = torch.where(occluded, rec.t, m.T_MAX)
+    return HitRecord(t=t, tri=rec.tri, uv=rec.uv), blob, occluded
 
 
 def make_fused2_intersector(fb: Fused2BVH, **kw):

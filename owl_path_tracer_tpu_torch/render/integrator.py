@@ -8,6 +8,12 @@ Parity semantics of the JAX package's ``trace_bounce``:
     and depth, and the retry uses up one step of the caller's depth budget;
   * Russian roulette without 1/q compensation, skipped for the glass lobe,
     active only at depth > ``rr_start_depth``.
+
+``trace_bounce_nee`` (``settings.use_nee``) is the JAX package's
+next-event-estimation bounce: at every vertex a light point (and, with an
+environment map, an environment direction) is sampled, shadow-tested and
+combined with the BSDF sample by the power heuristic; radiance accumulates
+additively and Russian roulette is the compensated kind.
 """
 from __future__ import annotations
 
@@ -16,13 +22,17 @@ from typing import Callable
 
 import torch
 
+from ..models import envlight as envlight_mod
+from ..models import lights as lights_mod
 from ..models.material import Materials
 from ..models.scene import RenderSettings, Scene
 from ..ops import disney
 from ..ops import math as m
 from ..ops import rng as rng_mod
 from ..ops import texture as tex
-from ..ops.fused2 import BLOCK_RAYS, Fused2BVH, make_fused2_intersector
+from ..ops.fused2 import (
+    BLOCK_RAYS, Fused2BVH, fused2_occluded, fused2_sweep_mixed, make_fused2_intersector,
+)
 from ..utils.tensors import TensorBundle
 
 
@@ -158,16 +168,166 @@ def trace_bounce(scene: Scene, settings: RenderSettings, state: PathState,
     )
 
 
-def make_intersectors(scene: Scene, accel, fused2_block: int | None = None, fused2_sort=False):
-    """Accel -> (intersect_fn, occlude_fn).  Only the fused2 accelerator is
-    ported; its occlusion query belongs to the NEE slice (ROADMAP)."""
+def trace_bounce_nee(scene: Scene, settings: RenderSettings, lights, state: PathState,
+                     intersect_fn: Callable, occlude_fn: Callable, enable_textures: bool,
+                     allow_nee=True, env_light=None, deferred: bool = False, precomputed=None):
+    """One bounce with next-event estimation + MIS for every lane.
+
+    ``occlude_fn(pos, direction, max_dist)`` -> [N] bool shadow test.
+    ``allow_nee`` (bool or [N] bool) switches the light samples off where a
+    vertex is the path's last.  ``deferred=True`` (area lights only) does not
+    shadow-test here: it returns ``(PathState, pending)`` with pending =
+    (origin, direction, distance, contribution, active) of this vertex's
+    untested light sample, which the caller traces in the next step's mixed
+    sweep -- the same draws and contribution as the immediate form, banked one
+    step later.  ``precomputed`` = (HitRecord, blob) of this step's rays when
+    the caller has traced them already.
+    """
+    if deferred and env_light is not None:
+        raise ValueError("deferred NEE supports area lights only")
+    if precomputed is not None:
+        hit, blob = precomputed
+    else:
+        hit, blob = intersect_fn(state.ray_o, state.ray_d)
+
+    # miss -> environment; MIS-weighted against environment sampling when an
+    # EnvLight is active (primary rays keep weight 1)
+    first = (state.depth == 0) | (state.prev_pdf <= 0.0)
+    miss = state.alive & ~hit.hit
+    if env_light is not None:
+        env = envlight_mod.env_radiance(env_light, state.ray_d)
+        pdf_e = envlight_mod.pdf_env_direction(env_light, state.ray_d)
+        w_env = torch.where(first, 1.0, lights_mod.power_heuristic(1.0, state.prev_pdf, 1.0, pdf_e))
+        env = env * w_env[..., None]
+    else:
+        env = _environment_radiance(scene, settings, state.ray_d)
+    result = state.result + torch.where(miss[..., None], env * state.throughput, 0.0)
+    alive = state.alive & hit.hit
+
+    pos, sh_n, mat = _fetch_surface_blob(scene, hit, blob, state.ray_o, state.ray_d, enable_textures)
+
+    # emissive hit -> MIS-weighted emission, terminate
+    emissive = alive & (mat.emission > 0.0)
+    if lights is not None:
+        pdf_l_hit = lights_mod.pdf_hit_light(lights, hit.tri, state.ray_d, hit.t, sh_n)
+        w_b = torch.where(first, 1.0, lights_mod.power_heuristic(1.0, state.prev_pdf, 1.0, pdf_l_hit))
+    else:
+        w_b = torch.ones_like(hit.t)
+    result = result + torch.where(emissive[..., None], (w_b * mat.emission)[..., None] * state.throughput, 0.0)
+    alive = alive & ~emissive
+
+    t_b, b_b = m.onb(sh_n)
+    local_wo = m.to_local(t_b, b_b, sh_n, -state.ray_d)
+
+    # next-event estimation, area lights
+    rng_state = state.rng
+    pending = None
+    if lights is not None:
+        u_l, states_l = rng_mod.next_f32_n(rng_state, 3)
+        rng_state = torch.where(alive, states_l[-1], rng_state)
+        ls = lights_mod.sample_lights(lights, pos, torch.stack([u_l[0], u_l[1], u_l[2]], -1))
+        wl_local = m.to_local(t_b, b_b, sh_n, ls.direction)
+        f_l, pdf_b_l = disney.eval_all(mat, local_wo, wl_local)
+        can_light = alive & (ls.pdf > 0.0) & (ls.emission > 0.0) & allow_nee
+        w_l = lights_mod.power_heuristic(1.0, ls.pdf, 1.0, pdf_b_l)
+        contrib = f_l * (torch.abs(m.cos_theta(wl_local)) * ls.emission * w_l
+                         / torch.where(ls.pdf > 0.0, ls.pdf, 1.0))[..., None]
+        if deferred:
+            pend_c = state.throughput * torch.nan_to_num(
+                torch.where(can_light[..., None], contrib, 0.0), nan=0.0, posinf=0.0)
+            pend_on = can_light & (pend_c != 0.0).any(dim=-1)
+            pending = (pos, ls.direction, ls.distance - m.T_MIN, pend_c, pend_on)
+        else:
+            occluded = occlude_fn(pos, ls.direction, ls.distance - m.T_MIN)
+            contrib = torch.where((can_light & ~occluded)[..., None], contrib, 0.0)
+            result = result + state.throughput * torch.nan_to_num(contrib, nan=0.0, posinf=0.0)
+
+    # environment NEE (CDF importance sampling)
+    if env_light is not None:
+        u_e, states_e = rng_mod.next_f32_n(rng_state, 2)
+        rng_state = torch.where(alive, states_e[-1], rng_state)
+        es = envlight_mod.sample_env(env_light, torch.stack([u_e[0], u_e[1]], -1))
+        we_local = m.to_local(t_b, b_b, sh_n, es.direction)
+        f_e, pdf_b_e = disney.eval_all(mat, local_wo, we_local)
+        can_env = alive & (es.pdf > 0.0) & allow_nee
+        env_occluded = occlude_fn(pos, es.direction, torch.full(pos.shape[:1], m.T_MAX, device=pos.device))
+        w_e = lights_mod.power_heuristic(1.0, es.pdf, 1.0, pdf_b_e)
+        contrib_e = f_e * es.radiance * (
+            torch.abs(m.cos_theta(we_local)) * w_e / torch.where(es.pdf > 0.0, es.pdf, 1.0))[..., None]
+        contrib_e = torch.where((can_env & ~env_occluded)[..., None], contrib_e, 0.0)
+        result = result + state.throughput * torch.nan_to_num(contrib_e, nan=0.0, posinf=0.0)
+
+    # BSDF sample; its mixture pdf is recorded for MIS
+    bs = disney.sample(mat, local_wo, rng_state, state.prev_lobe, corrected=not settings.parity)
+    rng_state = torch.where(alive, bs.state, rng_state)
+    wi_world = m.to_world(t_b, b_b, sh_n, bs.wi)
+    _, pdf_mix = disney.eval_all(mat, local_wo, bs.wi)
+
+    alive = alive & ~(bs.pdf < 1e-5)
+    bad_f = ~torch.isfinite(bs.f).all(dim=-1)
+    ok = alive & ~bad_f
+
+    cos_i = torch.abs(m.cos_theta(bs.wi))
+    f_safe = torch.where(ok[..., None], bs.f, 0.0)
+    pdf_safe = torch.where(ok, bs.pdf, 1.0)
+    thr_new = state.throughput * f_safe * (cos_i / pdf_safe)[..., None]
+    throughput = torch.where(ok[..., None], thr_new, state.throughput)
+    ray_o = torch.where(ok[..., None], pos, state.ray_o)
+    ray_d = torch.where(ok[..., None], wi_world, state.ray_d)
+    prev_lobe = torch.where(ok, bs.lobe, state.prev_lobe)
+    prev_pdf = torch.where(ok, pdf_mix, state.prev_pdf)
+
+    # standard compensated Russian roulette
+    beta_max = torch.amax(throughput, dim=-1)
+    rr_active = ok & (state.depth > settings.rr_start_depth)
+    q = torch.clamp(beta_max, 0.05, 1.0)
+    rr_draw, rr_state = rng_mod.next_f32(rng_state)
+    rng_state = torch.where(rr_active, rr_state, rng_state)
+    survive = ~rr_active | (rr_draw < q)
+    throughput = torch.where((rr_active & survive)[..., None], throughput / q[..., None], throughput)
+    alive = alive & survive
+
+    depth = torch.where(ok, state.depth + 1, state.depth)
+    out = PathState(
+        ray_o=ray_o, ray_d=ray_d, result=result, throughput=throughput, rng=rng_state,
+        alive=alive, prev_lobe=prev_lobe, depth=depth, prev_pdf=prev_pdf,
+    )
+    if not deferred:
+        return out
+    if pending is None:  # no lights: nothing to defer
+        n = ray_o.shape[0]
+        pending = (ray_o, ray_d, torch.zeros((n,), device=ray_o.device),
+                   torch.zeros((n, 3), device=ray_o.device),
+                   torch.zeros((n,), dtype=torch.bool, device=ray_o.device))
+    return out, pending
+
+
+def _require_fused2(accel):
     if not isinstance(accel, Fused2BVH):
         raise NotImplementedError(
             f"only the fused2 accelerator is ported; got {type(accel).__name__} (ROADMAP queue 1)"
         )
 
-    def occlude(pos, direction, max_dist):
-        raise NotImplementedError("fused2 occlusion (kernel K2) belongs to the NEE slice: ROADMAP")
 
-    isect = make_fused2_intersector(accel, block=fused2_block or BLOCK_RAYS, sort=fused2_sort)
-    return isect, occlude
+def make_mixed_sweep_fn(accel, fused2_block: int | None = None, fused2_sort=False):
+    """Mixed closest-hit + any-hit sweep for the deferred-NEE wavefront:
+    ``sweep(ray_o, ray_d, t_max, shadow)`` -> (HitRecord, blob, occluded)."""
+    _require_fused2(accel)
+    blk = fused2_block or BLOCK_RAYS
+
+    def sweep(ray_o, ray_d, t_max, shadow):
+        return fused2_sweep_mixed(ray_o, ray_d, t_max, shadow, accel, sort=fused2_sort, block=blk)
+
+    return sweep
+
+
+def make_intersectors(scene: Scene, accel, fused2_block: int | None = None, fused2_sort=False):
+    """Accel -> (intersect_fn, occlude_fn).  Only the fused2 accelerator is
+    ported: closest hit through kernel K1, occlusion through kernel K2."""
+    _require_fused2(accel)
+    blk = fused2_block or BLOCK_RAYS
+
+    def occlude(pos, direction, max_dist):
+        return fused2_occluded(pos, direction, accel, t_max=max_dist, block=blk, sort=fused2_sort)
+
+    return make_fused2_intersector(accel, block=blk, sort=fused2_sort), occlude

@@ -7,6 +7,15 @@ of a global queue.  Each work item seeds its LCG stream from
 (pixel, sample + sample_base), so the image does not depend on the pool size
 or on which lane ran which item.
 
+With ``settings.use_nee`` each bounce is ``trace_bounce_nee``, in one of the
+JAX package's two forms:
+  * separate (``fused_nee=False``): the bounce rays go through the closest-hit
+    kernel, then each vertex's light sample through the any-hit kernel;
+  * deferred (``fused_nee=True``, area lights only): one mixed sweep traces
+    the bounce rays together with the previous step's shadow rays, whose
+    contributions are added before the bounce; a lane whose path ended with a
+    shadow ray still pending (a zombie) banks one step later.
+
 Differences from the JAX package, all exact in value:
   * the film is banked with ``index_add_`` (its ``film_mode="scatter"``), in
     place into the pool's accumulator;
@@ -23,10 +32,14 @@ import dataclasses
 import torch
 
 from ..models.camera import primary_rays
+from ..models.envlight import build_env_light
+from ..models.lights import build_light_table
 from ..models.scene import RenderSettings, Scene
 from ..ops import disney
+from ..ops import math as m
 from ..ops import rng as rng_mod
 from ..ops.fused2 import auto_sort_mode
+from ..ops.intersect import HitRecord
 from ..utils.tensors import TensorBundle
 from . import integrator
 from .film import scene_has_textures
@@ -51,6 +64,13 @@ class PoolState(TensorBundle):
     work_counter: torch.Tensor  # [] int64 next work item of the queue
     acc: torch.Tensor  # [W*H,3] film accumulator
     rays: torch.Tensor  # [] int64 live rays traced
+    # deferred NEE (fused_nee): the previous vertex's light sample, traced in
+    # this step's mixed sweep beside the bounce rays (zeros otherwise)
+    sh_o: torch.Tensor  # [L,3] shadow origin (the previous vertex)
+    sh_d: torch.Tensor  # [L,3] shadow direction
+    sh_dist: torch.Tensor  # [L] occlusion distance
+    sh_contrib: torch.Tensor  # [L,3] contribution if unoccluded
+    sh_active: torch.Tensor  # [L] bool: a shadow ray is pending
 
 
 def _spawn(scene: Scene, settings: RenderSettings, lane_work_id, sample_base: int = 0):
@@ -71,20 +91,60 @@ def _spawn(scene: Scene, settings: RenderSettings, lane_work_id, sample_base: in
 
 
 def wavefront_step(scene: Scene, settings: RenderSettings, st: PoolState, intersect_fn,
-                   enable_textures: bool, total_work: int, sample_base: int = 0) -> PoolState:
+                   enable_textures: bool, total_work: int, sample_base: int = 0, lights=None,
+                   occlude_fn=None, env_light=None, mixed_fn=None) -> PoolState:
     """One bounce for every lane, banking of finished paths (in place into
-    ``st.acc``) and regeneration of idle lanes."""
+    ``st.acc``) and regeneration of idle lanes.  With ``mixed_fn`` and area
+    lights only, NEE takes the deferred form."""
     ray_o_t = torch.where(st.alive[:, None], st.ray_o, PARK)
+    lanes = st.pixel.shape[0]
+    use_nee = settings.use_nee and occlude_fn is not None and (
+        lights is not None or env_light is not None)
+    use_fused_nee = use_nee and mixed_fn is not None and lights is not None and env_light is None
+    precomputed = None
+    result = st.result
+    if use_fused_nee:
+        # one mixed sweep of 2L rays: this step's bounce rays, then the
+        # pending shadow rays (parked where none is pending)
+        sh_on = st.sh_active
+        up = torch.tensor([0.0, 0.0, 1.0], device=sh_on.device).expand(lanes, 3)
+        comb_o = torch.cat([ray_o_t, torch.where(sh_on[:, None], st.sh_o, PARK)])
+        comb_d = torch.cat([st.ray_d, torch.where(sh_on[:, None], st.sh_d, up)])
+        comb_t = torch.cat([torch.full((lanes,), m.T_MAX, device=sh_on.device),
+                            torch.where(sh_on, st.sh_dist, m.T_MIN)])
+        comb_sh = torch.cat([torch.zeros_like(sh_on), torch.ones_like(sh_on)])
+        rec, blob, occ = mixed_fn(comb_o, comb_d, comb_t, comb_sh)
+        precomputed = (HitRecord(t=rec.t[:lanes], tri=rec.tri[:lanes], uv=rec.uv[:lanes]), blob[:lanes])
+        # the pending contributions land before this bounce accumulates
+        result = result + torch.where((sh_on & ~occ[lanes:])[:, None], st.sh_contrib, 0.0)
     ps = integrator.PathState(
-        ray_o=ray_o_t, ray_d=st.ray_d, result=st.result, throughput=st.throughput,
+        ray_o=ray_o_t, ray_d=st.ray_d, result=result, throughput=st.throughput,
         rng=st.rng, alive=st.alive, prev_lobe=st.prev_lobe, depth=st.depth,
         prev_pdf=st.prev_pdf,
     )
-    rays = st.rays + ps.alive.sum()
-    ps = integrator.trace_bounce(scene, settings, ps, intersect_fn, enable_textures)
+    rays = st.rays + ps.alive.sum()  # path rays only; shadow rays are not counted
+    pend = None
+    if use_nee:
+        # regeneration has no last bounce: a vertex at the depth limit samples no light
+        allow_nee = ps.depth < settings.max_path_depth - 1
+        ps = integrator.trace_bounce_nee(
+            scene, settings, lights, ps, intersect_fn, occlude_fn, enable_textures,
+            allow_nee=allow_nee, env_light=None if use_fused_nee else env_light,
+            deferred=use_fused_nee, precomputed=precomputed,
+        )
+        if use_fused_nee:
+            ps, pend = ps
+    else:
+        ps = integrator.trace_bounce(scene, settings, ps, intersect_fn, enable_textures)
     exhausted = ps.alive & (ps.depth >= settings.max_path_depth)
     path_done = st.alive & (~ps.alive | exhausted)
-    idle = path_done | ~st.alive
+    if use_fused_nee:
+        # a path that ends with a fresh pending shadow ray is a zombie: it
+        # banks next step, once that ray is resolved; last step's zombies
+        # (resolved above) bank now
+        path_done = (path_done & ~pend[4]) | (~st.alive & st.sh_active)
+    # non-zombie dead lanes respawn (sh_active is all False outside deferred NEE)
+    idle = path_done | (~st.alive & ~st.sh_active)
 
     # bank finished paths into the film
     acc = st.acc.index_add_(0, st.pixel, torch.where(path_done[:, None], ps.result, 0.0))
@@ -100,6 +160,19 @@ def wavefront_step(scene: Scene, settings: RenderSettings, st: PoolState, inters
         mask = can_spawn[:, None] if old.dim() > 1 else can_spawn
         return torch.where(mask, new, old)
 
+    shadow = dict(sh_o=st.sh_o, sh_d=st.sh_d, sh_dist=st.sh_dist, sh_contrib=st.sh_contrib,
+                  sh_active=st.sh_active)
+    if use_fused_nee:
+        pend_o, pend_d, pend_dist, pend_c, pend_on = pend
+
+        def keep(new, old):
+            return torch.where(pend_on[:, None] if old.dim() > 1 else pend_on, new, old)
+
+        shadow = dict(
+            sh_o=sel(0.0, keep(pend_o, st.sh_o)), sh_d=sel(0.0, keep(pend_d, st.sh_d)),
+            sh_dist=sel(0.0, keep(pend_dist, st.sh_dist)),
+            sh_contrib=sel(0.0, keep(pend_c, st.sh_contrib)), sh_active=pend_on & ~can_spawn,
+        )
     return PoolState(
         pixel=sel(pixel_s, st.pixel),
         ray_o=sel(o_s, ps.ray_o),
@@ -114,38 +187,52 @@ def wavefront_step(scene: Scene, settings: RenderSettings, st: PoolState, inters
         work_counter=st.work_counter + handed_out,
         acc=acc,
         rays=rays,
+        **shadow,
     )
 
 
 def _run_chunk(scene: Scene, settings: RenderSettings, st: PoolState, accel,
                enable_textures: bool, work_hi: int, iters: int, fused2_block=None,
-               fused2_sort=False, sample_base: int = 0):
+               fused2_sort=False, sample_base: int = 0, lights=None, env_light=None,
+               fused_nee: bool = False):
     """``iters`` wavefront steps -> (pool, status [work_done, busy])."""
-    intersect_fn, _ = integrator.make_intersectors(
+    intersect_fn, occlude_fn = integrator.make_intersectors(
         scene, accel, fused2_block=fused2_block, fused2_sort=fused2_sort
     )
+    mixed_fn = None
+    if settings.use_nee and fused_nee:
+        mixed_fn = integrator.make_mixed_sweep_fn(accel, fused2_block=fused2_block, fused2_sort=fused2_sort)
     for _ in range(iters):
-        st = wavefront_step(scene, settings, st, intersect_fn, enable_textures, work_hi, sample_base)
-    return st, torch.stack([st.work_counter >= work_hi, st.alive.any()])
+        st = wavefront_step(scene, settings, st, intersect_fn, enable_textures, work_hi, sample_base,
+                            lights=lights, occlude_fn=occlude_fn, env_light=env_light,
+                            mixed_fn=mixed_fn)
+    # a pending shadow ray keeps the frame busy: its zombie lane has not banked
+    return st, torch.stack([st.work_counter >= work_hi, (st.alive | st.sh_active).any()])
 
 
 def render_image_wavefront(scene: Scene, settings: RenderSettings, accel, lanes: int = 131072,
                            iters_per_launch: int = 32, max_launches: int = 1000,
                            fused2_block: int | None = None, fused2_sort=False,
-                           sample_base: int = 0) -> tuple:
+                           sample_base: int = 0, fused_nee: bool = False) -> tuple:
     """Full frame via the persistent pool -> (image [H,W,3] top row first, on
     the scene's device; live rays traced).
 
     ``fused2_sort=True`` picks the sort mode from the scene (cid2 for
     enclosed scenes, else morton).  Launch size adapts to the frame: the
     expected step count (work / lanes + depth + 3) caps ``iters_per_launch``.
+    With ``settings.use_nee`` the light table (and, with
+    ``settings.environment_use``, the environment light) is built from the
+    scene; ``fused_nee`` selects the deferred form.
     """
-    if settings.use_nee:
-        raise NotImplementedError("NEE is not ported yet: ROADMAP queue 1, NEE slice")
     enable_textures = scene_has_textures(scene)
     if fused2_sort is True:
         fused2_sort = auto_sort_mode(scene)
     total_work = settings.width * settings.height * settings.max_samples
+    lights = env_light = None
+    if settings.use_nee:
+        lights = build_light_table(scene)
+        if settings.environment_use:
+            env_light = build_env_light(scene.env_map, settings.environment_intensity)
     st = new_pool(settings, lanes, device=scene.vertices.device)
     est_steps = (total_work + lanes - 1) // lanes + settings.max_path_depth + 3
     iters = max(2, min(iters_per_launch, est_steps))
@@ -153,6 +240,7 @@ def render_image_wavefront(scene: Scene, settings: RenderSettings, accel, lanes:
         st, status = _run_chunk(
             scene, settings, st, accel, enable_textures, total_work, iters,
             fused2_block=fused2_block, fused2_sort=fused2_sort, sample_base=sample_base,
+            lights=lights, env_light=env_light, fused_nee=fused_nee,
         )
         work_done, busy = status.tolist()
         if work_done and not busy:
@@ -178,4 +266,9 @@ def new_pool(settings: RenderSettings, lanes: int, work_lo: int = 0, *, device) 
         work_counter=torch.tensor(work_lo, dtype=torch.int64, device=device),
         acc=z(settings.width * settings.height, 3),
         rays=torch.tensor(0, dtype=torch.int64, device=device),
+        sh_o=z(lanes, 3),
+        sh_d=torch.tensor([0.0, 0.0, 1.0], device=device).repeat(lanes, 1),
+        sh_dist=z(lanes),
+        sh_contrib=z(lanes, 3),
+        sh_active=z(lanes, dtype=torch.bool),
     )

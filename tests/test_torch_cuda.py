@@ -1,5 +1,6 @@
-"""The port on a CUDA card: the fused2 kernel against its plain version, and a
-frame rendered on the card against the same frame on the CPU.
+"""The port on a CUDA card: the fused2 kernel in its three modes (closest hit,
+any-hit, mixed) against its plain version, and frames (without and with NEE)
+rendered on the card against the same frames on the CPU.
 
 Imports nothing of JAX (the card's machine has none).  Every test is marked
 ``cuda`` and skips where there is no CUDA device.  On the card:
@@ -115,6 +116,87 @@ def test_frame_on_card_matches_cpu(cuda_device):
     want, rays_want = render_image_wavefront(scene, settings, accel, lanes=1024, fused2_sort=True)
     img, rays = render_image_wavefront(scene.to(cuda_device), settings, accel.to(cuda_device),
                                        lanes=1024, fused2_sort=True)
+    img, want = img.cpu().numpy(), want.numpy()
+    close = np.isclose(img, want, rtol=1e-4, atol=1e-5)
+    assert close.mean() > 0.995, f"only {close.mean():.4%} pixels match"
+    np.testing.assert_allclose(img.mean(), want.mean(), rtol=1e-3)
+    assert abs(rays - rays_want) <= 0.005 * rays_want
+
+
+def _mixed_inputs(soup, device):
+    """The soup's rays, every other one a shadow lane with a light distance."""
+    fb, o, d, tmax = soup
+    r = np.random.default_rng(1)
+    shadow = np.arange(len(o)) % 2 == 1
+    dist = np.where(shadow, r.uniform(2.0, 20.0, len(o)), 1e10).astype(np.float32)
+    return fb.to(device), [torch.as_tensor(x, device=device) for x in (o, d, tmax, dist, shadow)]
+
+
+@pytest.mark.parametrize("block", [128, 256])
+def test_any_hit_kernel_matches_plain(soup, cuda_device, block):
+    fb, (o, d, tmax, _, _) = _mixed_inputs(soup, cuda_device)
+    rays = tf2.pack_rays(*tf2._pad_rays(o[:300], d[:300], tmax[:300], block)[:3])
+    launches = tf2.OCCLUDE_LAUNCHES
+    got = tf2.fused2_traverse_packed(rays, fb, block=block, mode="any_hit")
+    assert tf2.OCCLUDE_LAUNCHES == launches + 1
+    want = tf2.fused2_traverse_packed_plain(rays, fb, mode="any_hit")
+    torch.cuda.synchronize()
+    assert (got[:, 5] == 1).all()
+    torch.testing.assert_close(got[:, 4], want[:, 4], rtol=0, atol=0)
+    torch.testing.assert_close(got[:, 0], rays[:, 6], rtol=0, atol=0)  # t is never lowered
+    assert 0 < int(got[:300, 4].sum()) < 300 and (got[300:, 4] == 0).all()
+
+
+@pytest.mark.parametrize("block", [128, 256])
+def test_mixed_kernel_matches_plain(soup, cuda_device, block):
+    """Closest-hit lanes: K1's contract (winners, cluster/slot and blob exact,
+    t/u/v to rtol 5e-6); shadow lanes: the occlusion flag exactly."""
+    fb, (o, d, _, dist, shadow) = _mixed_inputs(soup, cuda_device)
+    o_p, d_p, t_p, _ = tf2._pad_rays(o, d, dist, block)
+    sh_p = torch.cat([shadow, shadow.new_zeros(o_p.shape[0] - len(o))])
+    rays = tf2.pack_rays(o_p, d_p, t_p, sh_p)
+    launches = tf2.MIXED_LAUNCHES
+    got = tf2.fused2_traverse_packed(rays, fb, block=block, mode="mixed")
+    assert tf2.MIXED_LAUNCHES == launches + 1
+    want = tf2.fused2_traverse_packed_plain(rays, fb, mode="mixed")
+    torch.cuda.synchronize()
+    assert_kernel_output_matches(got[~sh_p], want[~sh_p])
+    torch.testing.assert_close(got[sh_p, 4], want[sh_p, 4], rtol=0, atol=0)
+    assert (got[sh_p, 5] == 1).all() and 0 < int(got[sh_p, 4].sum()) < int(sh_p.sum())
+
+
+def test_new_modes_overflow_match_plain(soup, cuda_device):
+    """max_steps=1 leaves blocks unresolved in both new modes; the wrappers'
+    answers equal the CPU answers."""
+    fb, (o, d, tmax, dist, shadow) = _mixed_inputs(soup, cuda_device)
+    out = tf2.fused2_traverse_packed(tf2.pack_rays(o, d, tmax), fb, block=128, max_steps=1, mode="any_hit")
+    assert (out[:, 5] == 0).any()
+    out = tf2.fused2_traverse_packed(tf2.pack_rays(o, d, dist, shadow), fb, block=128, max_steps=1, mode="mixed")
+    assert (out[shadow, 5] == 0).any() and (out[~shadow, 5] == 0).any()
+    occ = tf2.fused2_occluded(o, d, fb, t_max=tmax, max_steps=1)
+    cpu = [x.cpu() for x in (o, d, tmax, dist, shadow)]
+    fb_cpu = fb.to("cpu")
+    torch.testing.assert_close(occ.cpu(), tf2.fused2_occluded(cpu[0], cpu[1], fb_cpu, t_max=cpu[2]),
+                               rtol=0, atol=0)
+    rec, blob, occ_m = tf2.fused2_sweep_mixed(o, d, dist, shadow, fb, max_steps=1)
+    ref, ref_blob, ref_occ = tf2.fused2_sweep_mixed(cpu[0], cpu[1], cpu[3], cpu[4], fb_cpu)
+    ns = ~cpu[4]
+    torch.testing.assert_close(rec.tri.cpu()[ns], ref.tri[ns], rtol=0, atol=0)
+    torch.testing.assert_close(rec.t.cpu()[ns], ref.t[ns], rtol=5e-6, atol=1e-6)
+    torch.testing.assert_close(blob.cpu()[ns], ref_blob[ns], rtol=0, atol=0)
+    torch.testing.assert_close(occ_m.cpu()[cpu[4]], ref_occ[cpu[4]], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("fused_nee", [False, True])
+def test_nee_frame_on_card_matches_cpu(cuda_device, fused_nee):
+    settings = RenderSettings(width=32, height=32, max_samples=4, max_path_depth=3,
+                              environment_auto=True, use_nee=True)
+    scene = compile_scene(ASSETS, "cornell-box", (32, 32), env_map_path=None, device="cpu")
+    accel = make_accel(scene, "fused2")
+    want, rays_want = render_image_wavefront(scene, settings, accel, lanes=1024, fused2_sort=True,
+                                             fused_nee=fused_nee)
+    img, rays = render_image_wavefront(scene.to(cuda_device), settings, accel.to(cuda_device),
+                                       lanes=1024, fused2_sort=True, fused_nee=fused_nee)
     img, want = img.cpu().numpy(), want.numpy()
     close = np.isclose(img, want, rtol=1e-4, atol=1e-5)
     assert close.mean() > 0.995, f"only {close.mean():.4%} pixels match"
