@@ -32,13 +32,33 @@ Phases (one line each, with times; any failure exits non-zero):
   6b. the NEE main path: cornell-box 1024x1024, depth 4, NEE on, 131072
      lanes, block 256, sort on (cid2), once separate (fused_nee=False) and
      once deferred (fused_nee=True), counts reset just before each.
+Phases 3-6b run the component layout (kernels K1-K3), built explicitly with
+build_fused2_scene(mxu=False).  The MXU feature layout (make_accel's
+"fused2" with f32 planes and "fused2-bf16"; kernel K1b, fanout 2) and the
+no-attributes closest hit (K4) follow:
+  3c. K1b (f32 and bf16 planes; closest, any-hit, mixed) and K4 (component
+     and MXU f32) vs their plain versions on the soup: blocks 128 and 256,
+     fanout 1 and 2 (bit-identical), per-ray t_max, padding rays,
+     max_steps=1 through the wrappers; bf16 + no attributes raises;
+  4c. the same at the main path's shapes, CUDA events: the dragon primary and
+     bounce waves on fused2-bf16 and fused2 (K1b closest, K4), the cornell
+     shadow wave (any-hit) and 262144-ray mixed wave on fused2-bf16 and
+     fused2;
+  5c. frame parity on fused2-bf16, card vs CPU: cornell-box 64x64 spp 4,
+     without NEE and with NEE in both forms;
+  6c. the headline main path (phase 6's configuration) on fused2-bf16 and on
+     fused2, then the cornell NEE path (phase 6b's) on fused2-bf16 and on
+     fused2, separate and deferred; counts reset just before each.
 The second-to-last lines are the kernels JSON and the GPU's nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.  Each kernel's bound_ms is
-the larger of two times at the wave it was timed on: its Moller-Trumbore
-operations (45 fp32 operations per ray and slot of each cluster that ray's
-exact query needs, see needed_clusters) over the H100's published 67 TFLOP/s
-fp32 peak (700 W), and its bytes (inputs read once, output written once) over
-3.35 TB/s.
+the largest of its times at the wave it was timed on, per ray and slot of
+each cluster that ray's exact query needs (see needed_clusters): component
+layout, 45 Moller-Trumbore fp32 operations over the H100's published
+67 TFLOP/s fp32 peak (700 W); MXU layout, the 2 x 16 x 4 = 128 FLOP of the
+feature products over the planes' dtype peak (bf16 dense tensor cores
+989 TFLOP/s, f32 67 TFLOP/s: tensor cores would round f32 to TF32), and the
+28 fp32 operations of the winner chain over 67 TFLOP/s; and for both, the
+bytes (inputs read once at their width, output written once) over 3.35 TB/s.
 
 Imports nothing of JAX or of the JAX package; the dragon scene file is made
 by assets/generate.py in a child process.  Needs no network.
@@ -60,10 +80,15 @@ FRAME_SCENE, FRAME_SIZE, FRAME_SPP, FRAME_LANES = "cornell-box", 64, 4, 4096
 NEE_SCENE = "cornell-box"
 SOURCE = "owl_path_tracer_tpu_torch/csrc/fused2_traverse.cu"
 REPLACES = "owl_path_tracer_tpu/ops/fused2.py:269"
-# bound: Moller-Trumbore fp32 operations per ray, slot and needed cluster;
-# published peaks of one H100 SXM at 700 W (fp32 FLOP/s outside the tensor
-# cores, HBM bytes/s)
-MT_OPS, FP32_FLOPS, HBM_BYTES_S = 45, 67e12, 3.35e12
+# bound: Moller-Trumbore fp32 operations per ray, slot and needed cluster
+# (component layout); MXU layout: feature-product FLOP (2 x 16 features x 4
+# groups) and winner-chain fp32 operations (ops/fused2.py:616-653 of the JAX
+# package: sign 2, |det| and the three sign flips 4, window 14, safe divisor
+# 2, divide and select 2, min 1, lowest-slot pick 3) per ray, slot and needed
+# cluster; published peaks of one H100 SXM at 700 W (fp32 FLOP/s outside the
+# tensor cores, dense bf16 tensor-core FLOP/s, HBM bytes/s)
+MT_OPS, MXU_FLOP, CHAIN_OPS = 45, 2 * 16 * 4, 28
+FP32_FLOPS, BF16_FLOPS, HBM_BYTES_S = 67e12, 989e12, 3.35e12
 
 
 class SmokeFailure(Exception):
@@ -169,15 +194,113 @@ def needed_clusters(rays, want, fb, any_hit):
 
 def bound(rays, want, fb, any_hit, with_attrs=True):
     """(bound_ms, bound_by, needed clusters per ray) of one kernel call: the
-    Moller-Trumbore operations of the clusters each ray needs over the fp32
-    peak, vs inputs read once and output written once over HBM bytes/s."""
+    operations on the slots of the clusters each ray needs over their peak
+    (component: Moller-Trumbore over fp32; MXU: the feature products over
+    the planes' dtype peak, and the winner chain over fp32, whichever takes
+    longer), vs inputs read once and output written once over HBM bytes/s."""
     need = needed_clusters(rays, want, fb, any_hit)
-    ops = MT_OPS * fb.cluster_size * float(need.sum())
-    nbytes = 4 * (rays.numel() + want.numel() + fb.boxes.numel() + fb.planes.numel()
-                  + (fb.attrs.numel() if with_attrs else 0))
-    t_ops = ops / FP32_FLOPS * 1e3
+    slots = fb.cluster_size * float(need.sum())
+    if fb.mxu:
+        peak = BF16_FLOPS if fb.planes.dtype.itemsize == 2 else FP32_FLOPS
+        t_ops = max(MXU_FLOP * slots / peak, CHAIN_OPS * slots / FP32_FLOPS) * 1e3
+    else:
+        t_ops = MT_OPS * slots / FP32_FLOPS * 1e3
+    nbytes = (4 * (rays.numel() + want.numel() + fb.boxes.numel() + (fb.attrs.numel() if with_attrs else 0))
+              + fb.planes.numel() * fb.planes.dtype.itemsize)
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     return ((t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")), float(need.float().mean())
+
+
+def compare_near_tie(got, want, rays, fb, what, blob=True):
+    """Kernel vs plain output ([N,32]) on the MXU layout -> (max |t,u,v| error
+    on agreeing rows, rows whose winners differ).
+
+    Winners (tri) must be equal on every ray except where the kernel's
+    winner passes the kernel's window at its own (cluster, slot), recomputed
+    from the planes (``fused2.mxu_slot_test``: det, u, v, t_min and the ray's
+    t_max), and
+      * both winners pass it and their matmul-space t agree to 1e-5 relative
+        (a near tie: the sums round alike, the visiting orders differ), or
+      * the nearer winner lies in a cluster that the other side never tests,
+        because an exact traversal skips a box whose entry is beyond its best
+        t: both winners pass the window, the nearer one's matmul-space t lies
+        before the finite box entry of its own cluster for this ray, and that
+        entry is not before the farther winner's t; or
+      * the kernel's winner lies in a cluster whose box this ray does not
+        enter at all, which the plain version never tests, and the plain
+        version misses or its winner passes the window and is farther.
+    The plain version walks each ray's boxes in entry order; a kernel block
+    retires clusters for all its rays and every searching ray tests them, so
+    each side reaches such a hit or not on its own.  bf16 planes round t by
+    ~1e-3 relative and more, far beyond a box's margin; f32 planes may have
+    no row of the last two kinds, and bf16 ones at most 0.5% of the rows
+    compared.
+    The counts are printed.  On agreeing rows t/u/v to rtol 5e-6, and hit,
+    winner cluster and slot and (``blob``) the attribute blob exactly."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.ops import fused2
+    from owl_path_tracer_tpu_torch.ops import math as m
+    from owl_path_tracer_tpu_torch.ops.cluster import _cluster_entries
+
+    check(bool((got[:, 5] == 1).all()), f"{what}: kernel left rays unresolved")
+    same = got[:, 3] == want[:, 3]
+    diff = torch.nonzero(~same).squeeze(1)
+    if diff.numel():
+        r = rays[diff]
+        tg, ok_g = fused2.mxu_slot_test(r[:, 0:3], r[:, 3:6], fb, got[diff, 7], got[diff, 8], r[:, 6])
+        tw, ok_w = fused2.mxu_slot_test(r[:, 0:3], r[:, 3:6], fb, want[diff, 7], want[diff, 8], r[:, 6])
+        valid = ok_g & ok_w
+        tie = valid & torch.isclose(tg, tw, rtol=1e-5, atol=0)
+        near_cid = torch.where(tg <= tw, got[diff, 7], want[diff, 7]).long()
+        entries = _cluster_entries(r[:, 0:3], r[:, 3:6], fb.cluster, m.T_MIN, r[:, 6])
+        entry = entries[torch.arange(diff.numel(), device=r.device), near_cid.clamp(min=0)]
+        apart = valid & ~tie
+        before_entry = (apart & torch.isfinite(entry) & (torch.minimum(tg, tw) < entry)
+                        & (entry >= torch.maximum(tg, tw)))
+        unentered = ok_g & (ok_w | (want[diff, 7] < 0)) & (tg < tw) & torch.isinf(entry)
+        unreached = before_entry | unentered
+        bad = diff[~tie & ~unreached]
+        for i in torch.nonzero(~tie & ~unreached).squeeze(1)[:8].tolist():
+            j = int(diff[i])
+            print(f"  {what}: ray {j} kernel tri {int(got[j, 3])} loop t {float(tg[i]):.7g} window "
+                  f"{bool(ok_g[i])} (cluster {int(got[j, 7])}), plain tri {int(want[j, 3])} loop t "
+                  f"{float(tw[i]):.7g} window {bool(ok_w[i])} (cluster {int(want[j, 7])}), nearer cluster's "
+                  f"entry {float(entry[i]):.7g}")
+        print(f"  {what}: winners differ on {diff.numel()} of {got.shape[0]} rays: {int(tie.sum())} near ties, "
+              f"{int(before_entry.sum())} hits before their cluster's entry, {int(unentered.sum())} kernel hits "
+              f"in a box the ray does not enter, {bad.numel()} otherwise")
+        check(bad.numel() == 0, f"{what}: {bad.numel()} of {got.shape[0]} winners differ beyond the near-tie rule")
+        cap = int(0.005 * got.shape[0]) if fb.planes.dtype == torch.bfloat16 else 0
+        check(int(unreached.sum()) <= cap,
+              f"{what}: {int(unreached.sum())} hits in clusters only one side tests, more than {cap}")
+    g, w = got[same], want[same]
+    for col in (4, 7, 8):
+        check(bool((g[:, col] == w[:, col]).all()), f"{what}: column {col} differs")
+    if blob:
+        check(bool((g[:, 16:32] == w[:, 16:32]).all()), f"{what}: attribute blob differs")
+    else:
+        check(bool((got[:, 16:32] == 0).all()), f"{what}: the no-attributes blob is not zero")
+    torch.testing.assert_close(g[:, 0:3], w[:, 0:3], rtol=5e-6, atol=1e-6)
+    return float((g[:, 0:3] - w[:, 0:3]).abs().max()) if len(g) else 0.0, int(diff.numel())
+
+
+def compare_flags(got, want, what, min_share=0.9999):
+    """Occlusion flags (col 4) -> rays that differ; fails below ``min_share`` equal."""
+    differ = (got[:, 4] != want[:, 4]).nonzero().squeeze(1)
+    if differ.numel():
+        print(f"  {what}: {differ.numel()} flags differ, rays {differ[:16].tolist()}")
+    check(1.0 - differ.numel() / got.shape[0] >= min_share, f"{what}: {differ.numel()} flags differ")
+    return differ.numel()
+
+
+def same_outputs(a, b):
+    """Fanout-1 vs fanout-2 outputs: every column but steps (col 6) bit-identical."""
+    import torch
+
+    cols = torch.ones(a.shape[1], dtype=torch.bool, device=a.device)
+    cols[6] = False
+    return bool(torch.equal(a[:, cols], b[:, cols]))
 
 
 def golden(img, want, rays_got, rays_want, what):
@@ -191,8 +314,9 @@ def golden(img, want, rays_got, rays_want, what):
     check(abs(rays_got - rays_want) <= 0.005 * rays_want, f"{what}: ray counts differ by more than 0.5%")
 
 
-def soup(device):
-    """3000 random triangles (C=64) and 300 rays, half with a finite t_max."""
+def soup(device, **build):
+    """3000 random triangles (C=64) and 300 rays, half with a finite t_max;
+    ``build`` picks the layout (``mxu``, ``plane_dtype``)."""
     import numpy as np
     import torch
 
@@ -205,13 +329,250 @@ def soup(device):
     normals = r.normal(size=verts.shape).astype(np.float32)
     tc = r.uniform(0, 1, (len(verts), 2)).astype(np.float32)
     mat = r.integers(0, 5, 3000).astype(np.int32)
-    fb = fused2.build_fused2(verts, idx, 64, normals, tc, mat, device=device)
+    fb = fused2.build_fused2(verts, idx, 64, normals, tc, mat, device=device, **build)
     n = 300  # not a multiple of either block: padding rays
     o = r.uniform(-6, 6, (n, 3)).astype(np.float32)
     d = r.normal(size=(n, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     tmax = np.where(r.random(n) < 0.5, r.uniform(1.0, 8.0, n), 1e10).astype(np.float32)
     return fb, [torch.as_tensor(x, device=device) for x in (o, d, tmax)]
+
+
+def sorted_rays(o, d, t, fb, mode, shadow=None):
+    """Packed rays in the wrappers' sorted order (shadow class on bit 30) -> (rays, permutation)."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.ops import fused2
+
+    keys = fused2.wave_sort_keys(o, d, t, fb, mode=mode)
+    if shadow is not None:
+        keys = keys | (shadow.to(torch.int64) << fused2.SHADOW_CLASS_BIT)
+    perm = torch.sort(keys, stable=True).indices
+    return fused2.pack_rays(o, d, t, shadow)[perm], perm
+
+
+def wrapper_reference(fb, rays, raw):
+    """The plain version's rows with the kernel's unresolved mask: what a
+    wrapper must return when the kernel (``raw``) left those rows to the
+    exact query."""
+    from owl_path_tracer_tpu_torch.ops import fused2
+
+    mode = "mixed" if bool((rays[:, 7] > 0).any()) else "closest"
+    want = fused2.fused2_traverse_packed_plain(rays, fb, mode)
+    want[:, 5] = raw[:, 5]
+    return want
+
+
+def phase_3c(dev, results):
+    """K1b (MXU f32 and bf16 planes, three modes) and K4 vs plain on the soup."""
+    import numpy as np
+    import torch
+
+    from owl_path_tracer_tpu_torch.ops import fused2
+    from owl_path_tracer_tpu_torch.ops.fused2 import pack_rays
+
+    plain = fused2.fused2_traverse_packed_plain
+    comp, _ = soup(dev, mxu=False)
+    fb32 = None
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        fb, (o, d, tmax) = soup(dev, plane_dtype=dtype)
+        fb32 = fb if name == "f32" else fb32
+        r = np.random.default_rng(1)
+        shadow = torch.as_tensor(np.arange(300) % 2 == 1, device=dev)
+        dist = torch.as_tensor(np.where(shadow.cpu().numpy(), r.uniform(2.0, 20.0, 300), 1e10).astype(np.float32),
+                               device=dev)
+        errs, ties, flag_diffs = [], 0, 0
+        for block in (128, 256):
+            rays = pack_rays(*fused2._pad_rays(o, d, tmax, block)[:3])
+            o_p, d_p, t_p, _ = fused2._pad_rays(o, d, dist, block)
+            sh_p = torch.cat([shadow, shadow.new_zeros(o_p.shape[0] - 300)])
+            mrays = pack_rays(o_p, d_p, t_p, sh_p)
+            want, want_a, want_m = plain(rays, fb), plain(rays, fb, "any_hit"), plain(mrays, fb, "mixed")
+            outs = {}
+            for fo in (1, 2):
+                what = f"K1b {name} soup block {block} fanout {fo}"
+                got = fused2.fused2_traverse_packed(rays, fb, block=block, fanout=fo)
+                e, tie = compare_near_tie(got, want, rays, fb, what)
+                check(bool((got[300:, 4] == 0).all()), f"{what}: a padding ray hit")
+                got_a = fused2.fused2_traverse_packed(rays, fb, block=block, fanout=fo, mode="any_hit")
+                check(bool((got_a[:, 5] == 1).all()), f"{what}: any-hit left rays unresolved")
+                check(bool((got_a[:, 0] == rays[:, 6]).all()), f"{what}: any-hit lowered t")
+                flag_diffs += compare_flags(got_a, want_a, f"{what} any-hit")
+                got_m = fused2.fused2_traverse_packed(mrays, fb, block=block, fanout=fo, mode="mixed")
+                e_m, tie_m = compare_near_tie(got_m[~sh_p], want_m[~sh_p], mrays[~sh_p], fb, f"{what} mixed")
+                check(bool((got_m[sh_p, 5] == 1).all()), f"{what}: mixed left shadow rays unresolved")
+                flag_diffs += compare_flags(got_m[sh_p], want_m[sh_p], f"{what} mixed shadow lanes")
+                errs += [e, e_m]
+                ties += tie + tie_m
+                outs[fo] = (got, got_a, got_m)
+            check(all(same_outputs(a, b) for a, b in zip(outs[1], outs[2])),
+                  f"K1b {name} block {block}: fanout 1 and 2 differ")
+            got = outs[2][0]
+            print(f"  K1b {name} soup block {block}: {int(got[:300, 4].sum())}/300 hits, "
+                  f"{int(want_a[:300, 4].sum())}/300 occluded, {int(want_m[sh_p, 4].sum())}/{int(sh_p.sum())} "
+                  f"shadow lanes occluded; fanout 1 == fanout 2 bit for bit")
+        results[f"k1b_{name}_err"] = max(errs)
+        print(f"  K1b {name} soup: max |tuv err| {max(errs):.3g}, {ties} near-tie rows, {flag_diffs} flags differ")
+        # max_steps=1: rows left unresolved go to the exact query in every wrapper
+        o_p, d_p, t_p, _ = fused2._pad_rays(o, d, tmax, 128)
+        rays = pack_rays(o_p, d_p, t_p)
+        raw = fused2.fused2_traverse_packed(rays, fb, block=128, max_steps=1)
+        check(bool((raw[:, 5] == 0).any()), f"K1b {name} max_steps=1 left no ray unresolved")
+        ref, ref_blob = fused2._hits_from_output(wrapper_reference(fb, rays, raw)[:300], o, d, fb, 1e-3, tmax)
+        rec, blob = fused2.fused2_closest_hit(o, d, fb, t_max=tmax, max_steps=1)
+        check(bool((rec.tri == ref.tri).all()) and bool((blob == ref_blob).all()),
+              f"K1b {name} max_steps=1 closest hit differs")
+        torch.testing.assert_close(rec.t, ref.t, rtol=5e-6, atol=1e-6)
+        raw = fused2.fused2_traverse_packed(rays, fb, block=128, max_steps=1, mode="any_hit")[:300]
+        check(bool((raw[:, 5] == 0).any()), f"K1b {name} any-hit max_steps=1 left no ray unresolved")
+        occ_ref = torch.where(raw[:, 5] > 0, raw[:, 4] > 0,
+                              fused2.cluster_occluded(o, d, fb.cluster, 1e-3, tmax))
+        check(bool((fused2.fused2_occluded(o, d, fb, t_max=tmax, max_steps=1) == occ_ref).all()),
+              f"K1b {name} max_steps=1 occlusion differs")
+        o_p, d_p, t_p, _ = fused2._pad_rays(o, d, dist, 128)
+        mrays = pack_rays(o_p, d_p, t_p, torch.cat([shadow, shadow.new_zeros(o_p.shape[0] - 300)]))
+        raw = fused2.fused2_traverse_packed(mrays, fb, block=128, max_steps=1, mode="mixed")
+        ref, ref_blob = fused2._hits_from_output(wrapper_reference(fb, mrays, raw)[:300], o, d, fb, 1e-3, dist)
+        rec, blob, occ = fused2.fused2_sweep_mixed(o, d, dist, shadow, fb, max_steps=1)
+        check(bool((occ[shadow] == (ref.tri >= 0)[shadow]).all()), f"K1b {name} max_steps=1 mixed flags differ")
+        check(bool((rec.tri[~shadow] == ref.tri[~shadow]).all()) and bool((blob[~shadow] == ref_blob[~shadow]).all()),
+              f"K1b {name} max_steps=1 mixed closest-hit lanes differ")
+        print(f"  K1b {name} max_steps=1: closest, any-hit and mixed wrappers equal the plain version "
+              "with the exact query on unresolved rows")
+    # K4: closest hit without attributes, component and MXU f32 planes
+    errs = []
+    fbs = {"component": comp, "MXU f32": fb32}
+    for name, fb in fbs.items():
+        for block in (128, 256):
+            rays = pack_rays(*fused2._pad_rays(o, d, tmax, block)[:3])
+            got = fused2.fused2_traverse_packed(rays, fb, block=block, with_attrs=False)
+            want = plain(rays, fb, with_attrs=False)
+            what = f"K4 {name} soup block {block}"
+            if fb.mxu:
+                e, _ = compare_near_tie(got, want, rays, fb, what, blob=False)
+                got1 = fused2.fused2_traverse_packed(rays, fb, block=block, with_attrs=False, fanout=1)
+                check(same_outputs(got1, got), f"{what}: fanout 1 and 2 differ")
+            else:
+                e, _ = compare(got, want, allow_ties=False)
+            errs.append(e)
+    try:
+        fused2.fused2_closest_hit(o, d, soup(dev, plane_dtype=torch.bfloat16)[0], with_attrs=False)
+        raise SmokeFailure("bf16 planes with with_attrs=False did not raise")
+    except ValueError:
+        pass
+    results["k4_err"] = max(errs)
+    print(f"  K4 component and MXU f32, blocks 128/256: equal to the plain version, max |tuv err| {max(errs):.3g}; "
+          "bf16 + no attributes raises ValueError")
+
+
+def time_kernel(what, rays, fb, block, mode="closest", with_attrs=True, shadow=None):
+    """Kernel vs plain on one sorted wave: checks, CUDA-event times, bound -> dict."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.ops import fused2
+
+    run = lambda fo=fused2.FANOUT: fused2.fused2_traverse_packed(  # noqa: E731
+        rays, fb, block=block, mode=mode, fanout=fo, with_attrs=with_attrs)
+    got = run()
+    want = fused2.fused2_traverse_packed_plain(rays, fb, mode, with_attrs)
+    if mode == "any_hit":
+        check(bool((got[:, 5] == 1).all()), f"{what}: rays unresolved")
+        err, ties = float((got[:, 4] - want[:, 4]).abs().max()), compare_flags(got, want, what)
+        any_hit = torch.ones_like(got[:, 0], dtype=torch.bool)
+    elif mode == "mixed":
+        err, ties = compare_near_tie(got[~shadow], want[~shadow], rays[~shadow], fb, what)
+        check(bool((got[shadow, 5] == 1).all()), f"{what}: shadow rays unresolved")
+        ties += compare_flags(got[shadow], want[shadow], f"{what} shadow lanes")
+        any_hit = shadow
+    else:
+        err, ties = compare_near_tie(got, want, rays, fb, what, blob=with_attrs)
+        any_hit = torch.zeros_like(got[:, 0], dtype=torch.bool)
+    if fb.mxu:
+        check(same_outputs(run(1), got), f"{what}: fanout 1 and 2 differ")
+        print(f"  {what}: fanout 1 == fanout 2 bit for bit")
+    k_ms = cuda_ms(run)
+    p_ms = cuda_ms(lambda: fused2.fused2_traverse_packed_plain(rays, fb, mode, with_attrs))
+    bnd, need = bound(rays, want, fb, any_hit, with_attrs=with_attrs and mode != "any_hit")
+    steps = got[:, 6].reshape(-1, block)[:, 0]
+    print(f"  {what}: {int(got[:, 4].sum())}/{rays.shape[0]} hit, {ties} near-tie rows / differing flags, "
+          f"max err {err:.3g}, clusters/block mean {float(steps.mean()):.2f} max {int(steps.max())}, "
+          f"clusters needed/ray mean {need:.3f}, kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+          f"bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
+    return {"err": err, "ms": k_ms, "plain_ms": p_ms, "bound": bnd}
+
+
+def phase_4c(scene, comp_accel, mode, waves, nee_scene, nee_mode, nee_waves, block, results):
+    """K1b and K4 vs plain at the main path's shapes."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.ops import fused2
+    from owl_path_tracer_tpu_torch.render.film import make_accel
+
+    for kind in ("fused2-bf16", "fused2"):
+        accel = make_accel(scene, kind)
+        print(f"  {kind}: K={accel.num_clusters} C={accel.cluster_size}, planes {tuple(accel.planes.shape)} "
+              f"{accel.planes.dtype}", flush=True)
+        for name, (wo, wd) in waves.items():
+            tm = torch.full((wo.shape[0],), 1e10, device=wo.device)
+            rays, _ = sorted_rays(wo, wd, tm, accel, mode)
+            results[f"{kind} closest {name}"] = time_kernel(f"{kind} {name} wave", rays, accel, block)
+            if kind == "fused2" and name == "bounce":
+                results["K4 mxu"] = time_kernel(f"K4 {kind} {name} wave", rays, accel, block, with_attrs=False)
+                results["K4 component"] = time_kernel(f"K4 component {name} wave", rays, comp_accel, block,
+                                                      with_attrs=False)
+        nee_accel = make_accel(nee_scene, kind)
+        sh_o, sh_d, sh_t = nee_waves["shadow"]
+        rays, _ = sorted_rays(sh_o, sh_d, sh_t, nee_accel, nee_mode)
+        results[f"{kind} any_hit"] = time_kernel(f"{kind} cornell shadow wave", rays, nee_accel, block, "any_hit")
+        co, cd, ct, csh = nee_waves["mixed"]
+        rays, perm = sorted_rays(co, cd, ct, nee_accel, nee_mode, shadow=csh)
+        results[f"{kind} mixed"] = time_kernel(f"{kind} cornell mixed wave ({rays.shape[0]} rays)", rays,
+                                               nee_accel, block, "mixed", shadow=csh[perm])
+
+
+def phase_5c(dev, block):
+    """fused2-bf16 frames, card vs CPU, without and with NEE."""
+    from owl_path_tracer_tpu_torch.models.scene import RenderSettings, compile_scene
+    from owl_path_tracer_tpu_torch.render import wavefront
+    from owl_path_tracer_tpu_torch.render.film import make_accel
+
+    for use_nee, forms in ((False, (False,)), (True, (False, True))):
+        fset = RenderSettings(width=FRAME_SIZE, height=FRAME_SIZE, max_samples=FRAME_SPP,
+                              max_path_depth=DEPTH, environment_auto=True, use_nee=use_nee)
+        extra = {"env_map_path": None} if use_nee else {}
+        cpu_scene = compile_scene(ROOT / "assets", FRAME_SCENE, (FRAME_SIZE, FRAME_SIZE), device="cpu", **extra)
+        cpu_accel = make_accel(cpu_scene, "fused2-bf16")
+        for fused_nee in forms:
+            kw = dict(lanes=FRAME_LANES, fused2_block=block, fused2_sort=True, fused_nee=fused_nee)
+            want, rays_want = wavefront.render_image_wavefront(cpu_scene, fset, cpu_accel, **kw)
+            img, rays_got = wavefront.render_image_wavefront(cpu_scene.to(dev), fset, cpu_accel.to(dev), **kw)
+            form = "" if not use_nee else (" NEE deferred" if fused_nee else " NEE separate")
+            golden(img.cpu(), want, rays_got, rays_want,
+                   f"{FRAME_SCENE} {FRAME_SIZE}x{FRAME_SIZE} spp {FRAME_SPP}{form} on fused2-bf16, GPU vs CPU")
+
+
+def main_path(what, scene, settings, accel, lanes, block, fused_nee=False):
+    """One timed frame with the counts reset just before it -> (launches by entry, Mrays/s)."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.ops import fused2
+    from owl_path_tracer_tpu_torch.render import wavefront
+
+    torch.cuda.synchronize()
+    fused2.reset_counts()
+    start = time.perf_counter()
+    img, rays = wavefront.render_image_wavefront(scene, settings, accel, lanes=lanes, fused2_block=block,
+                                                 fused2_sort=True, fused_nee=fused_nee)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = {k: v for k, v in fused2.LAUNCHES.items() if v}
+    check(bool(torch.isfinite(img).all()), f"{what}: non-finite pixels")
+    check(img.shape == (settings.height, settings.width, 3), f"{what}: image shape {tuple(img.shape)}")
+    check(0.0 < img.mean().item() < 10.0, f"{what}: implausible image mean {img.mean().item()}")
+    print(f"  {what} {settings.width}x{settings.height} spp {settings.max_samples} depth {DEPTH}: {rays} rays "
+          f"in {seconds:.3f} s = {rays / seconds / 1e6:.3f} Mrays/s; launches {launches}, unresolved rays "
+          f"{fused2.UNRESOLVED_RAYS}, image mean {img.mean().item():.6f}", flush=True)
+    return launches
 
 
 def main():
@@ -261,7 +622,7 @@ def main():
 
     # 3 ── kernel vs plain, small
     t0 = time.perf_counter()
-    fb, (o, d, tmax) = soup(dev)
+    fb, (o, d, tmax) = soup(dev, mxu=False)
     for block in (128, 256):
         rays = pack_rays(*fused2._pad_rays(o, d, tmax, block)[:3])
         got = fused2.fused2_traverse_packed(rays, fb, block=block)
@@ -341,7 +702,7 @@ def main():
     dragon = ensure_dragon(DRAGON_SUB)
     size, lanes, block = SIZE, LANES, BLOCK
     scene = compile_scene(ROOT / "assets", dragon, (size, size), device=dev)
-    accel = make_accel(scene, "fused2")
+    accel = fused2.build_fused2_scene(scene, mxu=False)
     mode = fused2.auto_sort_mode(scene)
     print(f"  {dragon}: {scene.num_tris} triangles, K={accel.num_clusters} C={accel.cluster_size}, sort {mode}")
     settings = RenderSettings(width=size, height=size, max_samples=args.spp, max_path_depth=DEPTH,
@@ -387,7 +748,7 @@ def main():
     # 4b ── K2 and K3 vs plain at the NEE path's shapes
     t0 = time.perf_counter()
     nee_scene = compile_scene(ROOT / "assets", NEE_SCENE, (size, size), env_map_path=None, device=dev)
-    nee_accel = make_accel(nee_scene, "fused2")
+    nee_accel = fused2.build_fused2_scene(nee_scene, mxu=False)
     nee_mode = fused2.auto_sort_mode(nee_scene)
     lights = build_light_table(nee_scene)
     print(f"  {NEE_SCENE}: {nee_scene.num_tris} triangles, {lights.count} light triangles, "
@@ -438,6 +799,7 @@ def main():
     keys = keys | (comb_sh.to(torch.int64) << fused2.SHADOW_CLASS_BIT)
     perm = torch.sort(keys, stable=True).indices
     rays3, sh3 = pack_rays(comb_o, comb_d, comb_t, comb_sh)[perm], comb_sh[perm]
+    nee_waves = {"shadow": (sh_o, sh_d, sh_t), "mixed": (comb_o, comb_d, comb_t, comb_sh)}
     got = fused2.fused2_traverse_packed(rays3, nee_accel, block=block, mode="mixed")
     want = fused2.fused2_traverse_packed_plain(rays3, nee_accel, mode="mixed")
     err, ties = compare(got[~sh3], want[~sh3], allow_ties=True)
@@ -461,7 +823,7 @@ def main():
     fset = RenderSettings(width=FRAME_SIZE, height=FRAME_SIZE, max_samples=FRAME_SPP,
                           max_path_depth=DEPTH, environment_auto=True)
     cpu_scene = compile_scene(ROOT / "assets", FRAME_SCENE, (FRAME_SIZE, FRAME_SIZE), device="cpu")
-    cpu_accel = make_accel(cpu_scene, "fused2")
+    cpu_accel = fused2.build_fused2_scene(cpu_scene, mxu=False)
     want, rays_want = wavefront.render_image_wavefront(cpu_scene, fset, cpu_accel, lanes=FRAME_LANES,
                                                        fused2_block=block, fused2_sort=True)
     img, rays_got = wavefront.render_image_wavefront(cpu_scene.to(dev), fset, cpu_accel.to(dev),
@@ -477,7 +839,7 @@ def main():
                                 max_path_depth=DEPTH, environment_auto=True, use_nee=True)
     cpu_scene = compile_scene(ROOT / "assets", NEE_SCENE, (FRAME_SIZE, FRAME_SIZE), env_map_path=None,
                               device="cpu")
-    cpu_accel = make_accel(cpu_scene, "fused2")
+    cpu_accel = fused2.build_fused2_scene(cpu_scene, mxu=False)
     frames = {}
     for fused_nee in (False, True):
         form = "deferred" if fused_nee else "separate"
@@ -503,14 +865,14 @@ def main():
                           environment_auto=True)
     wavefront.render_image_wavefront(scene, warm, accel, lanes=lanes, fused2_block=block, fused2_sort=True)
     torch.cuda.synchronize()
-    fused2.KERNEL_LAUNCHES = 0
-    fused2.UNRESOLVED_RAYS = 0
+    fused2.reset_counts()
     start = time.perf_counter()
     img, rays = wavefront.render_image_wavefront(scene, settings, accel, lanes=lanes, fused2_block=block,
                                                  fused2_sort=True)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
-    launches, unresolved = fused2.KERNEL_LAUNCHES, fused2.UNRESOLVED_RAYS
+    comp_launches, unresolved = dict(fused2.LAUNCHES), fused2.UNRESOLVED_RAYS
+    launches = comp_launches["owlpt_fused2_closest_hit"]
     check(launches > 0, "the main path launched no traversal kernel")
     check(bool(torch.isfinite(img).all()), "non-finite pixels")
     check(img.shape == (size, size, 3), f"image shape {tuple(img.shape)}")
@@ -532,14 +894,13 @@ def main():
     for fused_nee in (False, True):
         form = "deferred" if fused_nee else "separate"
         torch.cuda.synchronize()
-        fused2.KERNEL_LAUNCHES = fused2.OCCLUDE_LAUNCHES = fused2.MIXED_LAUNCHES = 0
-        fused2.UNRESOLVED_RAYS = 0
+        fused2.reset_counts()
         start = time.perf_counter()
         img, rays = wavefront.render_image_wavefront(nee_scene, nset, nee_accel, lanes=lanes, fused2_block=block,
                                                      fused2_sort=True, fused_nee=fused_nee)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start
-        counts = (fused2.KERNEL_LAUNCHES, fused2.OCCLUDE_LAUNCHES, fused2.MIXED_LAUNCHES)
+        counts = tuple(fused2.LAUNCHES[f"owlpt_fused2_{e}"] for e in ("closest_hit", "occluded", "sweep_mixed"))
         nee_launches[form] = counts
         check(bool(torch.isfinite(img).all()), f"NEE {form}: non-finite pixels")
         check(img.shape == (size, size, 3), f"NEE {form}: image shape {tuple(img.shape)}")
@@ -552,14 +913,49 @@ def main():
     check(nee_launches["deferred"][2] > 0, "the deferred NEE path did not launch K3")
     phase("6b NEE main path", t0)
 
+    # 3c ── K1b and K4 vs plain, small
+    t0 = time.perf_counter()
+    phase_3c(dev, results)
+    phase("3c MXU layout (K1b) and no-attributes (K4) vs plain, small", t0)
+
+    # 4c ── K1b and K4 vs plain at the main path's shapes
+    t0 = time.perf_counter()
+    phase_4c(scene, accel, mode, waves, nee_scene, nee_mode, nee_waves, block, results)
+    phase("4c K1b and K4 vs plain, main-path shapes", t0)
+
+    # 5c ── fused2-bf16 frame parity
+    t0 = time.perf_counter()
+    phase_5c(dev, block)
+    phase("5c fused2-bf16 frame parity", t0)
+
+    # 6c ── the headline main path and the NEE path on the MXU layouts
+    t0 = time.perf_counter()
+    mxu = {}
+    for kind in ("fused2-bf16", "fused2"):
+        mxu[kind] = main_path(f"{dragon} {kind}", scene, settings, make_accel(scene, kind), lanes, block)
+        nee_mxu = make_accel(nee_scene, kind)
+        for fused_nee in (False, True):
+            form = "deferred" if fused_nee else "separate"
+            mxu[f"{kind} {form}"] = main_path(f"{NEE_SCENE} NEE {form} {kind}", nee_scene, nset, nee_mxu, lanes,
+                                              block, fused_nee)
+    phase("6c main paths on fused2-bf16 and fused2", t0)
+
     check("jax" not in sys.modules and "owl_path_tracer_tpu" not in sys.modules,
           "the JAX package was imported")
+
     def entry(name, launches, err, ms, plain_ms, bnd):
         return {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES, "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
                 "library_ms": None}
 
-    print(json.dumps({"kernels": [
+    def mxu_entry(layout, kind, mode, path, key, err):
+        name = f"fused2_mxu{layout}_{mode}"
+        launches = mxu[path].get(f"owlpt_{name}", 0)
+        check(launches > 0, f"the {path} path did not launch {name}")
+        r = results[key]
+        return entry(name, launches, max(err, r["err"]), r["ms"], r["plain_ms"], r["bound"])
+
+    kernels = [
         entry("fused2_closest_hit", k1_launches, results["max_abs_err"], results["ms"], results["plain_ms"],
               results["k1_bound"]),
         entry("fused2_occluded", nee_launches["separate"][1], results["k2_err"], results["k2_ms"],
@@ -567,7 +963,23 @@ def main():
               results["k2_bound"]),
         entry("fused2_sweep_mixed", nee_launches["deferred"][2], results["k3_err"], results["k3_ms"],
               results["k3_plain_ms"], results["k3_bound"]),
-    ]}))
+    ]
+    for layout, kind in (("", "fused2"), ("_bf16", "fused2-bf16")):
+        err = results[f"k1b_{'f32' if kind == 'fused2' else 'bf16'}_err"]
+        err = max(err, results[f"{kind} closest primary"]["err"])
+        kernels += [
+            mxu_entry(layout, kind, "closest_hit", kind, f"{kind} closest bounce", err),
+            mxu_entry(layout, kind, "occluded", f"{kind} separate", f"{kind} any_hit", 0.0),
+            mxu_entry(layout, kind, "sweep_mixed", f"{kind} deferred", f"{kind} mixed", err),
+        ]
+    # K4 is an entry point off the main paths: its launches on the dragon
+    # main path of its layout (phase 6, component; phase 6c, fused2)
+    for name, key, counts in (("fused2_closest_hit_noattr", "K4 component", comp_launches),
+                              ("fused2_mxu_closest_hit_noattr", "K4 mxu", mxu["fused2"])):
+        r = results[key]
+        kernels.append(entry(name, counts.get(f"owlpt_{name}", 0), max(results["k4_err"], r["err"]), r["ms"],
+                             r["plain_ms"], r["bound"]))
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -49,10 +49,19 @@ def cluster_from_numpy(d: dict, *, device) -> ClusterBVH:
 
 
 def fused2_from_numpy(d: dict, *, device) -> Fused2BVH:
-    """Component-plane accelerators only ([K,16,C] float32 planes)."""
+    """Component ([K,16,C] float32) or MXU ([K,16,4C] float32 or bfloat16)
+    planes.  A bfloat16 array (the ``ml_dtypes`` dtype of a JAX bf16 array)
+    crosses over as its 16-bit pattern, so no ``ml_dtypes`` import is needed."""
     planes, attrs = np.asarray(d["planes"]), np.asarray(d["attrs"])
-    if planes.shape[2] != attrs.shape[2] or planes.dtype != np.float32:
-        raise NotImplementedError(
-            "MXU-layout and bf16 planes (fused2-bf16) are not ported yet: ROADMAP queue 2, K1b"
-        )
-    return _tensors(Fused2BVH, d, device, {"cluster": cluster_from_numpy})
+    if planes.shape[2] not in (attrs.shape[2], 4 * attrs.shape[2]):
+        raise ValueError(f"planes {planes.shape} fit neither layout for attrs {attrs.shape}")
+    bf16 = planes.dtype.name == "bfloat16"
+    if bf16 and planes.shape[2] != 4 * attrs.shape[2]:
+        raise ValueError("bf16 planes require the MXU feature layout")
+    if not bf16 and planes.dtype != np.float32:
+        raise ValueError(f"planes must be float32 or bfloat16, got {planes.dtype}")
+    fb = _tensors(Fused2BVH, {**d, "planes": planes.view(np.int16) if bf16 else planes}, device,
+                  {"cluster": cluster_from_numpy})
+    if bf16:
+        fb.planes = fb.planes.view(torch.bfloat16)
+    return fb

@@ -1,16 +1,25 @@
 // Fused traversal over fat triangle clusters, for Hopper (sm_90a).
 //
-// Replaces the component-plane modes of the Pallas kernel
-// owl_path_tracer_tpu/ops/fused2.py:_kernel (launched by fused2_traverse_packed):
-//   closest  closest hit + attributes  (with_attrs=True)          -> K1
-//   any-hit  occlusion only            (any_hit=True, no attrs)   -> K2
-//   mixed    closest hit + attributes for lanes with ray col 7 = 0,
-//            occlusion for lanes with col 7 > 0 (mixed=True)      -> K3
-// on the layout planes [K,16,C] (rows 0-8 p0/e1/e2, row 9 tri id),
-// attrs [K,32,C], boxes [8,K]; rays [N,8] (o, d, tmax, shadow flag) ->
+// Replaces the Pallas kernel owl_path_tracer_tpu/ops/fused2.py:_kernel
+// (launched by fused2_traverse_packed) in all of its plane layouts and modes:
+//   closest        closest hit + attributes (with_attrs=True)         -> K1, K1b
+//   closest_noattr closest hit, loop t/u/v and in-plane tri id, no
+//                  attributes (with_attrs=False, f32 planes)          -> K4
+//   any-hit        occlusion only (any_hit=True, no attrs)            -> K2, K1b
+//   mixed          closest hit + attributes for lanes with ray col 7 = 0,
+//                  occlusion for lanes with col 7 > 0 (mixed=True)    -> K3, K1b
+// on two plane layouts:
+//   component  planes [K,16,C] f32 (rows 0-8 p0/e1/e2, row 9 tri id):
+//              Moller-Trumbore per slot, one cluster per iteration (K1-K3, K4);
+//   MXU        planes [K,16,4C] f32 or bf16, column groups det | u*det | v*det
+//              | t*det (ops/fused2.py _mxu_features): per slot, the ray
+//              features [d, o x d, o, 1] dotted with the group columns, then
+//              the reference's window and winner chain; up to `fanout`
+//              clusters per iteration (K1b, K4).
+// attrs [K,32,C] f32, boxes [8,K]; rays [N,8] (o, d, tmax, shadow flag) ->
 // out [N,32] (t u v tri hit resolved steps wcid wslot, 0..., attr rows 0-15).
-// One templated body serves the three modes, as the Pallas kernel's static
-// flags do; each mode has its own extern "C" entry point.
+// One templated body serves every (mode, layout, attrs) combination, as the
+// Pallas kernel's static flags do; each has its own extern "C" entry point.
 //
 // One CUDA block per `block` rays, one thread per ray:
 //   1. scene gate: the block skips everything when no ray enters the scene AABB;
@@ -18,19 +27,23 @@
 //      rays, per cluster) in shared memory -- each thread owns the clusters
 //      j = tid, tid + B, ... and slab-tests them against every ray, whose
 //      origin, 1/d, tmax and cap sit in shared memory;
-//   3. retirement loop (at most max_steps): retire the current cluster, pick
-//      the next one (nearest entry below the block's prune bound; ties to
-//      the lowest id) with the prune bound from before this cluster's test,
-//      stage the current cluster's 10 x C plane rows in shared memory, run
-//      Moller-Trumbore per ray over the C slots (strict <, so the lowest slot
-//      wins a tie); every `refresh` iterations the frontier is recomputed with
+//   3. retirement loop (at most max_steps iterations): retire the current
+//      group of up to `fanout` clusters, pick the next group (the `fanout`
+//      nearest entries below the block's prune bound, each pick excluding the
+//      earlier ones; ties to the lowest id) with the prune bound from before
+//      this group's test, then test the group's clusters one after another,
+//      each staged alone in shared memory (each cluster's test reads only
+//      its own planes), with strict < so that a later cluster prunes against
+//      an earlier one's best and the lowest slot wins a tie; every
+//      max(1, refresh / fanout) iterations the frontier is recomputed with
 //      each ray's own cap (retired clusters stay retired);
 //   4. a block that ends at max_steps with a candidate nearer than its prune
 //      bound marks all its rays unresolved (the wrapper answers them with the
 //      exact cluster query);
 //   5. closest and mixed: the winner's 32-float attribute row is read straight
 //      from attrs, and its (t, u, v) replayed from the winner geometry rows
-//      17-25.
+//      17-25 wherever the replay's |det| > 1e-12 (the MXU loop keeps no
+//      u/v: a degenerate replay leaves the loop t and u = v = 0).
 //
 // The prune bound and the refresh cap are where the modes differ:
 //   closest  bound = max over rays of best t; cap = best t.
@@ -38,38 +51,55 @@
 //            leaves the bound (it counts as -inf, so a block whose rays are
 //            all occluded picks nothing and stops) and gets cap 0, so the
 //            refresh finds no cluster it needs; an occluded thread skips its
-//            Moller-Trumbore loop, and a thread stops its loop at its first
-//            valid hit -- both exact for the flag.
-//   mixed    the closest-hit chain on every lane; after each retired cluster
+//            slot loop, and a thread stops its loop at its first valid hit --
+//            both exact for the flag.
+//   mixed    the closest-hit chain on every lane; after each retired group
 //            a shadow lane with a hit gets best t := t_min, which takes it out
 //            of the bound and of any later hit, and (cap t_min <= every entry)
 //            out of the refresh; its thread then skips its loop.  Pruning is
-//            conservative, so a closest-hit lane gets K1's answer whatever
-//            shares its block (up to the visiting order of an exact t tie).
+//            conservative, so a closest-hit lane gets the closest-hit answer
+//            whatever shares its block (up to the visiting order of a tie).
 //
-// Intersection arithmetic follows ops/intersect.py mt_components operation
-// for operation (1/det then multiply, sums left to right).  Built with
-// --fmad=false and IEEE division, so no product is contracted into an FMA and
-// the kernel's t/u/v are bit-equal to the plain PyTorch version's.
+// Arithmetic.  Component slots follow ops/intersect.py mt_components
+// operation for operation (1/det then multiply, sums left to right).  MXU
+// slots sum feature x plane products in ascending plane-row order from each
+// group's first non-zero row (group 0 rows 0-2, groups 1-2 rows 0-5, group 3
+// rows 6-9; the other rows are zero, and adding their zero products changes
+// no float32 sum), in float32, as ops/fused2.py's plain version does; bf16
+// planes widen exactly to float32 and the ray features are rounded to bf16
+// (nearest even) first, as the reference rounds its feature matrix, so every
+// product is exact and only the sums round.  Built with --fmad=false and IEEE
+// division, so no product is contracted into an FMA and the kernel agrees
+// bit for bit with the plain PyTorch version on every cluster both test.
 //
-// What bounds it on the card: the Moller-Trumbore arithmetic, about 45 fp32
-// operations per ray and slot (C slots per cluster).  A ray tests every
-// cluster its block retires while it is still searching, which is at least
-// the clusters its own exact query needs (chip_smoke.py's bound counts
-// those); any-hit and shadow lanes stop at their first hit.  For
+// What bounds it on the card.  Component: the Moller-Trumbore arithmetic,
+// about 45 fp32 operations per ray and slot.  MXU: 2 x 16 x 4 = 128 product
+// FLOP per ray and slot as the reference's matmul counts them (19 non-zero
+// multiply-add pairs here), plus the 28-operation winner chain; on CUDA
+// cores both are fp32 work (67 TFLOP/s), the products the larger share.  A
+// ray tests every cluster its block retires while it is still searching,
+// which is at least the clusters its own exact query needs (chip_smoke.py's
+// bound counts those); any-hit and shadow lanes stop at their first hit.  For
 // coherent blocks the per-iteration block reductions (pick over K, max of the
-// bound) come next.  Plane bytes per retired cluster (10 x C floats, 20 KB at
-// C=512) are read once per block, not once per ray, and stay L2-resident for
-// the scene sizes of the main path.  No cp.async/TMA double buffering, no
-// fanout and no bf16 planes yet: this is the simple, exact form of the kernel.
+// bound) come next.  Plane bytes per retired cluster (component 10 x C
+// floats, 20 KB at C=512; MXU 19 x C values, 38 KB f32 / 19 KB bf16 read
+// from 4 x 16 x C) are read once per block, not once per ray, and stay
+// L2-resident for the scene sizes of the main path.  No tensor cores (mma /
+// wgmma), no cp.async/TMA double buffering yet: this is the simple, exact
+// form of the kernel.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cmath>
 
 namespace {
 
 constexpr int kPlaneRows = 16;  // rows per cluster in planes
-constexpr int kMtRows = 10;     // rows staged per cluster: p0 e1 e2 (9) + tri id
+constexpr int kMtRows = 10;     // component rows staged per cluster: p0 e1 e2 (9) + tri id
+// MXU rows staged per cluster: the 19 non-zero feature rows (det 3, u*det 6,
+// v*det 6, t*det 4), then the tri id (row 10 of group 0) for the no-attrs mode
+constexpr int kMxuRows = 20;
+constexpr int kMaxFanout = 4;
 constexpr int kAttrRows = 32;
 constexpr int kOutCols = 32;
 constexpr float kTMin = 1e-3f;
@@ -77,6 +107,7 @@ constexpr float kEpsDet = 1e-12f;
 constexpr float kInf = INFINITY;
 
 enum Mode { kClosest = 0, kAnyHit = 1, kMixed = 2 };
+enum Layout { kComponent = 0, kMxuF32 = 1, kMxuBf16 = 2 };
 
 __device__ __forceinline__ float inv_dir(float dc) {
   const float safe = fabsf(dc) < 1e-12f ? (dc < 0.0f ? -1e-12f : 1e-12f) : dc;
@@ -183,16 +214,44 @@ __device__ void block_argmin(float& v, int& i, float* red_f, int* red_i) {
   __syncthreads();
 }
 
-// Nearest still-needed cluster: the lowest id holding the minimum of bent,
-// if that minimum is below pmax; else k (none).
-__device__ int pick_cluster(const float* bent, int k, float pmax, float* red_f, int* red_i) {
-  float mn = kInf;
-  int idx = k;
-  for (int j = threadIdx.x; j < k; j += blockDim.x) {
-    if (bent[j] < mn) { mn = bent[j]; idx = j; }
+// The next group: up to `fanout` nearest still-needed clusters, each the
+// lowest id holding the minimum of bent over the clusters not picked before
+// it, if that minimum is below pmax; else k (none).
+__device__ void pick_group(const float* bent, int k, float pmax, int fanout, int* ids,
+                           float* red_f, int* red_i) {
+  for (int w = 0; w < fanout; ++w) {
+    float mn = kInf;
+    int idx = k;
+    for (int j = threadIdx.x; j < k; j += blockDim.x) {
+      bool taken = false;
+      for (int x = 0; x < w; ++x) taken = taken || ids[x] == j;
+      if (!taken && bent[j] < mn) { mn = bent[j]; idx = j; }
+    }
+    block_argmin(mn, idx, red_f, red_i);
+    ids[w] = mn < pmax ? idx : k;
   }
-  block_argmin(mn, idx, red_f, red_i);
-  return mn < pmax ? idx : k;
+}
+
+// Plane row and column group of MXU staging row q (see kMxuRows).
+__device__ __forceinline__ void mxu_source(int q, int& row, int& group) {
+  if (q < 3) { row = q; group = 0; }
+  else if (q < 9) { row = q - 3; group = 1; }
+  else if (q < 15) { row = q - 9; group = 2; }
+  else if (q < 19) { row = q - 9; group = 3; }  // rows 6-9
+  else { row = 10; group = 0; }
+}
+
+template <int kLayout>
+__device__ __forceinline__ float plane_value(const void* planes, long long idx) {
+  if (kLayout == kMxuBf16) {
+    const unsigned bits = static_cast<const unsigned short*>(planes)[idx];
+    return __uint_as_float(bits << 16);  // exact
+  }
+  return static_cast<const float*>(planes)[idx];
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // Frontier pass: bent[j] = min over rays of the entry distance of rays that
@@ -226,17 +285,20 @@ __device__ void frontier_update(float* bent, const float* __restrict__ boxes, in
   __syncthreads();
 }
 
-template <int kMode>
+template <int kMode, int kLayout, bool kAttrs>
 __global__ void fused2_kernel(
     const float* __restrict__ rays, const float* __restrict__ boxes,
-    const float* __restrict__ planes, const float* __restrict__ attrs,
-    float* __restrict__ out, int k, int c, int max_steps, int refresh) {
+    const void* __restrict__ planes, const float* __restrict__ attrs,
+    float* __restrict__ out, int k, int c, int max_steps, int refresh, int fanout) {
+  constexpr bool kMxu = kLayout != kComponent;
+  // staged rows per cluster; the MXU tri id row only for the no-attrs mode
+  constexpr int kRows = !kMxu ? kMtRows : (kMode == kClosest && !kAttrs ? kMxuRows : kMxuRows - 1);
   extern __shared__ float smem[];
   const int b = blockDim.x;
   const int tid = threadIdx.x;
   float* bent = smem;                   // [k], padded to a multiple of 4
-  float* s_plane = bent + ((k + 3) & ~3);  // [kMtRows, c], 16-byte aligned
-  float* s_ray = s_plane + kMtRows * c; // [8, b]: o, 1/d, tmax, cap
+  float* s_plane = bent + ((k + 3) & ~3);  // [kRows, c], 16-byte aligned
+  float* s_ray = s_plane + kRows * c;   // [8, b]: o, 1/d, tmax, cap
   float* red_f = s_ray + 8 * b;         // [32]
   int* red_i = reinterpret_cast<int*>(red_f + 32);  // [32]
 
@@ -247,6 +309,15 @@ __global__ void fused2_kernel(
   const float tmax = r[6];
   const bool shadow = kMode == kMixed && r[7] > 0.0f;
   const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
+
+  // MXU ray features d, m = o x d, o, 1 (reference op order), bf16-rounded
+  // for bf16 planes
+  float f[10] = {dx, dy, dz, oy * dz - oz * dy, oz * dx - ox * dz, ox * dy - oy * dx,
+                 ox, oy, oz, 1.0f};
+  if (kLayout == kMxuBf16) {
+#pragma unroll
+    for (int q = 0; q < 10; ++q) f[q] = round_bf16(f[q]);
+  }
 
   // ── scene gate: the AABB of all real boxes (pads sit at >= 1e30) ──
   float lo[3], hi[3];
@@ -265,7 +336,7 @@ __global__ void fused2_kernel(
   const float g_e = slab_enter(ox, oy, oz, ix, iy, iz, lo, hi, gtf);
   const bool scene_live = __syncthreads_or(g_e <= fminf(gtf, tmax));
 
-  float best_t = tmax, best_u = 0.0f, best_v = 0.0f;
+  float best_t = tmax, best_u = 0.0f, best_v = 0.0f, best_tri = -1.0f;
   bool hit = false;
   int wcid = -1, wslot = -1;
   int steps = 0;
@@ -275,7 +346,7 @@ __global__ void fused2_kernel(
     // this ray's share of the block prune bound, and its refresh cap
     auto bound_t = [&]() { return kMode == kAnyHit && hit ? -kInf : best_t; };
     auto cap_t = [&]() { return kMode == kAnyHit && hit ? 0.0f : best_t; };
-    // a ray that is done needs no more Moller-Trumbore tests
+    // a ray that is done needs no more slot tests
     auto searching = [&]() {
       return kMode == kClosest || !hit || (kMode == kMixed && !shadow);
     };
@@ -290,60 +361,116 @@ __global__ void fused2_kernel(
     s_ray[7 * b + tid] = tmax;
     __syncthreads();
     frontier_update(bent, boxes, k, s_ray, b, true);
-    int cur = pick_cluster(bent, k, block_max(bound_t(), red_f), red_f, red_i);
-    bool done = cur >= k;
+    int grp[kMaxFanout], nxt[kMaxFanout];
+    pick_group(bent, k, block_max(bound_t(), red_f), fanout, grp, red_f, red_i);
+    bool done = grp[0] >= k;
+    const int refresh_p = refresh / fanout > 1 ? refresh / fanout : 1;
     int i = 0;
     while (!done && i < max_steps) {
-      if (i % refresh == refresh - 1) {
+      if (i % refresh_p == refresh_p - 1) {
         s_ray[7 * b + tid] = cap_t();
         __syncthreads();
         frontier_update(bent, boxes, k, s_ray, b, false);
       }
-      if (tid == 0) bent[cur] = kInf;  // retire the current cluster
-      __syncthreads();
-      // the next pick uses the bound from BEFORE this cluster's test
-      const int nxt = pick_cluster(bent, k, block_max(bound_t(), red_f), red_f, red_i);
-
-      // stage the current cluster's plane rows 0-9 (contiguous) in smem
-      const float* src = planes + static_cast<long long>(cur) * kPlaneRows * c;
-      if ((c & 3) == 0) {
-        const float4* src4 = reinterpret_cast<const float4*>(src);
-        float4* dst4 = reinterpret_cast<float4*>(s_plane);
-        for (int q = tid; q < kMtRows * c / 4; q += b) dst4[q] = src4[q];
-      } else {
-        for (int q = tid; q < kMtRows * c; q += b) s_plane[q] = src[q];
+      if (tid == 0) {  // retire the current group
+        for (int w = 0; w < fanout; ++w)
+          if (grp[w] < k) bent[grp[w]] = kInf;
       }
       __syncthreads();
+      // the next pick uses the bound from BEFORE this group's test
+      pick_group(bent, k, block_max(bound_t(), red_f), fanout, nxt, red_f, red_i);
 
-      if (searching()) {
-        float tc = kInf, tu = 0.0f, tv = 0.0f;
-        int wcol = 0;
-        for (int s = 0; s < c; ++s) {
-          float t, u, v, det;
-          const bool ok = mt_components(
-              ox, oy, oz, dx, dy, dz,
-              s_plane[s], s_plane[c + s], s_plane[2 * c + s],
-              s_plane[3 * c + s], s_plane[4 * c + s], s_plane[5 * c + s],
-              s_plane[6 * c + s], s_plane[7 * c + s], s_plane[8 * c + s],
-              kTMin, best_t, t, u, v, det) && s_plane[9 * c + s] >= 0.0f;
-          if (kMode == kAnyHit) {
-            if (ok) { hit = true; break; }
-          } else if (ok && t < tc) {
-            tc = t; tu = u; tv = v; wcol = s;
+      for (int w = 0; w < fanout; ++w) {
+        const int cur = grp[w];
+        if (cur >= k) continue;  // uniform over the block
+        ++steps;
+        // stage this cluster's plane rows in smem
+        if (!kMxu) {
+          const float* src = static_cast<const float*>(planes) + static_cast<long long>(cur) * kPlaneRows * c;
+          if ((c & 3) == 0) {
+            const float4* src4 = reinterpret_cast<const float4*>(src);
+            float4* dst4 = reinterpret_cast<float4*>(s_plane);
+            for (int q = tid; q < kMtRows * c / 4; q += b) dst4[q] = src4[q];
+          } else {
+            for (int q = tid; q < kMtRows * c; q += b) s_plane[q] = src[q];
+          }
+        } else {
+          const long long base = static_cast<long long>(cur) * kPlaneRows * 4 * c;
+          for (int q = tid; q < kRows * c; q += b) {
+            const int srow = q / c, slot = q - srow * c;
+            int row, group;
+            mxu_source(srow, row, group);
+            s_plane[q] = plane_value<kLayout>(planes, base + static_cast<long long>(row) * 4 * c +
+                                                          group * c + slot);
           }
         }
-        if (kMode != kAnyHit && tc < best_t) {
-          best_t = tc; best_u = tu; best_v = tv;
-          hit = true; wcid = cur; wslot = wcol;
+        __syncthreads();
+
+        if (searching()) {
+          float tc = kInf, tu = 0.0f, tv = 0.0f;
+          int wcol = 0;
+          for (int s = 0; s < c; ++s) {
+            bool ok;
+            float t = kInf, u = 0.0f, v = 0.0f;
+            if (!kMxu) {
+              float det;
+              ok = mt_components(
+                  ox, oy, oz, dx, dy, dz,
+                  s_plane[s], s_plane[c + s], s_plane[2 * c + s],
+                  s_plane[3 * c + s], s_plane[4 * c + s], s_plane[5 * c + s],
+                  s_plane[6 * c + s], s_plane[7 * c + s], s_plane[8 * c + s],
+                  kTMin, best_t, t, u, v, det) && s_plane[9 * c + s] >= 0.0f;
+            } else {
+              const float* sp = s_plane + s;
+              float det = f[0] * sp[0];
+              det = det + f[1] * sp[c];
+              det = det + f[2] * sp[2 * c];
+              float ua = f[0] * sp[3 * c], vb = f[0] * sp[9 * c];
+#pragma unroll
+              for (int q = 1; q < 6; ++q) {
+                ua = ua + f[q] * sp[(3 + q) * c];
+                vb = vb + f[q] * sp[(9 + q) * c];
+              }
+              float tcd = f[6] * sp[15 * c];
+              tcd = tcd + f[7] * sp[16 * c];
+              tcd = tcd + f[8] * sp[17 * c];
+              tcd = tcd + f[9] * sp[18 * c];
+              // fused2.py:616-632: |det| window, no tid term (pads are zero)
+              const float sgn = det < 0.0f ? -1.0f : 1.0f;
+              const float dd = det * sgn;
+              ua = ua * sgn;
+              vb = vb * sgn;
+              tcd = tcd * sgn;
+              ok = dd >= kEpsDet && ua >= 0.0f && vb >= 0.0f && ua + vb <= dd &&
+                   tcd > dd * kTMin && tcd < dd * best_t;
+              if (ok) {
+                t = tcd / dd;
+                if (!kAttrs) {  // the no-attrs mode reports the winner's u, v
+                  u = ua / dd;
+                  v = vb / dd;
+                }
+              }
+            }
+            if (kMode == kAnyHit) {
+              if (ok) { hit = true; break; }
+            } else if (ok && t < tc) {
+              tc = t; tu = u; tv = v; wcol = s;
+            }
+          }
+          if (kMode != kAnyHit && tc < best_t) {
+            best_t = tc; best_u = tu; best_v = tv;
+            hit = true; wcid = cur; wslot = wcol;
+            if (!kAttrs) best_tri = s_plane[(kMxu ? kMxuRows - 1 : 9) * c + wcol];
+          }
         }
-        // a shadow lane with a hit is done: t -> t_min
-        if (kMode == kMixed && shadow && hit) best_t = kTMin;
+        __syncthreads();  // s_plane is restaged next
       }
-      ++steps;
+      // a shadow lane with a hit is done: t -> t_min
+      if (kMode == kMixed && shadow && hit) best_t = kTMin;
       ++i;
-      cur = nxt;
-      done = nxt >= k;
-      __syncthreads();  // s_plane is restaged next iteration
+#pragma unroll
+      for (int w = 0; w < kMaxFanout; ++w) grp[w] = nxt[w];
+      done = grp[0] >= k;
     }
     if (!done) {
       // max_steps overflow: a candidate nearer than the block's prune bound
@@ -358,7 +485,7 @@ __global__ void fused2_kernel(
   float* o = out + ray * kOutCols;
   float tri = -1.0f;
   float t_out = best_t, u_out = best_u, v_out = best_v;
-  if (kMode != kAnyHit && hit) {
+  if (kMode != kAnyHit && kAttrs && hit) {
     // winner payload, and (t, u, v) replayed from its geometry rows
     const float* a = attrs + static_cast<long long>(wcid) * kAttrRows * c + wslot;
 #pragma unroll
@@ -370,6 +497,7 @@ __global__ void fused2_kernel(
                   a[23 * c], a[24 * c], a[25 * c], kTMin, kInf, t3, u3, v3, det3);
     if (fabsf(det3) > 1e-12f) { t_out = t3; u_out = u3; v_out = v3; }
   } else {
+    if (kMode == kClosest && hit) tri = best_tri;  // no-attrs mode: the in-plane tri id
 #pragma unroll
     for (int row = 0; row < 16; ++row) o[16 + row] = 0.0f;
   }
@@ -386,37 +514,51 @@ __global__ void fused2_kernel(
   for (int col = 9; col < 16; ++col) o[col] = 0.0f;
 }
 
-template <int kMode>
-int launch(const float* rays, const float* boxes, const float* planes, const float* attrs,
+template <int kMode, int kLayout, bool kAttrs>
+int launch(const float* rays, const float* boxes, const void* planes, const float* attrs,
            float* out, long long n, int k, int c, int block, int max_steps, int refresh,
-           void* stream) {
+           int fanout, void* stream) {
+  constexpr bool kMxu = kLayout != kComponent;
+  constexpr int kRows = !kMxu ? kMtRows : (kMode == kClosest && !kAttrs ? kMxuRows : kMxuRows - 1);
   if (n <= 0 || block < 32 || block > 1024 || (block & 31) || n % block || k <= 0 ||
-      c <= 0 || refresh <= 0 || n / block > 0x7fffffffLL)
+      c <= 0 || refresh <= 0 || n / block > 0x7fffffffLL || fanout < 1 || fanout > kMaxFanout ||
+      (!kMxu && fanout != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (static_cast<size_t>((k + 3) & ~3) + static_cast<size_t>(kMtRows) * c +
+  const size_t smem = (static_cast<size_t>((k + 3) & ~3) + static_cast<size_t>(kRows) * c +
                        8 * static_cast<size_t>(block) + 64) * sizeof(float);
+  const auto kernel = fused2_kernel<kMode, kLayout, kAttrs>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fused2_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  fused2_kernel<kMode><<<static_cast<unsigned>(n / block), block, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      rays, boxes, planes, attrs, out, k, c, max_steps, refresh);
+  const unsigned grid = static_cast<unsigned>(n / block);
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+      rays, boxes, planes, attrs, out, k, c, max_steps, refresh, fanout);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-#define OWLPT_FUSED2_ENTRY(name, mode)                                                     \
-  extern "C" int name(const float* rays, const float* boxes, const float* planes,          \
-                      const float* attrs, float* out, long long n, int k, int c, int block, \
-                      int max_steps, int refresh, void* stream) {                           \
-    return launch<mode>(rays, boxes, planes, attrs, out, n, k, c, block, max_steps,        \
-                        refresh, stream);                                                   \
+#define OWLPT_FUSED2_ENTRY(name, mode, layout, with_attrs)                                    \
+  extern "C" int name(const float* rays, const float* boxes, const void* planes,              \
+                      const float* attrs, float* out, long long n, int k, int c, int block,    \
+                      int max_steps, int refresh, int fanout, void* stream) {                  \
+    return launch<mode, layout, with_attrs>(rays, boxes, planes, attrs, out, n, k, c, block,   \
+                                            max_steps, refresh, fanout, stream);               \
   }
 
-OWLPT_FUSED2_ENTRY(owlpt_fused2_closest_hit, kClosest)
-OWLPT_FUSED2_ENTRY(owlpt_fused2_occluded, kAnyHit)
-OWLPT_FUSED2_ENTRY(owlpt_fused2_sweep_mixed, kMixed)
+// component layout: K1, K2, K3, K4
+OWLPT_FUSED2_ENTRY(owlpt_fused2_closest_hit, kClosest, kComponent, true)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_occluded, kAnyHit, kComponent, false)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_sweep_mixed, kMixed, kComponent, true)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_closest_hit_noattr, kClosest, kComponent, false)
+// MXU layout, f32 planes: K1b in its three modes, K4
+OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_closest_hit, kClosest, kMxuF32, true)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_occluded, kAnyHit, kMxuF32, false)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_sweep_mixed, kMixed, kMxuF32, true)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_closest_hit_noattr, kClosest, kMxuF32, false)
+// MXU layout, bf16 planes: K1b in its three modes
+OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_bf16_closest_hit, kClosest, kMxuBf16, true)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_bf16_occluded, kAnyHit, kMxuBf16, false)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_bf16_sweep_mixed, kMixed, kMxuBf16, true)

@@ -3,11 +3,12 @@
 Both are compiled at first use into the package's ``build/`` directory and
 bound through ctypes with a plain C interface.
 
-* ``bvh.cpp`` is the JAX package's own source (``owl_path_tracer_tpu/native``),
-  read by path and compiled with the flags of its Makefile, so on one machine
-  both packages build the same SAH tree and the same clusters -- what the
-  winner-exact tests rely on.  A failed build raises: there is no fallback
-  builder, because a different tree would break the comparison silently.
+* ``bvh.cpp`` (this directory) is a byte-for-byte copy of the JAX package's
+  ``owl_path_tracer_tpu/native/bvh.cpp``, compiled with the flags of that
+  package's Makefile, so on one machine both packages build the same SAH tree
+  and the same clusters -- what the winner-exact tests rely on.  A failed
+  build raises: there is no fallback builder, because a different tree would
+  break the comparison silently.
 * CUDA sources under ``csrc/`` compile with ``nvcc`` for ``sm_90a``
   (:func:`build_cuda_library`); that happens only where a kernel launches.
 """
@@ -25,8 +26,8 @@ import numpy as np
 
 PKG_DIR = pathlib.Path(__file__).resolve().parents[1]
 BUILD_DIR = PKG_DIR / "build"
-BVH_SOURCE = PKG_DIR.parent / "owl_path_tracer_tpu" / "native" / "bvh.cpp"
-# owl_path_tracer_tpu/native/Makefile CXXFLAGS (plus -shared)
+BVH_SOURCE = PKG_DIR / "native" / "bvh.cpp"
+# the JAX package's native/Makefile CXXFLAGS (plus -shared)
 BVH_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared"]
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

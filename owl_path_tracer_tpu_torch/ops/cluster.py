@@ -158,7 +158,7 @@ def _nearest_candidates(entries, kc: int):
     return ent[:, :kc], idx[:, :kc]
 
 
-def _walk(ray_o, ray_d, cb, cand_t, cand_id, t_min, best):
+def _walk(ray_o, ray_d, cb, cand_t, cand_id, t_min, best, intersect):
     """Column walk: column i is tested by every ray whose i-th candidate
     entry is nearer than its best hit.  ``best`` = (t, tri, uv, cid, slot),
     updated in place."""
@@ -168,7 +168,7 @@ def _walk(ray_o, ray_d, cb, cand_t, cand_id, t_min, best):
         if rows.numel() == 0:
             continue
         cid = cand_id[rows, i]
-        lt, ltri, luv, lslot, lhit = _intersect_cluster(
+        lt, ltri, luv, lslot, lhit = intersect(
             ray_o[rows], ray_d[rows], cb, cid, t_min, best_t[rows]
         )
         better = lhit & (lt < best_t[rows])
@@ -181,11 +181,13 @@ def _walk(ray_o, ray_d, cb, cand_t, cand_id, t_min, best):
 
 
 def cluster_query(ray_o, ray_d, cb: ClusterBVH, t_min=m.T_MIN, t_max=m.T_MAX,
-                  max_candidates: int = MAX_CANDIDATES):
+                  max_candidates: int = MAX_CANDIDATES, intersect=_intersect_cluster):
     """Exact closest hit -> (t, tri, uv, winner cluster, winner slot).
 
     Misses keep t = t_max, tri = -1, uv = 0 and cluster = slot = -1.
-    ``t_max`` is a scalar or a per-ray [N] tensor.
+    ``t_max`` is a scalar or a per-ray [N] tensor.  ``intersect`` tests rays
+    against one cluster each (the signature of ``_intersect_cluster``); the
+    fused2 plain version passes its MXU-layout test.
     """
     n = ray_o.shape[0]
     dev = ray_o.device
@@ -200,7 +202,7 @@ def cluster_query(ray_o, ray_d, cb: ClusterBVH, t_min=m.T_MIN, t_max=m.T_MAX,
         torch.full((n,), -1, dtype=torch.int64, device=dev),
         torch.full((n,), -1, dtype=torch.int64, device=dev),
     )
-    _walk(ray_o, ray_d, cb, cand_t, cand_id, t_min, best)
+    _walk(ray_o, ray_d, cb, cand_t, cand_id, t_min, best, intersect)
 
     # exact overflow walk: rays whose list ran out with a nearer candidate
     # left continue, kc candidates at a time, until none has one
@@ -209,7 +211,7 @@ def cluster_query(ray_o, ray_d, cb: ClusterBVH, t_min=m.T_MIN, t_max=m.T_MAX,
         ent = entries.scatter(1, cand_id, torch.inf)
         while bool(torch.any(ent.min(dim=1).values < best[0])):
             ct, ci = _nearest_candidates(ent, kc)
-            _walk(ray_o, ray_d, cb, ct, ci, t_min, best)
+            _walk(ray_o, ray_d, cb, ct, ci, t_min, best, intersect)
             ent = ent.scatter(1, ci, torch.inf)
     return best
 

@@ -1,29 +1,38 @@
 """Fused wavefront traversal (counterpart of ``owl_path_tracer_tpu/ops/fused2.py``).
 
-Fat SAH clusters (C up to 512 triangles) in component planes, a per-block
-cluster frontier, and the winner's shading attributes read straight from the
-cluster attribute planes, so the integrator needs no per-ray gather of
-surface data.
+Fat SAH clusters (C up to 512 triangles), a per-block cluster frontier, and
+the winner's shading attributes read straight from the cluster attribute
+planes, so the integrator needs no per-ray gather of surface data.
 
-The traversal is one hand-written CUDA kernel, ``csrc/fused2_traverse.cu``,
-in the three component-plane modes of the JAX package's Pallas ``_kernel``:
-``closest`` (closest hit + attributes, K1), ``any_hit`` (occlusion, K2) and
-``mixed`` (closest hit for lanes whose ray column 7 is 0, occlusion for the
-shadow lanes whose column 7 is 1, K3).  :func:`fused2_traverse_packed`
-launches it for CUDA tensors and raises if it cannot; for CPU tensors it takes
-the plain version, :func:`fused2_traverse_packed_plain` (the exact per-ray
-cluster query, same [N,32] output contract).  Rays a kernel block leaves
-unresolved (its retirement loop hit ``max_steps``) go through the exact
-cluster query in the wrappers (:func:`fused2_closest_hit`,
+Two plane layouts, as in the JAX package:
+
+* component ``[K,16,C]`` float32 (rows p0/e1/e2, tri id): Moller-Trumbore per
+  slot (kernels K1-K3, and K4's component form);
+* MXU feature ``[K,16,4C]`` (:func:`_mxu_features`), float32 or bfloat16, the
+  default of :func:`build_fused2` and of ``make_accel("fused2")`` /
+  ``"fused2-bf16"``: ray features ``[d, o x d, o, 1]`` times each cluster's
+  feature matrix give ``det | u*det | v*det | t*det`` per slot (kernel K1b);
+  the traversal retires up to ``fanout`` clusters per loop iteration
+  (FANOUT = 2).
+
+The traversal is one hand-written CUDA kernel source, ``csrc/fused2_traverse.cu``,
+with one entry per (layout, mode): ``closest`` (closest hit + attributes;
+K1, K1b), ``closest`` with ``with_attrs=False`` (loop t/u/v and the in-plane
+tri id, no attributes; K4), ``any_hit`` (occlusion; K2, K1b) and ``mixed``
+(closest hit for lanes whose ray column 7 is 0, occlusion for the shadow
+lanes whose column 7 is 1; K3, K1b).  :func:`fused2_traverse_packed` launches
+it for CUDA tensors and raises if it cannot; for CPU tensors it takes the
+plain version, :func:`fused2_traverse_packed_plain` (an exact per-ray walk
+over the clusters in entry order, same [N,32] output contract).  Rays a
+kernel block leaves unresolved (its retirement loop hit ``max_steps``) go
+through the exact cluster query in the wrappers (:func:`fused2_closest_hit`,
 :func:`fused2_occluded`, :func:`fused2_sweep_mixed`), as in the reference.
-
-Not ported yet (ROADMAP queue 2): the MXU feature layout and bf16 planes
-(K1b), the no-attributes closest-hit probe mode (K4) and fanout > 1.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import pathlib
 
 import numpy as np
@@ -33,13 +42,18 @@ from ..native import build_cuda_library
 from ..utils.tensors import TensorBundle
 from . import math as m
 from .cluster import (
-    ClusterBVH, build_cluster_arrays, cluster_closest_hit, cluster_occluded, cluster_query,
+    ClusterBVH, _intersect_cluster, build_cluster_arrays, cluster_closest_hit, cluster_occluded,
+    cluster_query,
 )
-from .intersect import HitRecord
+from .intersect import HitRecord, mt_components
 
 BLOCK_RAYS = 128
-# retirement-loop bound per block; a block that reaches it marks its rays
-# unresolved and the wrapper answers them with the exact cluster query
+# clusters retired per loop iteration on the MXU layout (the component layout
+# retires one); results do not depend on it
+FANOUT = 2
+# retirement-loop bound per block, in loop iterations; a block that reaches
+# it marks its rays unresolved and the wrapper answers them with the exact
+# cluster query
 MAX_STEPS = 512
 # per-ray frontier refresh interval, in retired clusters
 REFRESH_CLUSTERS = 16
@@ -65,22 +79,31 @@ CID_META = 4
 
 # rays per exact cluster query in the plain version (bounds its [n,C] temporaries)
 PLAIN_CHUNK = 16384
+# rays per MXU cluster test in the plain version (bounds its [n,19,C] plane gather)
+PLAIN_MXU_CHUNK = 2048
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "fused2_traverse.cu"
 
-# kernel modes -- closest hit + attributes (K1), any-hit (K2), mixed sweep
-# (K3) -- and their entry points in the kernel library
+MODES = ("closest", "any_hit", "mixed")
+# kernel entry points in the kernel library, by (layout, mode, with_attrs):
+# K1-K3 on the component layout, K1b on the MXU layouts, K4 = closest hit
+# without attributes (f32 planes only)
 _ENTRY = {
-    "closest": "owlpt_fused2_closest_hit",
-    "any_hit": "owlpt_fused2_occluded",
-    "mixed": "owlpt_fused2_sweep_mixed",
+    ("component", "closest", True): "owlpt_fused2_closest_hit",
+    ("component", "any_hit", False): "owlpt_fused2_occluded",
+    ("component", "mixed", True): "owlpt_fused2_sweep_mixed",
+    ("component", "closest", False): "owlpt_fused2_closest_hit_noattr",
+    ("mxu_f32", "closest", True): "owlpt_fused2_mxu_closest_hit",
+    ("mxu_f32", "any_hit", False): "owlpt_fused2_mxu_occluded",
+    ("mxu_f32", "mixed", True): "owlpt_fused2_mxu_sweep_mixed",
+    ("mxu_f32", "closest", False): "owlpt_fused2_mxu_closest_hit_noattr",
+    ("mxu_bf16", "closest", True): "owlpt_fused2_mxu_bf16_closest_hit",
+    ("mxu_bf16", "any_hit", False): "owlpt_fused2_mxu_bf16_occluded",
+    ("mxu_bf16", "mixed", True): "owlpt_fused2_mxu_bf16_sweep_mixed",
 }
-MODES = tuple(_ENTRY)
 
-# launches of the CUDA kernel, one count per mode (one per call that ran it)
-KERNEL_LAUNCHES = 0
-OCCLUDE_LAUNCHES = 0
-MIXED_LAUNCHES = 0
+# launches of the CUDA kernel, by entry point (one per call that ran it)
+LAUNCHES = dict.fromkeys(_ENTRY.values(), 0)
 # rays (of every mode) answered by the exact cluster query because their
 # block overflowed
 UNRESOLVED_RAYS = 0
@@ -88,11 +111,21 @@ UNRESOLVED_RAYS = 0
 _cuda_lib = None
 
 
+def reset_counts():
+    """Set every launch count and the unresolved-ray count to 0."""
+    global UNRESOLVED_RAYS
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+    UNRESOLVED_RAYS = 0
+
+
 @dataclasses.dataclass
 class Fused2BVH(TensorBundle):
     boxes: torch.Tensor  # [8,K]: rows 0-2 cmin.xyz, 3-5 cmax.xyz
-    planes: torch.Tensor  # [K,16,C]: rows 0-8 p0/e1/e2 components, 9 tid, 10-15 zero
-    attrs: torch.Tensor  # [K,ATTR_ROWS,C] shading payload planes
+    # component layout [K,16,C] f32: rows 0-8 p0/e1/e2 components, 9 tid,
+    # 10-15 zero; or MXU layout [K,16,4C] f32 or bf16 (_mxu_features)
+    planes: torch.Tensor
+    attrs: torch.Tensor  # [K,ATTR_ROWS,C] shading payload planes (f32)
     attr_table: torch.Tensor  # [T,ATTR_ROWS] the same payload by tri id
     bounds: torch.Tensor  # [2,3] scene AABB (sort-key quantization)
     cluster: ClusterBVH  # exact per-ray query (plain version, unresolved rays)
@@ -105,11 +138,50 @@ class Fused2BVH(TensorBundle):
     def cluster_size(self) -> int:
         return self.attrs.shape[2]
 
+    @property
+    def mxu(self) -> bool:
+        return self.planes.shape[2] == 4 * self.attrs.shape[2]
+
+    @property
+    def layout(self) -> str:
+        if not self.mxu:
+            return "component"
+        return "mxu_bf16" if self.planes.dtype == torch.bfloat16 else "mxu_f32"
+
+
+def _mxu_features(tri_planes: np.ndarray, tid: np.ndarray) -> np.ndarray:
+    """Per-triangle Moller-Trumbore feature matrix of the MXU layout.
+
+    With ray features R = [d(3), m = o x d (3), o(3), 1, 0...] ([16]) and per
+    cluster F [16,4C] in column groups [det | u*det | v*det | t*det]:
+
+        R @ F = [d.(e2 x e1) | e2.m - (e2 x p0).d | -e1.m - (p0 x e1).d | n.o - n.p0]
+
+    with n = e1 x e2: Moller-Trumbore's det, u*det, v*det and t*det.  Only
+    rows 0-9 multiply non-zero ray features; the tri id sits in row 10 of
+    group 0, where the ray feature is 0.  Padding slots are all zero.
+    """
+    kk, _, c = tri_planes.shape
+    p0 = tri_planes[:, 0:3].transpose(0, 2, 1)  # [K,C,3]
+    e1 = tri_planes[:, 3:6].transpose(0, 2, 1)
+    e2 = tri_planes[:, 6:9].transpose(0, 2, 1)
+    n = np.cross(e1, e2)
+    f = np.zeros((kk, 16, 4 * c), np.float32)
+    f[:, 0:3, 0:c] = np.cross(e2, e1).transpose(0, 2, 1)
+    f[:, 10, 0:c] = tid
+    f[:, 0:3, c : 2 * c] = -np.cross(e2, p0).transpose(0, 2, 1)
+    f[:, 3:6, c : 2 * c] = e2.transpose(0, 2, 1)
+    f[:, 0:3, 2 * c : 3 * c] = -np.cross(p0, e1).transpose(0, 2, 1)
+    f[:, 3:6, 2 * c : 3 * c] = -e1.transpose(0, 2, 1)
+    f[:, 6:9, 3 * c : 4 * c] = n.transpose(0, 2, 1)
+    f[:, 9, 3 * c : 4 * c] = -np.einsum("kcx,kcx->kc", n, p0)
+    return f
+
 
 def build_fused2_arrays(vertices, tri_idx, cluster_size: int = 512, normals=None,
-                        texcoords=None, tri_mat=None) -> dict:
+                        texcoords=None, tri_mat=None, mxu: bool = True) -> dict:
     """Host build -> dict of numpy arrays (the Fused2BVH fields, ``cluster``
-    as a nested dict).  Component planes only."""
+    as a nested dict); float32 planes of the MXU or the component layout."""
     vertices = np.asarray(vertices, np.float32)
     tri_idx = np.asarray(tri_idx, np.int32)
     cmin, cmax, tri_planes, tid = build_cluster_arrays(vertices, tri_idx, cluster_size)
@@ -120,9 +192,12 @@ def build_fused2_arrays(vertices, tri_idx, cluster_size: int = 512, normals=None
     boxes = np.zeros((8, k), np.float32)
     boxes[0:3] = cmin.T
     boxes[3:6] = cmax.T
-    planes = np.zeros((k, 16, c), np.float32)
-    planes[:, 0:9] = tri_planes
-    planes[:, 9] = tid.astype(np.float32)
+    if mxu:
+        planes = _mxu_features(tri_planes, tid.astype(np.float32))
+    else:
+        planes = np.zeros((k, 16, c), np.float32)
+        planes[:, 0:9] = tri_planes
+        planes[:, 9] = tid.astype(np.float32)
 
     t_count = tri_idx.shape[0]
     attr_table = np.zeros((t_count, ATTR_ROWS), np.float32)
@@ -146,21 +221,31 @@ def build_fused2_arrays(vertices, tri_idx, cluster_size: int = 512, normals=None
 
 
 def build_fused2(vertices, tri_idx, cluster_size: int = 512, normals=None, texcoords=None,
-                 tri_mat=None, *, device) -> Fused2BVH:
-    """SAH-leaf clusters + component planes + shading-attribute planes."""
+                 tri_mat=None, mxu: bool = True, plane_dtype=torch.float32, *, device) -> Fused2BVH:
+    """SAH-leaf clusters + planes (MXU feature layout by default, else the
+    component layout) + shading-attribute planes.  ``plane_dtype``
+    ``torch.bfloat16`` (MXU layout only) rounds the planes to nearest even."""
     from ..convert import fused2_from_numpy
 
-    arrays = build_fused2_arrays(vertices, tri_idx, cluster_size, normals, texcoords, tri_mat)
-    return fused2_from_numpy(arrays, device=device)
+    if plane_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"plane_dtype must be torch.float32 or torch.bfloat16, got {plane_dtype}")
+    if plane_dtype == torch.bfloat16 and not mxu:
+        raise ValueError("bf16 planes require the MXU feature layout")
+    arrays = build_fused2_arrays(vertices, tri_idx, cluster_size, normals, texcoords, tri_mat, mxu)
+    fb = fused2_from_numpy(arrays, device=device)
+    fb.planes = fb.planes.to(plane_dtype)
+    return fb
 
 
-def build_fused2_scene(scene, cluster_size: int = 512) -> Fused2BVH:
+def build_fused2_scene(scene, cluster_size: int = 512, mxu: bool = True,
+                       plane_dtype=torch.float32) -> Fused2BVH:
     """Build from a compiled Scene, with its shading attributes, on its device."""
     host = lambda x: x.cpu().numpy()  # noqa: E731
     return build_fused2(
         host(scene.vertices), host(scene.tri_idx), cluster_size=cluster_size,
         normals=host(scene.normals), texcoords=host(scene.texcoords),
-        tri_mat=host(scene.tri_mat), device=scene.vertices.device,
+        tri_mat=host(scene.tri_mat), mxu=mxu, plane_dtype=plane_dtype,
+        device=scene.vertices.device,
     )
 
 
@@ -350,49 +435,179 @@ def _inverse_perm(perm):
 # ── traversal: kernel and plain version ───────────────────────────────────
 
 
-def _check_mode(mode: str):
+def _check_mode(mode: str, fb: Fused2BVH, with_attrs: bool = True):
     if mode not in MODES:
         raise ValueError(f"unknown traversal mode {mode!r}; expected one of {MODES}")
+    if mode == "closest" and not with_attrs and fb.layout == "mxu_bf16":
+        # the in-plane tri id would be bf16-rounded; bf16 closest hit takes
+        # its tri id and (t, u, v) from the f32 attribute planes
+        raise ValueError("bf16 planes require with_attrs=True for closest-hit sweeps")
 
 
-def fused2_traverse_packed_plain(rays, fb: Fused2BVH, mode: str = "closest"):
+def _entry(fb: Fused2BVH, mode: str, with_attrs: bool) -> str:
+    """Kernel entry point of a layout and mode (any-hit reads no attributes,
+    mixed always does)."""
+    return _ENTRY[(fb.layout, mode, mode == "mixed" or (mode == "closest" and with_attrs))]
+
+
+def _ray_features(ray_o, ray_d, bf16: bool):
+    """[n,10] ray features d, m = o x d, o, 1 (the MXU layout's rows 0-9;
+    rows 10-15 are 0), rounded to nearest-even bf16 for bf16 planes."""
+    ox, oy, oz = ray_o.unbind(-1)
+    dx, dy, dz = ray_d.unbind(-1)
+    mx = oy * dz - oz * dy
+    my = oz * dx - ox * dz
+    mz = ox * dy - oy * dx
+    f = torch.stack([dx, dy, dz, mx, my, mz, ox, oy, oz, torch.ones_like(ox)], -1)
+    return f.to(torch.bfloat16).float() if bf16 else f
+
+
+# the non-zero rows of each MXU column group: (group, first row, end row)
+MXU_ROWS = ((0, 0, 3), (1, 0, 6), (2, 0, 6), (3, 6, 10))
+
+
+def _feature_sums(feat, planes, cid, cols, groups=MXU_ROWS):
+    """Per column group, sum_r feat[:, r] * planes[cid, r, g*C + cols] over
+    the group's non-zero rows in ascending order, in float32 -- the kernel's
+    order, so the two agree bit for bit (the zero rows would add exact zeros;
+    bf16 planes widen exactly).  ``cols`` is ``slice(0, C)`` ([n,C] sums) or
+    an [n] slot index ([n] sums)."""
+    c = planes.shape[2] // 4
+    sums = []
+    for g, r0, r1 in groups:
+        if isinstance(cols, slice):
+            pl = planes[cid, r0:r1, g * c : (g + 1) * c].float()  # [n, rows, C]
+            f = feat[:, r0:r1, None]
+        else:
+            pl = planes[cid, r0:r1, g * c + cols].float()  # [n, rows]
+            f = feat[:, r0:r1]
+        acc = f[:, 0] * pl[:, 0]
+        for r in range(1, r1 - r0):
+            acc = acc + f[:, r] * pl[:, r]
+        sums.append(acc)
+    return sums
+
+
+def _mxu_intersect_chunk(planes, ray_o, ray_d, cb: ClusterBVH, cid, t_min, best_t):
+    feat = _ray_features(ray_o, ray_d, planes.dtype == torch.bfloat16)
+    det, ua, vb, tcd = _feature_sums(feat, planes, cid, slice(0, cb.cluster_size))  # [n,C] each
+    sgn = torch.where(det < 0.0, -1.0, 1.0)
+    dd = det * sgn
+    ua, vb, tcd = ua * sgn, vb * sgn, tcd * sgn
+    # no tid >= 0 term: padding slots are all zero, so dd < 1e-12 drops them
+    ok = ((dd >= 1e-12) & (ua >= 0.0) & (vb >= 0.0) & (ua + vb <= dd)
+          & (tcd > dd * t_min) & (tcd < dd * best_t[:, None]))
+    t = torch.where(ok, tcd / torch.where(dd < 1e-12, 1.0, dd), torch.inf)
+    tj, j = torch.min(t, dim=-1)  # first index of the minimum
+    hit = torch.isfinite(tj)
+    rows = torch.arange(t.shape[0], device=t.device)
+    dd_w = dd[rows, j]
+    dd_w = torch.where(dd_w < 1e-12, 1.0, dd_w)
+    uv = torch.stack([ua[rows, j] / dd_w, vb[rows, j] / dd_w], -1)
+    tri = torch.where(hit, cb.tri_id[cid, j].long(), -1)
+    return tj, tri, uv, j, hit
+
+
+def mxu_slot_test(ray_o, ray_d, fb: Fused2BVH, cid, slot, t_max):
+    """The MXU layout's test of slot ``slot`` of cluster ``cid`` per ray, in
+    the kernel's arithmetic -> (t, ok): the matmul-space t (t*det / det,
+    what its loop compares and prunes with; inf where ``cid`` < 0, no
+    winner) and whether the slot passes the window of :func:`_mxu_intersect`
+    with best t = ``t_max`` [N].  For checks."""
+    cid, slot = cid.long(), slot.long()
+    feat = _ray_features(ray_o, ray_d, fb.planes.dtype == torch.bfloat16)
+    det, ua, vb, tcd = _feature_sums(feat, fb.planes, cid.clamp(min=0), slot.clamp(min=0))
+    sgn = torch.where(det < 0.0, -1.0, 1.0)
+    dd, ua, vb, tcd = det * sgn, ua * sgn, vb * sgn, tcd * sgn
+    ok = ((cid >= 0) & (dd >= 1e-12) & (ua >= 0.0) & (vb >= 0.0) & (ua + vb <= dd)
+          & (tcd > dd * m.T_MIN) & (tcd < dd * t_max))
+    return torch.where(cid >= 0, tcd / dd, torch.inf), ok
+
+
+def _mxu_intersect(planes, ray_o, ray_d, cb: ClusterBVH, cid, t_min, best_t):
+    """MXU-layout test of each ray against its cluster ``cid`` (the
+    signature of ``cluster._intersect_cluster``) -> (t, tri, uv, slot, hit):
+    the reference kernel's per-slot window and winner chain, the lowest slot
+    winning a tie.  t is the matmul-space t*det / det, uv the winner's
+    u*det / det and v*det / det, tri its id (the cluster query's, equal to
+    plane row 10).  PLAIN_MXU_CHUNK rays at a time."""
+    parts = [
+        _mxu_intersect_chunk(planes, ray_o[lo : lo + PLAIN_MXU_CHUNK], ray_d[lo : lo + PLAIN_MXU_CHUNK],
+                             cb, cid[lo : lo + PLAIN_MXU_CHUNK], t_min, best_t[lo : lo + PLAIN_MXU_CHUNK])
+        for lo in range(0, ray_o.shape[0], PLAIN_MXU_CHUNK)
+    ]
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
+def _replay(ray_o, ray_d, fb: Fused2BVH, hit, cid, slot, t_loop):
+    """Winner-geometry replay of the MXU layout -> (t, uv): mt_components on
+    the winner's attribute rows 17-25 (t_min, inf), used where the winner's
+    |det| > 1e-12; elsewhere the loop t stays and uv = 0."""
+    g = fb.attrs[cid.clamp(min=0), 17:26, slot.clamp(min=0)]  # [n,9]
+    comp = lambda a: a.unbind(-1)  # noqa: E731
+    t3, u3, v3, _ = mt_components(comp(ray_o), comp(ray_d), comp(g[:, 0:3]), comp(g[:, 3:6]),
+                                  comp(g[:, 6:9]), m.T_MIN, torch.inf)
+    dx, dy, dz = comp(ray_d)
+    e1x, e1y, e1z = comp(g[:, 3:6])
+    e2x, e2y, e2z = comp(g[:, 6:9])
+    hx = dy * e2z - dz * e2y
+    hy = dz * e2x - dx * e2z
+    hz = dx * e2y - dy * e2x
+    use = hit & (torch.abs(e1x * hx + e1y * hy + e1z * hz) > 1e-12)
+    return torch.where(use, t3, t_loop), torch.where(use[:, None], torch.stack([u3, v3], -1), 0.0)
+
+
+def fused2_traverse_packed_plain(rays, fb: Fused2BVH, mode: str = "closest", with_attrs: bool = True):
     """Plain PyTorch version of the kernel: [N,8] rays -> [N,32].
 
-    The exact per-ray cluster query, PLAIN_CHUNK rays at a time.  Every ray is
+    An exact per-ray walk over the clusters whose boxes the ray enters, in
+    entry order, testing each while its entry is nearer than the ray's best
+    t (``cluster.cluster_query``), PLAIN_CHUNK rays at a time.  Component
+    layout: Moller-Trumbore per slot; MXU layout: the feature products and
+    the reference kernel's window (:func:`_mxu_intersect`).  Every ray is
     resolved (col 5 = 1) and the steps column stays 0.
 
     * ``closest``: t/u/v, tri, hit, winner cluster and slot, and the winner's
       attribute row follow the kernel's contract (misses: t = tmax,
-      tri/cluster/slot = -1, zeros).
-    * ``any_hit``: col 0 = tmax, col 4 = ``cluster_occluded`` (any valid hit
-      in (T_MIN, tmax)), tri/cluster/slot = -1, everything else 0.
+      tri/cluster/slot = -1, zeros).  On the MXU layout (t, u, v) are
+      replayed from the winner's geometry rows (:func:`_replay`).  With
+      ``with_attrs=False`` (K4): the loop's t/u/v and tri id, a zero blob.
+    * ``any_hit``: col 0 = tmax, col 4 = the walk's hit flag (any valid hit
+      in (T_MIN, tmax): until a ray's first hit its best t is tmax, so every
+      cluster it enters is tested), tri/cluster/slot = -1, everything else 0.
     * ``mixed``: the ``closest`` rows for every lane.  A shadow lane reads
-      only col 4, and the closest-hit row's hit flag is its occlusion flag
-      (a valid hit in the window exists iff a closest one does); the kernel's
-      other columns of a shadow lane are not part of the contract.
+      only col 4, and the closest-hit row's hit flag is its occlusion flag;
+      the kernel's other columns of a shadow lane are not part of the
+      contract.
     """
-    _check_mode(mode)
+    _check_mode(mode, fb, with_attrs)
+    attrs = mode == "mixed" or (mode == "closest" and with_attrs)
+    intersect = functools.partial(_mxu_intersect, fb.planes) if fb.mxu else _intersect_cluster
     n = rays.shape[0]
     out = torch.zeros((n, OUT_COLS), dtype=torch.float32, device=rays.device)
     for lo in range(0, n, PLAIN_CHUNK):
         r = rays[lo : lo + PLAIN_CHUNK]
         o = out[lo : lo + PLAIN_CHUNK]
         o[:, 5] = 1.0
+        t, tri, uv, cid, slot = cluster_query(r[:, 0:3], r[:, 3:6], fb.cluster, m.T_MIN, r[:, 6],
+                                              intersect=intersect)
+        hit = tri >= 0
         if mode == "any_hit":
             o[:, 0] = r[:, 6]
             o[:, 3] = -1.0
-            o[:, 4] = cluster_occluded(r[:, 0:3], r[:, 3:6], fb.cluster, m.T_MIN, r[:, 6]).to(torch.float32)
+            o[:, 4] = hit.to(torch.float32)
             o[:, 7:9] = -1.0
             continue
-        t, tri, uv, cid, slot = cluster_query(r[:, 0:3], r[:, 3:6], fb.cluster, m.T_MIN, r[:, 6])
-        hit = tri >= 0
+        if attrs and fb.mxu:
+            t, uv = _replay(r[:, 0:3], r[:, 3:6], fb, hit, cid, slot, t)
         o[:, 0] = t
         o[:, 1:3] = uv
         o[:, 3] = tri.to(torch.float32)
         o[:, 4] = hit.to(torch.float32)
         o[:, 7] = cid.to(torch.float32)
         o[:, 8] = slot.to(torch.float32)
-        o[:, 16:32] = torch.where(hit[:, None], fb.attr_table[tri.clamp(min=0)][:, :16], 0.0)
+        if attrs:
+            o[:, 16:32] = torch.where(hit[:, None], fb.attr_table[tri.clamp(min=0)][:, :16], 0.0)
     return out
 
 
@@ -405,14 +620,14 @@ def build_kernels() -> tuple:
         for name in _ENTRY.values():
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         _cuda_lib = lib
     return path, seconds, log
 
 
-def _check_operand(name, x, shape, device):
-    if x.device != device or x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError(f"{name}: need a contiguous float32 tensor on {device}, "
+def _check_operand(name, x, shape, device, dtype=torch.float32):
+    if x.device != device or x.dtype != dtype or not x.is_contiguous():
+        raise ValueError(f"{name}: need a contiguous {dtype} tensor on {device}, "
                          f"got {x.dtype} on {x.device} (contiguous={x.is_contiguous()})")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {tuple(shape)}")
@@ -420,57 +635,56 @@ def _check_operand(name, x, shape, device):
         raise ValueError(f"{name}: the kernel reads 16-byte aligned rows; data_ptr is not")
 
 
-def _count_launch(mode: str):
-    global KERNEL_LAUNCHES, OCCLUDE_LAUNCHES, MIXED_LAUNCHES
-    if mode == "closest":
-        KERNEL_LAUNCHES += 1
-    elif mode == "any_hit":
-        OCCLUDE_LAUNCHES += 1
-    else:
-        MIXED_LAUNCHES += 1
-
-
-def _fused2_traverse_cuda(rays, fb: Fused2BVH, block: int, max_steps: int, mode: str = "closest"):
-    """Launch the CUDA kernel in ``mode`` on the current stream -> [N,32] (no sync)."""
-    _check_mode(mode)
+def _fused2_traverse_cuda(rays, fb: Fused2BVH, block: int, max_steps: int, mode: str = "closest",
+                          fanout: int = FANOUT, with_attrs: bool = True):
+    """Launch the kernel entry of ``fb``'s layout and ``mode`` on the current
+    stream -> [N,32] (no sync)."""
+    _check_mode(mode, fb, with_attrs)
     if rays.device.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError(f"the fused2 kernel needs CUDA tensors on a CUDA device; got {rays.device}")
     n = rays.shape[0]
     k, c = fb.num_clusters, fb.cluster_size
+    if not fb.mxu:
+        fanout = 1  # the component layout retires one cluster per iteration
     if block % 32 or not 32 <= block <= 1024 or n % block:
         raise ValueError(f"block {block} must be a multiple of 32 in [32, 1024] dividing N={n}")
     _check_operand("rays", rays, (n, 8), rays.device)
     _check_operand("boxes", fb.boxes, (8, k), rays.device)
-    _check_operand("planes", fb.planes, (k, 16, c), rays.device)
+    _check_operand("planes", fb.planes, (k, 16, 4 * c if fb.mxu else c), rays.device,
+                   torch.bfloat16 if fb.layout == "mxu_bf16" else torch.float32)
     _check_operand("attrs", fb.attrs, (k, ATTR_ROWS, c), rays.device)
     out = torch.empty((n, OUT_COLS), dtype=torch.float32, device=rays.device)
     if n == 0:
         return out
     if _cuda_lib is None:
         build_kernels()
+    name = _entry(fb, mode, with_attrs)
     with torch.cuda.device(rays.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(_cuda_lib, _ENTRY[mode])(
+        err = getattr(_cuda_lib, name)(
             rays.data_ptr(), fb.boxes.data_ptr(), fb.planes.data_ptr(), fb.attrs.data_ptr(),
-            out.data_ptr(), n, k, c, block, max_steps, REFRESH_CLUSTERS, stream,
+            out.data_ptr(), n, k, c, block, max_steps, REFRESH_CLUSTERS, fanout, stream,
         )
     if err != 0:
-        raise RuntimeError(f"fused2 {mode} kernel launch failed: CUDA error {err}")
-    _count_launch(mode)
+        raise RuntimeError(f"fused2 kernel {name} launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
     return out
 
 
 def fused2_traverse_packed(rays, fb: Fused2BVH, block: int = BLOCK_RAYS, max_steps: int = MAX_STEPS,
-                           mode: str = "closest"):
+                           mode: str = "closest", fanout: int = FANOUT, with_attrs: bool = True):
     """[N,8] packed rays -> [N,32] in ``mode``: the kernel for CUDA tensors,
-    the plain version for CPU tensors.  N must be a multiple of ``block``."""
+    the plain version for CPU tensors.  N must be a multiple of ``block``.
+    ``fanout`` (clusters retired per loop iteration, MXU layout only) does
+    not change the answers; ``with_attrs=False`` is closest hit without
+    attributes (K4)."""
     if rays.device.type == "cpu":
-        return fused2_traverse_packed_plain(rays, fb, mode)
-    return _fused2_traverse_cuda(rays, fb, block, max_steps, mode)
+        return fused2_traverse_packed_plain(rays, fb, mode, with_attrs)
+    return _fused2_traverse_cuda(rays, fb, block, max_steps, mode, fanout, with_attrs)
 
 
 def _sweep(ray_o, ray_d, t_max, fb: Fused2BVH, sort, block: int, max_steps: int, mode: str,
-           shadow=None):
+           fanout: int, shadow=None, with_attrs: bool = True):
     """Pad to whole blocks, pack, optionally sort by the coherence key (the
     shadow class on key bit 30), traverse in ``mode`` and unsort -> [N,32]
     rows of the first N (unpadded) rays."""
@@ -481,12 +695,14 @@ def _sweep(ray_o, ray_d, t_max, fb: Fused2BVH, sort, block: int, max_steps: int,
     rays = pack_rays(ray_o_p, ray_d_p, t_max_p, shadow)
     sort_mode = resolve_sort(sort)
     if not sort_mode:
-        return fused2_traverse_packed(rays, fb, block=block, max_steps=max_steps, mode=mode)[:n0]
+        return fused2_traverse_packed(rays, fb, block=block, max_steps=max_steps, mode=mode,
+                                      fanout=fanout, with_attrs=with_attrs)[:n0]
     keys = wave_sort_keys(ray_o_p, ray_d_p, t_max_p, fb, mode=sort_mode)
     if shadow is not None:
         keys = keys | (shadow.to(torch.int64) << SHADOW_CLASS_BIT)
     perm = torch.sort(keys, stable=True).indices
-    out = fused2_traverse_packed(rays[perm], fb, block=block, max_steps=max_steps, mode=mode)
+    out = fused2_traverse_packed(rays[perm], fb, block=block, max_steps=max_steps, mode=mode,
+                                 fanout=fanout, with_attrs=with_attrs)
     return out[_inverse_perm(perm)][:n0]
 
 
@@ -517,25 +733,29 @@ def _hits_from_output(out, ray_o, ray_d, fb: Fused2BVH, t_min, t_max):
 
 
 def fused2_closest_hit(ray_o, ray_d, fb: Fused2BVH, t_min: float = m.T_MIN, t_max=m.T_MAX,
-                       sort=False, block: int = BLOCK_RAYS, max_steps: int = MAX_STEPS):
+                       sort=False, block: int = BLOCK_RAYS, max_steps: int = MAX_STEPS,
+                       with_attrs: bool = True, fanout: int = FANOUT):
     """Exact closest hit + shading payload -> (HitRecord, attr_blob [N,16]).
 
     Pads to whole blocks; with ``sort`` ("morton", "cid2" or True) stably
     sorts the packed rays by a coherence key before the traversal and
-    unsorts after."""
-    out = _sweep(ray_o, ray_d, t_max, fb, sort, block, max_steps, "closest")
+    unsorts after.  ``with_attrs=False`` (f32 planes only) returns the
+    loop's t/u/v and in-plane tri id and a zero blob for resolved rows."""
+    out = _sweep(ray_o, ray_d, t_max, fb, sort, block, max_steps, "closest", fanout,
+                 with_attrs=with_attrs)
     return _hits_from_output(out, ray_o, ray_d, fb, t_min, t_max)
 
 
 def fused2_occluded(ray_o, ray_d, fb: Fused2BVH, t_min: float = m.T_MIN, t_max=m.T_MAX,
-                    sort=False, block: int = BLOCK_RAYS, max_steps: int = MAX_STEPS):
+                    sort=False, block: int = BLOCK_RAYS, max_steps: int = MAX_STEPS,
+                    fanout: int = FANOUT):
     """Any-hit occlusion -> [N] bool: is there a valid hit in (t_min, t_max)?
 
     The first valid hit retires a ray (terminate-on-first-hit).  Pads, sorts
     and unsorts like :func:`fused2_closest_hit`; rows a block leaves
     unresolved take ``cluster_occluded``."""
     global UNRESOLVED_RAYS
-    out = _sweep(ray_o, ray_d, t_max, fb, sort, block, max_steps, "any_hit")
+    out = _sweep(ray_o, ray_d, t_max, fb, sort, block, max_steps, "any_hit", fanout)
     occ = out[:, 4] > 0.0
     rows = torch.nonzero(out[:, 5] <= 0.0).squeeze(1)
     if rows.numel():
@@ -546,7 +766,8 @@ def fused2_occluded(ray_o, ray_d, fb: Fused2BVH, t_min: float = m.T_MIN, t_max=m
 
 
 def fused2_sweep_mixed(ray_o, ray_d, t_max, shadow, fb: Fused2BVH, t_min: float = m.T_MIN,
-                       sort=False, block: int = BLOCK_RAYS, max_steps: int = MAX_STEPS):
+                       sort=False, block: int = BLOCK_RAYS, max_steps: int = MAX_STEPS,
+                       fanout: int = FANOUT):
     """One kernel sweep over closest-hit and shadow (any-hit) lanes.
 
     ``shadow`` [N] bool marks the any-hit lanes.  Returns (HitRecord,
@@ -557,7 +778,7 @@ def fused2_sweep_mixed(ray_o, ray_d, t_max, shadow, fb: Fused2BVH, t_min: float 
     so sorted blocks stay pure and keep the any-hit early exit.  Unresolved
     rows get the exact cluster query, whose closest hit gives both answers
     (occluded iff it hit)."""
-    out = _sweep(ray_o, ray_d, t_max, fb, sort, block, max_steps, "mixed", shadow=shadow)
+    out = _sweep(ray_o, ray_d, t_max, fb, sort, block, max_steps, "mixed", fanout, shadow=shadow)
     rec, blob = _hits_from_output(out, ray_o, ray_d, fb, t_min, t_max)
     occluded = rec.tri >= 0
     t = torch.where(occluded, rec.t, m.T_MAX)

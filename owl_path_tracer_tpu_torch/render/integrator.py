@@ -31,7 +31,7 @@ from ..ops import math as m
 from ..ops import rng as rng_mod
 from ..ops import texture as tex
 from ..ops.fused2 import (
-    BLOCK_RAYS, Fused2BVH, fused2_occluded, fused2_sweep_mixed, make_fused2_intersector,
+    BLOCK_RAYS, FANOUT, Fused2BVH, fused2_occluded, fused2_sweep_mixed, make_fused2_intersector,
 )
 from ..utils.tensors import TensorBundle
 
@@ -309,25 +309,32 @@ def _require_fused2(accel):
         )
 
 
-def make_mixed_sweep_fn(accel, fused2_block: int | None = None, fused2_sort=False):
+def make_mixed_sweep_fn(accel, fused2_block: int | None = None, fused2_sort=False,
+                        fused2_fanout: int | None = None):
     """Mixed closest-hit + any-hit sweep for the deferred-NEE wavefront:
     ``sweep(ray_o, ray_d, t_max, shadow)`` -> (HitRecord, blob, occluded)."""
     _require_fused2(accel)
     blk = fused2_block or BLOCK_RAYS
+    fo = fused2_fanout or FANOUT
 
     def sweep(ray_o, ray_d, t_max, shadow):
-        return fused2_sweep_mixed(ray_o, ray_d, t_max, shadow, accel, sort=fused2_sort, block=blk)
+        return fused2_sweep_mixed(ray_o, ray_d, t_max, shadow, accel, sort=fused2_sort, block=blk, fanout=fo)
 
     return sweep
 
 
-def make_intersectors(scene: Scene, accel, fused2_block: int | None = None, fused2_sort=False):
+def make_intersectors(scene: Scene, accel, fused2_block: int | None = None, fused2_sort=False,
+                      fused2_fanout: int | None = None):
     """Accel -> (intersect_fn, occlude_fn).  Only the fused2 accelerator is
-    ported: closest hit through kernel K1, occlusion through kernel K2."""
+    ported: closest hit through kernel K1 (component planes) or K1b (MXU
+    planes), occlusion through K2 or K1b's any-hit mode.  ``fused2_fanout``
+    (default FANOUT) is the clusters retired per loop iteration on the MXU
+    layout."""
     _require_fused2(accel)
     blk = fused2_block or BLOCK_RAYS
+    fo = fused2_fanout or FANOUT
 
     def occlude(pos, direction, max_dist):
-        return fused2_occluded(pos, direction, accel, t_max=max_dist, block=blk, sort=fused2_sort)
+        return fused2_occluded(pos, direction, accel, t_max=max_dist, block=blk, sort=fused2_sort, fanout=fo)
 
-    return make_fused2_intersector(accel, block=blk, sort=fused2_sort), occlude
+    return make_fused2_intersector(accel, block=blk, sort=fused2_sort, fanout=fo), occlude

@@ -194,14 +194,15 @@ def wavefront_step(scene: Scene, settings: RenderSettings, st: PoolState, inters
 def _run_chunk(scene: Scene, settings: RenderSettings, st: PoolState, accel,
                enable_textures: bool, work_hi: int, iters: int, fused2_block=None,
                fused2_sort=False, sample_base: int = 0, lights=None, env_light=None,
-               fused_nee: bool = False):
+               fused_nee: bool = False, fused2_fanout=None):
     """``iters`` wavefront steps -> (pool, status [work_done, busy])."""
     intersect_fn, occlude_fn = integrator.make_intersectors(
-        scene, accel, fused2_block=fused2_block, fused2_sort=fused2_sort
+        scene, accel, fused2_block=fused2_block, fused2_sort=fused2_sort, fused2_fanout=fused2_fanout
     )
     mixed_fn = None
     if settings.use_nee and fused_nee:
-        mixed_fn = integrator.make_mixed_sweep_fn(accel, fused2_block=fused2_block, fused2_sort=fused2_sort)
+        mixed_fn = integrator.make_mixed_sweep_fn(accel, fused2_block=fused2_block, fused2_sort=fused2_sort,
+                                                  fused2_fanout=fused2_fanout)
     for _ in range(iters):
         st = wavefront_step(scene, settings, st, intersect_fn, enable_textures, work_hi, sample_base,
                             lights=lights, occlude_fn=occlude_fn, env_light=env_light,
@@ -213,7 +214,8 @@ def _run_chunk(scene: Scene, settings: RenderSettings, st: PoolState, accel,
 def render_image_wavefront(scene: Scene, settings: RenderSettings, accel, lanes: int = 131072,
                            iters_per_launch: int = 32, max_launches: int = 1000,
                            fused2_block: int | None = None, fused2_sort=False,
-                           sample_base: int = 0, fused_nee: bool = False) -> tuple:
+                           sample_base: int = 0, fused_nee: bool = False,
+                           fused2_fanout: int | None = None) -> tuple:
     """Full frame via the persistent pool -> (image [H,W,3] top row first, on
     the scene's device; live rays traced).
 
@@ -222,7 +224,9 @@ def render_image_wavefront(scene: Scene, settings: RenderSettings, accel, lanes:
     expected step count (work / lanes + depth + 3) caps ``iters_per_launch``.
     With ``settings.use_nee`` the light table (and, with
     ``settings.environment_use``, the environment light) is built from the
-    scene; ``fused_nee`` selects the deferred form.
+    scene; ``fused_nee`` selects the deferred form.  ``fused2_fanout``
+    (default FANOUT) is the clusters the traversal retires per loop
+    iteration on the MXU layout.
     """
     enable_textures = scene_has_textures(scene)
     if fused2_sort is True:
@@ -240,7 +244,7 @@ def render_image_wavefront(scene: Scene, settings: RenderSettings, accel, lanes:
         st, status = _run_chunk(
             scene, settings, st, accel, enable_textures, total_work, iters,
             fused2_block=fused2_block, fused2_sort=fused2_sort, sample_base=sample_base,
-            lights=lights, env_light=env_light, fused_nee=fused_nee,
+            lights=lights, env_light=env_light, fused_nee=fused_nee, fused2_fanout=fused2_fanout,
         )
         work_done, busy = status.tolist()
         if work_done and not busy:

@@ -1,6 +1,8 @@
 """The port on a CUDA card: the fused2 kernel in its three modes (closest hit,
-any-hit, mixed) against its plain version, and frames (without and with NEE)
-rendered on the card against the same frames on the CPU.
+any-hit, mixed) on the component layout (K1-K3) and the MXU feature layout
+with f32 and bf16 planes (K1b), and without attributes (K4), against its
+plain version, and frames (without and with NEE) rendered on the card
+against the same frames on the CPU.
 
 Imports nothing of JAX (the card's machine has none).  Every test is marked
 ``cuda`` and skips where there is no CUDA device.  On the card:
@@ -48,7 +50,7 @@ def soup():
     normals = r.normal(size=verts.shape).astype(np.float32)
     tc = r.uniform(0, 1, (len(verts), 2)).astype(np.float32)
     mat = r.integers(0, 5, 3000).astype(np.int32)
-    fb = tf2.build_fused2(verts, idx, 64, normals, tc, mat, device="cpu")
+    fb = tf2.build_fused2(verts, idx, 64, normals, tc, mat, mxu=False, device="cpu")
     n = 512
     o = r.uniform(-6, 6, (n, 3)).astype(np.float32)
     d = r.normal(size=(n, 3)).astype(np.float32)
@@ -71,9 +73,9 @@ def test_kernel_matches_plain(soup, cuda_device, block):
     fb = fb.to(cuda_device)
     args = [torch.as_tensor(x[:300], device=cuda_device) for x in (o, d, tmax)]
     rays = tf2.pack_rays(*tf2._pad_rays(*args, block)[:3])  # 300 rays, then padding rays
-    launches = tf2.KERNEL_LAUNCHES
+    launches = tf2.LAUNCHES["owlpt_fused2_closest_hit"]
     got = tf2.fused2_traverse_packed(rays, fb, block=block)
-    assert tf2.KERNEL_LAUNCHES == launches + 1
+    assert tf2.LAUNCHES["owlpt_fused2_closest_hit"] == launches + 1
     want = tf2.fused2_traverse_packed_plain(rays, fb)
     torch.cuda.synchronize()
     assert_kernel_output_matches(got, want)
@@ -112,7 +114,7 @@ def test_frame_on_card_matches_cpu(cuda_device):
     settings = RenderSettings(width=32, height=32, max_samples=4, max_path_depth=3,
                               environment_auto=True)
     scene = compile_scene(ASSETS, "cornell-box", (32, 32), device="cpu")
-    accel = make_accel(scene, "fused2")
+    accel = tf2.build_fused2_scene(scene, mxu=False)
     want, rays_want = render_image_wavefront(scene, settings, accel, lanes=1024, fused2_sort=True)
     img, rays = render_image_wavefront(scene.to(cuda_device), settings, accel.to(cuda_device),
                                        lanes=1024, fused2_sort=True)
@@ -136,9 +138,9 @@ def _mixed_inputs(soup, device):
 def test_any_hit_kernel_matches_plain(soup, cuda_device, block):
     fb, (o, d, tmax, _, _) = _mixed_inputs(soup, cuda_device)
     rays = tf2.pack_rays(*tf2._pad_rays(o[:300], d[:300], tmax[:300], block)[:3])
-    launches = tf2.OCCLUDE_LAUNCHES
+    launches = tf2.LAUNCHES["owlpt_fused2_occluded"]
     got = tf2.fused2_traverse_packed(rays, fb, block=block, mode="any_hit")
-    assert tf2.OCCLUDE_LAUNCHES == launches + 1
+    assert tf2.LAUNCHES["owlpt_fused2_occluded"] == launches + 1
     want = tf2.fused2_traverse_packed_plain(rays, fb, mode="any_hit")
     torch.cuda.synchronize()
     assert (got[:, 5] == 1).all()
@@ -155,9 +157,9 @@ def test_mixed_kernel_matches_plain(soup, cuda_device, block):
     o_p, d_p, t_p, _ = tf2._pad_rays(o, d, dist, block)
     sh_p = torch.cat([shadow, shadow.new_zeros(o_p.shape[0] - len(o))])
     rays = tf2.pack_rays(o_p, d_p, t_p, sh_p)
-    launches = tf2.MIXED_LAUNCHES
+    launches = tf2.LAUNCHES["owlpt_fused2_sweep_mixed"]
     got = tf2.fused2_traverse_packed(rays, fb, block=block, mode="mixed")
-    assert tf2.MIXED_LAUNCHES == launches + 1
+    assert tf2.LAUNCHES["owlpt_fused2_sweep_mixed"] == launches + 1
     want = tf2.fused2_traverse_packed_plain(rays, fb, mode="mixed")
     torch.cuda.synchronize()
     assert_kernel_output_matches(got[~sh_p], want[~sh_p])
@@ -192,11 +194,89 @@ def test_nee_frame_on_card_matches_cpu(cuda_device, fused_nee):
     settings = RenderSettings(width=32, height=32, max_samples=4, max_path_depth=3,
                               environment_auto=True, use_nee=True)
     scene = compile_scene(ASSETS, "cornell-box", (32, 32), env_map_path=None, device="cpu")
-    accel = make_accel(scene, "fused2")
+    accel = tf2.build_fused2_scene(scene, mxu=False)
     want, rays_want = render_image_wavefront(scene, settings, accel, lanes=1024, fused2_sort=True,
                                              fused_nee=fused_nee)
     img, rays = render_image_wavefront(scene.to(cuda_device), settings, accel.to(cuda_device),
                                        lanes=1024, fused2_sort=True, fused_nee=fused_nee)
+    img, want = img.cpu().numpy(), want.numpy()
+    close = np.isclose(img, want, rtol=1e-4, atol=1e-5)
+    assert close.mean() > 0.995, f"only {close.mean():.4%} pixels match"
+    np.testing.assert_allclose(img.mean(), want.mean(), rtol=1e-3)
+    assert abs(rays - rays_want) <= 0.005 * rays_want
+
+
+@pytest.fixture(scope="module")
+def mxu_soups(soup):
+    """The soup's clusters in the MXU feature layout, f32 and bf16 planes."""
+    r = np.random.default_rng(0)
+    tri = r.uniform(-4, 4, (3000, 1, 3)) + r.normal(0, 0.4, (3000, 3, 3))
+    verts = tri.reshape(-1, 3).astype(np.float32)
+    idx = np.arange(9000, dtype=np.int32).reshape(3000, 3)
+    normals = r.normal(size=verts.shape).astype(np.float32)
+    tc = r.uniform(0, 1, (len(verts), 2)).astype(np.float32)
+    mat = r.integers(0, 5, 3000).astype(np.int32)
+    return {name: tf2.build_fused2(verts, idx, 64, normals, tc, mat, plane_dtype=dtype, device="cpu")
+            for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+
+
+@pytest.mark.parametrize("mode", ["closest", "any_hit", "mixed"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("block", [128, 256])
+def test_mxu_kernel_matches_plain(soup, mxu_soups, cuda_device, block, dtype, mode):
+    """K1b on the soup: equal to the plain version (both sum the feature
+    products in one order without FMAs; the soup has no near ties), fanout 1
+    and 2 identical but for the steps column."""
+    fb = mxu_soups[dtype].to(cuda_device)
+    _, (o, d, tmax, dist, shadow) = _mixed_inputs(soup, cuda_device)
+    t = dist if mode == "mixed" else tmax
+    o_p, d_p, t_p, _ = tf2._pad_rays(o, d, t, block)
+    sh_p = torch.cat([shadow, shadow.new_zeros(o_p.shape[0] - len(o))]) if mode == "mixed" else None
+    rays = tf2.pack_rays(o_p, d_p, t_p, sh_p)
+    name = tf2._entry(fb, mode, True)
+    launches = tf2.LAUNCHES[name]
+    got = {fo: tf2.fused2_traverse_packed(rays, fb, block=block, mode=mode, fanout=fo) for fo in (1, 2)}
+    assert tf2.LAUNCHES[name] == launches + 2
+    want = tf2.fused2_traverse_packed_plain(rays, fb, mode)
+    torch.cuda.synchronize()
+    keep = [c for c in range(32) if c != 6]
+    torch.testing.assert_close(got[1][:, keep], got[2][:, keep], rtol=0, atol=0)
+    got = got[2]
+    assert (got[:, 5] == 1).all()
+    if mode == "any_hit":
+        torch.testing.assert_close(got[:, 4], want[:, 4], rtol=0, atol=0)
+        return
+    lanes = ~sh_p if mode == "mixed" else torch.ones_like(got[:, 0], dtype=torch.bool)
+    assert_kernel_output_matches(got[lanes], want[lanes])
+    if mode == "mixed":
+        torch.testing.assert_close(got[sh_p, 4], want[sh_p, 4], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("layout", ["component", "f32"])
+def test_no_attrs_kernel_matches_plain(soup, mxu_soups, cuda_device, layout):
+    """K4: loop t/u/v and the in-plane tri id, a zero blob."""
+    fb = (soup[0] if layout == "component" else mxu_soups[layout]).to(cuda_device)
+    _, o, d, tmax = soup
+    args = [torch.as_tensor(x[:300], device=cuda_device) for x in (o, d, tmax)]
+    rays = tf2.pack_rays(*tf2._pad_rays(*args, 128)[:3])
+    got = tf2.fused2_traverse_packed(rays, fb, block=128, with_attrs=False)
+    want = tf2.fused2_traverse_packed_plain(rays, fb, with_attrs=False)
+    torch.cuda.synchronize()
+    assert_kernel_output_matches(got, want)
+    assert (got[:, 16:32] == 0).all()
+    with pytest.raises(ValueError, match="with_attrs"):
+        tf2.fused2_traverse_packed(rays, mxu_soups["bf16"].to(cuda_device), block=128, with_attrs=False)
+
+
+@pytest.mark.parametrize("kind", ["fused2", "fused2-bf16"])
+def test_mxu_frame_on_card_matches_cpu(cuda_device, kind):
+    settings = RenderSettings(width=32, height=32, max_samples=4, max_path_depth=3,
+                              environment_auto=True)
+    scene = compile_scene(ASSETS, "cornell-box", (32, 32), device="cpu")
+    accel = make_accel(scene, kind)
+    want, rays_want = render_image_wavefront(scene, settings, accel, lanes=1024, fused2_sort=True)
+    img, rays = render_image_wavefront(scene.to(cuda_device), settings, accel.to(cuda_device),
+                                       lanes=1024, fused2_sort=True)
     img, want = img.cpu().numpy(), want.numpy()
     close = np.isclose(img, want, rtol=1e-4, atol=1e-5)
     assert close.mean() > 0.995, f"only {close.mean():.4%} pixels match"

@@ -34,7 +34,7 @@ def setup():
     tri_mat = r.integers(0, 5, len(idx)).astype(np.int32)
     kw = dict(cluster_size=64, normals=normals, texcoords=texcoords, tri_mat=tri_mat)
     jfb = jf2.build_fused2(verts, idx, mxu=False, **kw)
-    tfb = tf2.build_fused2(verts, idx, device="cpu", **kw)
+    tfb = tf2.build_fused2(verts, idx, mxu=False, device="cpu", **kw)
     n = 512
     o = r.uniform(-6, 6, (n, 3)).astype(np.float32)
     d = r.normal(size=(n, 3)).astype(np.float32)

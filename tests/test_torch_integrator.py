@@ -22,6 +22,7 @@ from owl_path_tracer_tpu.ops import fused2 as jf2
 from owl_path_tracer_tpu.render import film as jfilm
 from owl_path_tracer_tpu.render import integrator as jint
 from owl_path_tracer_tpu_torch.models import scene as tscene
+from owl_path_tracer_tpu_torch.ops import fused2 as tf2
 from owl_path_tracer_tpu_torch.render import film as tfilm
 from owl_path_tracer_tpu_torch.render import integrator as tint
 
@@ -68,7 +69,7 @@ def test_trace_bounce_matches_jax(name):
     step = jax.jit(lambda s: jint.trace_bounce(js, settings, s, isect, textures))
     ref = step(jint.PathState(**{k: jnp.asarray(v) for k, v in st.items()}))
 
-    t_isect, _ = tint.make_intersectors(ts, tfilm.make_accel(ts, "fused2", cluster_size=512))
+    t_isect, _ = tint.make_intersectors(ts, tf2.build_fused2_scene(ts, cluster_size=512, mxu=False))
     conv = {k: torch.as_tensor(v.astype(np.int64) if v.dtype.kind in "iu" else v) for k, v in st.items()}
     got = tint.trace_bounce(ts, settings, tint.PathState(**conv), t_isect, textures)
 

@@ -28,7 +28,7 @@ from owl_path_tracer_tpu.utils.parser import CameraDesc
 from owl_path_tracer_tpu_torch import convert
 from owl_path_tracer_tpu_torch.models import envlight as tenv
 from owl_path_tracer_tpu_torch.models import lights as tlights
-from owl_path_tracer_tpu_torch.render import film as tfilm
+from owl_path_tracer_tpu_torch.ops import fused2 as tf2
 from owl_path_tracer_tpu_torch.render import integrator as tint
 from test_envlight import sun_env
 from test_integrator import make_sphere_mesh
@@ -106,7 +106,7 @@ def test_trace_bounce_nee_matches_jax(name, deferred):
         js, settings, jl, s, isect, occlude, False, allow_nee=a, env_light=je, deferred=deferred))
     ref = step(jint.PathState(**{k: jnp.asarray(v) for k, v in st.items()}), jnp.asarray(allow))
 
-    t_isect, t_occlude = tint.make_intersectors(ts, tfilm.make_accel(ts, "fused2", cluster_size=512))
+    t_isect, t_occlude = tint.make_intersectors(ts, tf2.build_fused2_scene(ts, cluster_size=512, mxu=False))
     conv = {k: torch.as_tensor(v.astype(np.int64) if v.dtype.kind in "iu" else v) for k, v in st.items()}
     got = tint.trace_bounce_nee(ts, settings, tl, tint.PathState(**conv), t_isect, t_occlude, False,
                                 allow_nee=torch.as_tensor(allow), env_light=te, deferred=deferred)
@@ -132,7 +132,7 @@ def test_deferred_equals_immediate_when_nothing_is_occluded():
     st = _state({"vertices": np.asarray(js.vertices), "origin": np.asarray(js.camera.origin)},
                 np.random.default_rng(8))
     conv = {k: torch.as_tensor(v.astype(np.int64) if v.dtype.kind in "iu" else v) for k, v in st.items()}
-    isect, _ = tint.make_intersectors(ts, tfilm.make_accel(ts, "fused2", cluster_size=512))
+    isect, _ = tint.make_intersectors(ts, tf2.build_fused2_scene(ts, cluster_size=512, mxu=False))
 
     def never(pos, direction, dist):
         return torch.zeros(pos.shape[0], dtype=torch.bool)

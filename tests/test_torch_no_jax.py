@@ -1,12 +1,14 @@
 """The PyTorch port stands alone: no JAX, no JAX package, no CPU fallback
 for CUDA work."""
 import os
+import pathlib
 import subprocess
 import sys
 
 import pytest
 import torch
 
+from owl_path_tracer_tpu_torch import native
 from owl_path_tracer_tpu_torch.ops import fused2 as tf2
 
 torch.set_num_threads(2)
@@ -37,6 +39,30 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert int(proc.stdout.strip()) >= 20  # every sub-package and module was walked
 
 
+def test_native_sources_lie_inside_the_port(monkeypatch):
+    """Every source the port hands to g++ or nvcc is a file of the port's
+    own package: nothing is compiled from the JAX package."""
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def record(cmd_head, sources, out, flags):
+        seen.extend(pathlib.Path(s).resolve() for s in sources)
+        raise Stop
+
+    monkeypatch.setattr(native, "_compile", record)
+    monkeypatch.setattr(native, "_bvh_lib", None)
+    with pytest.raises(Stop):
+        native._load_bvh()  # g++: the SAH builder
+    with pytest.raises(Stop):
+        tf2.build_kernels()  # nvcc: the traversal kernels
+    port = pathlib.Path(native.PKG_DIR).resolve()
+    assert len(seen) >= 2
+    for src in seen:
+        assert port in src.parents and src.is_file(), src
+
+
 def _tiny_accel(device):
     k, c = 128, 64
     z = lambda *s: torch.zeros(s, device=device)  # noqa: E731
@@ -55,14 +81,14 @@ def test_cuda_dispatch_raises_instead_of_falling_back(monkeypatch):
         raise AssertionError("plain version called for a non-CPU tensor")
 
     monkeypatch.setattr(tf2, "fused2_traverse_packed_plain", no_fallback)
-    launches = tf2.KERNEL_LAUNCHES
+    launches = dict(tf2.LAUNCHES)
     rays = torch.zeros((128, 8), device="meta")
     with pytest.raises(RuntimeError, match="CUDA"):
         tf2.fused2_traverse_packed(rays, _tiny_accel("meta"), block=128)
     # the kernel path itself refuses CPU tensors too
     with pytest.raises(RuntimeError, match="CUDA"):
         tf2._fused2_traverse_cuda(torch.zeros((128, 8)), _tiny_accel("cpu"), 128, 8)
-    assert tf2.KERNEL_LAUNCHES == launches
+    assert tf2.LAUNCHES == launches
 
 
 def test_cpu_tensors_take_the_plain_version():

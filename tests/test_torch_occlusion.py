@@ -34,7 +34,7 @@ def setup():
     tri_mat = r.integers(0, 5, len(idx)).astype(np.int32)
     kw = dict(cluster_size=64, normals=normals, texcoords=texcoords, tri_mat=tri_mat)
     jfb = jf2.build_fused2(verts, idx, mxu=False, **kw)
-    tfb = tf2.build_fused2(verts, idx, device="cpu", **kw)
+    tfb = tf2.build_fused2(verts, idx, mxu=False, device="cpu", **kw)
     n = 512
     o = r.uniform(-6, 6, (n, 3)).astype(np.float32)
     d = r.normal(size=(n, 3)).astype(np.float32)
@@ -122,8 +122,9 @@ def test_unresolved_rows_get_the_exact_query(setup, monkeypatch):
     _, tfb, o, d, tmax, shadow, mixed_tmax = setup
     plain = tf2.fused2_traverse_packed_plain
 
-    def overflowing(rays, fb, block=tf2.BLOCK_RAYS, max_steps=tf2.MAX_STEPS, mode="closest"):
-        out = plain(rays, fb, mode)
+    def overflowing(rays, fb, block=tf2.BLOCK_RAYS, max_steps=tf2.MAX_STEPS, mode="closest",
+                    fanout=tf2.FANOUT, with_attrs=True):
+        out = plain(rays, fb, mode, with_attrs)
         bad = torch.arange(rays.shape[0]) % 3 == 0
         out[bad, 0:5] = 12345.0  # garbage a real overflow would leave behind
         out[bad, 16:32] = -7.0
@@ -155,7 +156,7 @@ def test_cuda_dispatch_raises_instead_of_falling_back(monkeypatch, mode):
         raise AssertionError("plain version called for a non-CPU tensor")
 
     monkeypatch.setattr(tf2, "fused2_traverse_packed_plain", no_fallback)
-    counts = (tf2.KERNEL_LAUNCHES, tf2.OCCLUDE_LAUNCHES, tf2.MIXED_LAUNCHES)
+    counts = dict(tf2.LAUNCHES)
     rays = torch.zeros((128, 8), device="meta")
     with pytest.raises(RuntimeError, match="CUDA"):
         tf2.fused2_traverse_packed(rays, _tiny_accel("meta"), block=128, mode=mode)
@@ -168,4 +169,4 @@ def test_cuda_dispatch_raises_instead_of_falling_back(monkeypatch, mode):
                                    torch.zeros(100, dtype=torch.bool, device="meta"), _tiny_accel("meta"))
     with pytest.raises(RuntimeError, match="CUDA"):
         tf2._fused2_traverse_cuda(torch.zeros((128, 8)), _tiny_accel("cpu"), 128, 8, mode)
-    assert (tf2.KERNEL_LAUNCHES, tf2.OCCLUDE_LAUNCHES, tf2.MIXED_LAUNCHES) == counts
+    assert tf2.LAUNCHES == counts

@@ -19,7 +19,7 @@ from owl_path_tracer_tpu.render import wavefront as jwf
 from owl_path_tracer_tpu_torch.models import camera as tcam
 from owl_path_tracer_tpu_torch.models import material as tmat
 from owl_path_tracer_tpu_torch.models import scene as tscene
-from owl_path_tracer_tpu_torch.render import film as tfilm
+from owl_path_tracer_tpu_torch.ops import fused2 as tf2
 from owl_path_tracer_tpu_torch.render import wavefront as twf
 from owl_path_tracer_tpu_torch.utils.parser import CameraDesc
 from test_integrator import make_sphere_mesh, sphere_scene
@@ -53,7 +53,7 @@ def test_render_matches_jax(name, sort):
         film_mode="scatter", fused2_sort=sort,
     )
     img, rays = twf.render_image_wavefront(
-        ts, SETTINGS, tfilm.make_accel(ts, "fused2", cluster_size=512), lanes=1024,
+        ts, SETTINGS, tf2.build_fused2_scene(ts, cluster_size=512, mxu=False), lanes=1024,
         fused2_sort=sort,
     )
     img = img.numpy()

@@ -17,7 +17,7 @@ from owl_path_tracer_tpu.models import scene as jscene
 from owl_path_tracer_tpu.ops import fused2 as jf2
 from owl_path_tracer_tpu.render import wavefront as jwf
 from owl_path_tracer_tpu_torch import convert
-from owl_path_tracer_tpu_torch.render import film as tfilm
+from owl_path_tracer_tpu_torch.ops import fused2 as tf2
 from owl_path_tracer_tpu_torch.render import wavefront as twf
 from test_nee import box_with_light
 from test_torch_integrator import ASSETS
@@ -64,7 +64,7 @@ def check_nee_render(name, fused_nee, sort):
         film_mode="scatter", fused2_sort=sort, fused_nee=fused_nee,
     )
     img, rays = twf.render_image_wavefront(
-        ts, settings, tfilm.make_accel(ts, "fused2", cluster_size=512), lanes=512,
+        ts, settings, tf2.build_fused2_scene(ts, cluster_size=512, mxu=False), lanes=512,
         fused2_sort=sort, fused_nee=fused_nee,
     )
     _golden(img.numpy(), rays, want, rays_want)
@@ -84,7 +84,7 @@ def test_env_nee_render_matches_jax():
     want, rays_want = jwf.render_image_wavefront(
         js, settings, accel=jf2.build_fused2_scene(js, mxu=False), lanes=512, film_mode="scatter",
     )
-    accel = tfilm.make_accel(ts, "fused2")
+    accel = tf2.build_fused2_scene(ts, mxu=False)
     img, rays = twf.render_image_wavefront(ts, settings, accel, lanes=512)
     _golden(img.numpy(), rays, want, rays_want)
     img_f, rays_f = twf.render_image_wavefront(ts, settings, accel, lanes=512, fused_nee=True)
@@ -101,7 +101,7 @@ def test_deferred_equals_separate_with_zombies():
     settings = jscene.RenderSettings(width=12, height=12, max_samples=12, max_path_depth=8,
                                      environment_intensity=0.0, environment_color=(0, 0, 0),
                                      use_nee=True)
-    accel = tfilm.make_accel(ts, "fused2", cluster_size=64)
+    accel = tf2.build_fused2_scene(ts, cluster_size=64, mxu=False)
     img_sep, rays_sep = twf.render_image_wavefront(ts, settings, accel, lanes=512, iters_per_launch=4)
     img_fused, rays_fused = twf.render_image_wavefront(ts, settings, accel, lanes=512,
                                                        iters_per_launch=4, fused_nee=True)
