@@ -49,10 +49,32 @@ no-attributes closest hit (K4) follow:
   6c. the headline main path (phase 6's configuration) on fused2-bf16 and on
      fused2, then the cornell NEE path (phase 6b's) on fused2-bf16 and on
      fused2, separate and deferred; counts reset just before each.
+The fused kernel (K5, make_accel("fused"), clusters of C=128) under the scan
+renderer (render/film.py) and the CLI:
+  3d. K5 vs its plain version on the soup (C=64): blocks 128 and 256, per-ray
+     and scalar t_max with padding rays, columns 0-6 identical; max_steps=1
+     through fused_closest_hit leaves rows unresolved and the wrapper's
+     answers equal the CPU wrapper's;
+  4d. K5 vs plain at the main path's shapes: dragon sub 7 on
+     make_accel("fused"), the 65536-ray primary wave of add_samples' first
+     pixel chunk and the bounce wave trace_bounce makes of it, then the same
+     for the chunk through the image centre; CUDA events;
+  5d. scan-renderer frame parity on make_accel("fused"): cornell-box 64x64,
+     spp 4, depth 4, card vs CPU, without and with NEE (fused_occluded), and
+     the textured cube (the texture lookup of the shade-blob fetch);
+  6d. the scan main path (bench.py's scan branch): dragon sub 7 on
+     make_accel("fused"), 1024x1024, depth 4, auto sky, new_film +
+     add_samples with 65536-pixel chunks; then render_image_wavefront on the
+     same accelerator at 131072 lanes; counts reset just before each;
+  6e. the CLI in process (utils/cli.main): the car scene of
+     assets/settings.json at its 1080x1440 and depth 16, --intersector fused
+     --no-sweep, spp cut to 2, with its textured Ground, into
+     chiprun_out/smoke_cli/.
 The second-to-last lines are the kernels JSON and the GPU's nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.  Each kernel's bound_ms is
 the largest of its times at the wave it was timed on, per ray and slot of
-each cluster that ray's exact query needs (see needed_clusters): component
+each cluster that ray's exact query needs (see needed_clusters; K5 adds
+the slab test of each such cluster's box, fused_bound): component
 layout, 45 Moller-Trumbore fp32 operations over the H100's published
 67 TFLOP/s fp32 peak (700 W); MXU layout, the 2 x 16 x 4 = 128 FLOP of the
 feature products over the planes' dtype peak (bf16 dense tensor cores
@@ -64,6 +86,7 @@ Imports nothing of JAX or of the JAX package; the dragon scene file is made
 by assets/generate.py in a child process.  Needs no network.
 """
 import argparse
+import concurrent.futures
 import json
 import pathlib
 import statistics
@@ -80,6 +103,12 @@ FRAME_SCENE, FRAME_SIZE, FRAME_SPP, FRAME_LANES = "cornell-box", 64, 4, 4096
 NEE_SCENE = "cornell-box"
 SOURCE = "owl_path_tracer_tpu_torch/csrc/fused2_traverse.cu"
 REPLACES = "owl_path_tracer_tpu/ops/fused2.py:269"
+FUSED_SOURCE = "owl_path_tracer_tpu_torch/csrc/fused_traverse.cu"
+FUSED_REPLACES = "owl_path_tracer_tpu/ops/fused.py:86"
+# scan renderer (bench.py's scan branch): pixels per chunk
+SCAN_CHUNK = 65536
+# the CLI run: assets/settings.json's scene at its own size and depth, spp cut
+CLI_SPP = 2
 # bound: Moller-Trumbore fp32 operations per ray, slot and needed cluster
 # (component layout); MXU layout: feature-product FLOP (2 x 16 features x 4
 # groups) and winner-chain fp32 operations (ops/fused2.py:616-653 of the JAX
@@ -88,6 +117,10 @@ REPLACES = "owl_path_tracer_tpu/ops/fused2.py:269"
 # cluster; published peaks of one H100 SXM at 700 W (fp32 FLOP/s outside the
 # tensor cores, dense bf16 tensor-core FLOP/s, HBM bytes/s)
 MT_OPS, MXU_FLOP, CHAIN_OPS = 45, 2 * 16 * 4, 28
+# K5's slab test per ray and box (ops/cluster.py::_cluster_entries): per
+# axis two products, two differences and four min/max; then the T_MIN clamp,
+# the far clamp, the compare and the select
+SLAB_OPS = 28
 FP32_FLOPS, BF16_FLOPS, HBM_BYTES_S = 67e12, 989e12, 3.35e12
 
 
@@ -314,13 +347,10 @@ def golden(img, want, rays_got, rays_want, what):
     check(abs(rays_got - rays_want) <= 0.005 * rays_want, f"{what}: ray counts differ by more than 0.5%")
 
 
-def soup(device, **build):
-    """3000 random triangles (C=64) and 300 rays, half with a finite t_max;
-    ``build`` picks the layout (``mxu``, ``plane_dtype``)."""
+def soup_arrays():
+    """3000 random triangles (vertices, indices, normals, texcoords, material
+    ids) and 300 rays (o, d, t_max; half with a finite t_max), from seed 0."""
     import numpy as np
-    import torch
-
-    from owl_path_tracer_tpu_torch.ops import fused2
 
     r = np.random.default_rng(0)
     tri = r.uniform(-4, 4, (3000, 1, 3)) + r.normal(0, 0.4, (3000, 3, 3))
@@ -329,13 +359,36 @@ def soup(device, **build):
     normals = r.normal(size=verts.shape).astype(np.float32)
     tc = r.uniform(0, 1, (len(verts), 2)).astype(np.float32)
     mat = r.integers(0, 5, 3000).astype(np.int32)
-    fb = fused2.build_fused2(verts, idx, 64, normals, tc, mat, device=device, **build)
     n = 300  # not a multiple of either block: padding rays
     o = r.uniform(-6, 6, (n, 3)).astype(np.float32)
     d = r.normal(size=(n, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     tmax = np.where(r.random(n) < 0.5, r.uniform(1.0, 8.0, n), 1e10).astype(np.float32)
-    return fb, [torch.as_tensor(x, device=device) for x in (o, d, tmax)]
+    return (verts, idx, normals, tc, mat), (o, d, tmax)
+
+
+def soup(device, **build):
+    """The soup as fused2 clusters (C=64) and its rays on ``device``;
+    ``build`` picks the layout (``mxu``, ``plane_dtype``)."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.ops import fused2
+
+    mesh, rays = soup_arrays()
+    fb = fused2.build_fused2(*mesh[:2], 64, *mesh[2:], device=device, **build)
+    return fb, [torch.as_tensor(x, device=device) for x in rays]
+
+
+def fused_soup(device):
+    """The soup as K5's clusters (C=64) and its rays on ``device``."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.ops.cluster import build_clusters
+    from owl_path_tracer_tpu_torch.ops.fused import build_fused
+
+    (verts, idx, *_), rays = soup_arrays()
+    return build_fused(build_clusters(verts, idx, 64, device=device)), [torch.as_tensor(x, device=device)
+                                                                         for x in rays]
 
 
 def sorted_rays(o, d, t, fb, mode, shadow=None):
@@ -575,6 +628,246 @@ def main_path(what, scene, settings, accel, lanes, block, fused_nee=False):
     return launches
 
 
+def ensure_texture(rel: str):
+    """Write the stand-in texture assets/<rel> (generate.py's checkerboard), in
+    a child process."""
+    code = (
+        "import sys; sys.path.insert(0, 'assets'); import generate\n"
+        f"tex = generate.HERE / {rel!r}\n"
+        "tex.exists() or generate.gen_cube_texture(tex)\n"
+    )
+    run([sys.executable, "-c", code], cwd=ROOT)
+
+
+def ensure_car() -> str:
+    """Write assets/car.obj.scene and its Ground texture with generate.py, in
+    child processes."""
+    code = (
+        "import sys; sys.path.insert(0, 'assets'); import generate\n"
+        "obj = generate.HERE / 'car.obj.scene'\n"
+        "obj.exists() or generate.gen_car_scene(obj)\n"
+    )
+    run([sys.executable, "-c", code], cwd=ROOT)
+    ensure_texture("Ground-textures/uv-texture.png")
+    return "car"
+
+
+def fused_bound(rays, want, fb):
+    """(bound_ms, bound_by, needed clusters per ray) of one K5 call: the slab
+    test of each box a ray enters before its closest hit and Moller-Trumbore
+    on that cluster's slots (the clusters its exact query needs), over the
+    fp32 peak, vs inputs read once and output written once over HBM bytes/s."""
+    import torch
+
+    need = needed_clusters(rays, want, fb, torch.zeros_like(rays[:, 0], dtype=torch.bool))
+    ops = (SLAB_OPS + MT_OPS * fb.cluster_size) * float(need.sum())
+    t_ops = ops / FP32_FLOPS * 1e3
+    t_bytes = 4 * (rays.numel() + want.numel() + fb.boxes.numel() + fb.planes.numel()) / HBM_BYTES_S * 1e3
+    return ((t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")), float(need.float().mean())
+
+
+def phase_3d(dev, results):
+    """K5 vs its plain version on the soup."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.ops import fused as tfu
+
+    fb, (o, d, tmax) = fused_soup(dev)
+    n = o.shape[0]
+    errs = []
+    for block in (128, 256):
+        pad = (-n) % block
+        o_p = torch.cat([o, torch.zeros((pad, 3), device=dev)])
+        d_p = torch.cat([d, torch.tensor([0.0, 0.0, 1.0], device=dev).expand(pad, 3)])
+        for t_name, t in (("per-ray", torch.cat([tmax, torch.full((pad,), 1e-3, device=dev)])),
+                          ("scalar", 1e10)):
+            got = tfu.fused_traverse(o_p, d_p, t, fb, block)
+            want = tfu.fused_traverse_plain(o_p, d_p, t, fb, block)
+            what = f"K5 soup block {block} {t_name} t_max"
+            check(torch.equal(got[:, :7], want[:, :7]), f"{what}: columns 0-6 differ from the plain version")
+            check(bool((got[:, 7] == 0).all()) and bool((got[:, 5] == 1).all()), f"{what}: col 7 or resolved")
+            errs.append(float((got[:, :3] - want[:, :3]).abs().max()))
+            if t_name == "per-ray":
+                check(bool((got[n:, 4] == 0).all()), f"{what}: a padding ray hit")
+            steps = got[:, 6].reshape(-1, block)[:, 0]
+            print(f"  {what}: {int(got[:n, 4].sum())}/{n} hits, columns 0-6 identical, clusters/block "
+                  f"{steps.tolist()}")
+    results["k5_err"] = max(errs)
+    raw = tfu.fused_traverse(torch.cat([o, o[:84]]), torch.cat([d, d[:84]]), 1e10, fb, 128, 1)
+    check(bool((raw[:, 5] == 0).any()), "K5 max_steps=1 left no ray unresolved")
+    unresolved = tfu.UNRESOLVED_RAYS
+    rec = tfu.fused_closest_hit(o, d, fb, t_max=tmax, max_steps=1)
+    check(tfu.UNRESOLVED_RAYS > unresolved, "fused_closest_hit max_steps=1 sent no row to the exact query")
+    ref = tfu.fused_closest_hit(o.cpu(), d.cpu(), fb.to("cpu"), t_max=tmax.cpu(), max_steps=1)
+    check(torch.equal(rec.tri.cpu(), ref.tri), "K5 max_steps=1 winners differ from the CPU wrapper's")
+    torch.testing.assert_close(rec.t.cpu(), ref.t, rtol=5e-6, atol=1e-7)
+    torch.testing.assert_close(rec.uv.cpu(), ref.uv, rtol=5e-6, atol=1e-6)
+    print(f"  max_steps=1: {tfu.UNRESOLVED_RAYS - unresolved} rows unresolved, the wrapper's answers equal "
+          "the CPU wrapper's")
+
+
+def phase_4d(scene, settings, results):
+    """K5 vs plain at the scan main path's shapes -> the fused accelerator.
+    The kernels line takes the centre chunk's bounce wave, the heaviest."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.models.camera import primary_rays
+    from owl_path_tracer_tpu_torch.ops import fused as tfu
+    from owl_path_tracer_tpu_torch.ops import math as m
+    from owl_path_tracer_tpu_torch.ops import rng as rng_mod
+    from owl_path_tracer_tpu_torch.render import film, integrator
+
+    t0 = time.perf_counter()
+    accel = film.make_accel(scene, "fused")
+    torch.cuda.synchronize()
+    print(f"  fused accel: K={accel.num_clusters} C={accel.cluster_size} (limit "
+          f"K={tfu.max_clusters(accel.cluster_size, scene.vertices.device)}), "
+          f"built in {time.perf_counter() - t0:.2f} s", flush=True)
+    dev = scene.vertices.device
+    fl = film.new_film(settings, device=dev)
+    grid = film._pixel_grid(settings.width, settings.height, dev)
+    isect, _ = integrator.make_intersectors(scene, accel)
+    waves = {}
+    # the first sample of add_samples' first pixel chunk (the bottom image
+    # rows: ground) and of the chunk through the image centre (the dragon)
+    chunks = settings.width * settings.height // SCAN_CHUNK
+    for chunk_name, lo in (("first chunk", 0), ("centre chunk", chunks // 2 * SCAN_CHUNK)):
+        j0, st = rng_mod.next_f32(fl.rng[lo : lo + SCAN_CHUNK])
+        j1, st = rng_mod.next_f32(st)
+        o, d = primary_rays(scene.camera, grid[lo : lo + SCAN_CHUNK], torch.stack([j0, j1], -1),
+                            (settings.width, settings.height))
+        n = o.shape[0]
+        state = integrator.PathState(
+            ray_o=o, ray_d=d, result=torch.zeros_like(o), throughput=torch.ones_like(o), rng=st,
+            alive=torch.ones(n, dtype=torch.bool, device=dev),
+            prev_lobe=torch.full((n,), -1, dtype=torch.int64, device=dev),
+            depth=torch.zeros(n, dtype=torch.int64, device=dev), prev_pdf=torch.zeros(n, device=dev),
+        )
+        bounce = integrator.trace_bounce(scene, settings, state, isect, film.scene_has_textures(scene))
+        # the scan renderer traces every lane: dead lanes keep their last ray
+        waves[f"{chunk_name} primary"] = (o, d)
+        waves[f"{chunk_name} bounce"] = (bounce.ray_o, bounce.ray_d)
+    for name, (wo, wd) in waves.items():
+        got = tfu.fused_traverse(wo, wd, m.T_MAX, accel)
+        want = tfu.fused_traverse_plain(wo, wd, m.T_MAX, accel)
+        check(torch.equal(got[:, :7], want[:, :7]), f"K5 {name} wave: columns 0-6 differ from the plain version")
+        results["k5_err"] = max(results["k5_err"], float((got[:, :3] - want[:, :3]).abs().max()))
+        k_ms = cuda_ms(lambda: tfu.fused_traverse(wo, wd, m.T_MAX, accel))
+        # max_steps=0: the block set-up and each ray's first box scan only
+        s_ms = cuda_ms(lambda: tfu.fused_traverse(wo, wd, m.T_MAX, accel, tfu.BLOCK_RAYS, 0))
+        p_ms = cuda_ms(lambda: tfu.fused_traverse_plain(wo, wd, m.T_MAX, accel), reps=1)
+        bnd, need = fused_bound(tfu.pack_rays(wo, wd, m.T_MAX), want, accel)
+        steps = got[:, 6].reshape(-1, tfu.BLOCK_RAYS)[:, 0]
+        results[f"k5 {name}"] = {"ms": k_ms, "plain_ms": p_ms, "bound": bnd}
+        print(f"  K5 {name} wave ({wo.shape[0]} rays, block {tfu.BLOCK_RAYS}): {int(got[:, 4].sum())} hits, "
+              f"{int((got[:, 5] == 0).sum())} unresolved, columns 0-6 identical (t/u/v error 0), "
+              f"clusters retired/block mean {float(steps.mean()):.2f} max {int(steps.max())}, clusters needed/ray "
+              f"mean {need:.3f}, kernel {k_ms:.3f} ms (set-up and first box scan {s_ms:.3f}), plain {p_ms:.3f} ms, "
+              f"bound {bnd[0]:.4f} ms ({bnd[1]})",
+              flush=True)
+    return accel
+
+
+def phase_5d(dev):
+    """Scan-renderer frames on make_accel("fused"), card vs CPU: cornell-box
+    without and with NEE, and the textured cube."""
+    from owl_path_tracer_tpu_torch.models.scene import RenderSettings, compile_scene
+    from owl_path_tracer_tpu_torch.render import film
+
+    ensure_texture("cube-textures/cube.png")
+    for scene_name, use_nee in ((FRAME_SCENE, False), (FRAME_SCENE, True), ("cube", False)):
+        fset = RenderSettings(width=FRAME_SIZE, height=FRAME_SIZE, max_samples=FRAME_SPP, max_path_depth=DEPTH,
+                              environment_auto=True, use_nee=use_nee)
+        extra = {"env_map_path": None} if use_nee else {}
+        cpu_scene = compile_scene(ROOT / "assets", scene_name, (FRAME_SIZE, FRAME_SIZE), device="cpu", **extra)
+        check(film.scene_has_textures(cpu_scene) == (scene_name == "cube"), f"{scene_name}: textures")
+        cpu_accel = film.make_accel(cpu_scene, "fused")
+        kw = dict(pixel_chunk=FRAME_SIZE * FRAME_SIZE)
+        want = film.add_samples(cpu_scene, fset, film.new_film(fset, device="cpu"), FRAME_SPP, accel=cpu_accel, **kw)
+        got = film.add_samples(cpu_scene.to(dev), fset, film.new_film(fset, device=dev), FRAME_SPP,
+                               accel=cpu_accel.to(dev), **kw)
+        golden(film.finalize(got).cpu(), film.finalize(want), got.rays_traced, want.rays_traced,
+               f"scan {scene_name} {FRAME_SIZE}x{FRAME_SIZE} spp {FRAME_SPP}{' NEE' if use_nee else ''}"
+               f"{' textured' if scene_name == 'cube' else ''} on fused, GPU vs CPU")
+
+
+def phase_6d(scene, settings, accel, lanes):
+    """The scan main path, then the wavefront, on the fused accelerator -> K5 launches of the scan frame."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.ops import fused as tfu
+    from owl_path_tracer_tpu_torch.render import film, wavefront
+
+    warm = film.new_film(settings, device=scene.vertices.device)
+    film.add_samples(scene, settings, warm, 1, pixel_chunk=SCAN_CHUNK, accel=accel)
+    torch.cuda.synchronize()
+    tfu.reset_counts()
+    start = time.perf_counter()
+    fl = film.add_samples(scene, settings, film.new_film(settings, device=scene.vertices.device),
+                          settings.max_samples, pixel_chunk=SCAN_CHUNK, accel=accel)
+    img = film.finalize(fl)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches, unresolved = tfu.LAUNCHES[tfu.ENTRY], tfu.UNRESOLVED_RAYS
+    chunks = -(-settings.width * settings.height // SCAN_CHUNK)
+    expect = chunks * settings.max_samples * settings.max_path_depth
+    check(launches == expect, f"scan frame launched K5 {launches} times, expected {expect}")
+    check(bool(torch.isfinite(img).all()) and img.shape == (settings.height, settings.width, 3), "scan frame image")
+    check(0.0 < img.mean().item() < 10.0, f"scan frame: implausible image mean {img.mean().item()}")
+    print(f"  scan, fused {settings.width}x{settings.height} spp {settings.max_samples} depth "
+          f"{settings.max_path_depth}: {fl.rays_traced} rays in {seconds:.3f} s = "
+          f"{fl.rays_traced / seconds / 1e6:.3f} Mrays/s; K5 launches {launches} ({chunks} chunks x spp x depth), "
+          f"unresolved rays {unresolved}, image mean {img.mean().item():.6f}", flush=True)
+    torch.cuda.synchronize()
+    tfu.reset_counts()
+    start = time.perf_counter()
+    # bench.py's wavefront flags; the block and sort apply to fused2 only
+    img, rays = wavefront.render_image_wavefront(scene, settings, accel, lanes=lanes, fused2_block=BLOCK,
+                                                 fused2_sort=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    check(tfu.LAUNCHES[tfu.ENTRY] > 0, "the wavefront on fused launched no K5")
+    check(bool(torch.isfinite(img).all()) and 0.0 < img.mean().item() < 10.0, "wavefront on fused: image")
+    print(f"  wavefront, fused, {lanes} lanes: {rays} rays in {seconds:.3f} s = {rays / seconds / 1e6:.3f} Mrays/s; "
+          f"K5 launches {tfu.LAUNCHES[tfu.ENTRY]}, unresolved rays {tfu.UNRESOLVED_RAYS}, image mean "
+          f"{img.mean().item():.6f}", flush=True)
+    return launches
+
+
+def phase_6e():
+    """The CLI in process on assets/settings.json's scene -> K5 launches."""
+    import json
+
+    from owl_path_tracer_tpu_torch.models.scene import compile_scene
+    from owl_path_tracer_tpu_torch.ops import fused as tfu
+    from owl_path_tracer_tpu_torch.render import film
+    from owl_path_tracer_tpu_torch.utils import cli
+    from owl_path_tracer_tpu_torch.utils.image import read_png
+
+    cfg = json.loads((ROOT / "assets" / "settings.json").read_text())
+    scene = ensure_car()
+    check(film.scene_has_textures(compile_scene(ROOT / "assets", scene, (8, 8), device="cpu")),
+          "the car scene the CLI loads has no texture")
+    check(cfg["scene"] == scene, f"settings.json renders {cfg['scene']!r}, not {scene!r}")
+    out = ROOT / "chiprun_out" / "smoke_cli"
+    tfu.reset_counts()
+    start = time.perf_counter()
+    paths = cli.main(["--assets", str(ROOT / "assets"), "--out", str(out), "--intersector", "fused", "--no-sweep",
+                      "--spp", str(CLI_SPP)])
+    seconds = time.perf_counter() - start
+    width, height = cfg["buffer_size"]
+    check([p.name for p in paths] == [f"{scene}.png"], f"CLI wrote {paths}")
+    img = read_png(paths[0])
+    check(img.shape == (height, width, 4), f"CLI PNG is {img.shape[1]}x{img.shape[0]}, expected {width}x{height}")
+    check(img[..., :3].mean() > 0, "CLI PNG is black")
+    launches = tfu.LAUNCHES[tfu.ENTRY]
+    check(launches > 0, "the CLI launched no K5")
+    print(f"  CLI {scene} {width}x{height} depth {cfg['max_path_depth']} spp {CLI_SPP} (settings.json: "
+          f"{cfg['max_samples']}, cut for time), textured Ground, --intersector fused: {paths[0].name} "
+          f"{img.shape[1]}x{img.shape[0]}, mean {img[..., :3].mean():.3f}/255, {seconds:.3f} s, K5 launches "
+          f"{launches}, unresolved rays {tfu.UNRESOLVED_RAYS}", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--spp", type=int, default=8, help="main-path samples per pixel (64: headline)")
@@ -591,6 +884,7 @@ def main():
     from owl_path_tracer_tpu_torch.models.lights import build_light_table, sample_lights
     from owl_path_tracer_tpu_torch.models.scene import RenderSettings, compile_scene
     from owl_path_tracer_tpu_torch.native import nvcc_path
+    from owl_path_tracer_tpu_torch.ops import fused as tfu
     from owl_path_tracer_tpu_torch.ops import fused2
     from owl_path_tracer_tpu_torch.ops import math as m
     from owl_path_tracer_tpu_torch.ops.fused2 import pack_rays
@@ -611,13 +905,15 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {nvcc}, python {sys.version.split()[0]}")
     phase("1 environment", t0)
 
-    # 2 ── build
+    # 2 ── build: one nvcc per kernel source, started together
     t0 = time.perf_counter()
-    path, seconds, log = fused2.build_kernels()
-    for line in log.splitlines():
-        if any(w in line for w in ("registers", "smem", "spill", "Compiling entry")):
-            print("  ptxas:", line.strip())
-    print(f"built {path.name} in {seconds:.2f} s")
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        builds = list(pool.map(lambda mod: mod.build_kernels(), (fused2, tfu)))
+    for path, seconds, log in builds:
+        for line in log.splitlines():
+            if any(w in line for w in ("registers", "smem", "spill", "Compiling entry")):
+                print("  ptxas:", line.strip())
+        print(f"built {path.name} in {seconds:.2f} s")
     phase("2 build", t0)
 
     # 3 ── kernel vs plain, small
@@ -940,6 +1236,31 @@ def main():
                                               block, fused_nee)
     phase("6c main paths on fused2-bf16 and fused2", t0)
 
+    # 3d ── K5 vs plain, small
+    t0 = time.perf_counter()
+    phase_3d(dev, results)
+    phase("3d fused kernel (K5) vs plain, small", t0)
+
+    # 4d ── K5 vs plain at the scan main path's shapes
+    t0 = time.perf_counter()
+    fused_accel = phase_4d(scene, settings, results)
+    phase("4d K5 vs plain, main-path shapes", t0)
+
+    # 5d ── scan-renderer frame parity on fused
+    t0 = time.perf_counter()
+    phase_5d(dev)
+    phase("5d scan frame parity on fused", t0)
+
+    # 6d ── the scan main path and the wavefront on fused
+    t0 = time.perf_counter()
+    k5_launches = phase_6d(scene, settings, fused_accel, lanes)
+    phase("6d scan main path and wavefront on fused", t0)
+
+    # 6e ── the CLI
+    t0 = time.perf_counter()
+    phase_6e()
+    phase("6e CLI", t0)
+
     check("jax" not in sys.modules and "owl_path_tracer_tpu" not in sys.modules,
           "the JAX package was imported")
 
@@ -979,6 +1300,9 @@ def main():
         r = results[key]
         kernels.append(entry(name, counts.get(f"owlpt_{name}", 0), max(results["k4_err"], r["err"]), r["ms"],
                              r["plain_ms"], r["bound"]))
+    k5 = results["k5 centre chunk bounce"]
+    kernels.append(dict(entry("fused_traverse", k5_launches, results["k5_err"], k5["ms"], k5["plain_ms"],
+                              k5["bound"]), source=FUSED_SOURCE, replaces=FUSED_REPLACES))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """Carry scenes and accelerators across from host arrays.
 
 Each function takes a structure as a dict of numpy arrays -- the JAX
-package's ``Scene``, ``ClusterBVH`` or ``Fused2BVH`` as
+package's ``Scene``, ``ClusterBVH``, ``FusedBVH`` or ``Fused2BVH`` as
 ``{field: np.asarray(getattr(x, field))}``, nested structures (materials,
 camera, cluster) as nested dicts -- and returns the port's dataclass with its
 tensors on ``device``.  Feeding both packages the same arrays is how the
@@ -18,6 +18,7 @@ from .models.camera import CameraData
 from .models.material import Materials
 from .models.scene import Scene
 from .ops.cluster import ClusterBVH
+from .ops.fused import FusedBVH
 from .ops.fused2 import Fused2BVH
 
 
@@ -46,6 +47,11 @@ def scene_from_numpy(d: dict, *, device) -> Scene:
 
 def cluster_from_numpy(d: dict, *, device) -> ClusterBVH:
     return _tensors(ClusterBVH, d, device)
+
+
+def fused_from_numpy(d: dict, *, device) -> FusedBVH:
+    """Boxes [8,K] and component planes [K,16,C], float32."""
+    return _tensors(FusedBVH, d, device, {"cluster": cluster_from_numpy})
 
 
 def fused2_from_numpy(d: dict, *, device) -> Fused2BVH:

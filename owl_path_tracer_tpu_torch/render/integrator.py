@@ -1,4 +1,13 @@
-"""One wavefront bounce (counterpart of ``owl_path_tracer_tpu/render/integrator.py``).
+"""Wavefront path integrator (counterpart of ``owl_path_tracer_tpu/render/integrator.py``):
+one bounce for every lane (``trace_bounce``, ``trace_bounce_nee``), and the
+scan renderer's loops over bounces and samples (``trace_paths``,
+``sample_sum``, ``render_pixels``; the JAX package's ``lax.scan``s are Python
+loops here).
+
+An intersector returns a HitRecord (cluster, fused) or a (HitRecord,
+attribute blob) pair (fused2).  Surface data comes from the blob where there
+is one, else from one [T,24] shade-blob gather by the winning triangle
+(barycentric hit position and shading normal).
 
 Parity semantics of the JAX package's ``trace_bounce``:
   * miss -> environment radiance (map | auto sky | constant) x intensity, terminate;
@@ -30,9 +39,12 @@ from ..ops import disney
 from ..ops import math as m
 from ..ops import rng as rng_mod
 from ..ops import texture as tex
+from ..ops.cluster import ClusterBVH, cluster_closest_hit, cluster_occluded
+from ..ops.fused import FusedBVH, fused_occluded, make_fused_intersector
 from ..ops.fused2 import (
     BLOCK_RAYS, FANOUT, Fused2BVH, fused2_occluded, fused2_sweep_mixed, make_fused2_intersector,
 )
+from ..ops.intersect import HitRecord
 from ..utils.tensors import TensorBundle
 
 
@@ -110,10 +122,46 @@ def _fetch_surface_blob(scene: Scene, hit, blob, ray_o, ray_d, enable_textures: 
     return pos, sh_n, mat
 
 
+def _intersect(intersect_fn, ray_o, ray_d):
+    """Intersector result -> (HitRecord, attribute blob or None)."""
+    res = intersect_fn(ray_o, ray_d)
+    if isinstance(res, HitRecord):
+        return res, None
+    return res
+
+
+def _surface(scene: Scene, hit, blob, ray_o, ray_d, enable_textures: bool):
+    if blob is None:
+        return _fetch_surface(scene, hit, enable_textures)
+    return _fetch_surface_blob(scene, hit, blob, ray_o, ray_d, enable_textures)
+
+
+def _fetch_surface(scene: Scene, hit, enable_textures: bool):
+    """Surface data by one shade-blob gather at the winning triangle ->
+    (barycentric hit position ``(1-u-v) p0 + u p1 + v p2``, normalized
+    interpolated shading normal, material with its optional texture).  Miss
+    lanes read triangle 0.  (The JAX package also returns the geometric
+    normal, which no caller reads.)"""
+    tri = torch.clamp(hit.tri, min=0)
+    u = hit.uv[..., 0:1]
+    v = hit.uv[..., 1:2]
+    w = 1.0 - u - v
+    blob = scene.shade_blob[tri]  # [N,24]
+    pos = w * blob[:, 0:3] + u * blob[:, 3:6] + v * blob[:, 6:9]
+    sh_n = w * blob[:, 9:12] + u * blob[:, 12:15] + v * blob[:, 15:18]
+    sh_n = sh_n / torch.sqrt(torch.clamp(m.dot(sh_n, sh_n), min=1e-20))[..., None]
+    mat_id = scene.tri_mat[tri]
+    mat = _split_materials(_material_lookup(scene, mat_id))
+    if enable_textures:
+        tc = w * blob[:, 18:20] + u * blob[:, 20:22] + v * blob[:, 22:24]
+        mat = dataclasses.replace(mat, base_color=_tex_lookup(scene, mat_id, tc, mat.base_color))
+    return pos, sh_n, mat
+
+
 def trace_bounce(scene: Scene, settings: RenderSettings, state: PathState,
                  intersect_fn: Callable, enable_textures: bool) -> PathState:
     """One wavefront bounce for every lane."""
-    hit, blob = intersect_fn(state.ray_o, state.ray_d)
+    hit, blob = _intersect(intersect_fn, state.ray_o, state.ray_d)
 
     # miss -> environment, terminate
     miss = state.alive & ~hit.hit
@@ -121,9 +169,7 @@ def trace_bounce(scene: Scene, settings: RenderSettings, state: PathState,
     result = torch.where(miss[..., None], env * state.throughput, state.result)
     alive = state.alive & hit.hit
 
-    pos, sh_n, mat = _fetch_surface_blob(
-        scene, hit, blob, state.ray_o, state.ray_d, enable_textures
-    )
+    pos, sh_n, mat = _surface(scene, hit, blob, state.ray_o, state.ray_d, enable_textures)
 
     # emissive -> monochrome radiance, terminate
     emissive = alive & (mat.emission > 0.0)
@@ -188,7 +234,7 @@ def trace_bounce_nee(scene: Scene, settings: RenderSettings, lights, state: Path
     if precomputed is not None:
         hit, blob = precomputed
     else:
-        hit, blob = intersect_fn(state.ray_o, state.ray_d)
+        hit, blob = _intersect(intersect_fn, state.ray_o, state.ray_d)
 
     # miss -> environment; MIS-weighted against environment sampling when an
     # EnvLight is active (primary rays keep weight 1)
@@ -204,7 +250,7 @@ def trace_bounce_nee(scene: Scene, settings: RenderSettings, lights, state: Path
     result = state.result + torch.where(miss[..., None], env * state.throughput, 0.0)
     alive = state.alive & hit.hit
 
-    pos, sh_n, mat = _fetch_surface_blob(scene, hit, blob, state.ray_o, state.ray_d, enable_textures)
+    pos, sh_n, mat = _surface(scene, hit, blob, state.ray_o, state.ray_d, enable_textures)
 
     # emissive hit -> MIS-weighted emission, terminate
     emissive = alive & (mat.emission > 0.0)
@@ -302,18 +348,14 @@ def trace_bounce_nee(scene: Scene, settings: RenderSettings, lights, state: Path
     return out, pending
 
 
-def _require_fused2(accel):
-    if not isinstance(accel, Fused2BVH):
-        raise NotImplementedError(
-            f"only the fused2 accelerator is ported; got {type(accel).__name__} (ROADMAP queue 1)"
-        )
-
-
 def make_mixed_sweep_fn(accel, fused2_block: int | None = None, fused2_sort=False,
                         fused2_fanout: int | None = None):
     """Mixed closest-hit + any-hit sweep for the deferred-NEE wavefront:
-    ``sweep(ray_o, ray_d, t_max, shadow)`` -> (HitRecord, blob, occluded)."""
-    _require_fused2(accel)
+    ``sweep(ray_o, ray_d, t_max, shadow)`` -> (HitRecord, blob, occluded); or
+    None when the accelerator has no mixed kernel (every kind but fused2),
+    and the wavefront then takes the separate form."""
+    if not isinstance(accel, Fused2BVH):
+        return None
     blk = fused2_block or BLOCK_RAYS
     fo = fused2_fanout or FANOUT
 
@@ -325,16 +367,94 @@ def make_mixed_sweep_fn(accel, fused2_block: int | None = None, fused2_sort=Fals
 
 def make_intersectors(scene: Scene, accel, fused2_block: int | None = None, fused2_sort=False,
                       fused2_fanout: int | None = None):
-    """Accel -> (intersect_fn, occlude_fn).  Only the fused2 accelerator is
-    ported: closest hit through kernel K1 (component planes) or K1b (MXU
-    planes), occlusion through K2 or K1b's any-hit mode.  ``fused2_fanout``
-    (default FANOUT) is the clusters retired per loop iteration on the MXU
-    layout."""
-    _require_fused2(accel)
-    blk = fused2_block or BLOCK_RAYS
-    fo = fused2_fanout or FANOUT
+    """Accel -> (intersect_fn, occlude_fn), shared by the scan renderer and
+    the wavefront.
 
-    def occlude(pos, direction, max_dist):
-        return fused2_occluded(pos, direction, accel, t_max=max_dist, block=blk, sort=fused2_sort, fanout=fo)
+    * ``Fused2BVH``: closest hit + attribute blob through kernel K1 (component
+      planes) or K1b (MXU planes), occlusion through K2 or K1b's any-hit mode;
+      ``fused2_block``, ``fused2_sort`` and ``fused2_fanout`` (default FANOUT,
+      clusters retired per loop iteration on the MXU layout) apply to it only;
+    * ``FusedBVH``: closest hit through kernel K5, occlusion as its hit test;
+    * ``ClusterBVH``: the exact cluster query (plain PyTorch).
+    The per-ray stack BVH and brute force are not ported yet (ROADMAP queue 1,
+    items 9 and 10)."""
+    if isinstance(accel, Fused2BVH):
+        blk = fused2_block or BLOCK_RAYS
+        fo = fused2_fanout or FANOUT
 
-    return make_fused2_intersector(accel, block=blk, sort=fused2_sort, fanout=fo), occlude
+        def occlude(pos, direction, max_dist):
+            return fused2_occluded(pos, direction, accel, t_max=max_dist, block=blk, sort=fused2_sort,
+                                   fanout=fo)
+
+        return make_fused2_intersector(accel, block=blk, sort=fused2_sort, fanout=fo), occlude
+    if isinstance(accel, FusedBVH):
+        return (make_fused_intersector(accel),
+                lambda p, d, dist: fused_occluded(p, d, accel, t_max=dist))
+    if isinstance(accel, ClusterBVH):
+        return (lambda o, d: cluster_closest_hit(o, d, accel),
+                lambda p, d, dist: cluster_occluded(p, d, accel, t_max=dist))
+    raise NotImplementedError(
+        f"accelerator {type(accel).__name__} is not ported yet: the per-ray stack BVH and brute force "
+        "are ROADMAP queue 1, items 9 and 10"
+    )
+
+
+def trace_paths(scene: Scene, settings: RenderSettings, ray_o, ray_d, rng_state, intersect_fn: Callable,
+                enable_textures: bool, lights=None, occlude_fn: Callable | None = None, env_light=None):
+    """Trace a wavefront for ``settings.max_path_depth`` bounces -> (radiance
+    [N,3], advanced rng [N], live rays traced as a 0-dim int64 tensor)."""
+    n = ray_o.shape[0]
+    dev = ray_o.device
+    st = PathState(
+        ray_o=ray_o, ray_d=ray_d, result=torch.zeros((n, 3), device=dev),
+        throughput=torch.ones((n, 3), device=dev), rng=rng_state,
+        alive=torch.ones((n,), dtype=torch.bool, device=dev),
+        prev_lobe=torch.full((n,), disney.LOBE_NONE, dtype=torch.int64, device=dev),
+        depth=torch.zeros((n,), dtype=torch.int64, device=dev), prev_pdf=torch.zeros((n,), device=dev),
+    )
+    use_nee = settings.use_nee and occlude_fn is not None and (lights is not None or env_light is not None)
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    for k in range(settings.max_path_depth):
+        rays = rays + st.alive.sum()
+        if use_nee:
+            # the last bounce samples no light: a depth-D render integrates
+            # transport orders 1..D, as the BSDF-only estimator does
+            st = trace_bounce_nee(scene, settings, lights, st, intersect_fn, occlude_fn, enable_textures,
+                                  allow_nee=k < settings.max_path_depth - 1, env_light=env_light)
+        else:
+            st = trace_bounce(scene, settings, st, intersect_fn, enable_textures)
+    return st.result, st.rng, rays
+
+
+def sample_sum(scene: Scene, settings: RenderSettings, pixel_xy, rng_state, num_samples: int,
+               intersect_fn: Callable, enable_textures: bool, lights=None,
+               occlude_fn: Callable | None = None, env_light=None):
+    """Accumulate ``num_samples`` samples per pixel, resumable: the carried
+    LCG state keeps each pixel's stream continuous across calls.
+
+    Returns (radiance sum [N,3], advanced rng state [N], live rays traced as a
+    0-dim int64 tensor)."""
+    from ..models.camera import primary_rays
+
+    st = rng_state
+    acc = torch.zeros(pixel_xy.shape[:-1] + (3,), device=pixel_xy.device)
+    rays = torch.zeros((), dtype=torch.int64, device=pixel_xy.device)
+    for _ in range(num_samples):
+        j0, st = rng_mod.next_f32(st)
+        j1, st = rng_mod.next_f32(st)
+        o, d = primary_rays(scene.camera, pixel_xy, torch.stack([j0, j1], -1), (settings.width, settings.height))
+        radiance, st, r = trace_paths(scene, settings, o, d, st, intersect_fn, enable_textures,
+                                      lights=lights, occlude_fn=occlude_fn, env_light=env_light)
+        acc = acc + radiance
+        rays = rays + r
+    return acc, st, rays
+
+
+def render_pixels(scene: Scene, settings: RenderSettings, pixel_xy, intersect_fn: Callable,
+                  enable_textures: bool, num_samples: int | None = None):
+    """Render a chunk of pixels ([N,2] integer coordinates, y = 0 the bottom
+    row) -> linear color [N,3], averaged over the samples."""
+    spp = settings.max_samples if num_samples is None else num_samples
+    state0 = rng_mod.seed(pixel_xy[..., 0], pixel_xy[..., 1])
+    acc, _, _ = sample_sum(scene, settings, pixel_xy, state0, spp, intersect_fn, enable_textures)
+    return acc / float(spp)

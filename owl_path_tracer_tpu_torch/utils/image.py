@@ -1,14 +1,35 @@
-"""Image loading: LDR textures (RGBA8) and Radiance HDR environment maps.
+"""Image IO: PNG framebuffer output, LDR textures (RGBA8) and Radiance HDR
+environment maps.
 
-Counterpart of ``owl_path_tracer_tpu/utils/image.py`` (``load_texture_rgba8``
-and ``load_environment``).  Textures are flipped vertically on load; the
-environment map is read as true float HDR and flipped the same way.
+Counterpart of ``owl_path_tracer_tpu/utils/image.py``.  The framebuffer is
+quantized as owl's ``make_rgba`` does (``255.99 * clamp(c, 0, 1)``) and
+written as an 8-bit RGBA PNG through PIL, as the JAX package writes it.
+Textures are flipped vertically on load; the environment map is read as true
+float HDR and flipped the same way.
 """
 from __future__ import annotations
 
 import pathlib
 
 import numpy as np
+
+
+def quantize_rgba8(rgb: np.ndarray) -> np.ndarray:
+    """f32 [...,3] linear -> uint8 [...,4] with owl's make_rgba rounding."""
+    q = (np.clip(rgb, 0.0, 1.0) * 255.99).astype(np.uint8)
+    a = np.full(q.shape[:-1] + (1,), 255, np.uint8)
+    return np.concatenate([q, a], axis=-1)
+
+
+def write_png_rgba8(path, rgba: np.ndarray):
+    """uint8 [H,W,4], row 0 = top of the image -> an 8-bit RGBA PNG."""
+    from PIL import Image
+
+    Image.fromarray(np.ascontiguousarray(rgba, np.uint8), "RGBA").save(str(path))
+
+
+def write_png_rgb(path, rgb_f32: np.ndarray):
+    write_png_rgba8(path, quantize_rgba8(rgb_f32))
 
 
 def read_png(path) -> np.ndarray:

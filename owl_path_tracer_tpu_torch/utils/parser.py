@@ -1,7 +1,8 @@
-"""Scene JSON parsing: materials and camera.
+"""JSON parsing: ``settings.json`` (with its sweep block) and a scene's
+materials and camera.
 
-Counterpart of ``owl_path_tracer_tpu/utils/parser.py``, carrying over what
-``compile_scene`` reads.  Pure Python/numpy; the field order of
+Counterpart of ``owl_path_tracer_tpu/utils/parser.py``: what
+``compile_scene`` and the CLI read.  Pure Python; the field order of
 ``MATERIAL_SCALAR_FIELDS`` is the layout of the material table.
 """
 from __future__ import annotations
@@ -96,4 +97,64 @@ def parse_camera(scene_json_path) -> CameraDesc:
         look_at=_vec3(cam["look_at"]),
         look_up=_vec3(cam["look_up"]),
         vertical_fov=float(cam["vertical_fov"]),
+    )
+
+
+@dataclasses.dataclass
+class TestDesc:
+    """The parameter-sweep block of settings.json."""
+
+    name: str
+    material_name: str
+    attribute_name: str
+    material_type: int
+    step_size: float
+    flt_values: List[float]
+    vec_values: List[Tuple[float, float, float]]
+
+
+@dataclasses.dataclass
+class SettingsDesc:
+    scene: str
+    buffer_size: Tuple[int, int]
+    max_samples: int
+    max_path_depth: int
+    environment_use: bool
+    environment_auto: bool
+    environment_color: Tuple[float, float, float]
+    environment_intensity: float
+    test: Optional[TestDesc]
+
+
+def parse_settings(settings_json_path) -> SettingsDesc:
+    """settings.json -> SettingsDesc; ``test`` is None without a sweep block."""
+    cfg = json.loads(pathlib.Path(settings_json_path).read_text())
+    test = None
+    if "test" in cfg:
+        t = cfg["test"]
+        flt_values, vec_values = [], []
+        for v in t.get("values", []):
+            if isinstance(v, (list, tuple)):
+                vec_values.append(_vec3(v))
+            else:
+                flt_values.append(float(v))
+        test = TestDesc(
+            name=t["name"],
+            material_name=t["material_name"],
+            attribute_name=t["attribute_name"],
+            material_type=int(t.get("material_type", 0)),
+            step_size=float(t["step_size"]),
+            flt_values=flt_values,
+            vec_values=vec_values,
+        )
+    return SettingsDesc(
+        scene=cfg["scene"],
+        buffer_size=(int(cfg["buffer_size"][0]), int(cfg["buffer_size"][1])),
+        max_samples=int(cfg["max_samples"]),
+        max_path_depth=int(cfg["max_path_depth"]),
+        environment_use=bool(cfg["environment_use"]),
+        environment_auto=bool(cfg["environment_auto"]),
+        environment_color=_vec3(cfg["environment_color"]),
+        environment_intensity=float(cfg["environment_intensity"]),
+        test=test,
     )

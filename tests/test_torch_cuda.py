@@ -1,7 +1,8 @@
 """The port on a CUDA card: the fused2 kernel in its three modes (closest hit,
 any-hit, mixed) on the component layout (K1-K3) and the MXU feature layout
-with f32 and bf16 planes (K1b), and without attributes (K4), against its
-plain version, and frames (without and with NEE) rendered on the card
+with f32 and bf16 planes (K1b), and without attributes (K4), and the fused
+kernel (K5), against their plain versions, and frames (wavefront without and
+with NEE, and the scan renderer on the fused kernel) rendered on the card
 against the same frames on the CPU.
 
 Imports nothing of JAX (the card's machine has none).  Every test is marked
@@ -22,7 +23,10 @@ import pytest
 import torch
 
 from owl_path_tracer_tpu_torch.models.scene import RenderSettings, compile_scene
+from owl_path_tracer_tpu_torch.ops import cluster as tcl
+from owl_path_tracer_tpu_torch.ops import fused as tfu
 from owl_path_tracer_tpu_torch.ops import fused2 as tf2
+from owl_path_tracer_tpu_torch.render import film as tfilm
 from owl_path_tracer_tpu_torch.render.film import make_accel
 from owl_path_tracer_tpu_torch.render.wavefront import render_image_wavefront
 
@@ -282,3 +286,87 @@ def test_mxu_frame_on_card_matches_cpu(cuda_device, kind):
     assert close.mean() > 0.995, f"only {close.mean():.4%} pixels match"
     np.testing.assert_allclose(img.mean(), want.mean(), rtol=1e-3)
     assert abs(rays - rays_want) <= 0.005 * rays_want
+
+
+@pytest.fixture(scope="module")
+def fused_soup():
+    """The soup's triangles as the fused kernel's clusters (C=64)."""
+    r = np.random.default_rng(0)
+    tri = r.uniform(-4, 4, (3000, 1, 3)) + r.normal(0, 0.4, (3000, 3, 3))
+    verts = tri.reshape(-1, 3).astype(np.float32)
+    idx = np.arange(9000, dtype=np.int32).reshape(3000, 3)
+    return tfu.build_fused(tcl.build_clusters(verts, idx, 64, device="cpu"))
+
+
+@pytest.mark.parametrize("scalar", [False, True], ids=["per_ray_tmax", "scalar_tmax"])
+@pytest.mark.parametrize("block", [128, 256])
+def test_fused_kernel_matches_plain(soup, fused_soup, cuda_device, block, scalar):
+    """K5: columns 0-6 bit-equal to the plain version (same entries, picks
+    and retirements; Moller-Trumbore in one op order without FMAs), with the
+    wrapper's padding rays (t_max T_MIN per ray, or the scalar)."""
+    _, o, d, tmax = soup
+    fb = fused_soup.to(cuda_device)
+    o, d, tmax = (torch.as_tensor(x[:300], device=cuda_device) for x in (o, d, tmax))
+    pad = (-300) % block
+    o = torch.cat([o, torch.zeros((pad, 3), device=cuda_device)])
+    d = torch.cat([d, torch.tensor([0.0, 0.0, 1.0], device=cuda_device).expand(pad, 3)])
+    t = 1e10 if scalar else torch.cat([tmax, torch.full((pad,), 1e-3, device=cuda_device)])
+    launches = tfu.LAUNCHES[tfu.ENTRY]
+    got = tfu.fused_traverse(o, d, t, fb, block)
+    assert tfu.LAUNCHES[tfu.ENTRY] == launches + 1
+    want = tfu.fused_traverse_plain(o, d, t, fb, block)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, :7], want[:, :7]) and (got[:, 7] == 0).all()
+    assert (got[:, 5] == 1).all() and 0 < int(got[:300, 4].sum()) < 300
+
+
+def test_fused_overflow_matches_cpu(soup, fused_soup, cuda_device):
+    """max_steps=3 leaves rows unresolved; the wrapper answers them with the
+    exact cluster query, equal to the CPU wrapper's answers."""
+    _, o, d, tmax = soup
+    args = [torch.as_tensor(x) for x in (o, d, tmax)]
+    cuda = [x.to(cuda_device) for x in args]
+    raw = tfu.fused_traverse(*[x[:384] for x in cuda], fused_soup.to(cuda_device), 128, 3)
+    assert (raw[:, 5] == 0).any()
+    got = tfu.fused_closest_hit(cuda[0], cuda[1], fused_soup.to(cuda_device), t_max=cuda[2], max_steps=3)
+    want = tfu.fused_closest_hit(args[0], args[1], fused_soup, t_max=args[2], max_steps=3)
+    assert torch.equal(got.tri.cpu(), want.tri) and torch.equal(got.t.cpu(), want.t)
+    assert torch.equal(got.uv.cpu(), want.uv)
+
+
+def test_shared_memory_limit(fused_soup, cuda_device):
+    """The kernel keeps the boxes in shared memory: ``max_clusters`` (the
+    kernel source's count against the device's opt-in limit) lets K through
+    and refuses K + 1, and dragon sub 7 fits."""
+    c = 128
+    k = tfu.max_clusters(c, cuda_device)
+    assert k >= 2816  # dragon sub 7 at C=128 has K = 2,688 (+ a few ground/light clusters)
+    rays = tfu.pack_rays(torch.zeros((128, 3), device=cuda_device),
+                         torch.tensor([0.0, 0.0, 1.0], device=cuda_device).expand(128, 3), 1e10)
+    for kk in (k, k + 1):
+        # boxes far off the rays: every ray misses at once
+        fb = tfu.FusedBVH(boxes=torch.full((8, kk), 3e37, device=cuda_device),
+                          planes=torch.zeros((kk, 16, c), device=cuda_device), cluster=fused_soup.cluster)
+        if kk == k:
+            out = tfu._fused_traverse_cuda(rays, fb, 128, tfu.MAX_STEPS)
+            assert (out[:, 4] == 0).all() and (out[:, 5] == 1).all() and (out[:, 6] == 0).all()
+        else:
+            with pytest.raises(ValueError, match=f"at most K={k}"):
+                tfu._fused_traverse_cuda(rays, fb, 128, tfu.MAX_STEPS)
+
+
+@pytest.mark.parametrize("use_nee", [False, True])
+def test_fused_scan_frame_on_card_matches_cpu(cuda_device, use_nee):
+    settings = RenderSettings(width=32, height=32, max_samples=2, max_path_depth=3, environment_auto=True,
+                              use_nee=use_nee)
+    scene = compile_scene(ASSETS, "cornell-box", (32, 32), env_map_path=None, device="cpu")
+    accel = make_accel(scene, "fused")
+    want = tfilm.add_samples(scene, settings, tfilm.new_film(settings, device="cpu"), 2, pixel_chunk=1024,
+                             accel=accel)
+    got = tfilm.add_samples(scene.to(cuda_device), settings, tfilm.new_film(settings, device=cuda_device), 2,
+                            pixel_chunk=1024, accel=accel.to(cuda_device))
+    img, ref = tfilm.finalize(got).cpu().numpy(), tfilm.finalize(want).numpy()
+    close = np.isclose(img, ref, rtol=1e-4, atol=1e-5)
+    assert close.mean() > 0.995, f"only {close.mean():.4%} pixels match"
+    np.testing.assert_allclose(img.mean(), ref.mean(), rtol=1e-3)
+    assert abs(got.rays_traced - want.rays_traced) <= 0.005 * want.rays_traced

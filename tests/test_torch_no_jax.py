@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from owl_path_tracer_tpu_torch import native
+from owl_path_tracer_tpu_torch.ops import fused as tfu
 from owl_path_tracer_tpu_torch.ops import fused2 as tf2
 
 torch.set_num_threads(2)
@@ -36,7 +37,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 20  # every sub-package and module was walked
+    assert int(proc.stdout.strip()) >= 24  # every sub-package and module was walked
 
 
 def test_native_sources_lie_inside_the_port(monkeypatch):
@@ -56,9 +57,11 @@ def test_native_sources_lie_inside_the_port(monkeypatch):
     with pytest.raises(Stop):
         native._load_bvh()  # g++: the SAH builder
     with pytest.raises(Stop):
-        tf2.build_kernels()  # nvcc: the traversal kernels
+        tf2.build_kernels()  # nvcc: the fused2 traversal kernels
+    with pytest.raises(Stop):
+        tfu.build_kernels()  # nvcc: the fused traversal kernel
     port = pathlib.Path(native.PKG_DIR).resolve()
-    assert len(seen) >= 2
+    assert len(seen) >= 3
     for src in seen:
         assert port in src.parents and src.is_file(), src
 
