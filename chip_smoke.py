@@ -70,6 +70,32 @@ renderer (render/film.py) and the CLI:
      assets/settings.json at its 1080x1440 and depth 16, --intersector fused
      --no-sweep, spp cut to 2, with its textured Ground, into
      chiprun_out/smoke_cli/.
+The retirement-loop latency probe (K6, ops/latency_probe.py, run by
+tools/latency_probe.py) and the production path (tools/render_production.py)
+with the wavefront's drained checkpoints:
+  3f. K6 vs its plain version on the soup's MXU clusters (C=64, f32 and bf16
+     planes): every variant, blocks 128 and 256, P = 1, 2 and 4, iters 0, 3
+     and 8; column 0 bit-equal (rtol 1e-6 with the approximate reciprocal),
+     columns 1-15 zero;
+  4f. the probe at its default shapes through tools/latency_probe.run
+     (dragon sub 7, C=512, K=768, 131072 bounce rays, blocks of 256, iters 0,
+     8 and 16), the default variants and the bf16 and recip ones, one JSON
+     line each with its slope; launch counts reset just before it; then
+     every variant vs its plain version at iters 16, as in 3f (interleave2
+     and interleave4 on f32 planes copy in tiles of 256 and 128 slots);
+  6f. the production frame: assets/settings.json's car at 1080x1440, depth
+     16, 131072 lanes, sort on, spp cut to 2 in segments of 1, each frame
+     uninterrupted and stopped mid-segment (drained checkpoints after each
+     of 2 launches of 4 steps, their seconds read from the progress lines)
+     then resumed, the golden rule against the uninterrupted frame: first on
+     the component layout at the same C, whose winners do not depend on the
+     rays beside them, with exactly the uninterrupted frame's rays; then on
+     fused2-bf16, the production accelerator, where a ray's winner may depend
+     on its block's other rays (near ties of the bf16 planes) and resumed
+     waves hold other rays, so the rays are held to 1e-4; a checkpoint
+     refused under another accelerator or scene; then render_production's
+     main in process into chiprun_out/smoke_production/tool/ (nothing under
+     docs/gallery/).
 The second-to-last lines are the kernels JSON and the GPU's nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.  Each kernel's bound_ms is
 the largest of its times at the wave it was timed on, per ray and slot of
@@ -81,6 +107,10 @@ feature products over the planes' dtype peak (bf16 dense tensor cores
 989 TFLOP/s, f32 67 TFLOP/s: tensor cores would round f32 to TF32), and the
 28 fp32 operations of the winner chain over 67 TFLOP/s; and for both, the
 bytes (inputs read once at their width, output written once) over 3.35 TB/s.
+K6's bound (probe_bound) is its launch's slab tests and, per chain and loop
+iteration, the feature products of the 10 ray feature rows that are not
+constant zeros and the window chain over the fp32 peak (the probe runs on
+CUDA cores), against its bytes.
 
 Imports nothing of JAX or of the JAX package; the dragon scene file is made
 by assets/generate.py in a child process.  Needs no network.
@@ -109,6 +139,13 @@ FUSED_REPLACES = "owl_path_tracer_tpu/ops/fused.py:86"
 SCAN_CHUNK = 65536
 # the CLI run: assets/settings.json's scene at its own size and depth, spp cut
 CLI_SPP = 2
+# the production frame (tools/render_production.py): spp cut from 12,288, in segments of 1
+PRODUCTION_SPP = 2
+PROBE_SOURCE = "owl_path_tracer_tpu_torch/csrc/latency_probe.cu"
+PROBE_REPLACES = "tools/tpu_probe6.py:68"
+# K6's ray feature rows that can change its result: d, o x d, o, 1 (rows
+# 10-15 are constant zeros that the kernel multiplies all the same)
+PROBE_LIVE_FEATURES = 10
 # bound: Moller-Trumbore fp32 operations per ray, slot and needed cluster
 # (component layout); MXU layout: feature-product FLOP (2 x 16 features x 4
 # groups) and winner-chain fp32 operations (ops/fused2.py:616-653 of the JAX
@@ -139,20 +176,6 @@ def phase(name, t0):
 
 def run(cmd, **kw):
     return subprocess.run(cmd, capture_output=True, text=True, check=True, timeout=600, **kw).stdout.strip()
-
-
-def ensure_dragon(sub: int) -> str:
-    """Write assets/dragon{sub}.{json,obj.scene} (generate.py), in a child process."""
-    code = (
-        "import sys; sys.path.insert(0, 'assets'); import generate\n"
-        f"name = 'dragon{sub}'\n"
-        "js = generate.HERE / f'{name}.json'\n"
-        "js.exists() or js.write_text((generate.HERE / 'dragon.json').read_text())\n"
-        "obj = generate.HERE / f'{name}.obj.scene'\n"
-        f"obj.exists() or generate.gen_dragon_scene(obj, {sub})\n"
-        "print(name)\n"
-    )
-    return run([sys.executable, "-c", code], cwd=ROOT)
 
 
 def cuda_ms(fn, reps: int = 3):
@@ -628,30 +651,6 @@ def main_path(what, scene, settings, accel, lanes, block, fused_nee=False):
     return launches
 
 
-def ensure_texture(rel: str):
-    """Write the stand-in texture assets/<rel> (generate.py's checkerboard), in
-    a child process."""
-    code = (
-        "import sys; sys.path.insert(0, 'assets'); import generate\n"
-        f"tex = generate.HERE / {rel!r}\n"
-        "tex.exists() or generate.gen_cube_texture(tex)\n"
-    )
-    run([sys.executable, "-c", code], cwd=ROOT)
-
-
-def ensure_car() -> str:
-    """Write assets/car.obj.scene and its Ground texture with generate.py, in
-    child processes."""
-    code = (
-        "import sys; sys.path.insert(0, 'assets'); import generate\n"
-        "obj = generate.HERE / 'car.obj.scene'\n"
-        "obj.exists() or generate.gen_car_scene(obj)\n"
-    )
-    run([sys.executable, "-c", code], cwd=ROOT)
-    ensure_texture("Ground-textures/uv-texture.png")
-    return "car"
-
-
 def fused_bound(rays, want, fb):
     """(bound_ms, bound_by, needed clusters per ray) of one K5 call: the slab
     test of each box a ray enters before its closest hit and Moller-Trumbore
@@ -774,6 +773,8 @@ def phase_5d(dev):
     from owl_path_tracer_tpu_torch.models.scene import RenderSettings, compile_scene
     from owl_path_tracer_tpu_torch.render import film
 
+    from owl_path_tracer_tpu_torch.tools.probe_common import ensure_texture
+
     ensure_texture("cube-textures/cube.png")
     for scene_name, use_nee in ((FRAME_SCENE, False), (FRAME_SCENE, True), ("cube", False)):
         fset = RenderSettings(width=FRAME_SIZE, height=FRAME_SIZE, max_samples=FRAME_SPP, max_path_depth=DEPTH,
@@ -841,6 +842,7 @@ def phase_6e():
     from owl_path_tracer_tpu_torch.models.scene import compile_scene
     from owl_path_tracer_tpu_torch.ops import fused as tfu
     from owl_path_tracer_tpu_torch.render import film
+    from owl_path_tracer_tpu_torch.tools.probe_common import ensure_car
     from owl_path_tracer_tpu_torch.utils import cli
     from owl_path_tracer_tpu_torch.utils.image import read_png
 
@@ -868,6 +870,237 @@ def phase_6e():
           f"{launches}, unresolved rays {tfu.UNRESOLVED_RAYS}", flush=True)
 
 
+def probe_bound(rays, boxes, planes, name, iters, block):
+    """(bound_ms, bound_by) of one K6 launch: phase A's slab tests (every
+    ray against every box) and, per chain and loop iteration, the feature
+    product of the live rows (2 x 10 x 4C FLOP per ray) and the window
+    chain (CHAIN_OPS per ray and slot) over the fp32 peak (CUDA cores), vs
+    the inputs read once and the output written once over HBM bytes/s."""
+    from owl_path_tracer_tpu_torch.ops import latency_probe as lp
+
+    v = lp.variant(name)
+    n, k, c = rays.shape[0], boxes.shape[1], planes.shape[2] // 4
+    per_iter = (2 * PROBE_LIVE_FEATURES * 4 * c + CHAIN_OPS * c) if v.mm else 0
+    ops = n * (SLAB_OPS * k + lp.trips(v, iters) * v.chains * per_iter)
+    nbytes = (4 * (rays.numel() + boxes.numel() + n * lp.OUT_COLS)
+              + (planes.numel() * planes.dtype.itemsize if v.copy else 0))
+    t_ops, t_bytes = ops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def compare_probe(got, want, name, what):
+    """K6 output vs its plain version: column 0 bit-equal (rtol 1e-6 with the
+    approximate reciprocal), columns 1-15 zero -> max |column 0 error|."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.ops import latency_probe as lp
+
+    check(bool((got[..., 1:] == 0).all()), f"{what}: columns 1-15 are not zero")
+    if lp.variant(name).recip:
+        torch.testing.assert_close(got[..., 0], want[..., 0], rtol=1e-6, atol=0)
+    else:
+        check(torch.equal(got[..., 0], want[..., 0]), f"{what}: column 0 differs from the plain version")
+    return float((got[..., 0] - want[..., 0]).abs().max())
+
+
+def phase_3f(dev, results):
+    """K6 vs its plain version on the soup (MXU clusters of C=64, f32 and
+    bf16 planes), every variant, blocks 128 and 256, iters 0, 3 and 8."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.ops import latency_probe as lp
+    from owl_path_tracer_tpu_torch.ops.fused2 import pack_rays
+
+    fbs = {dt: soup(dev, plane_dtype=dt)[0] for dt in (torch.float32, torch.bfloat16)}
+    _, (o, d, tmax) = soup(dev)
+    rays = pack_rays(o[:256], d[:256], tmax[:256])
+    err = 0.0
+    for name in [*lp.VARIANTS, "interleave2", "interleave4"]:
+        v = lp.variant(name)
+        fb = fbs[torch.bfloat16 if v.bf16 else torch.float32]
+        hits = []
+        for block in (128, 256):
+            for it in (0, 3, 8):
+                what = f"K6 {name} soup block {block} iters {it}"
+                got = lp.latency_probe(rays, fb.boxes, fb.planes, name, it, block)
+                want = lp.latency_probe_plain(rays, fb.boxes, fb.planes, name, it, block)
+                err = max(err, compare_probe(got, want, name, what))
+                hits.append(int((got[..., 0].reshape(-1) < rays[:, 6]).sum()))
+        print(f"  K6 {name}: equal to the plain version at blocks 128/256, iters 0/3/8 (hits {hits})", flush=True)
+    results["k6_err"] = err
+
+
+def phase_4f(results):
+    """The latency probe at its default shapes through the tool's own code,
+    every default variant and the bf16 and recip ones -> K6 launches; then
+    the kernel vs its plain version at iters 16."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.ops import latency_probe as lp
+    from owl_path_tracer_tpu_torch.tools import latency_probe as tool
+
+    names = [*lp.DEFAULT_VARIANTS, "sched_mm_bf16", "sched_mm_recip", "sched_dma_bf16", "pick_dma_mm_bf16"]
+    args = tool.parse_args(["--variants", ",".join(names)])
+    torch.cuda.synchronize()
+    lp.reset_counts()
+    probe, records = tool.run(args)
+    torch.cuda.synchronize()
+    launches = lp.LAUNCHES[lp.ENTRY]
+    iters = [int(x) for x in args.iters.split(",")]
+    check(launches == len(names) * len(iters) * (1 + tool.REPEATS), f"the probe launched K6 {launches} times")
+    for rec in records:
+        print(f"  K6 {rec['variant']}: {rec['us_per_block_iter']:.4f} us per block and iteration (tile "
+              f"{rec['tile']} slots), ms at iters {rec['ms_at']}", flush=True)
+    err = 0.0
+    tiles = {rec["variant"]: rec["tile"] for rec in records}
+    for name in names:
+        planes = probe.planes_for(name)
+        got = lp.latency_probe(probe.rays, probe.boxes, planes, name, iters[-1], args.b)
+        want = lp.latency_probe_plain(probe.rays, probe.boxes, planes, name, iters[-1], args.b)
+        what = f"K6 {name} at the default shapes (tiles of {tiles[name]} slots), iters {iters[-1]}"
+        err = max(err, compare_probe(got, want, name, what))
+    full = next(r for r in records if r["variant"] == "pick_dma_mm")
+    planes = probe.planes_for("pick_dma_mm")
+    plain_ms = cuda_ms(lambda: lp.latency_probe_plain(probe.rays, probe.boxes, planes, "pick_dma_mm", iters[-1],
+                                                      args.b), reps=1)
+    bnd = probe_bound(probe.rays, probe.boxes, planes, "pick_dma_mm", iters[-1], args.b)
+    ms = full["ms_median_at"][str(iters[-1])]
+    print(f"  K6 vs plain at iters {iters[-1]}: every variant equal (max |col 0 err| {err:.3g}); pick_dma_mm "
+          f"{ms:.3f} ms (median), plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); {launches} launches",
+          flush=True)
+    results["k6"] = {"ms": ms, "plain_ms": plain_ms, "bound": bnd, "launches": launches}
+    results["k6_err"] = max(results["k6_err"], err)
+
+
+def phase_6f(dev):
+    """The production path (tools/render_production.py's frame): the car of
+    assets/settings.json at its size and depth, 131072 lanes, sort on, spp
+    cut to 2 in segments of 1, each frame uninterrupted and then stopped
+    mid-segment by drained checkpoints and resumed: on the component layout
+    (the exact witness of resumption) and on fused2-bf16 (the production
+    accelerator); a checkpoint refused under another scene or accelerator;
+    then the tool's own main."""
+    import contextlib
+    import dataclasses
+    import io
+    import re
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from owl_path_tracer_tpu_torch.models.scene import compile_scene
+    from owl_path_tracer_tpu_torch.ops import fused2
+    from owl_path_tracer_tpu_torch.render import wavefront
+    from owl_path_tracer_tpu_torch.render.film import make_accel
+    from owl_path_tracer_tpu_torch.tools import render_production as rp
+    from owl_path_tracer_tpu_torch.tools.probe_common import ensure_car
+
+    ensure_car()
+    name, one = rp.production_settings(ROOT / "assets", 1)
+    scene = compile_scene(ROOT / "assets", name, (one.width, one.height), device=dev)
+    accel = make_accel(scene, "fused2-bf16")
+    comp = fused2.build_fused2_scene(scene, cluster_size=accel.cluster_size, mxu=False)
+    out = ROOT / "chiprun_out" / "smoke_production"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    kw = dict(lanes=LANES, fused2_sort=True)
+    total = one.width * one.height
+
+    def frame(acc, extra):
+        """The frame's segments on ``acc``, each with ``extra(sample_base)`` -> (mean image, rays)."""
+        imgs, rays = [], 0
+        for base in range(PRODUCTION_SPP):
+            img, r = wavefront.render_image_wavefront(scene, one, acc, sample_base=base, **kw, **extra(base))
+            imgs.append(img)
+            rays += r
+        return torch.stack(imgs).mean(0), rays
+
+    def timed_frame(acc, what):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        img, rays = frame(acc, lambda base: {})
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        check(bool(torch.isfinite(img).all()) and 0.0 < img.mean().item() < 10.0, f"{what}: production frame image")
+        print(f"  car {one.width}x{one.height} depth {one.max_path_depth} spp {PRODUCTION_SPP} ({PRODUCTION_SPP} "
+              f"segments of 1) on {what}: {rays} rays in {seconds:.3f} s = {rays / seconds / 1e6:.3f} Mrays/s; "
+              f"unresolved rays {fused2.UNRESOLVED_RAYS}, image mean {img.mean().item():.6f}", flush=True)
+        return img, rays
+
+    def stop_and_resume(acc, what, ck_dir):
+        """Segment 0 stopped after 2 launches of 4 steps, each followed by a
+        drained checkpoint, then the frame resumed -> (image, rays)."""
+        ck_dir.mkdir()
+        ck = ck_dir / "seg0.ck"
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            wavefront.render_image_wavefront(scene, one, acc, checkpoint_path=str(ck), checkpoint_every_s=0.0,
+                                             max_launches=2, iters_per_launch=4, progress=True, **kw)
+        drains = re.findall(r"drain ([0-9.]+) s", log.getvalue())
+        writes = re.findall(r"write ([0-9.]+) s", log.getvalue())
+        check(len(drains) == len(writes) == 2, f"{what}: not 2 checkpoints in the progress lines {log.getvalue()!r}")
+        with np.load(ck) as z:
+            stopped_at = int(z["work_counter"])
+        check(0 < stopped_at < total, f"{what}: the stopped segment is not mid-segment: work counter "
+                                      f"{stopped_at}/{total}")
+        shutil.copy(ck, ck_dir / "seg0_stopped.ck")
+        img, rays = frame(acc, lambda base: dict(checkpoint_path=str(ck_dir / f"seg{base}.ck")))
+        print(f"  {what}: stopped at work item {stopped_at}/{total} after 2 launches of 4 steps, each drained "
+              f"({', '.join(drains)} s) and written ({', '.join(writes)} s); resumed: {rays} rays", flush=True)
+        return img, rays
+
+    # the exact witness: on the component layout a ray's winner does not
+    # depend on the rays beside it, so the resumed frame traces the same rays
+    want_c, rays_want_c = timed_frame(comp, "the component layout")
+    img, rays = stop_and_resume(comp, "component layout", out / "component")
+    check(rays == rays_want_c, f"component layout: the resumed frame traced {rays} rays, the uninterrupted one "
+                               f"{rays_want_c}")
+    golden(img.cpu(), want_c.cpu(), rays, rays_want_c, "car on the component layout, stopped and resumed")
+
+    torch.cuda.synchronize()
+    fused2.reset_counts()
+    want, rays_want = timed_frame(accel, "fused2-bf16")
+    launches = fused2.LAUNCHES["owlpt_fused2_mxu_bf16_closest_hit"]
+    check(launches > 0, "the production frame launched no K1b bf16 closest hit")
+    print(f"  K1b bf16 closest-hit launches of the fused2-bf16 frame: {launches}", flush=True)
+    img, rays = stop_and_resume(accel, "fused2-bf16", out / "bf16")
+    # on bf16 planes a ray's winner may depend on the rays beside it in its
+    # block (a near tie, or a hit in a cluster its own walk would not test:
+    # compare_near_tie), and the resumed waves hold other rays, so a few
+    # paths may take another turn; the component layout's frame above
+    # resumes to exactly its rays
+    check(abs(rays - rays_want) <= 1e-4 * rays_want,
+          f"fused2-bf16: the resumed frame traced {rays} rays, the uninterrupted one {rays_want}: more than 1e-4 "
+          "apart")
+    golden(img.cpu(), want.cpu(), rays, rays_want, "car production frame, stopped and resumed vs uninterrupted")
+
+    # a checkpoint written under another accelerator or scene is refused
+    mats = scene.materials
+    brighter = dataclasses.replace(scene, materials=dataclasses.replace(mats, emission=mats.emission * 2))
+    for what, (sc, ac) in {"accel": (scene, make_accel(scene, "fused2")), "scene": (brighter, accel)}.items():
+        try:
+            wavefront.render_image_wavefront(sc, one, ac, checkpoint_path=str(out / "bf16" / "seg0_stopped.ck"),
+                                             **kw)
+            raise SmokeFailure(f"a checkpoint was resumed under another {what}")
+        except ValueError as e:
+            check(f"'{what}'" in str(e), f"the refusal does not name {what!r}: {e}")
+    print("  resuming under another accelerator (fused2) or scene (emission x2) raises ValueError naming it")
+
+    gallery = sorted((ROOT / "docs" / "gallery").glob("*"))
+    start = time.perf_counter()
+    rec = rp.main(["--spp", str(PRODUCTION_SPP), "--seg-spp", "1", "--device", "cuda", "--out-dir",
+                   str(out / "tool")])
+    seconds = time.perf_counter() - start
+    check(rec["rays_total"] == rays_want, f"render_production traced {rec['rays_total']} rays, not {rays_want}")
+    check((out / "tool" / f"car_production_spp{PRODUCTION_SPP}.png").exists(), "render_production wrote no PNG")
+    check(sorted((ROOT / "docs" / "gallery").glob("*")) == gallery, "render_production wrote under docs/gallery")
+    print(f"  render_production --spp {PRODUCTION_SPP} --seg-spp 1: {rec['rays_total']} rays, "
+          f"{rec['mrays_per_s']:.3f} Mrays/s over its segments, {seconds:.3f} s in main, PNG and JSON in "
+          f"{(out / 'tool').relative_to(ROOT)}", flush=True)
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--spp", type=int, default=8, help="main-path samples per pixel (64: headline)")
@@ -886,12 +1119,14 @@ def main():
     from owl_path_tracer_tpu_torch.native import nvcc_path
     from owl_path_tracer_tpu_torch.ops import fused as tfu
     from owl_path_tracer_tpu_torch.ops import fused2
+    from owl_path_tracer_tpu_torch.ops import latency_probe as tlp
     from owl_path_tracer_tpu_torch.ops import math as m
     from owl_path_tracer_tpu_torch.ops.fused2 import pack_rays
     from owl_path_tracer_tpu_torch.render import integrator, wavefront
     from owl_path_tracer_tpu_torch.render.film import make_accel
 
     from owl_path_tracer_tpu_torch.render.film import scene_has_textures
+    from owl_path_tracer_tpu_torch.tools.probe_common import ensure_dragon
 
     dev = torch.device("cuda", 0)
     results = {"max_abs_err": 0.0}
@@ -908,7 +1143,7 @@ def main():
     # 2 ── build: one nvcc per kernel source, started together
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
-        builds = list(pool.map(lambda mod: mod.build_kernels(), (fused2, tfu)))
+        builds = list(pool.map(lambda mod: mod.build_kernels(), (fused2, tfu, tlp)))
     for path, seconds, log in builds:
         for line in log.splitlines():
             if any(w in line for w in ("registers", "smem", "spill", "Compiling entry")):
@@ -1261,6 +1496,21 @@ def main():
     phase_6e()
     phase("6e CLI", t0)
 
+    # 3f ── K6 vs plain, small
+    t0 = time.perf_counter()
+    phase_3f(dev, results)
+    phase("3f latency probe (K6) vs plain, small", t0)
+
+    # 4f ── the latency probe at its default shapes
+    t0 = time.perf_counter()
+    phase_4f(results)
+    phase("4f latency probe at its default shapes", t0)
+
+    # 6f ── the production path with drained checkpoints
+    t0 = time.perf_counter()
+    phase_6f(dev)
+    phase("6f production path, checkpoint and resume", t0)
+
     check("jax" not in sys.modules and "owl_path_tracer_tpu" not in sys.modules,
           "the JAX package was imported")
 
@@ -1303,6 +1553,10 @@ def main():
     k5 = results["k5 centre chunk bounce"]
     kernels.append(dict(entry("fused_traverse", k5_launches, results["k5_err"], k5["ms"], k5["plain_ms"],
                               k5["bound"]), source=FUSED_SOURCE, replaces=FUSED_REPLACES))
+    # K6 runs on no render path: its launches are the probe run's (phase 4f)
+    k6 = results["k6"]
+    kernels.append(dict(entry("latency_probe", k6["launches"], results["k6_err"], k6["ms"], k6["plain_ms"],
+                              k6["bound"]), source=PROBE_SOURCE, replaces=PROBE_REPLACES))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

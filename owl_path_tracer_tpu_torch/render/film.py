@@ -10,14 +10,15 @@ the reference's store-time flip so that row 0 of the image is the top.
 
 Differences from the JAX package, exact in value: the film's tensors live on
 the scene's device and its LCG state is int64 (holding values below 2^32,
-``ops/rng.py``); ``finalize`` and ``render_image`` return a tensor.
-Checkpoints (``save_checkpoint``/``load_checkpoint``) are not ported yet
-(ROADMAP queue 1, item 3).
+``ops/rng.py``; checkpoints store it as uint32, as the JAX package does, so
+the two packages read each other's); ``finalize`` and ``render_image``
+return a tensor.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..models.envlight import build_env_light
@@ -142,3 +143,17 @@ def render_image(scene: Scene, settings: RenderSettings, spp: int | None = None,
     film = add_samples(scene, settings, film, settings.max_samples if spp is None else spp,
                        pixel_chunk=pixel_chunk, accel=accel)
     return finalize(film)
+
+
+def save_checkpoint(path, film: Film):
+    """The film as a compressed npz (``acc``, ``rng``, ``spp_done``,
+    ``width``, ``height``; numpy appends ``.npz`` to a path without it)."""
+    np.savez_compressed(path, acc=film.acc.cpu().numpy(), rng=film.rng.cpu().numpy().astype(np.uint32),
+                        spp_done=film.spp_done, width=film.width, height=film.height)
+
+
+def load_checkpoint(path, *, device) -> Film:
+    with np.load(path) as z:
+        return Film(acc=torch.as_tensor(z["acc"], device=device),
+                    rng=torch.as_tensor(z["rng"].astype(np.int64), device=device),
+                    spp_done=int(z["spp_done"]), width=int(z["width"]), height=int(z["height"]))

@@ -16,6 +16,14 @@ JAX package's two forms:
     contributions are added before the bounce; a lane whose path ended with a
     shadow ray still pending (a zombie) banks one step later.
 
+With ``checkpoint_path`` the frame is crash-safe: every
+``checkpoint_every_s`` seconds the pool is drained (hand-outs capped at the
+queue position, steps until no path is alive and no shadow ray is pending)
+and the film, the queue position and the ray count are written atomically
+with a guard of the configuration; a rerun with the same path resumes from
+it with a fresh pool.  Every work item seeds its stream from its id alone, so
+finished items are in the film once and the rest render as they would have.
+
 Differences from the JAX package, all exact in value:
   * the film is banked with ``index_add_`` (its ``film_mode="scatter"``), in
     place into the pool's accumulator;
@@ -23,12 +31,23 @@ Differences from the JAX package, all exact in value:
   * the host loop reads each launch's status before the next launch: the
     fused2 wrapper synchronizes every step (to find unresolved rays), so the
     JAX package's overlap of the next dispatch with the previous status read
-    would buy nothing.
+    would buy nothing;
+  * a drain that ends with paths still in flight raises instead of writing a
+    checkpoint that would drop them, and the checkpoint's guard also holds a
+    hash of the scene (vertices, triangles, materials), the accelerator's
+    kind and layout, the sort mode, ``fused_nee`` and the other render
+    settings: resuming under another configuration raises and names the keys
+    that differ.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import hashlib
+import os
+import time
 
+import numpy as np
 import torch
 
 from ..models.camera import primary_rays
@@ -38,7 +57,7 @@ from ..models.scene import RenderSettings, Scene
 from ..ops import disney
 from ..ops import math as m
 from ..ops import rng as rng_mod
-from ..ops.fused2 import auto_sort_mode
+from ..ops.fused2 import auto_sort_mode, resolve_sort
 from ..ops.intersect import HitRecord
 from ..utils.tensors import TensorBundle
 from . import integrator
@@ -47,6 +66,9 @@ from .film import scene_has_textures
 # ray origin of parked (dead) lanes: far outside every scene AABB, so their
 # traversal blocks retire at the scene gate
 PARK = 1e8
+# launches a checkpoint's drain may take before it gives up (a path lives at
+# most depth + 2 steps, a launch is at least 2 steps)
+DRAIN_LAUNCHES = 64
 
 
 @dataclasses.dataclass
@@ -215,7 +237,8 @@ def render_image_wavefront(scene: Scene, settings: RenderSettings, accel, lanes:
                            iters_per_launch: int = 32, max_launches: int = 1000,
                            fused2_block: int | None = None, fused2_sort=False,
                            sample_base: int = 0, fused_nee: bool = False,
-                           fused2_fanout: int | None = None) -> tuple:
+                           fused2_fanout: int | None = None, checkpoint_path: str | None = None,
+                           checkpoint_every_s: float = 600.0, progress: bool = False) -> tuple:
     """Full frame via the persistent pool -> (image [H,W,3] top row first, on
     the scene's device; live rays traced).
 
@@ -226,7 +249,11 @@ def render_image_wavefront(scene: Scene, settings: RenderSettings, accel, lanes:
     ``settings.environment_use``, the environment light) is built from the
     scene; ``fused_nee`` selects the deferred form.  ``fused2_fanout``
     (default FANOUT) is the clusters the traversal retires per loop
-    iteration on the MXU layout.
+    iteration on the MXU layout.  ``checkpoint_path``: drained checkpoints
+    every ``checkpoint_every_s`` seconds, and resumption from an existing
+    one (module docstring); ``progress`` prints each resume and each
+    checkpoint with the seconds its drain and its write took.
+    ``max_launches`` bounds the launches of this call (drains not counted).
     """
     enable_textures = scene_has_textures(scene)
     if fused2_sort is True:
@@ -239,18 +266,106 @@ def render_image_wavefront(scene: Scene, settings: RenderSettings, accel, lanes:
             env_light = build_env_light(scene.env_map, settings.environment_intensity)
     st = new_pool(settings, lanes, device=scene.vertices.device)
     est_steps = (total_work + lanes - 1) // lanes + settings.max_path_depth + 3
-    iters = max(2, min(iters_per_launch, est_steps))
+    chunk = functools.partial(
+        _run_chunk, scene, settings, accel=accel, enable_textures=enable_textures,
+        iters=max(2, min(iters_per_launch, est_steps)), fused2_block=fused2_block, fused2_sort=fused2_sort,
+        sample_base=sample_base, lights=lights, env_light=env_light, fused_nee=fused_nee,
+        fused2_fanout=fused2_fanout,
+    )
+    guard = None
+    if checkpoint_path is not None:
+        guard = checkpoint_guard(scene, settings, accel, lanes, fused2_sort, fused_nee, sample_base)
+        if os.path.exists(checkpoint_path):
+            st = _resume(st, checkpoint_path, guard)
+            if progress:
+                done = int(st.work_counter)
+                print(f"[wavefront] resumed at work item {done}/{total_work} ({100.0 * done / total_work:.1f}%)",
+                      flush=True)
+    last_ck = time.monotonic()
     for _ in range(max_launches):
-        st, status = _run_chunk(
-            scene, settings, st, accel, enable_textures, total_work, iters,
-            fused2_block=fused2_block, fused2_sort=fused2_sort, sample_base=sample_base,
-            lights=lights, env_light=env_light, fused_nee=fused_nee, fused2_fanout=fused2_fanout,
-        )
+        st, status = chunk(st, work_hi=total_work)
         work_done, busy = status.tolist()
         if work_done and not busy:
             break
+        if checkpoint_path is not None and time.monotonic() - last_ck > checkpoint_every_s:
+            t_drain = time.perf_counter()
+            st = _drain(chunk, st)  # ends on a host read of the pool's status
+            t_write = time.perf_counter()
+            _write_checkpoint(checkpoint_path, st, guard)
+            if progress:
+                done = int(st.work_counter)
+                print(f"[wavefront] checkpoint @ {done}/{total_work} ({100.0 * done / total_work:.1f}%), "
+                      f"{int(st.rays) / 1e6:.0f}M rays, drain {t_write - t_drain:.6f} s, write "
+                      f"{time.perf_counter() - t_write:.6f} s", flush=True)
+            last_ck = time.monotonic()
     img = st.acc.reshape(settings.height, settings.width, 3) / settings.max_samples
     return img.flip(0), int(st.rays)
+
+
+def _digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def checkpoint_guard(scene: Scene, settings: RenderSettings, accel, lanes: int, sort, fused_nee: bool,
+                     sample_base: int) -> dict:
+    """What a checkpoint must have been written under to be resumed: the
+    frame and pool sizes, the scene's geometry and materials (a hash), the
+    accelerator's kind and layout, the sort mode (resolved), the NEE form,
+    the sample base and the other render settings."""
+    mats = scene.materials
+    planes = getattr(accel, "planes", None)
+    accel_desc = (f"{type(accel).__name__} {getattr(accel, 'layout', '-')} "
+                  f"{'-' if planes is None else planes.dtype} C={getattr(accel, 'cluster_size', '-')} "
+                  f"K={getattr(accel, 'num_clusters', '-')}")
+    rest = {f.name: getattr(settings, f.name) for f in dataclasses.fields(settings)
+            if f.name not in ("width", "height", "max_samples", "max_path_depth", "use_nee")}
+    return dict(
+        width=settings.width, height=settings.height, spp=settings.max_samples, depth=settings.max_path_depth,
+        lanes=lanes, nee=int(settings.use_nee), sample_base=sample_base, fused_nee=int(bool(fused_nee)),
+        scene=_digest(scene.vertices, scene.tri_idx, scene.tri_mat,
+                      *(getattr(mats, f.name) for f in dataclasses.fields(mats))),
+        accel=accel_desc, sort=str(resolve_sort(sort)), settings=repr(sorted(rest.items())),
+    )
+
+
+def _resume(st: PoolState, path: str, guard: dict) -> PoolState:
+    """A fresh pool that continues from the checkpoint at ``path``; raises
+    ValueError if the checkpoint was written under another guard."""
+    with np.load(path) as ck:
+        mismatch = [k for k, v in guard.items() if k not in ck or ck[k].item() != v]
+        if mismatch:
+            raise ValueError(f"checkpoint {path} was written by a different configuration (mismatched: "
+                             f"{mismatch}); refusing to resume")
+        dev = st.acc.device
+        return dataclasses.replace(
+            st, acc=torch.as_tensor(ck["acc"], device=dev),
+            work_counter=torch.tensor(int(ck["work_counter"]), dtype=torch.int64, device=dev),
+            rays=torch.tensor(int(ck["rays"]), dtype=torch.int64, device=dev),
+        )
+
+
+def _drain(chunk, st: PoolState) -> PoolState:
+    """Step without new hand-outs (capped at the current queue position)
+    until no path is alive and no shadow ray is pending; raises if that
+    takes more than DRAIN_LAUNCHES launches, so no checkpoint drops a path."""
+    cap = int(st.work_counter)
+    for _ in range(DRAIN_LAUNCHES):
+        st, status = chunk(st, work_hi=cap)
+        if not status[1]:
+            return st
+    raise RuntimeError(f"the pool did not drain in {DRAIN_LAUNCHES} launches: paths still in flight, "
+                       "no checkpoint written")
+
+
+def _write_checkpoint(path: str, st: PoolState, guard: dict):
+    """Film, queue position, ray count and guard, atomically (temporary file + rename)."""
+    tmp = f"{path}.tmp"
+    with open(tmp, "wb") as f:  # a file object: savez appends no .npz
+        np.savez(f, acc=st.acc.cpu().numpy(), work_counter=int(st.work_counter), rays=int(st.rays), **guard)
+    os.replace(tmp, path)
 
 
 def new_pool(settings: RenderSettings, lanes: int, work_lo: int = 0, *, device) -> PoolState:

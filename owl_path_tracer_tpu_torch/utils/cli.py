@@ -6,10 +6,16 @@
 * output naming: ``{scene}_{test}_{attr}({value}).png`` with ``{:.1f}``
   value formatting, or ``{scene}.png`` for a single frame;
 * ``--device`` (default ``cuda``) picks where the scene, the accelerator and
-  the render live; ``cuda`` raises where there is no GPU.
+  the render live; ``cuda`` raises where there is no GPU;
+* ``--checkpoint PATH`` (``--renderer wavefront``): drained checkpoints every
+  ``--checkpoint-every`` seconds, and a rerun resumes from them
+  (render/wavefront.py).  A sweep keeps one checkpoint per frame,
+  ``PATH.<frame index>``, where the JAX package reuses PATH for every frame;
+  with the scan renderer, which writes none, ``--checkpoint`` raises where
+  the JAX package ignores it.
 
-Not ported yet: ``--checkpoint`` (ROADMAP queue 1, item 3) and the ``bvh``
-and ``brute`` intersectors (items 9 and 10) raise NotImplementedError.
+Not ported yet: the ``bvh`` and ``brute`` intersectors (ROADMAP queue 1,
+items 9 and 10) raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -63,7 +69,8 @@ def format_value(v) -> str:
     return f"{float(v):.1f}"
 
 
-def _device(name: str) -> torch.device:
+def resolve_device(name: str) -> torch.device:
+    """A ``--device`` argument; a CUDA device must exist (no CPU fallback)."""
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs a CUDA device; none is available (pass --device cpu)")
@@ -71,9 +78,9 @@ def _device(name: str) -> torch.device:
 
 
 def run_sweep(args) -> list:
-    if getattr(args, "checkpoint", None) is not None:
-        raise NotImplementedError("--checkpoint is not ported yet: ROADMAP queue 1, item 3")
-    device = _device(getattr(args, "device", "cuda"))
+    if getattr(args, "checkpoint", None) is not None and args.renderer != "wavefront":
+        raise ValueError("--checkpoint needs --renderer wavefront: the scan renderer writes no checkpoints")
+    device = resolve_device(getattr(args, "device", "cuda"))
     assets = pathlib.Path(args.assets)
     settings_desc = parse_settings(assets / "settings.json")
     scene_name = args.scene or settings_desc.scene
@@ -101,7 +108,7 @@ def run_sweep(args) -> list:
 
     def single_frame():
         path = out_dir / f"{scene_name}.png"
-        write_png_rgba8(path, quantize_rgba8(_render(scene, rset, args, accel)))
+        write_png_rgba8(path, quantize_rgba8(_render(scene, rset, args, accel, getattr(args, "checkpoint", None))))
         print(f"Image written to {path}")
         return [path]
 
@@ -118,11 +125,12 @@ def run_sweep(args) -> list:
     attr = "base_color" if test.vec_values else test.attribute_name
 
     outputs = []
-    for value in sweep_values(values, test.step_size):
+    ck = getattr(args, "checkpoint", None)
+    for i, value in enumerate(sweep_values(values, test.step_size)):
         print("TRACING")
         swept = set_material_attribute(scene, mat_index, attr, value)
         t0 = time.time()
-        img = _render(swept, rset, args, accel)
+        img = _render(swept, rset, args, accel, None if ck is None else f"{ck}.{i}")
         path = out_dir / f"{scene_name}_{test.name}_{test.attribute_name}({format_value(value)}).png"
         write_png_rgba8(path, quantize_rgba8(img))
         print(f"Image written to {path}  [{time.time() - t0:.1f}s]")
@@ -130,13 +138,16 @@ def run_sweep(args) -> list:
     return outputs
 
 
-def _render(scene, rset, args, accel):
-    """One frame -> linear float32 [H,W,3] numpy image, row 0 the top."""
+def _render(scene, rset, args, accel, checkpoint=None):
+    """One frame -> linear float32 [H,W,3] numpy image, row 0 the top;
+    ``checkpoint`` is the wavefront's checkpoint path."""
     if args.renderer == "wavefront":
         from ..render.wavefront import render_image_wavefront
 
         img, _rays = render_image_wavefront(scene, rset, accel, lanes=args.lanes, fused2_block=args.fused2_block,
-                                            fused2_sort=getattr(args, "sort", False))
+                                            fused2_sort=getattr(args, "sort", False), checkpoint_path=checkpoint,
+                                            checkpoint_every_s=getattr(args, "checkpoint_every", 600.0),
+                                            progress=checkpoint is not None)
     else:
         img = film_mod.render_image(scene, rset, pixel_chunk=args.pixel_chunk, accel=accel)
     return img.cpu().numpy()
@@ -171,7 +182,7 @@ def main(argv=None):
     ap.add_argument("--sort", action="store_true",
                     help="wavefront: per-wave coherence sort (scene-adaptive morton/cid2 key)")
     ap.add_argument("--checkpoint", default=None,
-                    help="wavefront: film checkpoint path (not ported yet: raises)")
+                    help="wavefront: film checkpoint path (resumes from it if present)")
     ap.add_argument("--checkpoint-every", type=float, default=600.0,
                     help="seconds between checkpoints (default 600)")
     ap.add_argument("--no-sweep", action="store_true", help="single frame, ignore test block")

@@ -135,7 +135,7 @@ def test_cli_main_single_frame(tmp_path, renderer):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["--checkpoint", "film.ck"], NotImplementedError, "item 3"),
+    (["--checkpoint", "film.ck"], ValueError, "needs --renderer wavefront"),  # the scan renderer has none
     (["--intersector", "bvh"], NotImplementedError, "item 9"),
     (["--intersector", "brute"], NotImplementedError, "item 10"),
 ], ids=["checkpoint", "bvh", "brute"])

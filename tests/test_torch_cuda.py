@@ -1,9 +1,10 @@
 """The port on a CUDA card: the fused2 kernel in its three modes (closest hit,
 any-hit, mixed) on the component layout (K1-K3) and the MXU feature layout
-with f32 and bf16 planes (K1b), and without attributes (K4), and the fused
-kernel (K5), against their plain versions, and frames (wavefront without and
-with NEE, and the scan renderer on the fused kernel) rendered on the card
-against the same frames on the CPU.
+with f32 and bf16 planes (K1b), and without attributes (K4), the fused
+kernel (K5) and the latency probe (K6), against their plain versions, and
+frames (wavefront without and with NEE, stopped and resumed from a
+checkpoint, and the scan renderer on the fused kernel) rendered on the card
+against the same frames on the CPU or uninterrupted.
 
 Imports nothing of JAX (the card's machine has none).  Every test is marked
 ``cuda`` and skips where there is no CUDA device.  On the card:
@@ -26,6 +27,7 @@ from owl_path_tracer_tpu_torch.models.scene import RenderSettings, compile_scene
 from owl_path_tracer_tpu_torch.ops import cluster as tcl
 from owl_path_tracer_tpu_torch.ops import fused as tfu
 from owl_path_tracer_tpu_torch.ops import fused2 as tf2
+from owl_path_tracer_tpu_torch.ops import latency_probe as tlp
 from owl_path_tracer_tpu_torch.render import film as tfilm
 from owl_path_tracer_tpu_torch.render.film import make_accel
 from owl_path_tracer_tpu_torch.render.wavefront import render_image_wavefront
@@ -370,3 +372,65 @@ def test_fused_scan_frame_on_card_matches_cpu(cuda_device, use_nee):
     assert close.mean() > 0.995, f"only {close.mean():.4%} pixels match"
     np.testing.assert_allclose(img.mean(), ref.mean(), rtol=1e-3)
     assert abs(got.rays_traced - want.rays_traced) <= 0.005 * want.rays_traced
+
+
+@pytest.mark.parametrize("block", [128, 256])
+@pytest.mark.parametrize("name", [*tlp.VARIANTS, "interleave2", "interleave4"])
+def test_latency_probe_matches_plain(soup, mxu_soups, cuda_device, name, block, monkeypatch):
+    """K6 on the soup's MXU clusters (C=64): column 0 bit-equal to the plain
+    version (rtol 1e-6 for the approximate reciprocal), columns 1-15 zero;
+    copies in tiles of 8 slots (a device with just the shared memory for
+    them) change nothing."""
+    _, o, d, tmax = soup
+    v = tlp.variant(name)
+    fb = mxu_soups["bf16" if v.bf16 else "f32"].to(cuda_device)
+    rays = tf2.pack_rays(*(torch.as_tensor(x[:256], device=cuda_device) for x in (o, d, tmax)))
+    small = tlp.shared_bytes(fb.boxes.shape[1], v.chains, block, tlp.TILE_ALIGN, v.bf16)
+    for it in (0, 3, 8):
+        launches = tlp.LAUNCHES[tlp.ENTRY]
+        got = tlp.latency_probe(rays, fb.boxes, fb.planes, name, it, block)
+        with monkeypatch.context() as mp:
+            mp.setattr(tlp, "smem_limit", lambda device: small)
+            assert tlp.kernel_tile(rays, fb.boxes, fb.planes, name, block) == tlp.TILE_ALIGN
+            tiled = tlp.latency_probe(rays, fb.boxes, fb.planes, name, it, block)
+        assert tlp.LAUNCHES[tlp.ENTRY] == launches + 2
+        want = tlp.latency_probe_plain(rays, fb.boxes, fb.planes, name, it, block)
+        torch.cuda.synchronize()
+        assert (got[..., 1:] == 0).all() and torch.equal(tiled, got)
+        if v.recip:
+            torch.testing.assert_close(got[..., 0], want[..., 0], rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(got[..., 0], want[..., 0]), f"{name} iters {it}"
+        if v.pick and v.mm and it == 8:
+            assert (got[..., 0] < rays[:, 6].view(got.shape[:2])).any()
+
+
+def test_latency_probe_shared_memory(cuda_device):
+    """The wrapper's count of a block's bytes is the kernel source's, and
+    interleave4 on f32 planes at C=512 gets tiles that fit."""
+    tlp.build_kernels()
+    for args in ((768, 1, 256, 512, False), (768, 4, 256, 128, False), (300, 2, 128, 64, True)):
+        k, p, b, tile, bf16 = args
+        assert tlp.shared_bytes(*args) == tlp._cuda_lib.owlpt_latency_probe_shared_bytes(k, p, b, tile,
+                                                                                        2 if bf16 else 4)
+    limit = tlp.smem_limit(cuda_device)
+    assert limit >= 227 * 1024 and tlp.tile_cols(512, 768, 4, 256, False, limit) == 128
+
+
+def test_resume_on_card_gives_the_uninterrupted_frame(cuda_device, tmp_path):
+    """A frame stopped after two launches (a drained checkpoint after each)
+    and resumed traces the uninterrupted frame's rays (component layout:
+    the kernel's winners do not depend on the rays beside them)."""
+    settings = RenderSettings(width=32, height=32, max_samples=2, max_path_depth=4, environment_auto=True)
+    scene = compile_scene(ASSETS, "cornell-box", (32, 32), device=cuda_device)
+    accel = tf2.build_fused2_scene(scene, mxu=False)
+    kw = dict(lanes=512, fused2_sort=True, iters_per_launch=2)
+    want, rays_want = render_image_wavefront(scene, settings, accel, **kw)
+    ck = str(tmp_path / "frame.ck")
+    render_image_wavefront(scene, settings, accel, checkpoint_path=ck, checkpoint_every_s=0.0, max_launches=2, **kw)
+    img, rays = render_image_wavefront(scene, settings, accel, checkpoint_path=ck, **kw)
+    assert rays == rays_want
+    img, want = img.cpu().numpy(), want.cpu().numpy()
+    close = np.isclose(img, want, rtol=1e-4, atol=1e-5)
+    assert close.mean() > 0.995, f"only {close.mean():.4%} pixels match"
+    np.testing.assert_allclose(img.mean(), want.mean(), rtol=1e-3)

@@ -64,8 +64,14 @@ def test_light_table_and_sampler_match_jax(name):
     target = r.uniform(v.min(0), v.max(0), (N, 3)).astype(np.float32)
     u3 = r.random((N, 3), dtype=np.float32)
     u3[:8, 0] = [0.0, 0.5, 0.49999997, 0.99999994, 1.0, 0.25, 0.75, 1e-9]  # light-pick edges
-    ref = jax.jit(jlights.sample_lights)(want, jnp.asarray(target), jnp.asarray(u3))
+    # JAX gets its own copies of the inputs and finishes before the port
+    # runs: no XLA thread is at work on a buffer torch reads
+    ref = jax.jit(jlights.sample_lights)(want, jnp.asarray(target.copy()), jnp.asarray(u3.copy()))
+    ref = jax.tree_util.tree_map(np.asarray, ref)
     ls = tlights.sample_lights(got, torch.as_tensor(target), torch.as_tensor(u3))
+    again = tlights.sample_lights(got, torch.as_tensor(target.copy()), torch.as_tensor(u3.copy()))
+    for f in ("distance", "direction", "pdf", "normal", "tri_id", "emission"):
+        assert torch.equal(getattr(ls, f), getattr(again, f)), f"the port's {f} differs between two runs"
     np.testing.assert_array_equal(ls.tri_id.numpy(), np.asarray(ref.tri_id))
     np.testing.assert_array_equal(ls.emission.numpy(), np.asarray(ref.emission))
     for f, rtol, atol in (("distance", 1e-6, 0), ("normal", 1e-6, 1e-7),

@@ -11,6 +11,7 @@ import torch
 from owl_path_tracer_tpu_torch import native
 from owl_path_tracer_tpu_torch.ops import fused as tfu
 from owl_path_tracer_tpu_torch.ops import fused2 as tf2
+from owl_path_tracer_tpu_torch.ops import latency_probe as tlp
 
 torch.set_num_threads(2)
 
@@ -60,8 +61,10 @@ def test_native_sources_lie_inside_the_port(monkeypatch):
         tf2.build_kernels()  # nvcc: the fused2 traversal kernels
     with pytest.raises(Stop):
         tfu.build_kernels()  # nvcc: the fused traversal kernel
+    with pytest.raises(Stop):
+        tlp.build_kernels()  # nvcc: the latency probe kernel
     port = pathlib.Path(native.PKG_DIR).resolve()
-    assert len(seen) >= 3
+    assert len(seen) >= 4 and tlp.CSRC.resolve() in seen
     for src in seen:
         assert port in src.parents and src.is_file(), src
 
