@@ -9,7 +9,10 @@ toolkit:
 
 Phases (one line each, with times; any failure exits non-zero):
   1. environment: GPU name and power limit, torch / CUDA / nvcc versions;
-  2. build the kernels from csrc/ (nvcc, sm_90a);
+  2. build the kernels from csrc/ (nvcc, sm_90a), with ptxas' registers per
+     entry and the HMMA (tensor-core) instruction count of each bf16 K1b
+     instantiation in the SASS (cuobjdump): the tensor-core forms hold some,
+     the exact CUDA-core form none;
   3. kernel vs plain version on a small triangle soup, blocks 128 and 256,
      per-ray t_max, padding rays, and max_steps=1 (unresolved blocks);
   4. kernel vs plain version at the main path's shapes: the dragon scene at
@@ -39,16 +42,22 @@ no-attributes closest hit (K4) follow:
   3c. K1b (f32 and bf16 planes; closest, any-hit, mixed) and K4 (component
      and MXU f32) vs their plain versions on the soup: blocks 128 and 256,
      fanout 1 and 2 (bit-identical), per-ray t_max, padding rays,
-     max_steps=1 through the wrappers; bf16 + no attributes raises;
+     max_steps=1 through the wrappers; bf16 + no attributes raises; on bf16
+     planes the tensor-core entries under compare_near_tie's rounding kind
+     and the exact CUDA-core closest hit equal to the plain version;
   4c. the same at the main path's shapes, CUDA events: the dragon primary and
-     bounce waves on fused2-bf16 and fused2 (K1b closest, K4), the cornell
-     shadow wave (any-hit) and 262144-ray mixed wave on fused2-bf16 and
-     fused2;
+     bounce waves on fused2-bf16 and fused2 (K1b closest, K4; on bf16 the
+     exact form and the tensor-core form timed in turns, exact, tensor,
+     tensor, exact), the cornell shadow wave (any-hit) and 262144-ray mixed
+     wave on fused2-bf16 and fused2; registers, shared memory and blocks
+     per SM of each K1b entry at the dragon's K and C;
   5c. frame parity on fused2-bf16, card vs CPU: cornell-box 64x64 spp 4,
      without NEE and with NEE in both forms;
   6c. the headline main path (phase 6's configuration) on fused2-bf16 and on
      fused2, then the cornell NEE path (phase 6b's) on fused2-bf16 and on
-     fused2, separate and deferred; counts reset just before each.
+     fused2, separate and deferred; counts reset just before each; then
+     phase 6's frame rendered twice on fused2 and on the component layout,
+     the films compared bit for bit.
 The fused kernel (K5, make_accel("fused"), clusters of C=128) under the scan
 renderer (render/film.py) and the CLI:
   3d. K5 vs its plain version on the soup (C=64): blocks 128 and 256, per-ray
@@ -58,7 +67,11 @@ renderer (render/film.py) and the CLI:
   4d. K5 vs plain at the main path's shapes: dragon sub 7 on
      make_accel("fused"), the 65536-ray primary wave of add_samples' first
      pixel chunk and the bounce wave trace_bounce makes of it, then the same
-     for the chunk through the image centre; CUDA events;
+     for the chunk through the image centre; CUDA events; then dragon sub 8
+     (~1.3M triangles, K above the 9,088 clusters K5 took while its block
+     held the boxes in shared memory): the centre chunk's bounce wave, the
+     kernel on all 65536 rays, the plain version on every 8th block;
+     registers, shared memory and blocks per SM of K5 at both K;
   5d. scan-renderer frame parity on make_accel("fused"): cornell-box 64x64,
      spp 4, depth 4, card vs CPU, without and with NEE (fused_occluded), and
      the textured cube (the texture lookup of the shade-blob fetch);
@@ -96,7 +109,9 @@ with the wavefront's drained checkpoints:
      refused under another accelerator or scene; then render_production's
      main in process into chiprun_out/smoke_production/tool/ (nothing under
      docs/gallery/).
-The second-to-last lines are the kernels JSON and the GPU's nvidia-smi line;
+The second-to-last lines are the kernels JSON (the bf16 K1b rows give the
+tensor-core entries; fused2_mxu_bf16_exact_closest_hit, off every render
+path, the exact form's time from the same turns) and the GPU's nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.  Each kernel's bound_ms is
 the largest of its times at the wave it was timed on, per ray and slot of
 each cluster that ray's exact query needs (see needed_clusters; K5 adds
@@ -104,7 +119,8 @@ the slab test of each such cluster's box, fused_bound): component
 layout, 45 Moller-Trumbore fp32 operations over the H100's published
 67 TFLOP/s fp32 peak (700 W); MXU layout, the 2 x 16 x 4 = 128 FLOP of the
 feature products over the planes' dtype peak (bf16 dense tensor cores
-989 TFLOP/s, f32 67 TFLOP/s: tensor cores would round f32 to TF32), and the
+989 TFLOP/s, the peak of K1b's tensor-core form and the least the exact
+form's work needs; f32 67 TFLOP/s: tensor cores would round f32 to TF32), and the
 28 fp32 operations of the winner chain over 67 TFLOP/s; and for both, the
 bytes (inputs read once at their width, output written once) over 3.35 TB/s.
 K6's bound (probe_bound) is its launch's slab tests and, per chain and loop
@@ -118,6 +134,7 @@ by assets/generate.py in a child process.  Needs no network.
 import argparse
 import concurrent.futures
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -159,6 +176,16 @@ MT_OPS, MXU_FLOP, CHAIN_OPS = 45, 2 * 16 * 4, 28
 # the far clamp, the compare and the select
 SLAB_OPS = 28
 FP32_FLOPS, BF16_FLOPS, HBM_BYTES_S = 67e12, 989e12, 3.35e12
+# How far the tensor cores' feature sums (K1b on bf16 planes) may lie from
+# the plain version's, per unit of the sum of the terms' magnitudes: the
+# products are exact; the plain version rounds 9 times along its 10 live rows
+# (< 9 x 2^-24); the tensor core, aligning each product to the largest one
+# and truncating, loses < 2^-23 of the largest term per product and once
+# more in the result (< 11 x 2^-23 = 22 x 2^-24); so < 31 x 2^-24 < 2^-19.
+SUM_GAMMA = 2.0**-19
+# one rounding of a float32 operation, relative (the window's own sums,
+# products and the t division round on both sides)
+EPS32 = 2.0**-23
 
 
 class SmokeFailure(Exception):
@@ -178,8 +205,8 @@ def run(cmd, **kw):
     return subprocess.run(cmd, capture_output=True, text=True, check=True, timeout=600, **kw).stdout.strip()
 
 
-def cuda_ms(fn, reps: int = 3):
-    """Median milliseconds of ``reps`` timed calls after one warm-up (CUDA events)."""
+def cuda_times(fn, reps: int = 3):
+    """Milliseconds of ``reps`` timed calls after one warm-up (CUDA events)."""
     import torch
 
     fn()
@@ -191,7 +218,42 @@ def cuda_ms(fn, reps: int = 3):
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
+
+
+def cuda_ms(fn, reps: int = 3):
+    """Median milliseconds of ``reps`` timed calls after one warm-up (CUDA events)."""
+    return statistics.median(cuda_times(fn, reps))
+
+
+def in_turns(a, b, reps: int = 3):
+    """Median milliseconds of ``a`` and of ``b``, timed in turns a, b, b, a
+    (``reps`` calls each turn, CUDA events), so that a drift of the card's
+    clock over the four turns weighs on both alike."""
+    ta, tb = cuda_times(a, reps), cuda_times(b, reps)
+    tb += cuda_times(b, reps)
+    ta += cuda_times(a, reps)
+    return statistics.median(ta), statistics.median(tb)
+
+
+def hmma_counts(lib):
+    """HMMA (tensor-core) instructions per fused2_kernel instantiation in the
+    SASS of ``lib`` (cuobjdump beside nvcc) -> {(mode, layout, attrs, tensor): count}."""
+    import re
+
+    from owl_path_tracer_tpu_torch.native import nvcc_path
+
+    sass = run([str(pathlib.Path(nvcc_path()).parent / "cuobjdump"), "-sass", str(lib)])
+    counts, key = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            found = re.search(r"fused2_kernelILi(\d)ELi(\d)ELb(\d)ELb(\d)E", line)
+            key = tuple(int(x) for x in found.groups()) if found else None
+            if key:
+                counts[key] = 0
+        elif key and "HMMA" in line:
+            counts[key] += 1
+    return counts
 
 
 def compare(got, want, allow_ties: bool):
@@ -267,7 +329,50 @@ def bound(rays, want, fb, any_hit, with_attrs=True):
     return ((t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")), float(need.float().mean())
 
 
-def compare_near_tie(got, want, rays, fb, what, blob=True):
+def sums_decisions(rays, fb, cid, slot):
+    """How the window of slot ``slot`` of cluster ``cid`` (per ray of the
+    packed ``rays``; cid < 0: no winner) is decided, against how far the
+    tensor cores' sums may lie from the plain version's (SUM_GAMMA times
+    each sum's absolute terms, ``fused2.mxu_slot_sums``) -> (within, close,
+    t, t_err):
+
+      within  every window inequality (|det| >= 1e-12, u >= 0, v >= 0,
+              u + v <= det, t > t_min, t < t_max, on the sign-folded sums)
+              holds in the plain arithmetic or fails by less than its bound;
+      close   some inequality's margin is smaller than its bound (another
+              summation could decide it the other way);
+      t       the matmul-space t (t*det / det), inf without a winner;
+      t_err   the bound on its error (inf where |det| is within its own)."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.ops import fused2
+    from owl_path_tracer_tpu_torch.ops import math as m
+
+    (det, ua, vb, tcd), absolute = fused2.mxu_slot_sums(rays[:, 0:3], rays[:, 3:6], fb, cid, slot)
+    e_det, e_u, e_v, e_t = (SUM_GAMMA * a for a in absolute)
+    t_max = rays[:, 6]
+    sgn = torch.where(det < 0.0, -1.0, 1.0)
+    dd, u, v, tc = det * sgn, ua * sgn, vb * sgn, tcd * sgn
+    ineqs = (  # (margin, > 0 where it holds; bound on how far another summation moves it)
+        (dd - 1e-12, e_det),
+        (u, e_u),
+        (v, e_v),
+        (dd - (u + v), e_det + e_u + e_v + EPS32 * (u.abs() + v.abs() + dd)),
+        (tc - dd * m.T_MIN, e_t + m.T_MIN * e_det + EPS32 * (tc.abs() + dd * m.T_MIN)),
+        (dd * t_max - tc, e_t + t_max * e_det + EPS32 * (tc.abs() + dd * t_max)),
+    )
+    has = cid >= 0
+    within = has.clone()
+    close = torch.zeros_like(has)
+    for margin, bnd in ineqs:
+        within &= margin > -bnd
+        close |= torch.isfinite(margin) & (margin.abs() < bnd)
+    t = torch.where(has, tc / dd, torch.inf)
+    t_err = (e_t + t.abs() * e_det) / torch.clamp(dd - e_det, min=0.0) + EPS32 * t.abs()
+    return within, close & has, t, torch.where(has & (dd > e_det), t_err, torch.inf)
+
+
+def compare_near_tie(got, want, rays, fb, what, blob=True, tensor=False):
     """Kernel vs plain output ([N,32]) on the MXU layout -> (max |t,u,v| error
     on agreeing rows, rows whose winners differ).
 
@@ -291,6 +396,13 @@ def compare_near_tie(got, want, rays, fb, what, blob=True):
     ~1e-3 relative and more, far beyond a box's margin; f32 planes may have
     no row of the last two kinds, and bf16 ones at most 0.5% of the rows
     compared.
+    With ``tensor`` (the tensor-core entries on bf16 planes, whose feature
+    sums may differ from the plain version's by rounding, ``sums_decisions``)
+    a row is also explained when each side's winner passes its window or
+    fails it by less than the sums' rounding bound, and a window inequality
+    of either winner, or the two winners' t order, lies within that bound;
+    then all the explained rows together may be at most 0.5% of the rows
+    (rounded up).
     The counts are printed.  On agreeing rows t/u/v to rtol 5e-6, and hit,
     winner cluster and slot and (``blob``) the attribute blob exactly."""
     import torch
@@ -316,8 +428,15 @@ def compare_near_tie(got, want, rays, fb, what, blob=True):
                         & (entry >= torch.maximum(tg, tw)))
         unentered = ok_g & (ok_w | (want[diff, 7] < 0)) & (tg < tw) & torch.isinf(entry)
         unreached = before_entry | unentered
-        bad = diff[~tie & ~unreached]
-        for i in torch.nonzero(~tie & ~unreached).squeeze(1)[:8].tolist():
+        rounding = torch.zeros_like(tie)
+        if tensor:
+            within_g, close_g, t_g, err_g = sums_decisions(r, fb, got[diff, 7].long(), got[diff, 8].long())
+            within_w, close_w, t_w, err_w = sums_decisions(r, fb, want[diff, 7].long(), want[diff, 8].long())
+            order = torch.isfinite(t_g) & torch.isfinite(t_w) & ((t_g - t_w).abs() < err_g + err_w)
+            rounding = (~tie & ~unreached & (within_g | (got[diff, 7] < 0)) & (within_w | (want[diff, 7] < 0))
+                        & (close_g | close_w | order))
+        bad = diff[~tie & ~unreached & ~rounding]
+        for i in torch.nonzero(~tie & ~unreached & ~rounding).squeeze(1)[:8].tolist():
             j = int(diff[i])
             print(f"  {what}: ray {j} kernel tri {int(got[j, 3])} loop t {float(tg[i]):.7g} window "
                   f"{bool(ok_g[i])} (cluster {int(got[j, 7])}), plain tri {int(want[j, 3])} loop t "
@@ -325,11 +444,17 @@ def compare_near_tie(got, want, rays, fb, what, blob=True):
                   f"entry {float(entry[i]):.7g}")
         print(f"  {what}: winners differ on {diff.numel()} of {got.shape[0]} rays: {int(tie.sum())} near ties, "
               f"{int(before_entry.sum())} hits before their cluster's entry, {int(unentered.sum())} kernel hits "
-              f"in a box the ray does not enter, {bad.numel()} otherwise")
+              f"in a box the ray does not enter, "
+              + (f"{int(rounding.sum())} decided within the sums' rounding, " if tensor else "")
+              + f"{bad.numel()} otherwise")
         check(bad.numel() == 0, f"{what}: {bad.numel()} of {got.shape[0]} winners differ beyond the near-tie rule")
-        cap = int(0.005 * got.shape[0]) if fb.planes.dtype == torch.bfloat16 else 0
-        check(int(unreached.sum()) <= cap,
-              f"{what}: {int(unreached.sum())} hits in clusters only one side tests, more than {cap}")
+        if tensor:
+            cap = math.ceil(0.005 * got.shape[0])
+            check(diff.numel() <= cap, f"{what}: {diff.numel()} explained rows, more than {cap}")
+        else:
+            cap = int(0.005 * got.shape[0]) if fb.planes.dtype == torch.bfloat16 else 0
+            check(int(unreached.sum()) <= cap,
+                  f"{what}: {int(unreached.sum())} hits in clusters only one side tests, more than {cap}")
     g, w = got[same], want[same]
     for col in (4, 7, 8):
         check(bool((g[:, col] == w[:, col]).all()), f"{what}: column {col} differs")
@@ -427,20 +552,26 @@ def sorted_rays(o, d, t, fb, mode, shadow=None):
     return fused2.pack_rays(o, d, t, shadow)[perm], perm
 
 
-def wrapper_reference(fb, rays, raw):
+def wrapper_reference(fb, rays, raw, kernel_rows=False):
     """The plain version's rows with the kernel's unresolved mask: what a
     wrapper must return when the kernel (``raw``) left those rows to the
-    exact query."""
+    exact query.  ``kernel_rows``: the kernel's own rows where it resolved
+    them (the tensor-core form, whose winners the near-tie rule holds apart)."""
     from owl_path_tracer_tpu_torch.ops import fused2
 
     mode = "mixed" if bool((rays[:, 7] > 0).any()) else "closest"
     want = fused2.fused2_traverse_packed_plain(rays, fb, mode)
     want[:, 5] = raw[:, 5]
+    if kernel_rows:
+        keep = raw[:, 5] > 0
+        want[keep] = raw[keep]
     return want
 
 
 def phase_3c(dev, results):
-    """K1b (MXU f32 and bf16 planes, three modes) and K4 vs plain on the soup."""
+    """K1b (MXU f32 and bf16 planes, three modes; on bf16 the tensor-core
+    form under the sums' rounding rule and the exact CUDA-core form) and K4
+    vs plain on the soup."""
     import numpy as np
     import torch
 
@@ -453,6 +584,7 @@ def phase_3c(dev, results):
     for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         fb, (o, d, tmax) = soup(dev, plane_dtype=dtype)
         fb32 = fb if name == "f32" else fb32
+        tensor = name == "bf16"
         r = np.random.default_rng(1)
         shadow = torch.as_tensor(np.arange(300) % 2 == 1, device=dev)
         dist = torch.as_tensor(np.where(shadow.cpu().numpy(), r.uniform(2.0, 20.0, 300), 1e10).astype(np.float32),
@@ -468,18 +600,24 @@ def phase_3c(dev, results):
             for fo in (1, 2):
                 what = f"K1b {name} soup block {block} fanout {fo}"
                 got = fused2.fused2_traverse_packed(rays, fb, block=block, fanout=fo)
-                e, tie = compare_near_tie(got, want, rays, fb, what)
+                e, tie = compare_near_tie(got, want, rays, fb, what, tensor=tensor)
                 check(bool((got[300:, 4] == 0).all()), f"{what}: a padding ray hit")
                 got_a = fused2.fused2_traverse_packed(rays, fb, block=block, fanout=fo, mode="any_hit")
                 check(bool((got_a[:, 5] == 1).all()), f"{what}: any-hit left rays unresolved")
                 check(bool((got_a[:, 0] == rays[:, 6]).all()), f"{what}: any-hit lowered t")
                 flag_diffs += compare_flags(got_a, want_a, f"{what} any-hit")
                 got_m = fused2.fused2_traverse_packed(mrays, fb, block=block, fanout=fo, mode="mixed")
-                e_m, tie_m = compare_near_tie(got_m[~sh_p], want_m[~sh_p], mrays[~sh_p], fb, f"{what} mixed")
+                e_m, tie_m = compare_near_tie(got_m[~sh_p], want_m[~sh_p], mrays[~sh_p], fb, f"{what} mixed",
+                                              tensor=tensor)
                 check(bool((got_m[sh_p, 5] == 1).all()), f"{what}: mixed left shadow rays unresolved")
                 flag_diffs += compare_flags(got_m[sh_p], want_m[sh_p], f"{what} mixed shadow lanes")
                 errs += [e, e_m]
                 ties += tie + tie_m
+                if tensor:  # the CUDA-core form: the plain version's arithmetic
+                    got_x = fused2.fused2_traverse_packed(rays, fb, block=block, fanout=fo, exact=True)
+                    e_x, tie_x = compare_near_tie(got_x, want, rays, fb, f"{what} exact")
+                    check(tie_x == 0, f"{what}: the exact form differs from the plain version on {tie_x} rows")
+                    errs.append(e_x)
                 outs[fo] = (got, got_a, got_m)
             check(all(same_outputs(a, b) for a, b in zip(outs[1], outs[2])),
                   f"K1b {name} block {block}: fanout 1 and 2 differ")
@@ -488,13 +626,15 @@ def phase_3c(dev, results):
                   f"{int(want_a[:300, 4].sum())}/300 occluded, {int(want_m[sh_p, 4].sum())}/{int(sh_p.sum())} "
                   f"shadow lanes occluded; fanout 1 == fanout 2 bit for bit")
         results[f"k1b_{name}_err"] = max(errs)
-        print(f"  K1b {name} soup: max |tuv err| {max(errs):.3g}, {ties} near-tie rows, {flag_diffs} flags differ")
+        print(f"  K1b {name} soup: max |tuv err| {max(errs):.3g}, {ties} explained rows, {flag_diffs} flags differ"
+              + ("; the exact bf16 form equal to the plain version on every row" if tensor else ""))
         # max_steps=1: rows left unresolved go to the exact query in every wrapper
         o_p, d_p, t_p, _ = fused2._pad_rays(o, d, tmax, 128)
         rays = pack_rays(o_p, d_p, t_p)
         raw = fused2.fused2_traverse_packed(rays, fb, block=128, max_steps=1)
         check(bool((raw[:, 5] == 0).any()), f"K1b {name} max_steps=1 left no ray unresolved")
-        ref, ref_blob = fused2._hits_from_output(wrapper_reference(fb, rays, raw)[:300], o, d, fb, 1e-3, tmax)
+        ref, ref_blob = fused2._hits_from_output(wrapper_reference(fb, rays, raw, tensor)[:300], o, d, fb, 1e-3,
+                                                 tmax)
         rec, blob = fused2.fused2_closest_hit(o, d, fb, t_max=tmax, max_steps=1)
         check(bool((rec.tri == ref.tri).all()) and bool((blob == ref_blob).all()),
               f"K1b {name} max_steps=1 closest hit differs")
@@ -508,7 +648,8 @@ def phase_3c(dev, results):
         o_p, d_p, t_p, _ = fused2._pad_rays(o, d, dist, 128)
         mrays = pack_rays(o_p, d_p, t_p, torch.cat([shadow, shadow.new_zeros(o_p.shape[0] - 300)]))
         raw = fused2.fused2_traverse_packed(mrays, fb, block=128, max_steps=1, mode="mixed")
-        ref, ref_blob = fused2._hits_from_output(wrapper_reference(fb, mrays, raw)[:300], o, d, fb, 1e-3, dist)
+        ref, ref_blob = fused2._hits_from_output(wrapper_reference(fb, mrays, raw, tensor)[:300], o, d, fb, 1e-3,
+                                                 dist)
         rec, blob, occ = fused2.fused2_sweep_mixed(o, d, dist, shadow, fb, max_steps=1)
         check(bool((occ[shadow] == (ref.tri >= 0)[shadow]).all()), f"K1b {name} max_steps=1 mixed flags differ")
         check(bool((rec.tri[~shadow] == ref.tri[~shadow]).all()) and bool((blob[~shadow] == ref_blob[~shadow]).all()),
@@ -542,13 +683,17 @@ def phase_3c(dev, results):
 
 
 def time_kernel(what, rays, fb, block, mode="closest", with_attrs=True, shadow=None):
-    """Kernel vs plain on one sorted wave: checks, CUDA-event times, bound -> dict."""
+    """Kernel vs plain on one sorted wave: checks, CUDA-event times, bound ->
+    dict.  On bf16 planes the kernel is the tensor-core form, held to the
+    sums' rounding rule; for closest hit the exact CUDA-core form is also
+    held to the plain version and timed in turns with it (key "exact")."""
     import torch
 
     from owl_path_tracer_tpu_torch.ops import fused2
 
-    run = lambda fo=fused2.FANOUT: fused2.fused2_traverse_packed(  # noqa: E731
-        rays, fb, block=block, mode=mode, fanout=fo, with_attrs=with_attrs)
+    tensor = fb.layout == "mxu_bf16"
+    run = lambda fo=fused2.FANOUT, exact=False: fused2.fused2_traverse_packed(  # noqa: E731
+        rays, fb, block=block, mode=mode, fanout=fo, with_attrs=with_attrs, exact=exact)
     got = run()
     want = fused2.fused2_traverse_packed_plain(rays, fb, mode, with_attrs)
     if mode == "any_hit":
@@ -556,25 +701,35 @@ def time_kernel(what, rays, fb, block, mode="closest", with_attrs=True, shadow=N
         err, ties = float((got[:, 4] - want[:, 4]).abs().max()), compare_flags(got, want, what)
         any_hit = torch.ones_like(got[:, 0], dtype=torch.bool)
     elif mode == "mixed":
-        err, ties = compare_near_tie(got[~shadow], want[~shadow], rays[~shadow], fb, what)
+        err, ties = compare_near_tie(got[~shadow], want[~shadow], rays[~shadow], fb, what, tensor=tensor)
         check(bool((got[shadow, 5] == 1).all()), f"{what}: shadow rays unresolved")
         ties += compare_flags(got[shadow], want[shadow], f"{what} shadow lanes")
         any_hit = shadow
     else:
-        err, ties = compare_near_tie(got, want, rays, fb, what, blob=with_attrs)
+        err, ties = compare_near_tie(got, want, rays, fb, what, blob=with_attrs, tensor=tensor)
         any_hit = torch.zeros_like(got[:, 0], dtype=torch.bool)
     if fb.mxu:
         check(same_outputs(run(1), got), f"{what}: fanout 1 and 2 differ")
         print(f"  {what}: fanout 1 == fanout 2 bit for bit")
-    k_ms = cuda_ms(run)
+    exact = None
+    if tensor and mode == "closest":
+        got_x = run(exact=True)
+        err_x, ties_x = compare_near_tie(got_x, want, rays, fb, f"{what}, exact form")
+        x_ms, k_ms = in_turns(lambda: run(exact=True), run)
+        exact = {"err": err_x, "ms": x_ms}
+        print(f"  {what}: exact CUDA-core form {x_ms:.3f} ms, tensor-core form {k_ms:.3f} ms (in turns exact, "
+              f"tensor, tensor, exact; {x_ms / k_ms:.2f}x); the exact form differs from the plain version on "
+              f"{ties_x} rows (the tensor form on {ties})", flush=True)
+    else:
+        k_ms = cuda_ms(run)
     p_ms = cuda_ms(lambda: fused2.fused2_traverse_packed_plain(rays, fb, mode, with_attrs))
     bnd, need = bound(rays, want, fb, any_hit, with_attrs=with_attrs and mode != "any_hit")
     steps = got[:, 6].reshape(-1, block)[:, 0]
-    print(f"  {what}: {int(got[:, 4].sum())}/{rays.shape[0]} hit, {ties} near-tie rows / differing flags, "
+    print(f"  {what}: {int(got[:, 4].sum())}/{rays.shape[0]} hit, {ties} explained rows / differing flags, "
           f"max err {err:.3g}, clusters/block mean {float(steps.mean()):.2f} max {int(steps.max())}, "
           f"clusters needed/ray mean {need:.3f}, kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
-          f"bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
-    return {"err": err, "ms": k_ms, "plain_ms": p_ms, "bound": bnd}
+          f"bound {bnd[0]:.4f} ms ({bnd[1]}, {100 * bnd[0] / k_ms:.2f}% reached)", flush=True)
+    return {"err": err, "ms": k_ms, "plain_ms": p_ms, "bound": bnd, "exact": exact}
 
 
 def phase_4c(scene, comp_accel, mode, waves, nee_scene, nee_mode, nee_waves, block, results):
@@ -588,6 +743,13 @@ def phase_4c(scene, comp_accel, mode, waves, nee_scene, nee_mode, nee_waves, blo
         accel = make_accel(scene, kind)
         print(f"  {kind}: K={accel.num_clusters} C={accel.cluster_size}, planes {tuple(accel.planes.shape)} "
               f"{accel.planes.dtype}", flush=True)
+        forms = [False, True] if kind == "fused2-bf16" else [False]
+        for m_name in fused2.MODES:
+            for exact in forms if m_name == "closest" else [False]:
+                res = fused2.kernel_resources(accel, m_name, block, exact=exact)
+                print(f"  {res['entry']} at K={accel.num_clusters} C={accel.cluster_size} block {block}: "
+                      f"{res['registers']} registers, {res['shared_bytes']} bytes of shared memory, "
+                      f"{res['blocks_per_sm']} blocks per SM", flush=True)
         for name, (wo, wd) in waves.items():
             tm = torch.full((wo.shape[0],), 1e10, device=wo.device)
             rays, _ = sorted_rays(wo, wd, tm, accel, mode)
@@ -651,6 +813,51 @@ def main_path(what, scene, settings, accel, lanes, block, fused_nee=False):
     return launches
 
 
+def film_determinism(scene, settings, lanes, block):
+    """Phase 6's frame rendered twice in this process on fused2 and on the
+    component layout; the two films ([H*W,3], the image is the film over spp)
+    compared bit for bit -> differing values per accelerator.  On fused2 the
+    frame is also rendered twice with the film banked by CUDA ``index_add_``
+    (atomics, the banking before ``wavefront._bank``), in turns atomic,
+    deterministic, deterministic, atomic, timed on the host clock."""
+    import unittest.mock
+
+    import torch
+
+    from owl_path_tracer_tpu_torch.ops import fused2
+    from owl_path_tracer_tpu_torch.render import wavefront
+    from owl_path_tracer_tpu_torch.render.film import make_accel
+
+    def render(accel, atomic):
+        bank = (lambda acc, pixel, contrib: acc.index_add_(0, pixel, contrib)) if atomic else wavefront._bank
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with unittest.mock.patch.object(wavefront, "_bank", bank):
+            img, rays = wavefront.render_image_wavefront(scene, settings, accel, lanes=lanes, fused2_block=block,
+                                                         fused2_sort=True)
+        torch.cuda.synchronize()
+        return img.reshape(-1, 3), rays, time.perf_counter() - start
+
+    f2 = make_accel(scene, "fused2")
+    atomic_a, sorted_a, sorted_b, atomic_b = (render(f2, atomic) for atomic in (True, False, False, True))
+    comp = fused2.build_fused2_scene(scene, mxu=False)
+    pairs = {"fused2": (sorted_a, sorted_b), "the component layout": (render(comp, False), render(comp, False)),
+             "fused2, atomic banking": (atomic_a, atomic_b)}
+    differ = {}
+    for kind, ((a, rays_a, sec_a), (b, rays_b, sec_b)) in pairs.items():
+        differ[kind] = int((a != b).sum())
+        print(f"  film determinism, {kind}: two renders of the {settings.width}x{settings.height} spp "
+              f"{settings.max_samples} frame differ in {differ[kind]} of {a.numel()} film values "
+              f"(max |diff| {float((a - b).abs().max()):.3g}), rays {rays_a} / {rays_b}, {sec_a:.3f} / {sec_b:.3f} s",
+              flush=True)
+        check(rays_a == rays_b, f"film determinism, {kind}: the two renders traced {rays_a} and {rays_b} rays")
+    print(f"  fused2 frame with the deterministic banking {statistics.median([sorted_a[2], sorted_b[2]]):.3f} s, "
+          f"with atomic banking {statistics.median([atomic_a[2], atomic_b[2]]):.3f} s (in turns atomic, "
+          "deterministic, deterministic, atomic)", flush=True)
+    del differ["fused2, atomic banking"]  # the banking it replaced: expected to differ
+    return differ
+
+
 def fused_bound(rays, want, fb):
     """(bound_ms, bound_by, needed clusters per ray) of one K5 call: the slab
     test of each box a ray enters before its closest hit and Moller-Trumbore
@@ -705,32 +912,26 @@ def phase_3d(dev, results):
           "the CPU wrapper's")
 
 
-def phase_4d(scene, settings, results):
-    """K5 vs plain at the scan main path's shapes -> the fused accelerator.
-    The kernels line takes the centre chunk's bounce wave, the heaviest."""
+def scan_waves(scene, settings, accel, chunk_names=("first chunk", "centre chunk")):
+    """The scan path's waves on ``accel``: the first sample of add_samples'
+    first pixel chunk (the bottom image rows: ground) and of the chunk
+    through the image centre (the dragon), primary and the bounce wave
+    trace_bounce makes of it -> {name: (origins, directions)}."""
     import torch
 
     from owl_path_tracer_tpu_torch.models.camera import primary_rays
-    from owl_path_tracer_tpu_torch.ops import fused as tfu
-    from owl_path_tracer_tpu_torch.ops import math as m
     from owl_path_tracer_tpu_torch.ops import rng as rng_mod
     from owl_path_tracer_tpu_torch.render import film, integrator
 
-    t0 = time.perf_counter()
-    accel = film.make_accel(scene, "fused")
-    torch.cuda.synchronize()
-    print(f"  fused accel: K={accel.num_clusters} C={accel.cluster_size} (limit "
-          f"K={tfu.max_clusters(accel.cluster_size, scene.vertices.device)}), "
-          f"built in {time.perf_counter() - t0:.2f} s", flush=True)
     dev = scene.vertices.device
     fl = film.new_film(settings, device=dev)
     grid = film._pixel_grid(settings.width, settings.height, dev)
     isect, _ = integrator.make_intersectors(scene, accel)
-    waves = {}
-    # the first sample of add_samples' first pixel chunk (the bottom image
-    # rows: ground) and of the chunk through the image centre (the dragon)
     chunks = settings.width * settings.height // SCAN_CHUNK
-    for chunk_name, lo in (("first chunk", 0), ("centre chunk", chunks // 2 * SCAN_CHUNK)):
+    starts = {"first chunk": 0, "centre chunk": chunks // 2 * SCAN_CHUNK}
+    waves = {}
+    for chunk_name in chunk_names:
+        lo = starts[chunk_name]
         j0, st = rng_mod.next_f32(fl.rng[lo : lo + SCAN_CHUNK])
         j1, st = rng_mod.next_f32(st)
         o, d = primary_rays(scene.camera, grid[lo : lo + SCAN_CHUNK], torch.stack([j0, j1], -1),
@@ -746,7 +947,40 @@ def phase_4d(scene, settings, results):
         # the scan renderer traces every lane: dead lanes keep their last ray
         waves[f"{chunk_name} primary"] = (o, d)
         waves[f"{chunk_name} bounce"] = (bounce.ray_o, bounce.ray_d)
-    for name, (wo, wd) in waves.items():
+    return waves
+
+
+def k5_resources(accel, what):
+    from owl_path_tracer_tpu_torch.ops import fused as tfu
+
+    res = tfu.kernel_resources(accel, tfu.BLOCK_RAYS)
+    print(f"  K5 on {what} (K={accel.num_clusters} C={accel.cluster_size}, block {tfu.BLOCK_RAYS}): "
+          f"{res['registers']} registers, {res['shared_bytes']} bytes of shared memory, {res['blocks_per_sm']} "
+          "blocks per SM", flush=True)
+
+
+def phase_4d(scene, settings, results):
+    """K5 vs plain at the scan main path's shapes -> the fused accelerator.
+    The kernels line takes the centre chunk's bounce wave, the heaviest.
+    Then the 1.3M-triangle dragon (subdivision 8, K above the 9,088
+    clusters one block's shared memory held before the box rows moved to
+    device memory): its centre chunk's bounce wave, the kernel on all
+    65,536 rays, the plain version on every 8th block of them."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.models.scene import compile_scene
+    from owl_path_tracer_tpu_torch.ops import fused as tfu
+    from owl_path_tracer_tpu_torch.ops import math as m
+    from owl_path_tracer_tpu_torch.render import film
+    from owl_path_tracer_tpu_torch.tools.probe_common import ensure_dragon
+
+    t0 = time.perf_counter()
+    accel = film.make_accel(scene, "fused")
+    torch.cuda.synchronize()
+    print(f"  fused accel: K={accel.num_clusters} C={accel.cluster_size}, built in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    k5_resources(accel, "dragon7")
+    for name, (wo, wd) in scan_waves(scene, settings, accel).items():
         got = tfu.fused_traverse(wo, wd, m.T_MAX, accel)
         want = tfu.fused_traverse_plain(wo, wd, m.T_MAX, accel)
         check(torch.equal(got[:, :7], want[:, :7]), f"K5 {name} wave: columns 0-6 differ from the plain version")
@@ -762,8 +996,35 @@ def phase_4d(scene, settings, results):
               f"{int((got[:, 5] == 0).sum())} unresolved, columns 0-6 identical (t/u/v error 0), "
               f"clusters retired/block mean {float(steps.mean()):.2f} max {int(steps.max())}, clusters needed/ray "
               f"mean {need:.3f}, kernel {k_ms:.3f} ms (set-up and first box scan {s_ms:.3f}), plain {p_ms:.3f} ms, "
-              f"bound {bnd[0]:.4f} ms ({bnd[1]})",
+              f"bound {bnd[0]:.4f} ms ({bnd[1]}, {100 * bnd[0] / k_ms:.2f}% reached)",
               flush=True)
+
+    t0 = time.perf_counter()
+    big = compile_scene(ROOT / "assets", ensure_dragon(8), (settings.width, settings.height),
+                        device=scene.vertices.device)
+    big_accel = film.make_accel(big, "fused")
+    torch.cuda.synchronize()
+    k = big_accel.num_clusters
+    print(f"  dragon8: {big.num_tris} triangles, K={k} C={big_accel.cluster_size}, made and built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    check(k > 9088, f"dragon8 has K={k} clusters, not above the old limit of 9,088")
+    k5_resources(big_accel, "dragon8")
+    wo, wd = scan_waves(big, settings, big_accel, ("centre chunk",))["centre chunk bounce"]
+    got = tfu.fused_traverse(wo, wd, m.T_MAX, big_accel)
+    b = tfu.BLOCK_RAYS
+    sub = torch.arange(wo.shape[0], device=wo.device).view(-1, b)[::8].reshape(-1)  # every 8th block
+    want = tfu.fused_traverse_plain(wo[sub], wd[sub], m.T_MAX, big_accel)
+    check(torch.equal(got[sub, :7], want[:, :7]), "K5 dragon8 wave: columns 0-6 differ from the plain version")
+    k_ms = cuda_ms(lambda: tfu.fused_traverse(wo, wd, m.T_MAX, big_accel))
+    # the bound of the whole wave counts each ray's needed clusters from the
+    # kernel's own t, equal to the plain version's on the blocks compared
+    bnd, need = fused_bound(tfu.pack_rays(wo, wd, m.T_MAX), got, big_accel)
+    steps = got[:, 6].reshape(-1, b)[:, 0]
+    print(f"  K5 dragon8 centre chunk bounce wave ({wo.shape[0]} rays): {int(got[:, 4].sum())} hits, "
+          f"{int((got[:, 5] == 0).sum())} unresolved, columns 0-6 identical to the plain version on {sub.numel()} "
+          f"rays (every 8th block), clusters retired/block mean {float(steps.mean()):.2f} max {int(steps.max())}, "
+          f"clusters needed/ray mean {need:.3f}, kernel {k_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, "
+          f"{100 * bnd[0] / k_ms:.2f}% reached)", flush=True)
     return accel
 
 
@@ -1149,6 +1410,15 @@ def main():
             if any(w in line for w in ("registers", "smem", "spill", "Compiling entry")):
                 print("  ptxas:", line.strip())
         print(f"built {path.name} in {seconds:.2f} s")
+    # the bf16 entries (layout 2): the tensor-core form holds HMMA, the exact form none
+    hmma = hmma_counts(builds[0][0])
+    names = {0: "closest", 1: "any-hit", 2: "mixed"}
+    for (mode_i, layout_i, attrs_i, tensor_i), count in sorted(hmma.items()):
+        if layout_i == 2:
+            print(f"  SASS: fused2_kernel bf16 {names[mode_i]}{'' if attrs_i else ' (no attributes)'} "
+                  f"{'tensor cores' if tensor_i else 'CUDA cores (exact)'}: {count} HMMA instructions")
+            check((count > 0) == bool(tensor_i), f"bf16 {names[mode_i]} tensor={tensor_i}: {count} HMMA")
+    check(sum(1 for key in hmma if key[1] == 2) == 4, f"expected 4 bf16 instantiations in the SASS, got {hmma}")
     phase("2 build", t0)
 
     # 3 ── kernel vs plain, small
@@ -1469,7 +1739,9 @@ def main():
             form = "deferred" if fused_nee else "separate"
             mxu[f"{kind} {form}"] = main_path(f"{NEE_SCENE} NEE {form} {kind}", nee_scene, nset, nee_mxu, lanes,
                                               block, fused_nee)
-    phase("6c main paths on fused2-bf16 and fused2", t0)
+    film_differ = film_determinism(scene, settings, lanes, block)
+    check(not any(film_differ.values()), f"the wavefront film is not deterministic: {film_differ}")
+    phase("6c main paths on fused2-bf16 and fused2, film determinism", t0)
 
     # 3d ── K5 vs plain, small
     t0 = time.perf_counter()
@@ -1543,6 +1815,13 @@ def main():
             mxu_entry(layout, kind, "occluded", f"{kind} separate", f"{kind} any_hit", 0.0),
             mxu_entry(layout, kind, "sweep_mixed", f"{kind} deferred", f"{kind} mixed", err),
         ]
+    # the exact CUDA-core form of bf16 closest hit, timed in turns with the
+    # tensor-core form on the same bounce wave; no main path launches it
+    x = results["fused2-bf16 closest bounce"]
+    name = "fused2_mxu_bf16_exact_closest_hit"
+    kernels.append(entry(name, mxu["fused2-bf16"].get(f"owlpt_{name}", 0),
+                         max(x["exact"]["err"], results["fused2-bf16 closest primary"]["exact"]["err"]),
+                         x["exact"]["ms"], x["plain_ms"], x["bound"]))
     # K4 is an entry point off the main paths: its launches on the dragon
     # main path of its layout (phase 6, component; phase 6c, fused2)
     for name, key, counts in (("fused2_closest_hit_noattr", "K4 component", comp_launches),

@@ -19,7 +19,8 @@
 // attrs [K,32,C] f32, boxes [8,K]; rays [N,8] (o, d, tmax, shadow flag) ->
 // out [N,32] (t u v tri hit resolved steps wcid wslot, 0..., attr rows 0-15).
 // One templated body serves every (mode, layout, attrs) combination, as the
-// Pallas kernel's static flags do; each has its own extern "C" entry point.
+// Pallas kernel's static flags do, and on bf16 planes the tensor-core or the
+// CUDA-core slot test; each has its own extern "C" entry point.
 //
 // One CUDA block per `block` rays, one thread per ray:
 //   1. scene gate: the block skips everything when no ray enters the scene AABB;
@@ -62,31 +63,65 @@
 //
 // Arithmetic.  Component slots follow ops/intersect.py mt_components
 // operation for operation (1/det then multiply, sums left to right).  MXU
-// slots sum feature x plane products in ascending plane-row order from each
-// group's first non-zero row (group 0 rows 0-2, groups 1-2 rows 0-5, group 3
-// rows 6-9; the other rows are zero, and adding their zero products changes
-// no float32 sum), in float32, as ops/fused2.py's plain version does; bf16
-// planes widen exactly to float32 and the ray features are rounded to bf16
-// (nearest even) first, as the reference rounds its feature matrix, so every
-// product is exact and only the sums round.  Built with --fmad=false and IEEE
-// division, so no product is contracted into an FMA and the kernel agrees
-// bit for bit with the plain PyTorch version on every cluster both test.
+// slots on CUDA cores (f32 planes, K4, and the bf16 yardstick entry
+// owlpt_fused2_mxu_bf16_exact_closest_hit) sum feature x plane products in
+// ascending plane-row order from each group's first non-zero row (group 0
+// rows 0-2, groups 1-2 rows 0-5, group 3 rows 6-9; the other rows are zero,
+// and adding their zero products changes no float32 sum), in float32, as
+// ops/fused2.py's plain version does; bf16 planes widen exactly to float32
+// and the ray features are rounded to bf16 (nearest even) first, as the
+// reference rounds its feature matrix, so every product is exact and only
+// the sums round.  Built with --fmad=false and IEEE division, so no product
+// is contracted into an FMA and these entries agree bit for bit with the
+// plain PyTorch version on every cluster both test.
+//
+// The bf16 entries of the main path (closest hit, any-hit, mixed) take the
+// feature products on the tensor cores instead (tensor_test below):
+//   * each warp owns two 16-ray m-tiles; each ray's 10 bf16 features (k
+//     10-15 zero) sit in mma A fragments for the whole launch;
+//   * a ring of two cluster buffers in shared memory holds the raw bf16
+//     plane rows 0-9 (the live rows; ldmatrix reads k 10-15 from one shared
+//     zero row), each row padded by 16 bytes so that ldmatrix reads without
+//     bank conflicts (rows 4C x 2 B apart would all start on one bank); the
+//     next cluster in visiting order, which may be the first of the next
+//     group, is copied with 16-byte cp.async while the current one is
+//     tested (40 KB per cluster at C=512: two blocks of 256 per SM);
+//   * per 8-slot n-tile, one mma.sync.m16n8k16 (bf16 in, fp32 accumulate)
+//     per column group det | u*det | v*det | t*det, B from ldmatrix.x4.trans;
+//     by the accumulator layout lane (g, q) then holds all four sums of
+//     slots 2q, 2q+1 for rays g and g+8, so the reference's window runs on
+//     those registers with the same operations in the same order
+//     (fused2.py:616-632), each lane keeps its best (t, slot) in ascending
+//     slot order, and a quad argmin (lowest slot on equal t) gives the
+//     ray's cluster winner; a warp whose rays are all done skips the
+//     cluster, and an m-tile whose rays are all done skips its products.
+// The products are exact in the fp32 accumulator and the tensor core sums
+// them in its own order and rounding, so det, u*det, v*det and t*det may
+// differ from the plain version's left-to-right sums by a few ulps of the
+// summed magnitudes, and a window decision or t order inside that margin may
+// flip (chip_smoke.py::compare_near_tie names and bounds such rows).  The
+// same instruction on the same inputs gives the same sums, so the answers
+// still do not depend on the fanout.
 //
 // What bounds it on the card.  Component: the Moller-Trumbore arithmetic,
 // about 45 fp32 operations per ray and slot.  MXU: 2 x 16 x 4 = 128 product
-// FLOP per ray and slot as the reference's matmul counts them (19 non-zero
-// multiply-add pairs here), plus the 28-operation winner chain; on CUDA
-// cores both are fp32 work (67 TFLOP/s), the products the larger share.  A
-// ray tests every cluster its block retires while it is still searching,
-// which is at least the clusters its own exact query needs (chip_smoke.py's
-// bound counts those); any-hit and shadow lanes stop at their first hit.  For
-// coherent blocks the per-iteration block reductions (pick over K, max of the
-// bound) come next.  Plane bytes per retired cluster (component 10 x C
-// floats, 20 KB at C=512; MXU 19 x C values, 38 KB f32 / 19 KB bf16 read
-// from 4 x 16 x C) are read once per block, not once per ray, and stay
-// L2-resident for the scene sizes of the main path.  No tensor cores (mma /
-// wgmma), no cp.async/TMA double buffering yet: this is the simple, exact
-// form of the kernel.
+// FLOP per ray and slot as the reference's matmul counts them, plus the
+// 28-operation window and winner chain.  On CUDA cores (f32 planes) both are
+// fp32 work (67 TFLOP/s), the products the larger share (19 non-zero
+// multiply-add pairs, separate under --fmad=false).  On the tensor cores
+// (bf16 planes) the products run at the bf16 peak (989 TFLOP/s) and the
+// window on CUDA cores paces the loop: about 48 fp32 instruction slots per warp
+// and 8 slots against 4 mma.sync, so wgmma's higher product rate would buy
+// nothing yet.  A ray tests every cluster its block retires while it is
+// still searching, which is at least the clusters its own exact query needs
+// (chip_smoke.py's bound counts those); any-hit and shadow lanes stop at
+// their first hit (on the tensor path, at the end of the n-tile that found
+// it).  For coherent blocks the per-iteration block reductions (pick over
+// K, max of the bound) come next.  Plane bytes per retired cluster
+// (component 10 x C floats, 20 KB at C=512; MXU 19 x C values, 38 KB f32 /
+// 19 KB bf16, or on the tensor path 10 x 4C bf16, 40 KB) are read once per
+// block, not once per ray, and stay L2-resident for the scene sizes of the
+// main path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,6 +134,8 @@ constexpr int kMtRows = 10;     // component rows staged per cluster: p0 e1 e2 (
 // MXU rows staged per cluster: the 19 non-zero feature rows (det 3, u*det 6,
 // v*det 6, t*det 4), then the tri id (row 10 of group 0) for the no-attrs mode
 constexpr int kMxuRows = 20;
+// tensor path: plane rows 0-9 meet non-zero ray features (k 10-15 read a zero row)
+constexpr int kLiveRows = 10;
 constexpr int kMaxFanout = 4;
 constexpr int kAttrRows = 32;
 constexpr int kOutCols = 32;
@@ -254,6 +291,164 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// ── tensor path: cp.async staging, ldmatrix, mma.sync ──
+
+// Slots per column group in a staged row: C rounded up to whole 8-slot
+// n-tiles (the pad slots are zero: det = 0 fails the window).
+__host__ __device__ constexpr int tensor_cols(int c) { return (c + 7) & ~7; }
+// Bytes per staged row: four column groups, then 16 bytes of pad.
+__host__ __device__ constexpr int tensor_row_bytes(int c) { return 8 * tensor_cols(c) + 16; }
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+// wait until at most n of this thread's committed groups are in flight
+template <int n>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory"); }
+
+// Stage plane rows 0-9 of cluster cid (bf16 [16, 4C]) into one ring buffer
+// ([10][tensor_row_bytes(c)] bytes): 16-byte cp.async when each column group
+// starts on a 16-byte boundary (C a multiple of 8), else element by element
+// with the pad slots zeroed.
+__device__ void stage_bf16(unsigned char* dst, const unsigned short* __restrict__ planes, int cid, int c) {
+  const unsigned short* src = planes + static_cast<long long>(cid) * kPlaneRows * 4 * c;
+  const int rs = tensor_row_bytes(c);
+  if ((c & 7) == 0) {
+    const int chunks = c / 2;  // 16-byte chunks per row of 4C bf16
+    for (int q = threadIdx.x; q < kLiveRows * chunks; q += blockDim.x) {
+      const int row = q / chunks, ch = q - row * chunks;
+      cp_async16(dst + row * rs + ch * 16, src + row * 4 * c + ch * 8);
+    }
+  } else {
+    const int cp = tensor_cols(c);
+    for (int q = threadIdx.x; q < kLiveRows * 4 * cp; q += blockDim.x) {
+      const int row = q / (4 * cp), col = q - row * 4 * cp;
+      const int g = col / cp, slot = col - g * cp;
+      reinterpret_cast<unsigned short*>(dst + row * rs)[col] = slot < c ? src[row * 4 * c + g * c + slot] : 0;
+    }
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned addr, unsigned& r0, unsigned& r1, unsigned& r2,
+                                                  unsigned& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr)
+               : "memory");
+}
+
+// d = A B with a zero accumulator: m16n8k16, bf16 operands, fp32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.0f));
+}
+
+// Two bf16 values (already bf16-exact floats) in one register, lo in bits 0-15.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  return (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xffff0000u);
+}
+
+// One warp's tensor-core test of one staged cluster.
+//   a[mt]: the A fragments of the warp's m-tile mt (rays 16 mt .. 16 mt + 15);
+//   addr_a / addr_b: this lane's ldmatrix row address for n-tile 0 of the
+//   column groups det, u*det / v*det, t*det; step: its advance per n-tile
+//   (0 for a lane that points at the zero row);
+//   live: bit i set while warp ray i still searches; bt[mt][h]: best t of
+//   ray 16 mt + 8 h + g (lane = 4 g + q), fixed for the cluster.
+// Returns in lt / ls (closest, mixed) each of the lane's four rays' cluster
+// winner (t, slot), inf if none, reduced over the quad; in lh (any-hit) its
+// hit flag, ORed over the quad.
+template <int kMode>
+__device__ __forceinline__ void tensor_test(const unsigned (&a)[2][4], unsigned addr_a, unsigned addr_b,
+                                            unsigned step, int ntiles, unsigned live,
+                                            const float (&bt)[2][2], float (&lt)[2][2], int (&ls)[2][2],
+                                            bool (&lh)[2][2]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  bool sr[2][2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sr[mt][h] = (live >> (16 * mt + 8 * h + g)) & 1u;
+      lt[mt][h] = kInf;
+      ls[mt][h] = 0;
+      lh[mt][h] = false;
+    }
+  }
+  bool mt_live[2] = {(live & 0xffffu) != 0u, (live >> 16) != 0u};
+  for (int j = 0; j < ntiles; ++j) {
+    unsigned bd0, bd1, bu0, bu1, bv0, bv1, bt0, bt1;
+    ldmatrix_x4_trans(addr_a + j * step, bd0, bd1, bu0, bu1);
+    ldmatrix_x4_trans(addr_b + j * step, bv0, bv1, bt0, bt1);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      if (!mt_live[mt]) continue;  // uniform over the warp
+      float det[4], ua[4], vb[4], tcd[4];
+      mma_bf16(det, a[mt], bd0, bd1);
+      mma_bf16(ua, a[mt], bu0, bu1);
+      mma_bf16(vb, a[mt], bv0, bv1);
+      mma_bf16(tcd, a[mt], bt0, bt1);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // accumulator e: ray row g + 8 (e >> 1), slot 8 j + 2 q + (e & 1)
+        const int h = e >> 1;
+        // fused2.py:616-632: |det| window, no tid term (pads are zero)
+        const float sgn = det[e] < 0.0f ? -1.0f : 1.0f;
+        const float dd = det[e] * sgn;
+        const float u = ua[e] * sgn;
+        const float v = vb[e] * sgn;
+        const float tc = tcd[e] * sgn;
+        const bool ok = sr[mt][h] && dd >= kEpsDet && u >= 0.0f && v >= 0.0f && u + v <= dd &&
+                        tc > dd * kTMin && tc < dd * bt[mt][h];
+        if (kMode == kAnyHit) {
+          lh[mt][h] = lh[mt][h] || ok;
+        } else if (ok) {
+          const float t = tc / dd;
+          if (t < lt[mt][h]) { lt[mt][h] = t; ls[mt][h] = 8 * j + 2 * q + (e & 1); }
+        }
+      }
+    }
+    if (kMode == kAnyHit) {  // an m-tile whose rays have all hit is done
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        bool need = false;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // every lane shuffles (no short-circuit: the shuffles name all 32 lanes)
+          const bool o1 = __shfl_xor_sync(0xffffffffu, lh[mt][h], 1);
+          lh[mt][h] = lh[mt][h] || o1;
+          const bool o2 = __shfl_xor_sync(0xffffffffu, lh[mt][h], 2);
+          lh[mt][h] = lh[mt][h] || o2;
+          need = need || (sr[mt][h] && !lh[mt][h]);
+        }
+        const bool any_need = __any_sync(0xffffffffu, need);
+        mt_live[mt] = mt_live[mt] && any_need;
+      }
+      if (!mt_live[0] && !mt_live[1]) break;
+    }
+  }
+  if (kMode != kAnyHit) {  // quad argmin: the lowest slot on equal t
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          const float ot = __shfl_xor_sync(0xffffffffu, lt[mt][h], off);
+          const int os = __shfl_xor_sync(0xffffffffu, ls[mt][h], off);
+          if (ot < lt[mt][h] || (ot == lt[mt][h] && os < ls[mt][h])) { lt[mt][h] = ot; ls[mt][h] = os; }
+        }
+      }
+    }
+  }
+}
+
 // Frontier pass: bent[j] = min over rays of the entry distance of rays that
 // need cluster j (entry within [t_min, min(t_far, tmax)] and, unless first,
 // below the ray's cap).  Retired (inf) clusters stay retired unless first.
@@ -285,22 +480,47 @@ __device__ void frontier_update(float* bent, const float* __restrict__ boxes, in
   __syncthreads();
 }
 
+// Staged rows per cluster on CUDA cores; the MXU tri id row only for the no-attrs mode.
 template <int kMode, int kLayout, bool kAttrs>
+__host__ __device__ constexpr int staged_rows() {
+  return kLayout == kComponent ? kMtRows : (kMode == kClosest && !kAttrs ? kMxuRows : kMxuRows - 1);
+}
+
+// Dynamic shared memory of one block, in fused2_kernel's carve-up order.
+// CUDA cores: bent [k] (padded to 4), the staged cluster [rows, c] f32, the
+// ray rows [8, b], reductions [64].  Tensor cores: a ring of two clusters
+// [2][10][tensor_row_bytes(c)], a 16-byte zero row, then bent, rays and
+// reductions as above.
+template <int kMode, int kLayout, bool kAttrs, bool kTensor>
+size_t shared_bytes(int k, int c, int b) {
+  const size_t tail = (static_cast<size_t>((k + 3) & ~3) + 8 * static_cast<size_t>(b) + 64) * sizeof(float);
+  if (kTensor) return 2 * static_cast<size_t>(kLiveRows) * tensor_row_bytes(c) + 16 + tail;
+  return static_cast<size_t>(staged_rows<kMode, kLayout, kAttrs>()) * c * sizeof(float) + tail;
+}
+
+template <int kMode, int kLayout, bool kAttrs, bool kTensor>
 __global__ void fused2_kernel(
     const float* __restrict__ rays, const float* __restrict__ boxes,
     const void* __restrict__ planes, const float* __restrict__ attrs,
     float* __restrict__ out, int k, int c, int max_steps, int refresh, int fanout) {
   constexpr bool kMxu = kLayout != kComponent;
-  // staged rows per cluster; the MXU tri id row only for the no-attrs mode
-  constexpr int kRows = !kMxu ? kMtRows : (kMode == kClosest && !kAttrs ? kMxuRows : kMxuRows - 1);
-  extern __shared__ float smem[];
+  static_assert(!kTensor || (kLayout == kMxuBf16 && kAttrs == (kMode != kAnyHit)),
+                "the tensor-core test serves the bf16 closest, any-hit and mixed entries");
+  constexpr int kRows = staged_rows<kMode, kLayout, kAttrs>();
+  extern __shared__ __align__(16) float smem[];
   const int b = blockDim.x;
   const int tid = threadIdx.x;
-  float* bent = smem;                   // [k], padded to a multiple of 4
-  float* s_plane = bent + ((k + 3) & ~3);  // [kRows, c], 16-byte aligned
-  float* s_ray = s_plane + kRows * c;   // [8, b]: o, 1/d, tmax, cap
+  const int lane = tid & 31;
+  // tensor path: the cluster ring and the zero row come first
+  unsigned char* ring = reinterpret_cast<unsigned char*>(smem);
+  const int ring_bytes = kTensor ? kLiveRows * tensor_row_bytes(c) : 0;  // per buffer
+  unsigned char* zero_row = ring + 2 * ring_bytes;
+  float* bent = kTensor ? reinterpret_cast<float*>(zero_row + 16) : smem;  // [k], padded to a multiple of 4
+  float* s_plane = bent + ((k + 3) & ~3);  // [kRows, c], 16-byte aligned (CUDA cores)
+  float* s_ray = s_plane + (kTensor ? 0 : kRows * c);  // [8, b]: o, 1/d, tmax, cap
   float* red_f = s_ray + 8 * b;         // [32]
   int* red_i = reinterpret_cast<int*>(red_f + 32);  // [32]
+  if (kTensor && tid < 4) reinterpret_cast<unsigned*>(zero_row)[tid] = 0u;
 
   const long long ray = static_cast<long long>(blockIdx.x) * b + tid;
   const float* r = rays + ray * 8;
@@ -317,6 +537,38 @@ __global__ void fused2_kernel(
   if (kLayout == kMxuBf16) {
 #pragma unroll
     for (int q = 0; q < 10; ++q) f[q] = round_bf16(f[q]);
+  }
+  // tensor path: this lane's A fragments of the warp's two m-tiles (rays
+  // 16 mt + g and 16 mt + g + 8 at k = 2q, 2q + 1 and 2q + 8, 2q + 9; the
+  // features sit two per register in the rays' own lanes), its ldmatrix
+  // row addresses and their advance per n-tile
+  unsigned a_frag[2][4] = {};
+  unsigned addr_a = 0, addr_b = 0, step = 0;  // byte offsets from the ring buffer tested
+  if (kTensor) {
+    unsigned words[5];
+#pragma unroll
+    for (int p = 0; p < 5; ++p) words[p] = pack_bf16(f[2 * p], f[2 * p + 1]);
+    const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int p = 0; p < 5; ++p) {
+        const unsigned lo = __shfl_sync(0xffffffffu, words[p], 16 * mt + g);
+        const unsigned hi = __shfl_sync(0xffffffffu, words[p], 16 * mt + g + 8);
+        if (p == q) { a_frag[mt][0] = lo; a_frag[mt][1] = hi; }
+        if (p == q + 4) { a_frag[mt][2] = lo; a_frag[mt][3] = hi; }
+      }
+    }
+    // ldmatrix.x4: lanes 8m .. 8m + 7 address matrix m = rows k = 8 (m & 1)
+    // + (lane & 7) of column group (m >> 1) (first load: det, u*det; second:
+    // v*det, t*det); rows k >= 10 read the zero row
+    const int kk = 8 * ((lane >> 3) & 1) + (lane & 7), grp_hi = lane >> 4;
+    const unsigned col = static_cast<unsigned>(grp_hi * tensor_cols(c) * 2);
+    if (kk < kLiveRows) {
+      addr_a = static_cast<unsigned>(kk * tensor_row_bytes(c)) + col;
+      addr_b = addr_a + static_cast<unsigned>(2 * tensor_cols(c) * 2);
+      step = 16;
+    }
   }
 
   // ── scene gate: the AABB of all real boxes (pads sit at >= 1e30) ──
@@ -366,6 +618,11 @@ __global__ void fused2_kernel(
     bool done = grp[0] >= k;
     const int refresh_p = refresh / fanout > 1 ? refresh / fanout : 1;
     int i = 0;
+    int buf = 0;  // tensor path: the ring buffer of the cluster tested next
+    if (kTensor) {  // the first cluster's copy
+      if (!done) stage_bf16(ring, static_cast<const unsigned short*>(planes), grp[0], c);
+      cp_async_commit();
+    }
     while (!done && i < max_steps) {
       if (i % refresh_p == refresh_p - 1) {
         s_ray[7 * b + tid] = cap_t();
@@ -384,6 +641,53 @@ __global__ void fused2_kernel(
         const int cur = grp[w];
         if (cur >= k) continue;  // uniform over the block
         ++steps;
+        if constexpr (kTensor) {
+          // the next cluster in visiting order (picks are a prefix of the group)
+          const int nx = w + 1 < fanout && grp[w + 1] < k ? grp[w + 1] : nxt[0];
+          __syncthreads();  // every warp is done with the other buffer
+          if (nx < k)
+            stage_bf16(ring + (buf ^ 1) * ring_bytes, static_cast<const unsigned short*>(planes), nx, c);
+          cp_async_commit();
+          cp_async_wait<1>();  // this thread's copies of cur have landed ...
+          __syncthreads();     // ... and every thread's
+          const unsigned live = __ballot_sync(0xffffffffu, searching());
+          if (live) {  // uniform over the warp
+            float bt[2][2], lt[2][2];
+            int ls[2][2];
+            bool lh[2][2];
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) bt[mt][h] = __shfl_sync(0xffffffffu, best_t, 16 * mt + 8 * h + (lane >> 2));
+            // a lane that reads a zero row (k >= 10) reads the ring's zero row at every n-tile
+            const unsigned base = step ? smem_addr(ring + buf * ring_bytes) : smem_addr(zero_row);
+            tensor_test<kMode>(a_frag, base + addr_a, base + addr_b, step, tensor_cols(c) / 8, live, bt, lt, ls,
+                               lh);
+            // this ray's answer from the quad that holds its rows (lanes 4 g .. 4 g + 3)
+            const int src = 4 * (lane & 7), my_mt = lane >> 4, my_h = (lane >> 3) & 1;
+            float tc = kInf;
+            int wcol = 0;
+            bool any = false;
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const float ot = __shfl_sync(0xffffffffu, lt[mt][h], src);
+                const int os = __shfl_sync(0xffffffffu, ls[mt][h], src);
+                const bool oh = __shfl_sync(0xffffffffu, lh[mt][h], src);
+                if (mt == my_mt && h == my_h) { tc = ot; wcol = os; any = oh; }
+              }
+            }
+            if (kMode == kAnyHit) {
+              hit = hit || any;
+            } else if (tc < best_t) {
+              best_t = tc;
+              hit = true; wcid = cur; wslot = wcol;
+            }
+          }
+          buf ^= 1;
+          continue;
+        }
         // stage this cluster's plane rows in smem
         if (!kMxu) {
           const float* src = static_cast<const float*>(planes) + static_cast<long long>(cur) * kPlaneRows * c;
@@ -472,6 +776,7 @@ __global__ void fused2_kernel(
       for (int w = 0; w < kMaxFanout; ++w) grp[w] = nxt[w];
       done = grp[0] >= k;
     }
+    if (kTensor) cp_async_wait<0>();  // no copy is left in flight
     if (!done) {
       // max_steps overflow: a candidate nearer than the block's prune bound
       // taints the whole block
@@ -514,19 +819,17 @@ __global__ void fused2_kernel(
   for (int col = 9; col < 16; ++col) o[col] = 0.0f;
 }
 
-template <int kMode, int kLayout, bool kAttrs>
+template <int kMode, int kLayout, bool kAttrs, bool kTensor>
 int launch(const float* rays, const float* boxes, const void* planes, const float* attrs,
            float* out, long long n, int k, int c, int block, int max_steps, int refresh,
            int fanout, void* stream) {
   constexpr bool kMxu = kLayout != kComponent;
-  constexpr int kRows = !kMxu ? kMtRows : (kMode == kClosest && !kAttrs ? kMxuRows : kMxuRows - 1);
   if (n <= 0 || block < 32 || block > 1024 || (block & 31) || n % block || k <= 0 ||
       c <= 0 || refresh <= 0 || n / block > 0x7fffffffLL || fanout < 1 || fanout > kMaxFanout ||
       (!kMxu && fanout != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (static_cast<size_t>((k + 3) & ~3) + static_cast<size_t>(kRows) * c +
-                       8 * static_cast<size_t>(block) + 64) * sizeof(float);
-  const auto kernel = fused2_kernel<kMode, kLayout, kAttrs>;
+  const size_t smem = shared_bytes<kMode, kLayout, kAttrs, kTensor>(k, c, block);
+  const auto kernel = fused2_kernel<kMode, kLayout, kAttrs, kTensor>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -538,27 +841,51 @@ int launch(const float* rays, const float* boxes, const void* planes, const floa
   return static_cast<int>(cudaGetLastError());
 }
 
+// Registers per thread, dynamic shared bytes per block and resident blocks
+// per SM of one entry at (k, c, block) on the current device -> out[0..2];
+// returns the CUDA error.
+template <int kMode, int kLayout, bool kAttrs, bool kTensor>
+int resources(int k, int c, int block, int* out) {
+  const size_t smem = shared_bytes<kMode, kLayout, kAttrs, kTensor>(k, c, block);
+  const auto kernel = fused2_kernel<kMode, kLayout, kAttrs, kTensor>;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+  int blocks = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, block, smem);
+  out[0] = e == cudaSuccess ? attr.numRegs : -1;
+  out[1] = static_cast<int>(smem);
+  out[2] = blocks;
+  return static_cast<int>(e);
+}
+
 }  // namespace
 
-#define OWLPT_FUSED2_ENTRY(name, mode, layout, with_attrs)                                    \
+#define OWLPT_FUSED2_ENTRY(name, mode, layout, with_attrs, tensor)                            \
   extern "C" int name(const float* rays, const float* boxes, const void* planes,              \
                       const float* attrs, float* out, long long n, int k, int c, int block,    \
                       int max_steps, int refresh, int fanout, void* stream) {                  \
-    return launch<mode, layout, with_attrs>(rays, boxes, planes, attrs, out, n, k, c, block,   \
-                                            max_steps, refresh, fanout, stream);               \
+    return launch<mode, layout, with_attrs, tensor>(rays, boxes, planes, attrs, out, n, k, c,  \
+                                                    block, max_steps, refresh, fanout, stream); \
+  }                                                                                            \
+  extern "C" int name##_resources(int k, int c, int block, int* out) {                         \
+    return resources<mode, layout, with_attrs, tensor>(k, c, block, out);                      \
   }
 
 // component layout: K1, K2, K3, K4
-OWLPT_FUSED2_ENTRY(owlpt_fused2_closest_hit, kClosest, kComponent, true)
-OWLPT_FUSED2_ENTRY(owlpt_fused2_occluded, kAnyHit, kComponent, false)
-OWLPT_FUSED2_ENTRY(owlpt_fused2_sweep_mixed, kMixed, kComponent, true)
-OWLPT_FUSED2_ENTRY(owlpt_fused2_closest_hit_noattr, kClosest, kComponent, false)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_closest_hit, kClosest, kComponent, true, false)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_occluded, kAnyHit, kComponent, false, false)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_sweep_mixed, kMixed, kComponent, true, false)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_closest_hit_noattr, kClosest, kComponent, false, false)
 // MXU layout, f32 planes: K1b in its three modes, K4
-OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_closest_hit, kClosest, kMxuF32, true)
-OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_occluded, kAnyHit, kMxuF32, false)
-OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_sweep_mixed, kMixed, kMxuF32, true)
-OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_closest_hit_noattr, kClosest, kMxuF32, false)
-// MXU layout, bf16 planes: K1b in its three modes
-OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_bf16_closest_hit, kClosest, kMxuBf16, true)
-OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_bf16_occluded, kAnyHit, kMxuBf16, false)
-OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_bf16_sweep_mixed, kMixed, kMxuBf16, true)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_closest_hit, kClosest, kMxuF32, true, false)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_occluded, kAnyHit, kMxuF32, false, false)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_sweep_mixed, kMixed, kMxuF32, true, false)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_closest_hit_noattr, kClosest, kMxuF32, false, false)
+// MXU layout, bf16 planes: K1b in its three modes on the tensor cores, and
+// closest hit on CUDA cores in the plain version's arithmetic (the in-call
+// speed yardstick and bit-exact witness of the tensor form)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_bf16_closest_hit, kClosest, kMxuBf16, true, true)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_bf16_occluded, kAnyHit, kMxuBf16, false, true)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_bf16_sweep_mixed, kMixed, kMxuBf16, true, true)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_bf16_exact_closest_hit, kClosest, kMxuBf16, true, false)

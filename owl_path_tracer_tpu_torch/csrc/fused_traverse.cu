@@ -26,18 +26,21 @@
 // the main path's K (2,688 clusters of C=128 for the 327,680-triangle dragon)
 // that matrix is 1.4 MB at B=128, against 227 KB of shared memory per block.
 // An [N,K] matrix in device memory would be 0.7 GB at N=65,536 and be read
-// again every iteration.  Instead the block keeps the six box rows [6,K] in
-// shared memory (64.5 KB at K=2,688) with a retired flag per cluster, and
-// each thread keeps only a sorted list of its 8 nearest un-retired entries
-// and their ids.  Entries only ever change by retirement, so a thread scans
-// the boxes again (the reference's slab ops in its order, NaN-propagating
-// like jnp.maximum / jnp.minimum) only when its whole list has been retired
-// while it is still active; the entry to
-// the picked cluster is recomputed with the same ops, so every entry,
-// comparison and pick is the reference's.  The largest K is set by shared
-// memory (shared_bytes below): (6K padded to 4 + 10C + 32) floats + K bytes
-// <= 227 KB on an H100, K <= 9,088 at C=128 (owlpt_fused_max_clusters; the
-// wrapper raises above it).
+// again every iteration.  Instead each thread keeps only a sorted list of
+// its 8 nearest un-retired entries and their ids, and the block keeps one
+// retired bit per cluster in shared memory.  The box rows are read from
+// `boxes` in device memory (6 x 4 B x K: 64.5 KB at K=2,688, 257 KB at the
+// 1.3M-triangle dragon's K of about 10,700; L2-resident, and the same
+// addresses for every thread of a warp).  Entries only ever change by
+// retirement, so a thread scans the boxes again (the reference's slab ops in
+// its order, NaN-propagating like jnp.maximum / jnp.minimum) only when its
+// whole list has been retired while it is still active; the entry to the
+// picked cluster is recomputed with the same ops, so every entry,
+// comparison and pick is the reference's.  Shared memory (shared_bytes
+// below) is one cluster's ten plane rows, 32 reduction slots and K/8 bytes of
+// retired bits: 5.6 KB at C=128 and K=2,688, 6.6 KB at K=10,700.  So K has
+// no limit of its own, as in the reference, and registers, not shared
+// memory, set the blocks per SM (80 registers x 128 threads: 6 blocks).
 //
 // Arithmetic.  Moller-Trumbore follows ops/intersect.py mt_components
 // operation for operation (1/det then multiply, sums left to right); built
@@ -48,9 +51,9 @@
 // operations) and Moller-Trumbore (about 45 fp32 operations per slot) of
 // each cluster whose box it enters before its closest hit; this kernel also
 // slab-tests every box at least once per ray.  Measured (PERF.md, PR 4), the
-// set-up and first box scan take about 1 ms per 65,536 rays, and each
-// retirement is a block-wide step (pick, staging, 128 slots with an IEEE
-// division each, three barriers) at 3 blocks per SM.
+// set-up and first box scan took about 1 ms per 65,536 rays with the boxes
+// in shared memory, and each retirement is a block-wide step (pick,
+// staging, 128 slots with an IEEE division each, three barriers).
 // Plane rows (10 x C floats, 5 KB at C=128) are read once per block and
 // retired cluster.  No tensor cores, no cp.async staging.
 
@@ -112,12 +115,12 @@ struct Ray {
   float o[3], inv[3], oi[3], tmax;
 };
 
-__device__ __forceinline__ float entry(const Ray& r, const float* s_box, int k, int j) {
+__device__ __forceinline__ float entry(const Ray& r, const float* __restrict__ boxes, int k, int j) {
   float tn = -kInf, tf = kInf;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    const float t0 = r.inv[a] * s_box[a * k + j] - r.oi[a];
-    const float t1 = r.inv[a] * s_box[(3 + a) * k + j] - r.oi[a];
+    const float t0 = r.inv[a] * __ldg(boxes + a * k + j) - r.oi[a];
+    const float t1 = r.inv[a] * __ldg(boxes + (3 + a) * k + j) - r.oi[a];
     tn = max_nan(tn, min_nan(t0, t1));
     tf = min_nan(tf, max_nan(t0, t1));
   }
@@ -139,13 +142,18 @@ struct Nearest {
   bool full;  // the scan found kCand finite entries: there may be more
 };
 
-__device__ __forceinline__ void scan(const Ray& r, const float* s_box, const unsigned char* s_dead, int k,
+// Retired bit of cluster j.
+__device__ __forceinline__ bool retired(const unsigned* s_dead, int j) {
+  return (s_dead[j >> 5] >> (j & 31)) & 1u;
+}
+
+__device__ __forceinline__ void scan(const Ray& r, const float* __restrict__ boxes, const unsigned* s_dead, int k,
                                      Nearest& nb) {
 #pragma unroll
   for (int i = 0; i < kCand; ++i) { nb.e[i] = kInf; nb.id[i] = k; }
   for (int j = 0; j < k; ++j) {
-    if (s_dead[j]) continue;
-    float ce = entry(r, s_box, k, j);
+    if (retired(s_dead, j)) continue;
+    float ce = entry(r, boxes, k, j);
     if (!(ce < nb.e[kCand - 1])) continue;  // ascending j: an equal entry keeps the lower id first
     int ci = j;
     bool moving = false;  // once placed, every later slot moves down one
@@ -167,16 +175,16 @@ __device__ __forceinline__ void scan(const Ray& r, const float* s_box, const uns
 }
 
 // The nearest cluster was retired: drop it and any retired ones after it.
-__device__ __forceinline__ void advance(const Ray& r, const float* s_box, const unsigned char* s_dead, int k,
-                                        Nearest& nb) {
+__device__ __forceinline__ void advance(const Ray& r, const float* __restrict__ boxes, const unsigned* s_dead,
+                                        int k, Nearest& nb) {
   do {
 #pragma unroll
     for (int i = 0; i + 1 < kCand; ++i) { nb.e[i] = nb.e[i + 1]; nb.id[i] = nb.id[i + 1]; }
     nb.e[kCand - 1] = kInf;
     nb.id[kCand - 1] = k;
     --nb.left;
-  } while (nb.left > 0 && s_dead[nb.id[0]]);
-  if (nb.left == 0 && nb.full) scan(r, s_box, s_dead, k, nb);
+  } while (nb.left > 0 && retired(s_dead, nb.id[0]));
+  if (nb.left == 0 && nb.full) scan(r, boxes, s_dead, k, nb);
 }
 
 // Block-wide integer minimum; every thread gets it.  red holds one slot per
@@ -192,12 +200,11 @@ __device__ int block_min(int v, int* red) {
   return r;
 }
 
-// Dynamic shared memory of one block, in fused_kernel's carve-up order: the
-// six box rows [6,K] (padded to 16 bytes), one cluster's ten plane rows
-// [10,C], 32 reduction slots, a retired flag per cluster.
+// Dynamic shared memory of one block, in fused_kernel's carve-up order: one
+// cluster's ten plane rows [10,C], 32 reduction slots, a retired bit per
+// cluster (32-bit words).
 size_t shared_bytes(int k, int c) {
-  return 4 * (static_cast<size_t>((6 * k + 3) & ~3) + static_cast<size_t>(kMtRows) * c + 32) +
-         static_cast<size_t>(k);
+  return 4 * (static_cast<size_t>(kMtRows) * c + 32 + (static_cast<size_t>(k) + 31) / 32);
 }
 
 __global__ void fused_kernel(const float* __restrict__ rays, const float* __restrict__ boxes,
@@ -206,13 +213,11 @@ __global__ void fused_kernel(const float* __restrict__ rays, const float* __rest
   extern __shared__ float smem[];
   const int b = blockDim.x;
   const int tid = threadIdx.x;
-  float* s_box = smem;                                 // [6, k]
-  float* s_plane = s_box + ((6 * k + 3) & ~3);         // [10, c]
+  float* s_plane = smem;                                     // [10, c]
   int* red = reinterpret_cast<int*>(s_plane + kMtRows * c);  // [32]
-  unsigned char* s_dead = reinterpret_cast<unsigned char*>(red + 32);  // [k] retired flags
+  unsigned* s_dead = reinterpret_cast<unsigned*>(red + 32);  // [(k + 31) / 32] retired bits
 
-  for (int q = tid; q < 6 * k; q += b) s_box[q] = boxes[q];  // rows 0-5 of [8,K]
-  for (int q = tid; q < k; q += b) s_dead[q] = 0;
+  for (int q = tid; q < (k + 31) / 32; q += b) s_dead[q] = 0u;
 
   const long long row = static_cast<long long>(blockIdx.x) * b + tid;
   const float* rr = rays + row * kCols;
@@ -231,7 +236,7 @@ __global__ void fused_kernel(const float* __restrict__ rays, const float* __rest
   bool hit = false;
   int steps = 0;
   Nearest nb;  // nb.e[0], nb.id[0]: the nearest entry (inf, k when none is left)
-  scan(r, s_box, s_dead, k, nb);
+  scan(r, boxes, s_dead, k, nb);
 
   for (int i = 0; i < max_steps; ++i) {
     const int cstar = block_min(nb.e[0] < best_t ? nb.id[0] : k, red);
@@ -240,7 +245,7 @@ __global__ void fused_kernel(const float* __restrict__ rays, const float* __rest
     for (int q = tid; q < kMtRows * c; q += b) s_plane[q] = src[q];
     __syncthreads();
 
-    if (entry(r, s_box, k, cstar) < best_t) {
+    if (entry(r, boxes, k, cstar) < best_t) {
       float tc = kInf, tu = 0.0f, tv = 0.0f, ttri = 0.0f;
       for (int s = 0; s < c; ++s) {
         float t, u, v;
@@ -259,12 +264,12 @@ __global__ void fused_kernel(const float* __restrict__ rays, const float* __rest
     }
     ++steps;
     __syncthreads();  // s_plane is restaged next iteration
-    if (tid == 0) s_dead[cstar] = 1;  // retire for the whole block
+    if (tid == 0) s_dead[cstar >> 5] |= 1u << (cstar & 31);  // retire for the whole block
     __syncthreads();
     // only a still-active ray needs its next nearest entry: entries only
     // grow and best t only shrinks, so an inactive ray stays inactive (and
     // resolved) with its stale nearest entry
-    if (nb.id[0] == cstar && nb.e[0] < best_t) advance(r, s_box, s_dead, k, nb);
+    if (nb.id[0] == cstar && nb.e[0] < best_t) advance(r, boxes, s_dead, k, nb);
   }
 
   float* o = out + row * kCols;
@@ -280,15 +285,21 @@ __global__ void fused_kernel(const float* __restrict__ rays, const float* __rest
 
 }  // namespace
 
-// Largest K whose block fits in the device's opt-in shared memory at
-// cluster size c; -1 if the device cannot be queried.
-extern "C" int owlpt_fused_max_clusters(int c, int device) {
-  int limit = 0;
-  if (c <= 0 || cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) != cudaSuccess)
-    return -1;
-  int k = 0;
-  while (shared_bytes(k + 1, c) <= static_cast<size_t>(limit)) ++k;
-  return k;
+// Registers per thread, dynamic shared bytes per block and resident blocks
+// per SM at (k, c, block) on the current device -> out[0..2]; returns the
+// CUDA error.
+extern "C" int owlpt_fused_traverse_resources(int k, int c, int block, int* out) {
+  const size_t smem = shared_bytes(k, c);
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncSetAttribute(fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, fused_kernel);
+  int blocks = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fused_kernel, block, smem);
+  out[0] = e == cudaSuccess ? attr.numRegs : -1;
+  out[1] = static_cast<int>(smem);
+  out[2] = blocks;
+  return static_cast<int>(e);
 }
 
 extern "C" int owlpt_fused_traverse(const float* rays, const float* boxes, const float* planes,

@@ -161,6 +161,26 @@ def nvcc_path() -> str:
     return str(pathlib.Path(home) / "bin" / "nvcc")
 
 
+def bind_resources(lib, entry: str):
+    """Declare ``lib``'s ``<entry>_resources(k, c, block, int out[3])``, the
+    query every kernel source exports next to its entry."""
+    fn = getattr(lib, f"{entry}_resources")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+
+
+def kernel_resources(lib, entry: str, k: int, c: int, block: int) -> dict:
+    """Registers per thread, dynamic shared bytes per block and resident
+    blocks per SM of ``entry`` at K clusters of C slots and ``block`` rays
+    on the current CUDA device, as the kernel source counts and the CUDA
+    runtime reports them."""
+    out = (ctypes.c_int * 3)()
+    err = getattr(lib, f"{entry}_resources")(k, c, block, out)
+    if err != 0:
+        raise RuntimeError(f"kernel {entry}: resource query failed: CUDA error {err}")
+    return {"entry": entry, "registers": out[0], "shared_bytes": out[1], "blocks_per_sm": out[2]}
+
+
 def build_cuda_library(name: str, sources) -> tuple:
     """nvcc ``sources`` (paths under csrc/) into ``build/lib{name}.so``.
 

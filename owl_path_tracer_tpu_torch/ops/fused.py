@@ -25,12 +25,12 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 import pathlib
 
 import torch
 
-from ..native import build_cuda_library
+from ..native import bind_resources, build_cuda_library
+from ..native import kernel_resources as _kernel_resources
 from ..utils.tensors import TensorBundle
 from . import math as m
 from .cluster import ClusterBVH, _cluster_entries, cluster_closest_hit
@@ -161,28 +161,17 @@ def build_kernels() -> tuple:
         fn = getattr(lib, ENTRY)
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        lib.owlpt_fused_max_clusters.restype = ctypes.c_int
-        lib.owlpt_fused_max_clusters.argtypes = [ctypes.c_int] * 2
+        bind_resources(lib, ENTRY)
         _cuda_lib = lib
     return path, seconds, log
 
 
-def max_clusters(c: int, device) -> int:
-    """Largest K the kernel takes at cluster size C on a CUDA ``device``: its
-    block holds the K boxes in shared memory (the kernel source counts the
-    bytes, the device gives its opt-in limit)."""
-    device = torch.device(device)
-    return _max_clusters(c, torch.cuda.current_device() if device.index is None else device.index)
-
-
-@functools.lru_cache(maxsize=None)
-def _max_clusters(c: int, index: int) -> int:
+def kernel_resources(fb: FusedBVH, block: int = BLOCK_RAYS) -> dict:
+    """Registers, shared bytes and blocks per SM (``native.kernel_resources``)
+    of the kernel at ``fb``'s K and C, on the current CUDA device."""
     if _cuda_lib is None:
         build_kernels()
-    k = _cuda_lib.owlpt_fused_max_clusters(c, index)
-    if k < 0:
-        raise RuntimeError(f"cannot read the shared-memory limit of cuda:{index}")
-    return k
+    return _kernel_resources(_cuda_lib, ENTRY, fb.num_clusters, fb.cluster_size, block)
 
 
 def _fused_traverse_cuda(rays, fb: FusedBVH, block: int, max_steps: int):
@@ -196,12 +185,11 @@ def _fused_traverse_cuda(rays, fb: FusedBVH, block: int, max_steps: int):
     _check_operand("rays", rays, (n, OUT_COLS), rays.device)
     _check_operand("boxes", fb.boxes, (8, k), rays.device)
     _check_operand("planes", fb.planes, (k, 16, c), rays.device)
-    if k > (limit := max_clusters(c, rays.device)):
-        raise ValueError(f"K={k} clusters of C={c} do not fit in one block's shared memory on "
-                         f"{rays.device}: at most K={limit}")
     out = torch.empty((n, OUT_COLS), dtype=torch.float32, device=rays.device)
     if n == 0:
         return out
+    if _cuda_lib is None:
+        build_kernels()
     with torch.cuda.device(rays.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(_cuda_lib, ENTRY)(rays.data_ptr(), fb.boxes.data_ptr(), fb.planes.data_ptr(),

@@ -20,7 +20,12 @@ with one entry per (layout, mode): ``closest`` (closest hit + attributes;
 K1, K1b), ``closest`` with ``with_attrs=False`` (loop t/u/v and the in-plane
 tri id, no attributes; K4), ``any_hit`` (occlusion; K2, K1b) and ``mixed``
 (closest hit for lanes whose ray column 7 is 0, occlusion for the shadow
-lanes whose column 7 is 1; K3, K1b).  :func:`fused2_traverse_packed` launches
+lanes whose column 7 is 1; K3, K1b).  On bf16 planes the three modes take
+the feature products on the tensor cores, whose sums may differ from the
+plain version's by a few ulps of the summed magnitudes
+(:func:`mxu_slot_sums` gives both); ``exact=True`` runs closest hit on CUDA
+cores in the plain version's arithmetic instead (the in-call yardstick of
+the tensor form, off every render path).  :func:`fused2_traverse_packed` launches
 it for CUDA tensors and raises if it cannot; for CPU tensors it takes the
 plain version, :func:`fused2_traverse_packed_plain` (an exact per-ray walk
 over the clusters in entry order, same [N,32] output contract).  Rays a
@@ -38,7 +43,8 @@ import pathlib
 import numpy as np
 import torch
 
-from ..native import build_cuda_library
+from ..native import bind_resources, build_cuda_library
+from ..native import kernel_resources as _kernel_resources
 from ..utils.tensors import TensorBundle
 from . import math as m
 from .cluster import (
@@ -100,6 +106,8 @@ _ENTRY = {
     ("mxu_bf16", "closest", True): "owlpt_fused2_mxu_bf16_closest_hit",
     ("mxu_bf16", "any_hit", False): "owlpt_fused2_mxu_bf16_occluded",
     ("mxu_bf16", "mixed", True): "owlpt_fused2_mxu_bf16_sweep_mixed",
+    # bf16 closest hit on CUDA cores, bit-exact to the plain version (exact=True)
+    ("mxu_bf16_exact", "closest", True): "owlpt_fused2_mxu_bf16_exact_closest_hit",
 }
 
 # launches of the CUDA kernel, by entry point (one per call that ran it)
@@ -444,10 +452,17 @@ def _check_mode(mode: str, fb: Fused2BVH, with_attrs: bool = True):
         raise ValueError("bf16 planes require with_attrs=True for closest-hit sweeps")
 
 
-def _entry(fb: Fused2BVH, mode: str, with_attrs: bool) -> str:
+def _entry(fb: Fused2BVH, mode: str, with_attrs: bool, exact: bool = False) -> str:
     """Kernel entry point of a layout and mode (any-hit reads no attributes,
-    mixed always does)."""
-    return _ENTRY[(fb.layout, mode, mode == "mixed" or (mode == "closest" and with_attrs))]
+    mixed always does); ``exact`` picks the CUDA-core form of bf16 closest
+    hit."""
+    attrs = mode == "mixed" or (mode == "closest" and with_attrs)
+    if exact:
+        if (fb.layout, mode, attrs) != ("mxu_bf16", "closest", True):
+            raise ValueError("exact=True is the CUDA-core form of closest hit with attributes on bf16 planes; "
+                             f"got layout {fb.layout}, mode {mode!r}, with_attrs={with_attrs}")
+        return _ENTRY[("mxu_bf16_exact", mode, attrs)]
+    return _ENTRY[(fb.layout, mode, attrs)]
 
 
 def _ray_features(ray_o, ray_d, bf16: bool):
@@ -466,13 +481,15 @@ def _ray_features(ray_o, ray_d, bf16: bool):
 MXU_ROWS = ((0, 0, 3), (1, 0, 6), (2, 0, 6), (3, 6, 10))
 
 
-def _feature_sums(feat, planes, cid, cols, groups=MXU_ROWS):
+def _feature_sums(feat, planes, cid, cols, groups=MXU_ROWS, absolute=False):
     """Per column group, sum_r feat[:, r] * planes[cid, r, g*C + cols] over
-    the group's non-zero rows in ascending order, in float32 -- the kernel's
-    order, so the two agree bit for bit (the zero rows would add exact zeros;
-    bf16 planes widen exactly).  ``cols`` is ``slice(0, C)`` ([n,C] sums) or
-    an [n] slot index ([n] sums)."""
+    the group's non-zero rows in ascending order, in float32 -- the CUDA-core
+    kernels' order, so the two agree bit for bit (the zero rows would add
+    exact zeros; bf16 planes widen exactly).  ``cols`` is ``slice(0, C)``
+    ([n,C] sums) or an [n] slot index ([n] sums).  ``absolute``: the sums of
+    |feat * plane| in the same order."""
     c = planes.shape[2] // 4
+    term = torch.abs if absolute else (lambda x: x)  # noqa: E731
     sums = []
     for g, r0, r1 in groups:
         if isinstance(cols, slice):
@@ -481,9 +498,9 @@ def _feature_sums(feat, planes, cid, cols, groups=MXU_ROWS):
         else:
             pl = planes[cid, r0:r1, g * c + cols].float()  # [n, rows]
             f = feat[:, r0:r1]
-        acc = f[:, 0] * pl[:, 0]
+        acc = term(f[:, 0] * pl[:, 0])
         for r in range(1, r1 - r0):
-            acc = acc + f[:, r] * pl[:, r]
+            acc = acc + term(f[:, r] * pl[:, r])
         sums.append(acc)
     return sums
 
@@ -508,15 +525,27 @@ def _mxu_intersect_chunk(planes, ray_o, ray_d, cb: ClusterBVH, cid, t_min, best_
     return tj, tri, uv, j, hit
 
 
+def mxu_slot_sums(ray_o, ray_d, fb: Fused2BVH, cid, slot):
+    """Slot ``slot`` of cluster ``cid`` per ray (clamped to 0 where negative)
+    -> (sums, absolute sums), each a list [det, u*det, v*det, t*det] of [N]
+    tensors: the plain version's feature sums (:func:`_feature_sums`, on
+    bf16-rounded features for bf16 planes) and the sums of their terms'
+    magnitudes in the same float32 arithmetic, which bound how far another
+    summation order or rounding (the tensor cores') can move each sum."""
+    cid, slot = cid.long().clamp(min=0), slot.long().clamp(min=0)
+    feat = _ray_features(ray_o, ray_d, fb.planes.dtype == torch.bfloat16)
+    return (_feature_sums(feat, fb.planes, cid, slot),
+            _feature_sums(feat, fb.planes, cid, slot, absolute=True))
+
+
 def mxu_slot_test(ray_o, ray_d, fb: Fused2BVH, cid, slot, t_max):
     """The MXU layout's test of slot ``slot`` of cluster ``cid`` per ray, in
     the kernel's arithmetic -> (t, ok): the matmul-space t (t*det / det,
     what its loop compares and prunes with; inf where ``cid`` < 0, no
     winner) and whether the slot passes the window of :func:`_mxu_intersect`
     with best t = ``t_max`` [N].  For checks."""
-    cid, slot = cid.long(), slot.long()
-    feat = _ray_features(ray_o, ray_d, fb.planes.dtype == torch.bfloat16)
-    det, ua, vb, tcd = _feature_sums(feat, fb.planes, cid.clamp(min=0), slot.clamp(min=0))
+    cid = cid.long()
+    (det, ua, vb, tcd), _ = mxu_slot_sums(ray_o, ray_d, fb, cid, slot)
     sgn = torch.where(det < 0.0, -1.0, 1.0)
     dd, ua, vb, tcd = det * sgn, ua * sgn, vb * sgn, tcd * sgn
     ok = ((cid >= 0) & (dd >= 1e-12) & (ua >= 0.0) & (vb >= 0.0) & (ua + vb <= dd)
@@ -621,8 +650,20 @@ def build_kernels() -> tuple:
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            bind_resources(lib, name)
         _cuda_lib = lib
     return path, seconds, log
+
+
+def kernel_resources(fb: Fused2BVH, mode: str = "closest", block: int = BLOCK_RAYS, with_attrs: bool = True,
+                     exact: bool = False) -> dict:
+    """Registers, shared bytes and blocks per SM (``native.kernel_resources``)
+    of the entry that ``fb``'s layout and ``mode`` launch, on the current
+    CUDA device."""
+    name = _entry(fb, mode, with_attrs, exact)
+    if _cuda_lib is None:
+        build_kernels()
+    return _kernel_resources(_cuda_lib, name, fb.num_clusters, fb.cluster_size, block)
 
 
 def _check_operand(name, x, shape, device, dtype=torch.float32):
@@ -636,10 +677,11 @@ def _check_operand(name, x, shape, device, dtype=torch.float32):
 
 
 def _fused2_traverse_cuda(rays, fb: Fused2BVH, block: int, max_steps: int, mode: str = "closest",
-                          fanout: int = FANOUT, with_attrs: bool = True):
+                          fanout: int = FANOUT, with_attrs: bool = True, exact: bool = False):
     """Launch the kernel entry of ``fb``'s layout and ``mode`` on the current
     stream -> [N,32] (no sync)."""
     _check_mode(mode, fb, with_attrs)
+    name = _entry(fb, mode, with_attrs, exact)
     if rays.device.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError(f"the fused2 kernel needs CUDA tensors on a CUDA device; got {rays.device}")
     n = rays.shape[0]
@@ -658,7 +700,6 @@ def _fused2_traverse_cuda(rays, fb: Fused2BVH, block: int, max_steps: int, mode:
         return out
     if _cuda_lib is None:
         build_kernels()
-    name = _entry(fb, mode, with_attrs)
     with torch.cuda.device(rays.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(_cuda_lib, name)(
@@ -672,15 +713,20 @@ def _fused2_traverse_cuda(rays, fb: Fused2BVH, block: int, max_steps: int, mode:
 
 
 def fused2_traverse_packed(rays, fb: Fused2BVH, block: int = BLOCK_RAYS, max_steps: int = MAX_STEPS,
-                           mode: str = "closest", fanout: int = FANOUT, with_attrs: bool = True):
+                           mode: str = "closest", fanout: int = FANOUT, with_attrs: bool = True,
+                           exact: bool = False):
     """[N,8] packed rays -> [N,32] in ``mode``: the kernel for CUDA tensors,
     the plain version for CPU tensors.  N must be a multiple of ``block``.
     ``fanout`` (clusters retired per loop iteration, MXU layout only) does
     not change the answers; ``with_attrs=False`` is closest hit without
-    attributes (K4)."""
+    attributes (K4); ``exact=True`` (bf16 planes, closest hit with
+    attributes) launches the CUDA-core form of the bf16 kernel instead of
+    the tensor-core one."""
     if rays.device.type == "cpu":
+        if exact:
+            _entry(fb, mode, with_attrs, exact)  # the same argument check as on the card
         return fused2_traverse_packed_plain(rays, fb, mode, with_attrs)
-    return _fused2_traverse_cuda(rays, fb, block, max_steps, mode, fanout, with_attrs)
+    return _fused2_traverse_cuda(rays, fb, block, max_steps, mode, fanout, with_attrs, exact)
 
 
 def _sweep(ray_o, ray_d, t_max, fb: Fused2BVH, sort, block: int, max_steps: int, mode: str,

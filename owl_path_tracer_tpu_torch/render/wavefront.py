@@ -25,8 +25,10 @@ it with a fresh pool.  Every work item seeds its stream from its id alone, so
 finished items are in the film once and the rest render as they would have.
 
 Differences from the JAX package, all exact in value:
-  * the film is banked with ``index_add_`` (its ``film_mode="scatter"``), in
-    place into the pool's accumulator;
+  * the film is banked in place into the pool's accumulator (:func:`_bank`):
+    on the CPU with ``index_add_``, lane by lane (its ``film_mode="scatter"``);
+    on the card deterministically, each pixel's finished lanes accumulated
+    in lane order without atomics;
   * the ray counter and work ids are int64, so they cannot wrap;
   * the host loop reads each launch's status before the next launch: the
     fused2 wrapper synchronizes every step (to find unresolved rays), so the
@@ -112,6 +114,20 @@ def _spawn(scene: Scene, settings: RenderSettings, lane_work_id, sample_base: in
     return pixel_lin, o, d, st
 
 
+def _bank(acc, pixel, contrib):
+    """acc[pixel] += contrib in place, the same sums on every run.
+
+    On the CPU ``index_add_`` adds the lanes one after another.  On CUDA it
+    adds with atomics in whatever order the threads run, and the lanes of
+    one step often share a pixel (work id // spp), so two renders of one
+    frame would differ in the last bits of many film values; there
+    ``index_put_(accumulate=True)`` sorts the lanes by pixel (stably) and
+    accumulates each pixel's lanes in that order, without atomics."""
+    if acc.device.type == "cuda":
+        return acc.index_put_((pixel,), contrib, accumulate=True)
+    return acc.index_add_(0, pixel, contrib)
+
+
 def wavefront_step(scene: Scene, settings: RenderSettings, st: PoolState, intersect_fn,
                    enable_textures: bool, total_work: int, sample_base: int = 0, lights=None,
                    occlude_fn=None, env_light=None, mixed_fn=None) -> PoolState:
@@ -169,7 +185,7 @@ def wavefront_step(scene: Scene, settings: RenderSettings, st: PoolState, inters
     idle = path_done | (~st.alive & ~st.sh_active)
 
     # bank finished paths into the film
-    acc = st.acc.index_add_(0, st.pixel, torch.where(path_done[:, None], ps.result, 0.0))
+    acc = _bank(st.acc, st.pixel, torch.where(path_done[:, None], ps.result, 0.0))
 
     # regenerate idle lanes on fresh work items
     order = torch.cumsum(idle.to(torch.int64), 0) - 1

@@ -4,8 +4,14 @@ wrong winner.  Here the plain version with a planted fault stands in for a
 faulty kernel, on the CPU at the soup's size (3000 triangles, C=64, 300 rays
 padded to 384): a plain version that drops the t_min test (hits behind the
 origin and self-hits), one that skips the nearest hits (a farther valid hit
-wins), and winners copied from other rays (slots outside this ray's window).
+wins), and winners copied from other rays (slots outside this ray's window).  The
+rule's kind for the tensor cores' sums (``tensor=True``) fails the same
+faults, excuses a planted flip whose deciding margin lies within the sums'
+rounding bound, and fails one beyond it or onto a slot whose window fails by
+more.
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -49,3 +55,108 @@ def test_winners_of_other_rays_fail(soup):
     got[hits, 3:9] = want[hits.roll(1), 3:9]
     with pytest.raises(chip_smoke.SmokeFailure, match="beyond the near-tie rule"):
         chip_smoke.compare_near_tie(got, want, rays, fb, "planted fault")
+
+
+# ── the sums' rounding kind (tensor=True: K1b on bf16 planes, tensor cores) ──
+
+
+def test_tensor_rule_equal_outputs_pass(soup):
+    fb, rays, want = soup
+    err, differ = chip_smoke.compare_near_tie(want.clone(), want, rays, fb, "same", tensor=True)
+    assert err == 0.0 and differ == 0
+
+
+@pytest.mark.parametrize("t_min", [-1e30, 2.0], ids=["t_min_dropped", "nearest_skipped"])
+def test_tensor_rule_planted_t_min_fault_fails(soup, monkeypatch, t_min):
+    fb, rays, want = soup
+    with monkeypatch.context() as mp:
+        mp.setattr(m, "T_MIN", t_min)
+        got = fused2.fused2_traverse_packed_plain(rays, fb)
+    with pytest.raises(chip_smoke.SmokeFailure, match="beyond the near-tie rule"):
+        chip_smoke.compare_near_tie(got, want, rays, fb, "planted fault", tensor=True)
+
+
+def test_tensor_rule_winners_of_other_rays_fail(soup):
+    fb, rays, want = soup
+    got = want.clone()
+    hits = torch.nonzero(want[:300, 4] > 0).squeeze(1)
+    got[hits, 3:9] = want[hits.roll(1), 3:9]
+    with pytest.raises(chip_smoke.SmokeFailure, match="beyond the near-tie rule"):
+        chip_smoke.compare_near_tie(got, want, rays, fb, "planted fault", tensor=True)
+
+
+def _planted_u_margin(fb, rays, want, extra: bool):
+    """A hit ray i and a copy of ``fb`` whose planes at i's winning slot make
+    its u*det sum cancel exactly (two terms f0 f1 - f1 f0, exact in either
+    arithmetic, the other rows zero): u's margin 0 lies within any positive
+    rounding bound.  ``extra`` adds a third term of 2^-6 |f0 f1| on the side
+    that passes, far beyond the bound -> (i, fb copy, its plain output)."""
+    c = fb.cluster_size
+    for i in torch.nonzero(want[:300, 4] > 0).squeeze(1).tolist():
+        feat = fused2._ray_features(rays[i : i + 1, 0:3], rays[i : i + 1, 3:6], fb.planes.dtype == torch.bfloat16)[0]
+        f0, f1, f2 = (float(x) for x in feat[:3])
+        if min(abs(f0), abs(f1), abs(f2)) < 1e-2:
+            continue
+        cid, slot = int(want[i, 7]), int(want[i, 8])
+        (det, *_), _ = fused2.mxu_slot_sums(rays[i : i + 1, 0:3], rays[i : i + 1, 3:6], fb,
+                                            want[i : i + 1, 7], want[i : i + 1, 8])
+        sgn = -1.0 if float(det[0]) < 0 else 1.0
+        planes = fb.planes.clone()
+        col = torch.zeros(6, dtype=torch.float32)
+        col[0], col[1] = f1, -f0
+        if extra:
+            col[2] = sgn * 2.0**-6 * abs(f0 * f1) / f2
+        planes[cid, 0:6, c + slot] = col.to(planes.dtype)
+        planted = dataclasses.replace(fb, planes=planes)
+        out = fused2.fused2_traverse_packed_plain(rays, planted)
+        if int(out[i, 7]) == cid and int(out[i, 8]) == slot:  # still the plain version's winner
+            return i, planted, out
+    raise AssertionError("no ray to plant a flip on")
+
+
+def _kernel_missed(want, rays, i):
+    """``want`` with ray i's winner dropped, as a kernel that rejected it would report."""
+    got = want.clone()
+    got[i, 0], got[i, 1:5], got[i, 7:9], got[i, 16:32] = rays[i, 6], 0.0, -1.0, 0.0
+    got[i, 3] = -1.0
+    return got
+
+
+def test_flip_within_rounding_bound_passes(soup):
+    fb, rays, want = soup
+    i, planted, out = _planted_u_margin(fb, rays, want, extra=False)
+    within, close, _, _ = chip_smoke.sums_decisions(rays[i : i + 1], planted, out[i : i + 1, 7].long(),
+                                                    out[i : i + 1, 8].long())
+    assert bool(within[0]) and bool(close[0])
+    err, differ = chip_smoke.compare_near_tie(_kernel_missed(out, rays, i), out, rays, planted, "planted flip",
+                                              tensor=True)
+    assert differ == 1 and err == 0.0
+    # the rule without the rounding kind does not excuse it
+    with pytest.raises(chip_smoke.SmokeFailure, match="beyond the near-tie rule"):
+        chip_smoke.compare_near_tie(_kernel_missed(out, rays, i), out, rays, planted, "planted flip")
+
+
+def test_flip_beyond_rounding_bound_fails(soup):
+    fb, rays, want = soup
+    i, planted, out = _planted_u_margin(fb, rays, want, extra=True)
+    within, close, _, _ = chip_smoke.sums_decisions(rays[i : i + 1], planted, out[i : i + 1, 7].long(),
+                                                    out[i : i + 1, 8].long())
+    assert bool(within[0]) and not bool(close[0])
+    with pytest.raises(chip_smoke.SmokeFailure, match="beyond the near-tie rule"):
+        chip_smoke.compare_near_tie(_kernel_missed(out, rays, i), out, rays, planted, "planted flip", tensor=True)
+
+
+def test_flip_onto_a_failing_window_fails(soup):
+    """The plain winner's u margin lies within the bound, but the kernel's
+    winner is a slot whose window fails for this ray by far more."""
+    fb, rays, want = soup
+    i, planted, out = _planted_u_margin(fb, rays, want, extra=False)
+    for j in torch.nonzero(out[:300, 4] > 0).squeeze(1).tolist():
+        within, *_ = chip_smoke.sums_decisions(rays[i : i + 1], planted, out[j : j + 1, 7].long(),
+                                               out[j : j + 1, 8].long())
+        if j != i and not bool(within[0]):
+            break
+    got = out.clone()
+    got[i, 3:9] = out[j, 3:9]
+    with pytest.raises(chip_smoke.SmokeFailure, match="beyond the near-tie rule"):
+        chip_smoke.compare_near_tie(got, out, rays, planted, "planted flip", tensor=True)

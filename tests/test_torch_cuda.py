@@ -1,10 +1,12 @@
 """The port on a CUDA card: the fused2 kernel in its three modes (closest hit,
 any-hit, mixed) on the component layout (K1-K3) and the MXU feature layout
-with f32 and bf16 planes (K1b), and without attributes (K4), the fused
-kernel (K5) and the latency probe (K6), against their plain versions, and
-frames (wavefront without and with NEE, stopped and resumed from a
-checkpoint, and the scan renderer on the fused kernel) rendered on the card
-against the same frames on the CPU or uninterrupted.
+with f32 and bf16 planes (K1b; on bf16 the tensor-core form and the exact
+CUDA-core form of closest hit), and without attributes (K4), the fused
+kernel (K5, also above the cluster count one block's shared memory once
+held) and the latency probe (K6), against their plain versions, and frames
+(wavefront without and with NEE, stopped and resumed from a checkpoint, and
+the scan renderer on the fused kernel) rendered on the card against the same
+frames on the CPU or uninterrupted, and the wavefront film rendered twice.
 
 Imports nothing of JAX (the card's machine has none).  Every test is marked
 ``cuda`` and skips where there is no CUDA device.  On the card:
@@ -15,7 +17,11 @@ Imports nothing of JAX (the card's machine has none).  Every test is marked
 triangle, winner cluster/slot and attribute blob exact; t/u/v to rtol 5e-6
 (both sides evaluate mt_components in the same op order without FMAs, so
 they agree bit for bit in practice); images by the golden rule of
-tests/test_golden.py.
+tests/test_golden.py.  The tensor-core form of K1b on bf16 planes sums the
+feature products in the tensor cores' order and rounding, so it is held to
+chip_smoke.py's near-tie rule with the sums' rounding kind
+(``compare_near_tie(..., tensor=True)``); the exact form to the plain
+version's winners on every row.
 """
 import pathlib
 
@@ -23,14 +29,17 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from owl_path_tracer_tpu_torch.models.scene import RenderSettings, compile_scene
 from owl_path_tracer_tpu_torch.ops import cluster as tcl
 from owl_path_tracer_tpu_torch.ops import fused as tfu
 from owl_path_tracer_tpu_torch.ops import fused2 as tf2
 from owl_path_tracer_tpu_torch.ops import latency_probe as tlp
 from owl_path_tracer_tpu_torch.render import film as tfilm
+from owl_path_tracer_tpu_torch.render import integrator, wavefront
 from owl_path_tracer_tpu_torch.render.film import make_accel
 from owl_path_tracer_tpu_torch.render.wavefront import render_image_wavefront
+from owl_path_tracer_tpu_torch.tools.probe_common import ensure_dragon
 
 torch.set_num_threads(2)
 
@@ -230,9 +239,10 @@ def mxu_soups(soup):
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("block", [128, 256])
 def test_mxu_kernel_matches_plain(soup, mxu_soups, cuda_device, block, dtype, mode):
-    """K1b on the soup: equal to the plain version (both sum the feature
-    products in one order without FMAs; the soup has no near ties), fanout 1
-    and 2 identical but for the steps column."""
+    """K1b on the soup: f32 equal to the plain version (both sum the feature
+    products in one order without FMAs; the soup has no near ties); bf16
+    (tensor cores) under the near-tie rule with the sums' rounding kind;
+    fanout 1 and 2 identical but for the steps column."""
     fb = mxu_soups[dtype].to(cuda_device)
     _, (o, d, tmax, dist, shadow) = _mixed_inputs(soup, cuda_device)
     t = dist if mode == "mixed" else tmax
@@ -253,9 +263,130 @@ def test_mxu_kernel_matches_plain(soup, mxu_soups, cuda_device, block, dtype, mo
         torch.testing.assert_close(got[:, 4], want[:, 4], rtol=0, atol=0)
         return
     lanes = ~sh_p if mode == "mixed" else torch.ones_like(got[:, 0], dtype=torch.bool)
-    assert_kernel_output_matches(got[lanes], want[lanes])
+    if dtype == "bf16":
+        chip_smoke.compare_near_tie(got[lanes], want[lanes], rays[lanes], fb, f"{name} soup", tensor=True)
+    else:
+        assert_kernel_output_matches(got[lanes], want[lanes])
     if mode == "mixed":
         torch.testing.assert_close(got[sh_p, 4], want[sh_p, 4], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("block", [128, 256])
+def test_bf16_exact_kernel_matches_plain(soup, mxu_soups, cuda_device, block):
+    """The exact CUDA-core form of K1b bf16 closest hit (the tensor form's
+    yardstick): the plain version's arithmetic, equal to it on every ray of
+    the soup, counted under its own entry."""
+    fb = mxu_soups["bf16"].to(cuda_device)
+    _, o, d, tmax = soup
+    args = [torch.as_tensor(x[:300], device=cuda_device) for x in (o, d, tmax)]
+    rays = tf2.pack_rays(*tf2._pad_rays(*args, block)[:3])
+    name = "owlpt_fused2_mxu_bf16_exact_closest_hit"
+    launches = tf2.LAUNCHES[name]
+    got = tf2.fused2_traverse_packed(rays, fb, block=block, exact=True)
+    assert tf2.LAUNCHES[name] == launches + 1
+    want = tf2.fused2_traverse_packed_plain(rays, fb)
+    torch.cuda.synchronize()
+    assert_kernel_output_matches(got, want)
+    with pytest.raises(ValueError, match="exact=True"):
+        tf2.fused2_traverse_packed(rays, fb, block=block, mode="any_hit", exact=True)
+
+
+@pytest.mark.parametrize("mode", ["closest", "any_hit", "mixed"])
+def test_bf16_tensor_kernel_ragged_cluster_size(soup, cuda_device, mode):
+    """Clusters of C=60 slots (not a whole number of 8-slot n-tiles): the
+    tensor-core entries stage the planes element by element with zero pad
+    slots and hold to the same rule as at C=64."""
+    r = np.random.default_rng(0)
+    tri = r.uniform(-4, 4, (3000, 1, 3)) + r.normal(0, 0.4, (3000, 3, 3))
+    verts = tri.reshape(-1, 3).astype(np.float32)
+    fb = tf2.build_fused2(verts, np.arange(9000, dtype=np.int32).reshape(3000, 3), 60, plane_dtype=torch.bfloat16,
+                          device=cuda_device)
+    assert fb.cluster_size == 60
+    _, (o, d, tmax, dist, shadow) = _mixed_inputs(soup, cuda_device)
+    t = dist if mode == "mixed" else tmax
+    o_p, d_p, t_p, _ = tf2._pad_rays(o, d, t, 128)
+    sh_p = torch.cat([shadow, shadow.new_zeros(o_p.shape[0] - len(o))]) if mode == "mixed" else None
+    rays = tf2.pack_rays(o_p, d_p, t_p, sh_p)
+    got = tf2.fused2_traverse_packed(rays, fb, block=128, mode=mode)
+    want = tf2.fused2_traverse_packed_plain(rays, fb, mode)
+    torch.cuda.synchronize()
+    assert (got[:, 5] == 1).all()
+    if mode == "any_hit":
+        chip_smoke.compare_flags(got, want, "C=60 soup any-hit")
+        return
+    lanes = ~sh_p if mode == "mixed" else torch.ones_like(got[:, 0], dtype=torch.bool)
+    chip_smoke.compare_near_tie(got[lanes], want[lanes], rays[lanes], fb, f"C=60 soup {mode}", tensor=True)
+    if mode == "mixed":
+        chip_smoke.compare_flags(got[sh_p], want[sh_p], "C=60 soup shadow lanes")
+
+
+@pytest.fixture(scope="module")
+def dragon_waves():
+    """A dragon-like wave: the icosphere dragon at subdivision 5 on
+    fused2-bf16, 4096 primary rays of a 64x64 frame and the bounce wave
+    trace_bounce makes of them, and shadow rays from the bounce vertices."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    size = 64
+    scene = compile_scene(ASSETS, ensure_dragon(5), (size, size), device=dev)
+    settings = RenderSettings(width=size, height=size, max_samples=1, max_path_depth=4, environment_auto=True)
+    accel = make_accel(scene, "fused2-bf16")
+    _, o, d, rng = wavefront._spawn(scene, settings, torch.arange(size * size, device=dev))
+    n = o.shape[0]
+    state = integrator.PathState(
+        ray_o=o, ray_d=d, result=torch.zeros_like(o), throughput=torch.ones_like(o), rng=rng,
+        alive=torch.ones(n, dtype=torch.bool, device=dev), prev_lobe=torch.full((n,), -1, dtype=torch.int64, device=dev),
+        depth=torch.zeros(n, dtype=torch.int64, device=dev), prev_pdf=torch.zeros(n, device=dev),
+    )
+    isect, _ = integrator.make_intersectors(scene, accel)
+    bounce = integrator.trace_bounce(scene, settings, state, isect, False)
+    bounce_o = torch.where(bounce.alive[:, None], bounce.ray_o, wavefront.PARK)
+    r = np.random.default_rng(3)
+    target = torch.as_tensor(r.uniform(-2, 2, (n, 3)).astype(np.float32), device=dev)
+    sh_d = torch.nn.functional.normalize(target - bounce_o, dim=-1)
+    sh_t = torch.linalg.norm(target - bounce_o, dim=-1)
+    return accel, {"primary": (o, d), "bounce": (bounce_o, bounce.ray_d)}, (bounce_o, sh_d, sh_t)
+
+
+@pytest.mark.parametrize("block", [128, 256])
+@pytest.mark.parametrize("wave", ["primary", "bounce"])
+def test_bf16_tensor_kernel_on_dragon_wave(dragon_waves, block, wave):
+    """K1b bf16 (tensor cores) closest hit on a sorted dragon wave under the
+    near-tie rule with the sums' rounding kind (explained rows at most 0.5%,
+    rounded up); the exact form under the rule without it."""
+    accel, waves, _ = dragon_waves
+    o, d = waves[wave]
+    t = torch.full((o.shape[0],), 1e10, device=o.device)
+    rays, _ = chip_smoke.sorted_rays(o, d, t, accel, "morton")
+    want = tf2.fused2_traverse_packed_plain(rays, accel)
+    got = tf2.fused2_traverse_packed(rays, accel, block=block)
+    chip_smoke.compare_near_tie(got, want, rays, accel, f"dragon {wave}", tensor=True)
+    exact = tf2.fused2_traverse_packed(rays, accel, block=block, exact=True)
+    chip_smoke.compare_near_tie(exact, want, rays, accel, f"dragon {wave}, exact form")
+
+
+@pytest.mark.parametrize("block", [128, 256])
+def test_bf16_tensor_any_hit_and_mixed_on_dragon_wave(dragon_waves, block):
+    """K1b bf16 (tensor cores) any-hit on the shadow rays (flags at least
+    99.99% equal) and the mixed sweep of bounce and shadow rays (closest-hit
+    lanes under the rule with the sums' rounding kind, shadow flags likewise)."""
+    accel, waves, (sh_o, sh_d, sh_t) = dragon_waves
+    rays, _ = chip_smoke.sorted_rays(sh_o, sh_d, sh_t, accel, "morton")
+    got = tf2.fused2_traverse_packed(rays, accel, block=block, mode="any_hit")
+    want = tf2.fused2_traverse_packed_plain(rays, accel, "any_hit")
+    assert (got[:, 5] == 1).all() and 0 < int(want[:, 4].sum()) < rays.shape[0]
+    chip_smoke.compare_flags(got, want, "dragon shadow wave")
+    bo, bd = waves["bounce"]
+    co, cd = torch.cat([bo, sh_o]), torch.cat([bd, sh_d])
+    ct = torch.cat([torch.full((bo.shape[0],), 1e10, device=bo.device), sh_t])
+    csh = torch.cat([torch.zeros_like(sh_t, dtype=torch.bool), torch.ones_like(sh_t, dtype=torch.bool)])
+    rays, perm = chip_smoke.sorted_rays(co, cd, ct, accel, "morton", shadow=csh)
+    sh = csh[perm]
+    got = tf2.fused2_traverse_packed(rays, accel, block=block, mode="mixed")
+    want = tf2.fused2_traverse_packed_plain(rays, accel, "mixed")
+    chip_smoke.compare_near_tie(got[~sh], want[~sh], rays[~sh], accel, "dragon mixed wave", tensor=True)
+    chip_smoke.compare_flags(got[sh], want[sh], "dragon mixed wave shadow lanes")
 
 
 @pytest.mark.parametrize("layout", ["component", "f32"])
@@ -336,25 +467,39 @@ def test_fused_overflow_matches_cpu(soup, fused_soup, cuda_device):
     assert torch.equal(got.uv.cpu(), want.uv)
 
 
-def test_shared_memory_limit(fused_soup, cuda_device):
-    """The kernel keeps the boxes in shared memory: ``max_clusters`` (the
-    kernel source's count against the device's opt-in limit) lets K through
-    and refuses K + 1, and dragon sub 7 fits."""
-    c = 128
-    k = tfu.max_clusters(c, cuda_device)
-    assert k >= 2816  # dragon sub 7 at C=128 has K = 2,688 (+ a few ground/light clusters)
-    rays = tfu.pack_rays(torch.zeros((128, 3), device=cuda_device),
-                         torch.tensor([0.0, 0.0, 1.0], device=cuda_device).expand(128, 3), 1e10)
-    for kk in (k, k + 1):
-        # boxes far off the rays: every ray misses at once
-        fb = tfu.FusedBVH(boxes=torch.full((8, kk), 3e37, device=cuda_device),
-                          planes=torch.zeros((kk, 16, c), device=cuda_device), cluster=fused_soup.cluster)
-        if kk == k:
-            out = tfu._fused_traverse_cuda(rays, fb, 128, tfu.MAX_STEPS)
-            assert (out[:, 4] == 0).all() and (out[:, 5] == 1).all() and (out[:, 6] == 0).all()
-        else:
-            with pytest.raises(ValueError, match=f"at most K={k}"):
-                tfu._fused_traverse_cuda(rays, fb, 128, tfu.MAX_STEPS)
+def test_fused_kernel_above_old_cluster_limit(cuda_device):
+    """K5 reads the box rows from device memory and keeps one retired bit per
+    cluster: 80,000 random triangles in clusters of C=8 give K above the
+    9,280 clusters that one block's shared memory held at C=8 when the boxes
+    lived there (K = 13,568), and columns 0-6 equal the plain version's on
+    2048 rays, of which about half run out of steps (unresolved)."""
+    r = np.random.default_rng(4)
+    tri = r.uniform(-20, 20, (80000, 1, 3)) + r.normal(0, 0.3, (80000, 3, 3))
+    verts = tri.reshape(-1, 3).astype(np.float32)
+    idx = np.arange(240000, dtype=np.int32).reshape(80000, 3)
+    fb = tfu.build_fused(tcl.build_clusters(verts, idx, 8, device=cuda_device))
+    assert fb.num_clusters > 9500
+    n = 2048
+    o = torch.as_tensor(r.uniform(-25, 25, (n, 3)).astype(np.float32), device=cuda_device)
+    d = torch.nn.functional.normalize(torch.as_tensor(r.normal(size=(n, 3)).astype(np.float32), device=cuda_device),
+                                      dim=-1)
+    got = tfu.fused_traverse(o, d, 1e10, fb)
+    want = tfu.fused_traverse_plain(o, d, 1e10, fb)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, :7], want[:, :7])  # resolved (col 5) and steps (col 6) too
+    assert 0 < int(got[:, 4].sum()) < n and 0 < int(got[:, 5].sum()) < n
+
+
+@pytest.mark.parametrize("kind", ["fused2", "component"])
+def test_wavefront_film_is_deterministic(cuda_device, kind):
+    """The same frame rendered twice on the card banks the same film bit
+    for bit (many lanes of one step bank into one pixel)."""
+    settings = RenderSettings(width=32, height=32, max_samples=8, max_path_depth=3, environment_auto=True)
+    scene = compile_scene(ASSETS, "cornell-box", (32, 32), device=cuda_device)
+    accel = make_accel(scene, "fused2") if kind == "fused2" else tf2.build_fused2_scene(scene, mxu=False)
+    (a, rays_a), (b, rays_b) = (render_image_wavefront(scene, settings, accel, lanes=1024, fused2_sort=True)
+                                for _ in range(2))
+    assert rays_a == rays_b and torch.equal(a, b)
 
 
 @pytest.mark.parametrize("use_nee", [False, True])

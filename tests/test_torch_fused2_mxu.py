@@ -264,3 +264,44 @@ def test_bf16_frame_matches_jax():
     assert close.mean() > 0.995, f"only {close.mean():.4%} pixels match"
     np.testing.assert_allclose(img.mean(), want.mean(), rtol=1e-3)
     assert abs(rays - rays_want) <= 0.005 * rays_want, (rays, rays_want)
+
+
+# ── the feature sums the card rule reads (chip_smoke.sums_decisions) ──────
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_slot_sums_equal_feature_sums(soup, dtype):
+    """mxu_slot_sums gives, per ray and (cluster, slot), the plain version's
+    own sums bit for bit: those of _feature_sums for that slot and those of
+    its whole-cluster form that the plain traversal reads; its absolute sums
+    equal a float64 reference of sum_q |f_q p_q| to 10 roundings of 2^-24
+    (9 additions, and the products on f32 planes)."""
+    accels, o, d, *_ = soup
+    _, tfb = accels[dtype]
+    r = np.random.default_rng(5)
+    n, c = len(o), tfb.cluster_size
+    filled = torch.nonzero(tfb.cluster.tri_id >= 0)  # slots that hold a triangle
+    cid, slot = filled[torch.as_tensor(r.integers(0, len(filled), n))].unbind(1)
+    to, td = torch.as_tensor(o), torch.as_tensor(d)
+    sums, absolute = tf2.mxu_slot_sums(to, td, tfb, cid, slot)
+    feat = tf2._ray_features(to, td, dtype == "bf16")
+    rows = torch.arange(n)
+    for g, (s, a, ref, whole) in enumerate(zip(sums, absolute, tf2._feature_sums(feat, tfb.planes, cid, slot),
+                                               tf2._feature_sums(feat, tfb.planes, cid, slice(0, c)))):
+        assert torch.equal(s, ref) and torch.equal(s, whole[rows, slot])
+        _, r0, r1 = tf2.MXU_ROWS[g]
+        f64 = feat[:, r0:r1].double() * tfb.planes[cid, r0:r1, g * c + slot].double()
+        np.testing.assert_allclose(a.numpy(), f64.abs().sum(1).numpy(), rtol=10 * 2.0**-24, atol=0)
+        assert (a > 0).all()
+
+
+def test_slot_sums_clamp_missing_winners(soup):
+    """A negative cluster or slot (no winner) reads slot 0 of cluster 0."""
+    accels, o, d, *_ = soup
+    _, tfb = accels["bf16"]
+    to, td = torch.as_tensor(o[:4]), torch.as_tensor(d[:4])
+    neg = torch.full((4,), -1)
+    zero = torch.zeros(4, dtype=torch.int64)
+    got = tf2.mxu_slot_sums(to, td, tfb, neg, neg)
+    want = tf2.mxu_slot_sums(to, td, tfb, zero, zero)
+    assert all(torch.equal(x, y) for x, y in zip(got[0] + got[1], want[0] + want[1]))
