@@ -50,8 +50,11 @@ def cluster_from_numpy(d: dict, *, device) -> ClusterBVH:
 
 
 def fused_from_numpy(d: dict, *, device) -> FusedBVH:
-    """Boxes [8,K] and component planes [K,16,C], float32."""
-    return _tensors(FusedBVH, d, device, {"cluster": cluster_from_numpy})
+    """Boxes [8,K] and component planes [K,16,C], float32; the group boxes
+    (the port's own) are made from the boxes."""
+    as_t = lambda a: torch.from_numpy(np.array(a)).to(device)  # noqa: E731
+    return FusedBVH(boxes=as_t(d["boxes"]), planes=as_t(d["planes"]),
+                    cluster=cluster_from_numpy(d["cluster"], device=device))
 
 
 def fused2_from_numpy(d: dict, *, device) -> Fused2BVH:

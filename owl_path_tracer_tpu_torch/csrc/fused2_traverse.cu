@@ -19,7 +19,7 @@
 // attrs [K,32,C] f32, boxes [8,K]; rays [N,8] (o, d, tmax, shadow flag) ->
 // out [N,32] (t u v tri hit resolved steps wcid wslot, 0..., attr rows 0-15).
 // One templated body serves every (mode, layout, attrs) combination, as the
-// Pallas kernel's static flags do, and on bf16 planes the tensor-core or the
+// Pallas kernel's static flags do, and on MXU planes the tensor-core or the
 // CUDA-core slot test; each has its own extern "C" entry point.
 //
 // One CUDA block per `block` rays, one thread per ray:
@@ -63,8 +63,9 @@
 //
 // Arithmetic.  Component slots follow ops/intersect.py mt_components
 // operation for operation (1/det then multiply, sums left to right).  MXU
-// slots on CUDA cores (f32 planes, K4, and the bf16 yardstick entry
-// owlpt_fused2_mxu_bf16_exact_closest_hit) sum feature x plane products in
+// slots on CUDA cores (K4 and the yardstick entries
+// owlpt_fused2_mxu_exact_closest_hit, owlpt_fused2_mxu_bf16_exact_closest_hit)
+// sum feature x plane products in
 // ascending plane-row order from each group's first non-zero row (group 0
 // rows 0-2, groups 1-2 rows 0-5, group 3 rows 6-9; the other rows are zero,
 // and adding their zero products changes no float32 sum), in float32, as
@@ -75,51 +76,63 @@
 // is contracted into an FMA and these entries agree bit for bit with the
 // plain PyTorch version on every cluster both test.
 //
-// The bf16 entries of the main path (closest hit, any-hit, mixed) take the
-// feature products on the tensor cores instead (tensor_test below):
-//   * each warp owns two 16-ray m-tiles; each ray's 10 bf16 features (k
-//     10-15 zero) sit in mma A fragments for the whole launch;
-//   * a ring of two cluster buffers in shared memory holds the raw bf16
-//     plane rows 0-9 (the live rows; ldmatrix reads k 10-15 from one shared
-//     zero row), each row padded by 16 bytes so that ldmatrix reads without
-//     bank conflicts (rows 4C x 2 B apart would all start on one bank); the
-//     next cluster in visiting order, which may be the first of the next
+// The MXU entries of the main path (closest hit, any-hit, mixed, on bf16 and
+// on f32 planes) take the feature products on the tensor cores instead
+// (TensorOps and tensor_test below):
+//   * each warp owns two 16-ray m-tiles; each ray's features sit in mma A
+//     fragments for the whole launch;
+//   * a ring of two cluster buffers in shared memory holds the staged
+//     plane rows, padded so that the B fragment loads hit distinct banks;
+//     the next cluster in visiting order, which may be the first of the next
 //     group, is copied with 16-byte cp.async while the current one is
-//     tested (40 KB per cluster at C=512: two blocks of 256 per SM);
-//   * per 8-slot n-tile, one mma.sync.m16n8k16 (bf16 in, fp32 accumulate)
-//     per column group det | u*det | v*det | t*det, B from ldmatrix.x4.trans;
-//     by the accumulator layout lane (g, q) then holds all four sums of
-//     slots 2q, 2q+1 for rays g and g+8, so the reference's window runs on
-//     those registers with the same operations in the same order
-//     (fused2.py:616-632), each lane keeps its best (t, slot) in ascending
-//     slot order, and a quad argmin (lowest slot on equal t) gives the
-//     ray's cluster winner; a warp whose rays are all done skips the
-//     cluster, and an m-tile whose rays are all done skips its products.
-// The products are exact in the fp32 accumulator and the tensor core sums
-// them in its own order and rounding, so det, u*det, v*det and t*det may
-// differ from the plain version's left-to-right sums by a few ulps of the
-// summed magnitudes, and a window decision or t order inside that margin may
-// flip (chip_smoke.py::compare_near_tie names and bounds such rows).  The
-// same instruction on the same inputs gives the same sums, so the answers
-// still do not depend on the fanout.
+//     tested (the ring leaves shared memory for two blocks of 256 per SM
+//     at C=512);
+//   * per 8-slot n-tile the four column groups det | u*det | v*det | t*det
+//     come out of mma.sync with fp32 accumulators; by the accumulator layout
+//     lane (g, q) then holds all four sums of slots 2q, 2q+1 for rays g and
+//     g+8, so the reference's window runs on those registers with the same
+//     operations in the same order (fused2.py:616-632), each lane keeps its
+//     best (t, slot) in ascending slot order, and a quad argmin (lowest
+//     slot on equal t) gives the ray's cluster winner; a warp whose rays are
+//     all done skips the cluster, and an m-tile whose rays are all done
+//     skips its products.
+// bf16 planes: the raw plane rows 0-9 (40 KB per cluster at C=512; ldmatrix
+// reads k 10-15 from one shared zero row), the 10 bf16 features at k 0-9,
+// one mma.sync.m16n8k16 per column group, B from ldmatrix.x4.trans; the
+// products are exact in the fp32 accumulator.
+// f32 planes (3xTF32): the 19 non-zero feature rows (38 KB per cluster at
+// C=512, each row a contiguous run of C floats in the planes); every operand
+// is split into two TF32 terms, hi = tf32(x) and lo = tf32(x - hi), and each
+// column group sums lo*hi, hi*lo, hi*hi with one mma.sync.m16n8k8 each (12
+// per n-tile and m-tile): det, u*det and v*det take d, m at k 0-5, t*det
+// takes o, 1 at k 0-3, so each group is one k-step.  The dropped lo*lo term
+// and the remainders of the splits are below 3 x 2^-22 of each product.
+// In both the tensor core sums in its own order and rounding, so det, u*det,
+// v*det and t*det may differ from the plain version's left-to-right sums by
+// a few ulps of the summed magnitudes (chip_smoke.py's SUM_GAMMA for bf16,
+// SUM_GAMMA_F32 for f32), and a window decision or t order inside that
+// margin may flip (chip_smoke.py::compare_near_tie names and bounds such
+// rows).  The same instructions on the same inputs give the same sums, so
+// the answers still do not depend on the fanout.
 //
 // What bounds it on the card.  Component: the Moller-Trumbore arithmetic,
 // about 45 fp32 operations per ray and slot.  MXU: 2 x 16 x 4 = 128 product
 // FLOP per ray and slot as the reference's matmul counts them, plus the
-// 28-operation window and winner chain.  On CUDA cores (f32 planes) both are
-// fp32 work (67 TFLOP/s), the products the larger share (19 non-zero
-// multiply-add pairs, separate under --fmad=false).  On the tensor cores
-// (bf16 planes) the products run at the bf16 peak (989 TFLOP/s) and the
-// window on CUDA cores paces the loop: about 48 fp32 instruction slots per warp
-// and 8 slots against 4 mma.sync, so wgmma's higher product rate would buy
-// nothing yet.  A ray tests every cluster its block retires while it is
+// 28-operation window and winner chain.  On CUDA cores (K4, the exact
+// yardsticks) both are fp32 work (67 TFLOP/s), the products the larger share
+// (19 non-zero multiply-add pairs, separate under --fmad=false).  On the
+// tensor cores the products run at the bf16 (989 TFLOP/s) or TF32 (495
+// TFLOP/s, three products per f32 product) rate and the window on CUDA
+// cores paces the loop: about 48 fp32 instruction slots per warp and n-tile
+// against 4 bf16 or 12 TF32 mma.sync (f32 adds 12 splits of the B values),
+// so wgmma's higher product rate would buy nothing yet.  A ray tests every cluster its block retires while it is
 // still searching, which is at least the clusters its own exact query needs
 // (chip_smoke.py's bound counts those); any-hit and shadow lanes stop at
 // their first hit (on the tensor path, at the end of the n-tile that found
 // it).  For coherent blocks the per-iteration block reductions (pick over
 // K, max of the bound) come next.  Plane bytes per retired cluster
 // (component 10 x C floats, 20 KB at C=512; MXU 19 x C values, 38 KB f32 /
-// 19 KB bf16, or on the tensor path 10 x 4C bf16, 40 KB) are read once per
+// 19 KB bf16, or on the bf16 tensor path 10 x 4C bf16, 40 KB) are read once per
 // block, not once per ray, and stay L2-resident for the scene sizes of the
 // main path.
 
@@ -134,8 +147,10 @@ constexpr int kMtRows = 10;     // component rows staged per cluster: p0 e1 e2 (
 // MXU rows staged per cluster: the 19 non-zero feature rows (det 3, u*det 6,
 // v*det 6, t*det 4), then the tri id (row 10 of group 0) for the no-attrs mode
 constexpr int kMxuRows = 20;
-// tensor path: plane rows 0-9 meet non-zero ray features (k 10-15 read a zero row)
+// tensor path, bf16: plane rows 0-9 meet non-zero ray features (k 10-15 read a zero row)
 constexpr int kLiveRows = 10;
+// tensor path, f32: the 19 non-zero feature rows (staging rows 0-18 of kMxuRows)
+constexpr int kTcRows = kMxuRows - 1;
 constexpr int kMaxFanout = 4;
 constexpr int kAttrRows = 32;
 constexpr int kOutCols = 32;
@@ -334,6 +349,74 @@ __device__ void stage_bf16(unsigned char* dst, const unsigned short* __restrict_
   }
 }
 
+// f32 planes: floats per staged row, C rounded up to whole n-tiles and then
+// padded so that rows lie 8 banks apart (stride = 8 mod 32 words): the B
+// fragment loads of a warp (rows q, columns g of an n-tile) hit 32 banks.
+__host__ __device__ constexpr int f32_row_words(int c) { return tensor_cols(c) + ((8 - tensor_cols(c)) & 31); }
+
+// Bytes of one ring buffer (one staged cluster) of the tensor path.
+template <int kLayout>
+__host__ __device__ constexpr int tensor_buffer_bytes(int c) {
+  return kLayout == kMxuBf16 ? kLiveRows * tensor_row_bytes(c) : kTcRows * f32_row_words(c) * 4;
+}
+
+// Stage the 19 non-zero feature rows of cluster cid (f32 [16, 4C], staging
+// order of mxu_source) into one ring buffer ([19][f32_row_words(c)] floats):
+// each row is a contiguous run of C floats in the planes, copied with 16-byte
+// cp.async when C is a multiple of 8, else element by element with the pad
+// slots zeroed.
+__device__ void stage_f32(unsigned char* dst, const float* __restrict__ planes, int cid, int c) {
+  const float* src = planes + static_cast<long long>(cid) * kPlaneRows * 4 * c;
+  float* d = reinterpret_cast<float*>(dst);
+  const int rw = f32_row_words(c);
+  if ((c & 7) == 0) {
+    const int chunks = c / 4;  // 16-byte chunks per row
+    for (int q = threadIdx.x; q < kTcRows * chunks; q += blockDim.x) {
+      const int srow = q / chunks, ch = q - srow * chunks;
+      int row, group;
+      mxu_source(srow, row, group);
+      cp_async16(d + srow * rw + ch * 4, src + row * 4 * c + group * c + ch * 4);
+    }
+  } else {
+    const int cp = tensor_cols(c);
+    for (int q = threadIdx.x; q < kTcRows * cp; q += blockDim.x) {
+      const int srow = q / cp, slot = q - srow * cp;
+      int row, group;
+      mxu_source(srow, row, group);
+      d[srow * rw + slot] = slot < c ? src[row * 4 * c + group * c + slot] : 0.0f;
+    }
+  }
+}
+
+template <int kLayout>
+__device__ __forceinline__ void stage_cluster(unsigned char* dst, const void* planes, int cid, int c) {
+  if constexpr (kLayout == kMxuBf16) stage_bf16(dst, static_cast<const unsigned short*>(planes), cid, c);
+  else stage_f32(dst, static_cast<const float*>(planes), cid, c);
+}
+
+// x rounded to TF32 (nearest, ties away), as fp32 bits with the low 13 bits zero.
+__device__ __forceinline__ unsigned to_tf32(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo + (a remainder below 2^-22 |x|): hi = tf32(x), lo = tf32(x - hi)
+// (x - hi is exact in fp32).
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// d = A B + c: m16n8k8, tf32 operands, fp32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], unsigned a0, unsigned a1, unsigned a2, unsigned a3,
+                                         unsigned b0, unsigned b1, const float (&c)[4]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1), "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
 __device__ __forceinline__ void ldmatrix_x4_trans(unsigned addr, unsigned& r0, unsigned& r1, unsigned& r2,
                                                   unsigned& r3) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -355,19 +438,166 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xffff0000u);
 }
 
-// One warp's tensor-core test of one staged cluster.
-//   a[mt]: the A fragments of the warp's m-tile mt (rays 16 mt .. 16 mt + 15);
-//   addr_a / addr_b: this lane's ldmatrix row address for n-tile 0 of the
-//   column groups det, u*det / v*det, t*det; step: its advance per n-tile
-//   (0 for a lane that points at the zero row);
+// The MXU ray features d, m = o x d, o, 1 (reference op order).
+__device__ __forceinline__ void ray_features(float ox, float oy, float oz, float dx, float dy, float dz,
+                                             float (&f)[10]) {
+  f[0] = dx; f[1] = dy; f[2] = dz;
+  f[3] = oy * dz - oz * dy; f[4] = oz * dx - ox * dz; f[5] = ox * dy - oy * dx;
+  f[6] = ox; f[7] = oy; f[8] = oz; f[9] = 1.0f;
+}
+
+// A lane's operands of the tensor-core test: the A fragments of its warp's
+// two 16-ray m-tiles (rays 16 mt .. 16 mt + 15; built once per launch from
+// the rays' own features by shuffles), how it addresses its B fragments in a
+// staged cluster, and per 8-slot n-tile the four column-group products
+// (det, u*det, v*det, t*det; accumulator e of lane (g, q) = 4 g + q: ray
+// row g + 8 (e >> 1), slot 2 q + (e & 1) of the n-tile).
+template <int kLayout>
+struct TensorOps;
+
+// bf16 planes: per n-tile one mma.sync.m16n8k16 per column group, the ten
+// bf16 features at k 0-9 (k 10-15 zero), B from ldmatrix.x4.trans.
+template <>
+struct TensorOps<kMxuBf16> {
+  unsigned a[2][4];
+  unsigned addr_a, addr_b, step;  // ldmatrix byte offsets in a ring buffer; advance per n-tile
+  struct B {
+    unsigned d0, d1, u0, u1, v0, v1, t0, t1;
+  };
+
+  __device__ __forceinline__ void init(const float (&f)[10], int c) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+    unsigned words[5];
+#pragma unroll
+    for (int p = 0; p < 5; ++p) words[p] = pack_bf16(f[2 * p], f[2 * p + 1]);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[mt][r] = 0u;
+#pragma unroll
+      for (int p = 0; p < 5; ++p) {  // features two per register, rays in their own lanes
+        const unsigned lo = __shfl_sync(0xffffffffu, words[p], 16 * mt + g);
+        const unsigned hi = __shfl_sync(0xffffffffu, words[p], 16 * mt + g + 8);
+        if (p == q) { a[mt][0] = lo; a[mt][1] = hi; }
+        if (p == q + 4) { a[mt][2] = lo; a[mt][3] = hi; }
+      }
+    }
+    // ldmatrix.x4: lanes 8m .. 8m + 7 address matrix m = rows k = 8 (m & 1)
+    // + (lane & 7) of column group (m >> 1) (first load: det, u*det; second:
+    // v*det, t*det); rows k >= 10 read the zero row at every n-tile
+    const int kk = 8 * ((lane >> 3) & 1) + (lane & 7), grp_hi = lane >> 4;
+    addr_a = addr_b = step = 0;
+    if (kk < kLiveRows) {
+      addr_a = static_cast<unsigned>(kk * tensor_row_bytes(c) + grp_hi * tensor_cols(c) * 2);
+      addr_b = addr_a + static_cast<unsigned>(2 * tensor_cols(c) * 2);
+      step = 16;
+    }
+  }
+
+  __device__ __forceinline__ B load(const unsigned char* buf, const unsigned char* zero_row, int j) const {
+    const unsigned base = step ? smem_addr(buf) : smem_addr(zero_row);
+    B b;
+    ldmatrix_x4_trans(base + addr_a + j * step, b.d0, b.d1, b.u0, b.u1);
+    ldmatrix_x4_trans(base + addr_b + j * step, b.v0, b.v1, b.t0, b.t1);
+    return b;
+  }
+
+  __device__ __forceinline__ void sums(int mt, const B& b, float (&det)[4], float (&ua)[4], float (&vb)[4],
+                                       float (&tcd)[4]) const {
+    mma_bf16(det, a[mt], b.d0, b.d1);
+    mma_bf16(ua, a[mt], b.u0, b.u1);
+    mma_bf16(vb, a[mt], b.v0, b.v1);
+    mma_bf16(tcd, a[mt], b.t0, b.t1);
+  }
+};
+
+// f32 planes: 3xTF32.  Each operand x = hi + lo (split_tf32), and each
+// column group sums lo*hi, then hi*lo, then hi*hi (the small terms first)
+// in the fp32 accumulator, one mma.sync.m16n8k8 each: 12 per n-tile and
+// m-tile.  Each group fits one k-step: det, u*det and v*det take the
+// features d, m at k 0-5 (A1), t*det takes o, 1 at k 0-3 (A2); the staged
+// rows of each group sit at those k, and B is zero at every other k.
+template <>
+struct TensorOps<kMxuF32> {
+  unsigned a1h[2][4], a1l[2][4], a2h[2][2], a2l[2][2];
+  int rw;                                 // floats per staged row
+  int r_det, r_u0, r_u1, r_v0, r_v1, r_t;  // staged rows of B(k = q) and B(k = q + 4); -1: zero
+  struct B {
+    unsigned dh, dl, uh0, ul0, uh1, ul1, vh0, vl0, vh1, vl1, th, tl;
+  };
+
+  __device__ __forceinline__ void init(const float (&f)[10], int c) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+    unsigned h[10], l[10];
+#pragma unroll
+    for (int p = 0; p < 10; ++p) split_tf32(f[p], h[p], l[p]);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a1h[mt][r] = a1l[mt][r] = 0u;
+#pragma unroll
+      for (int p = 0; p < 10; ++p) {  // A1: features 0-5 at k 0-5; A2: features 6-9 at k 0-3
+        const unsigned xh = __shfl_sync(0xffffffffu, h[p], 16 * mt + g);
+        const unsigned yh = __shfl_sync(0xffffffffu, h[p], 16 * mt + g + 8);
+        const unsigned xl = __shfl_sync(0xffffffffu, l[p], 16 * mt + g);
+        const unsigned yl = __shfl_sync(0xffffffffu, l[p], 16 * mt + g + 8);
+        if (p == q) { a1h[mt][0] = xh; a1h[mt][1] = yh; a1l[mt][0] = xl; a1l[mt][1] = yl; }
+        if (p < 6 && p == q + 4) { a1h[mt][2] = xh; a1h[mt][3] = yh; a1l[mt][2] = xl; a1l[mt][3] = yl; }
+        if (p == q + 6) { a2h[mt][0] = xh; a2h[mt][1] = yh; a2l[mt][0] = xl; a2l[mt][1] = yl; }
+      }
+    }
+    // staging rows (mxu_source): det 0-2, u*det 3-8, v*det 9-14, t*det 15-18
+    rw = f32_row_words(c);
+    r_det = q < 3 ? q : -1;
+    r_u0 = 3 + q;
+    r_u1 = q < 2 ? 7 + q : -1;
+    r_v0 = 9 + q;
+    r_v1 = q < 2 ? 13 + q : -1;
+    r_t = 15 + q;
+  }
+
+  __device__ __forceinline__ B load(const unsigned char* buf, const unsigned char*, int j) const {
+    const float* p = reinterpret_cast<const float*>(buf) + 8 * j + ((threadIdx.x & 31) >> 2);
+    B b;
+    split_tf32(r_det >= 0 ? p[r_det * rw] : 0.0f, b.dh, b.dl);
+    split_tf32(p[r_u0 * rw], b.uh0, b.ul0);
+    split_tf32(r_u1 >= 0 ? p[r_u1 * rw] : 0.0f, b.uh1, b.ul1);
+    split_tf32(p[r_v0 * rw], b.vh0, b.vl0);
+    split_tf32(r_v1 >= 0 ? p[r_v1 * rw] : 0.0f, b.vh1, b.vl1);
+    split_tf32(p[r_t * rw], b.th, b.tl);
+    return b;
+  }
+
+  // one column group of A1 (k 0-7) or A2 (k 0-3): lo*hi + hi*lo + hi*hi
+  __device__ __forceinline__ static void group(float (&d)[4], const unsigned (&ah)[4], const unsigned (&al)[4],
+                                               unsigned bh0, unsigned bl0, unsigned bh1, unsigned bl1) {
+    const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    mma_tf32(d, al[0], al[1], al[2], al[3], bh0, bh1, zero);
+    mma_tf32(d, ah[0], ah[1], ah[2], ah[3], bl0, bl1, d);
+    mma_tf32(d, ah[0], ah[1], ah[2], ah[3], bh0, bh1, d);
+  }
+
+  __device__ __forceinline__ void sums(int mt, const B& b, float (&det)[4], float (&ua)[4], float (&vb)[4],
+                                       float (&tcd)[4]) const {
+    group(det, a1h[mt], a1l[mt], b.dh, b.dl, 0u, 0u);
+    group(ua, a1h[mt], a1l[mt], b.uh0, b.ul0, b.uh1, b.ul1);
+    group(vb, a1h[mt], a1l[mt], b.vh0, b.vl0, b.vh1, b.vl1);
+    const unsigned a2h4[4] = {a2h[mt][0], a2h[mt][1], 0u, 0u};
+    const unsigned a2l4[4] = {a2l[mt][0], a2l[mt][1], 0u, 0u};
+    group(tcd, a2h4, a2l4, b.th, b.tl, 0u, 0u);
+  }
+};
+
+// One warp's tensor-core test of one staged cluster (buf: its ring buffer).
+//   ops: the lane's operands (TensorOps above);
 //   live: bit i set while warp ray i still searches; bt[mt][h]: best t of
 //   ray 16 mt + 8 h + g (lane = 4 g + q), fixed for the cluster.
 // Returns in lt / ls (closest, mixed) each of the lane's four rays' cluster
 // winner (t, slot), inf if none, reduced over the quad; in lh (any-hit) its
 // hit flag, ORed over the quad.
-template <int kMode>
-__device__ __forceinline__ void tensor_test(const unsigned (&a)[2][4], unsigned addr_a, unsigned addr_b,
-                                            unsigned step, int ntiles, unsigned live,
+template <int kMode, int kLayout>
+__device__ __forceinline__ void tensor_test(const TensorOps<kLayout>& ops, const unsigned char* buf,
+                                            const unsigned char* zero_row, int ntiles, unsigned live,
                                             const float (&bt)[2][2], float (&lt)[2][2], int (&ls)[2][2],
                                             bool (&lh)[2][2]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
@@ -384,17 +614,12 @@ __device__ __forceinline__ void tensor_test(const unsigned (&a)[2][4], unsigned 
   }
   bool mt_live[2] = {(live & 0xffffu) != 0u, (live >> 16) != 0u};
   for (int j = 0; j < ntiles; ++j) {
-    unsigned bd0, bd1, bu0, bu1, bv0, bv1, bt0, bt1;
-    ldmatrix_x4_trans(addr_a + j * step, bd0, bd1, bu0, bu1);
-    ldmatrix_x4_trans(addr_b + j * step, bv0, bv1, bt0, bt1);
+    const auto b = ops.load(buf, zero_row, j);
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {
       if (!mt_live[mt]) continue;  // uniform over the warp
       float det[4], ua[4], vb[4], tcd[4];
-      mma_bf16(det, a[mt], bd0, bd1);
-      mma_bf16(ua, a[mt], bu0, bu1);
-      mma_bf16(vb, a[mt], bv0, bv1);
-      mma_bf16(tcd, a[mt], bt0, bt1);
+      ops.sums(mt, b, det, ua, vb, tcd);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {  // accumulator e: ray row g + 8 (e >> 1), slot 8 j + 2 q + (e & 1)
         const int h = e >> 1;
@@ -489,12 +714,13 @@ __host__ __device__ constexpr int staged_rows() {
 // Dynamic shared memory of one block, in fused2_kernel's carve-up order.
 // CUDA cores: bent [k] (padded to 4), the staged cluster [rows, c] f32, the
 // ray rows [8, b], reductions [64].  Tensor cores: a ring of two clusters
-// [2][10][tensor_row_bytes(c)], a 16-byte zero row, then bent, rays and
+// (tensor_buffer_bytes each: bf16 [10][tensor_row_bytes(c)] bytes, f32
+// [19][f32_row_words(c)] floats), a 16-byte zero row, then bent, rays and
 // reductions as above.
 template <int kMode, int kLayout, bool kAttrs, bool kTensor>
 size_t shared_bytes(int k, int c, int b) {
   const size_t tail = (static_cast<size_t>((k + 3) & ~3) + 8 * static_cast<size_t>(b) + 64) * sizeof(float);
-  if (kTensor) return 2 * static_cast<size_t>(kLiveRows) * tensor_row_bytes(c) + 16 + tail;
+  if (kTensor) return 2 * static_cast<size_t>(tensor_buffer_bytes<kLayout>(c)) + 16 + tail;
   return static_cast<size_t>(staged_rows<kMode, kLayout, kAttrs>()) * c * sizeof(float) + tail;
 }
 
@@ -504,8 +730,10 @@ __global__ void fused2_kernel(
     const void* __restrict__ planes, const float* __restrict__ attrs,
     float* __restrict__ out, int k, int c, int max_steps, int refresh, int fanout) {
   constexpr bool kMxu = kLayout != kComponent;
-  static_assert(!kTensor || (kLayout == kMxuBf16 && kAttrs == (kMode != kAnyHit)),
-                "the tensor-core test serves the bf16 closest, any-hit and mixed entries");
+  static_assert(!kTensor || (kMxu && kAttrs == (kMode != kAnyHit)),
+                "the tensor-core test serves the MXU closest, any-hit and mixed entries");
+  // the tensor-core operands of this layout (unused on CUDA cores)
+  constexpr int kOpsLayout = kLayout == kMxuF32 ? kMxuF32 : kMxuBf16;
   constexpr int kRows = staged_rows<kMode, kLayout, kAttrs>();
   extern __shared__ __align__(16) float smem[];
   const int b = blockDim.x;
@@ -513,7 +741,7 @@ __global__ void fused2_kernel(
   const int lane = tid & 31;
   // tensor path: the cluster ring and the zero row come first
   unsigned char* ring = reinterpret_cast<unsigned char*>(smem);
-  const int ring_bytes = kTensor ? kLiveRows * tensor_row_bytes(c) : 0;  // per buffer
+  const int ring_bytes = kTensor ? tensor_buffer_bytes<kLayout>(c) : 0;  // per buffer
   unsigned char* zero_row = ring + 2 * ring_bytes;
   float* bent = kTensor ? reinterpret_cast<float*>(zero_row + 16) : smem;  // [k], padded to a multiple of 4
   float* s_plane = bent + ((k + 3) & ~3);  // [kRows, c], 16-byte aligned (CUDA cores)
@@ -532,44 +760,15 @@ __global__ void fused2_kernel(
 
   // MXU ray features d, m = o x d, o, 1 (reference op order), bf16-rounded
   // for bf16 planes
-  float f[10] = {dx, dy, dz, oy * dz - oz * dy, oz * dx - ox * dz, ox * dy - oy * dx,
-                 ox, oy, oz, 1.0f};
+  float f[10];
+  ray_features(ox, oy, oz, dx, dy, dz, f);
   if (kLayout == kMxuBf16) {
 #pragma unroll
     for (int q = 0; q < 10; ++q) f[q] = round_bf16(f[q]);
   }
-  // tensor path: this lane's A fragments of the warp's two m-tiles (rays
-  // 16 mt + g and 16 mt + g + 8 at k = 2q, 2q + 1 and 2q + 8, 2q + 9; the
-  // features sit two per register in the rays' own lanes), its ldmatrix
-  // row addresses and their advance per n-tile
-  unsigned a_frag[2][4] = {};
-  unsigned addr_a = 0, addr_b = 0, step = 0;  // byte offsets from the ring buffer tested
-  if (kTensor) {
-    unsigned words[5];
-#pragma unroll
-    for (int p = 0; p < 5; ++p) words[p] = pack_bf16(f[2 * p], f[2 * p + 1]);
-    const int g = lane >> 2, q = lane & 3;
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-      for (int p = 0; p < 5; ++p) {
-        const unsigned lo = __shfl_sync(0xffffffffu, words[p], 16 * mt + g);
-        const unsigned hi = __shfl_sync(0xffffffffu, words[p], 16 * mt + g + 8);
-        if (p == q) { a_frag[mt][0] = lo; a_frag[mt][1] = hi; }
-        if (p == q + 4) { a_frag[mt][2] = lo; a_frag[mt][3] = hi; }
-      }
-    }
-    // ldmatrix.x4: lanes 8m .. 8m + 7 address matrix m = rows k = 8 (m & 1)
-    // + (lane & 7) of column group (m >> 1) (first load: det, u*det; second:
-    // v*det, t*det); rows k >= 10 read the zero row
-    const int kk = 8 * ((lane >> 3) & 1) + (lane & 7), grp_hi = lane >> 4;
-    const unsigned col = static_cast<unsigned>(grp_hi * tensor_cols(c) * 2);
-    if (kk < kLiveRows) {
-      addr_a = static_cast<unsigned>(kk * tensor_row_bytes(c)) + col;
-      addr_b = addr_a + static_cast<unsigned>(2 * tensor_cols(c) * 2);
-      step = 16;
-    }
-  }
+  // tensor path: this lane's A fragments and B addressing (TensorOps)
+  TensorOps<kOpsLayout> ops;
+  if constexpr (kTensor) ops.init(f, c);
 
   // ── scene gate: the AABB of all real boxes (pads sit at >= 1e30) ──
   float lo[3], hi[3];
@@ -620,7 +819,7 @@ __global__ void fused2_kernel(
     int i = 0;
     int buf = 0;  // tensor path: the ring buffer of the cluster tested next
     if (kTensor) {  // the first cluster's copy
-      if (!done) stage_bf16(ring, static_cast<const unsigned short*>(planes), grp[0], c);
+      if (!done) stage_cluster<kLayout>(ring, planes, grp[0], c);
       cp_async_commit();
     }
     while (!done && i < max_steps) {
@@ -646,7 +845,7 @@ __global__ void fused2_kernel(
           const int nx = w + 1 < fanout && grp[w + 1] < k ? grp[w + 1] : nxt[0];
           __syncthreads();  // every warp is done with the other buffer
           if (nx < k)
-            stage_bf16(ring + (buf ^ 1) * ring_bytes, static_cast<const unsigned short*>(planes), nx, c);
+            stage_cluster<kLayout>(ring + (buf ^ 1) * ring_bytes, planes, nx, c);
           cp_async_commit();
           cp_async_wait<1>();  // this thread's copies of cur have landed ...
           __syncthreads();     // ... and every thread's
@@ -659,10 +858,7 @@ __global__ void fused2_kernel(
             for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
               for (int h = 0; h < 2; ++h) bt[mt][h] = __shfl_sync(0xffffffffu, best_t, 16 * mt + 8 * h + (lane >> 2));
-            // a lane that reads a zero row (k >= 10) reads the ring's zero row at every n-tile
-            const unsigned base = step ? smem_addr(ring + buf * ring_bytes) : smem_addr(zero_row);
-            tensor_test<kMode>(a_frag, base + addr_a, base + addr_b, step, tensor_cols(c) / 8, live, bt, lt, ls,
-                               lh);
+            tensor_test<kMode>(ops, ring + buf * ring_bytes, zero_row, tensor_cols(c) / 8, live, bt, lt, ls, lh);
             // this ray's answer from the quad that holds its rows (lanes 4 g .. 4 g + 3)
             const int src = 4 * (lane & 7), my_mt = lane >> 4, my_h = (lane >> 3) & 1;
             float tc = kInf;
@@ -819,6 +1015,43 @@ __global__ void fused2_kernel(
   for (int col = 9; col < 16; ++col) o[col] = 0.0f;
 }
 
+// Diagnostic (no render path): the tensor-core feature sums of the f32
+// entries, det | u*det | v*det | t*det of every slot of cluster cids[w] for
+// the 32 rays of block w (one warp), by the same staging and products as
+// the traversal -> out [N, 4, C].
+__global__ void tf32_sums_kernel(const float* __restrict__ rays, const float* __restrict__ planes,
+                                 const int* __restrict__ cids, float* __restrict__ out, int c) {
+  extern __shared__ __align__(16) float smem[];
+  unsigned char* buf = reinterpret_cast<unsigned char*>(smem);
+  const int lane = threadIdx.x, g = lane >> 2, q = lane & 3;
+  const long long base = static_cast<long long>(blockIdx.x) * 32;
+  const float* r = rays + (base + lane) * 8;
+  float f[10];
+  ray_features(r[0], r[1], r[2], r[3], r[4], r[5], f);
+  TensorOps<kMxuF32> ops;
+  ops.init(f, c);
+  stage_f32(buf, planes, cids[blockIdx.x], c);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int j = 0; j < tensor_cols(c) / 8; ++j) {
+    const auto b = ops.load(buf, nullptr, j);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      float sums[4][4];
+      ops.sums(mt, b, sums[0], sums[1], sums[2], sums[3]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int slot = 8 * j + 2 * q + (e & 1);
+        if (slot >= c) continue;
+        float* o = out + (base + 16 * mt + g + 8 * (e >> 1)) * 4 * c + slot;
+#pragma unroll
+        for (int grp = 0; grp < 4; ++grp) o[grp * c] = sums[grp][e];
+      }
+    }
+  }
+}
+
 template <int kMode, int kLayout, bool kAttrs, bool kTensor>
 int launch(const float* rays, const float* boxes, const void* planes, const float* attrs,
            float* out, long long n, int k, int c, int block, int max_steps, int refresh,
@@ -861,6 +1094,20 @@ int resources(int k, int c, int block, int* out) {
 
 }  // namespace
 
+extern "C" int owlpt_fused2_mxu_tf32_sums(const float* rays, const float* planes, const int* cids, float* out,
+                                          long long n, int c, void* stream) {
+  if (n <= 0 || n % 32 || c <= 0 || n / 32 > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(tensor_buffer_bytes<kMxuF32>(c));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(tf32_sums_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  tf32_sums_kernel<<<static_cast<unsigned>(n / 32), 32, smem, static_cast<cudaStream_t>(stream)>>>(rays, planes,
+                                                                                                cids, out, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
 #define OWLPT_FUSED2_ENTRY(name, mode, layout, with_attrs, tensor)                            \
   extern "C" int name(const float* rays, const float* boxes, const void* planes,              \
                       const float* attrs, float* out, long long n, int k, int c, int block,    \
@@ -877,10 +1124,14 @@ OWLPT_FUSED2_ENTRY(owlpt_fused2_closest_hit, kClosest, kComponent, true, false)
 OWLPT_FUSED2_ENTRY(owlpt_fused2_occluded, kAnyHit, kComponent, false, false)
 OWLPT_FUSED2_ENTRY(owlpt_fused2_sweep_mixed, kMixed, kComponent, true, false)
 OWLPT_FUSED2_ENTRY(owlpt_fused2_closest_hit_noattr, kClosest, kComponent, false, false)
-// MXU layout, f32 planes: K1b in its three modes, K4
-OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_closest_hit, kClosest, kMxuF32, true, false)
-OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_occluded, kAnyHit, kMxuF32, false, false)
-OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_sweep_mixed, kMixed, kMxuF32, true, false)
+// MXU layout, f32 planes: K1b in its three modes on the tensor cores
+// (3xTF32), closest hit on CUDA cores in the plain version's arithmetic (the
+// in-call speed yardstick and bit-exact witness of the tensor form), and K4
+// on CUDA cores
+OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_closest_hit, kClosest, kMxuF32, true, true)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_occluded, kAnyHit, kMxuF32, false, true)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_sweep_mixed, kMixed, kMxuF32, true, true)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_exact_closest_hit, kClosest, kMxuF32, true, false)
 OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_closest_hit_noattr, kClosest, kMxuF32, false, false)
 // MXU layout, bf16 planes: K1b in its three modes on the tensor cores, and
 // closest hit on CUDA cores in the plain version's arithmetic (the in-call

@@ -2,9 +2,10 @@
 //
 // Replaces the Pallas kernel owl_path_tracer_tpu/ops/fused.py:_kernel
 // (launched by fused_traverse; the round-1 kernel behind make_accel("fused")).
-// rays [N,8] (o, d, tmax, 0), boxes [8,K] (cmin xyz, cmax xyz, 0, 0), planes
-// [K,16,C] (p0, e1, e2 components, tri id as float, 6 zero rows) -> out [N,8]
-// (t, u, v, tri, hit, resolved, steps, 0).
+// rays [N,8] (o, d, tmax, 0), boxes [8,K] (cmin xyz, cmax xyz, 0, 0), group
+// boxes [8,ceil(K/G)] (the same rows over each run of G consecutive
+// clusters), planes [K,16,C] (p0, e1, e2 components, tri id as float, 6
+// zero rows) -> out [N,8] (t, u, v, tri, hit, resolved, steps, 0).
 //
 // One CUDA block per `block` consecutive rays, one thread per ray, the same
 // grouping as the reference's grid.  Per iteration (at most max_steps):
@@ -40,7 +41,22 @@
 // below) is one cluster's ten plane rows, 32 reduction slots and K/8 bytes of
 // retired bits: 5.6 KB at C=128 and K=2,688, 6.6 KB at K=10,700.  So K has
 // no limit of its own, as in the reference, and registers, not shared
-// memory, set the blocks per SM (80 registers x 128 threads: 6 blocks).
+// memory, set the blocks per SM (78-96 registers x 128 threads: 5-6
+// blocks).
+//
+// The scans (Scan below; the default, ops/fused.py SCAN, is kWarpGroups).
+// Measured on the dragon7 / dragon8 centre bounce waves (PERF.md, K5)
+// with every ray scanning all K boxes itself (kSerial), a thread
+// slab-tested 2,804 / 11,359 boxes on average, and the set-up scan was half
+// the time of the average block; rescans are rare (0.04-0.06 per ray) but
+// each stalled its warp for a K-box scan and the block at the next barrier.
+// Group boxes (G = 32 clusters each) let a scan skip every member of a group
+// that the ray enters no nearer than its list's last entry, exactly (a
+// member never enters before its group): 162 / 438 boxes per ray.  A rescan
+// is shared by the warp, each lane taking every 32nd group, and kCand rounds
+// of a warp argmin merge the lanes' lists.  Both kinds build the same lists,
+// so every output column is the same for both; kSerial stays as the
+// yardstick that the default is timed against.
 //
 // Arithmetic.  Moller-Trumbore follows ops/intersect.py mt_components
 // operation for operation (1/det then multiply, sums left to right); built
@@ -50,12 +66,12 @@
 // Work.  The least an exact query does per ray is the slab test (28
 // operations) and Moller-Trumbore (about 45 fp32 operations per slot) of
 // each cluster whose box it enters before its closest hit; this kernel also
-// slab-tests every box at least once per ray.  Measured (PERF.md, PR 4), the
-// set-up and first box scan took about 1 ms per 65,536 rays with the boxes
-// in shared memory, and each retirement is a block-wide step (pick,
-// staging, 128 slots with an IEEE division each, three barriers).
-// Plane rows (10 x C floats, 5 KB at C=128) are read once per block and
-// retired cluster.  No tensor cores, no cp.async staging.
+// slab-tests every group box and the members of the groups it cannot skip.
+// With the group scans each retirement, a block-wide step (pick, staging,
+// 128 slots with an IEEE division each, three barriers), takes most of a
+// block's time (the profile entry owlpt_fused_traverse_profile splits it
+// with clock64).  Plane rows (10 x C floats, 5 KB at C=128) are read once
+// per block and retired cluster.  No tensor cores, no cp.async staging.
 
 #include <cuda_runtime.h>
 #include <cmath>
@@ -142,41 +158,155 @@ struct Nearest {
   bool full;  // the scan found kCand finite entries: there may be more
 };
 
+// How a list is (re)built.  Both kinds build the same list, the kCand
+// smallest (entry, id) pairs over the un-retired clusters (a scan in
+// ascending j keeps an equal entry's lower id first):
+//   kSerial      each thread scans all K boxes for its own ray, set-up scan
+//                and rescans alike;
+//   kWarpGroups  each thread's set-up scan tests the group boxes (the exact
+//                bounds of G consecutive clusters) and only the members of a
+//                group whose entry is below its list's last entry: a
+//                member's slab entry is never below its group's (the slab
+//                ops and their roundings are monotone in the bounds), so the
+//                skip is exact.  A rescan is done by the whole warp, one
+//                needing ray at a time: lane l takes groups l, l + 32, ...,
+//                skipping as above, keeps its own kCand smallest, and kCand
+//                rounds of a warp (entry, id) argmin merge them.
+enum Scan { kSerial = 0, kWarpGroups = 1 };
+
 // Retired bit of cluster j.
 __device__ __forceinline__ bool retired(const unsigned* s_dead, int j) {
   return (s_dead[j >> 5] >> (j & 31)) & 1u;
 }
 
-__device__ __forceinline__ void scan(const Ray& r, const float* __restrict__ boxes, const unsigned* s_dead, int k,
-                                     Nearest& nb) {
+__device__ __forceinline__ void clear(Nearest& nb, int k) {
 #pragma unroll
   for (int i = 0; i < kCand; ++i) { nb.e[i] = kInf; nb.id[i] = k; }
-  for (int j = 0; j < k; ++j) {
-    if (retired(s_dead, j)) continue;
-    float ce = entry(r, boxes, k, j);
-    if (!(ce < nb.e[kCand - 1])) continue;  // ascending j: an equal entry keeps the lower id first
-    int ci = j;
-    bool moving = false;  // once placed, every later slot moves down one
+}
+
+// Insert (ce, j) into the ascending list if it is below the last entry (j
+// ascends over the calls: an equal entry keeps the lower id first).
+__device__ __forceinline__ void insert(Nearest& nb, float ce, int j) {
+  if (!(ce < nb.e[kCand - 1])) return;
+  int ci = j;
+  bool moving = false;  // once placed, every later slot moves down one
 #pragma unroll
-    for (int i = 0; i < kCand; ++i) {
-      if (moving || ce < nb.e[i]) {
-        const float te = nb.e[i];
-        const int ti = nb.id[i];
-        nb.e[i] = ce; nb.id[i] = ci;
-        ce = te; ci = ti;
-        moving = true;
-      }
+  for (int i = 0; i < kCand; ++i) {
+    if (moving || ce < nb.e[i]) {
+      const float te = nb.e[i];
+      const int ti = nb.id[i];
+      nb.e[i] = ce; nb.id[i] = ci;
+      ce = te; ci = ti;
+      moving = true;
     }
   }
+}
+
+// Scan clusters [j0, j1) (un-retired ones) into nb; returns the boxes tested.
+__device__ __forceinline__ int scan_range(const Ray& r, const float* __restrict__ boxes, const unsigned* s_dead,
+                                          int k, int j0, int j1, Nearest& nb) {
+  int tests = 0;
+  for (int j = j0; j < j1; ++j) {
+    if (retired(s_dead, j)) continue;
+    insert(nb, entry(r, boxes, k, j), j);
+    ++tests;
+  }
+  return tests;
+}
+
+// Scan groups gi = g0, g0 + gstep, ... (G = gsize clusters each) into nb,
+// each group's members only where the group's entry is below nb's last
+// entry; returns the boxes tested (groups and members).
+__device__ __forceinline__ int scan_groups(const Ray& r, const float* __restrict__ boxes,
+                                           const float* __restrict__ groups, const unsigned* s_dead, int k,
+                                           int gsize, int g0, int gstep, Nearest& nb) {
+  const int kg = (k + gsize - 1) / gsize;
+  int tests = 0;
+  for (int gi = g0; gi < kg; gi += gstep) {
+    ++tests;
+    if (!(entry(r, groups, kg, gi) < nb.e[kCand - 1])) continue;  // no member enters before it
+    tests += scan_range(r, boxes, s_dead, k, gi * gsize, min(k, (gi + 1) * gsize), nb);
+  }
+  return tests;
+}
+
+__device__ __forceinline__ void finish(Nearest& nb) {
   nb.left = 0;
 #pragma unroll
   for (int i = 0; i < kCand; ++i) nb.left += nb.e[i] < kInf;
   nb.full = nb.left == kCand;
 }
 
-// The nearest cluster was retired: drop it and any retired ones after it.
-__device__ __forceinline__ void advance(const Ray& r, const float* __restrict__ boxes, const unsigned* s_dead,
-                                        int k, Nearest& nb) {
+// One thread's scan of its own ray -> nb; returns the boxes tested.
+template <bool kG>
+__device__ int scan(const Ray& r, const float* __restrict__ boxes, const float* __restrict__ groups,
+                    const unsigned* s_dead, int k, int gsize, Nearest& nb) {
+  clear(nb, k);
+  const int tests = kG ? scan_groups(r, boxes, groups, s_dead, k, gsize, 0, 1, nb)
+                       : scan_range(r, boxes, s_dead, k, 0, k, nb);
+  finish(nb);
+  return tests;
+}
+
+// (value, id) minimum over the warp; equal values keep the lower id.
+__device__ __forceinline__ void warp_argmin(float& v, int& i) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
+    if (ov < v || (ov == v && oi < i)) { v = ov; i = oi; }
+  }
+}
+
+// The warp rebuilds the list of every lane with `need`, one lane at a time
+// (every lane of the warp calls this), with the group skips; adds the boxes
+// tested to that lane's `tests`.
+__device__ void warp_rescan(const Ray& r, bool need, const float* __restrict__ boxes,
+                            const float* __restrict__ groups, const unsigned* s_dead, int k, int gsize, Nearest& nb,
+                            int& tests) {
+  const int lane = threadIdx.x & 31;
+  unsigned pending = __ballot_sync(0xffffffffu, need);
+  while (pending) {  // uniform over the warp
+    const int src = __ffs(pending) - 1;
+    pending &= pending - 1;
+    Ray q;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      q.o[a] = __shfl_sync(0xffffffffu, r.o[a], src);
+      q.inv[a] = __shfl_sync(0xffffffffu, r.inv[a], src);
+      q.oi[a] = __shfl_sync(0xffffffffu, r.oi[a], src);
+    }
+    q.tmax = __shfl_sync(0xffffffffu, r.tmax, src);
+    Nearest loc;
+    clear(loc, k);
+    const int mine = scan_groups(q, boxes, groups, s_dead, k, gsize, lane, 32, loc);
+    const int all = static_cast<int>(__reduce_add_sync(0xffffffffu, static_cast<unsigned>(mine)));
+    // kCand rounds: the warp's smallest (entry, id) head; its lane pops it
+    // (ids are distinct over the lanes; empty heads are (inf, k) everywhere)
+#pragma unroll
+    for (int w = 0; w < kCand; ++w) {
+      float v = loc.e[0];
+      int id = loc.id[0];
+      warp_argmin(v, id);
+      if (v < kInf && loc.id[0] == id) {
+#pragma unroll
+        for (int i = 0; i + 1 < kCand; ++i) { loc.e[i] = loc.e[i + 1]; loc.id[i] = loc.id[i + 1]; }
+        loc.e[kCand - 1] = kInf;
+        loc.id[kCand - 1] = k;
+      }
+      if (lane == src) { nb.e[w] = v; nb.id[w] = v < kInf ? id : k; }
+    }
+    if (lane == src) {
+      finish(nb);
+      tests += all;
+    }
+  }
+}
+
+// The nearest cluster was retired: drop it and any retired ones after it;
+// returns whether the list is used up while the boxes may hold more (a
+// rescan is needed).
+__device__ __forceinline__ bool pop(const unsigned* s_dead, int k, Nearest& nb) {
   do {
 #pragma unroll
     for (int i = 0; i + 1 < kCand; ++i) { nb.e[i] = nb.e[i + 1]; nb.id[i] = nb.id[i + 1]; }
@@ -184,7 +314,7 @@ __device__ __forceinline__ void advance(const Ray& r, const float* __restrict__ 
     nb.id[kCand - 1] = k;
     --nb.left;
   } while (nb.left > 0 && retired(s_dead, nb.id[0]));
-  if (nb.left == 0 && nb.full) scan(r, boxes, s_dead, k, nb);
+  return nb.left == 0 && nb.full;
 }
 
 // Block-wide integer minimum; every thread gets it.  red holds one slot per
@@ -207,9 +337,19 @@ size_t shared_bytes(int k, int c) {
   return 4 * (static_cast<size_t>(kMtRows) * c + 32 + (static_cast<size_t>(k) + 31) / 32);
 }
 
+// Profile columns per block (kProfile): cycles of the set-up scan, of pick
+// and staging, of the slot loop with the retirement, and of the list
+// updates with their rescans (each phase up to the barrier after it, so a
+// phase's time is its slowest thread's), the block's total cycles and its
+// retirement steps.
+constexpr int kProfileCols = 6;
+
+template <int kScan, bool kProfile>
 __global__ void fused_kernel(const float* __restrict__ rays, const float* __restrict__ boxes,
-                             const float* __restrict__ planes, float* __restrict__ out, int k, int c,
-                             int max_steps) {
+                             const float* __restrict__ groups, const float* __restrict__ planes,
+                             float* __restrict__ out, int k, int c, int gsize, int max_steps,
+                             long long* __restrict__ profile, int* __restrict__ counts) {
+  constexpr bool kG = kScan == kWarpGroups;
   extern __shared__ float smem[];
   const int b = blockDim.x;
   const int tid = threadIdx.x;
@@ -217,6 +357,8 @@ __global__ void fused_kernel(const float* __restrict__ rays, const float* __rest
   int* red = reinterpret_cast<int*>(s_plane + kMtRows * c);  // [32]
   unsigned* s_dead = reinterpret_cast<unsigned*>(red + 32);  // [(k + 31) / 32] retired bits
 
+  const long long t_start = kProfile ? clock64() : 0;
+  long long t_phase[4] = {0, 0, 0, 0};  // set-up scan, pick and stage, slot loop, list updates
   for (int q = tid; q < (k + 31) / 32; q += b) s_dead[q] = 0u;
 
   const long long row = static_cast<long long>(blockIdx.x) * b + tid;
@@ -234,9 +376,15 @@ __global__ void fused_kernel(const float* __restrict__ rays, const float* __rest
 
   float best_t = r.tmax, best_u = 0.0f, best_v = 0.0f, best_tri = -1.0f;
   bool hit = false;
-  int steps = 0;
+  int steps = 0, rescans = 0;
   Nearest nb;  // nb.e[0], nb.id[0]: the nearest entry (inf, k when none is left)
-  scan(r, boxes, s_dead, k, nb);
+  int tests = scan<kG>(r, boxes, groups, s_dead, k, gsize, nb);
+  long long t_mark = 0;
+  if (kProfile) {
+    __syncthreads();
+    t_mark = clock64();
+    t_phase[0] = t_mark - t_start;
+  }
 
   for (int i = 0; i < max_steps; ++i) {
     const int cstar = block_min(nb.e[0] < best_t ? nb.id[0] : k, red);
@@ -244,6 +392,11 @@ __global__ void fused_kernel(const float* __restrict__ rays, const float* __rest
     const float* src = planes + static_cast<long long>(cstar) * kPlaneRows * c;
     for (int q = tid; q < kMtRows * c; q += b) s_plane[q] = src[q];
     __syncthreads();
+    if (kProfile) {
+      const long long t = clock64();
+      t_phase[1] += t - t_mark;
+      t_mark = t;
+    }
 
     if (entry(r, boxes, k, cstar) < best_t) {
       float tc = kInf, tu = 0.0f, tv = 0.0f, ttri = 0.0f;
@@ -266,10 +419,28 @@ __global__ void fused_kernel(const float* __restrict__ rays, const float* __rest
     __syncthreads();  // s_plane is restaged next iteration
     if (tid == 0) s_dead[cstar >> 5] |= 1u << (cstar & 31);  // retire for the whole block
     __syncthreads();
+    if (kProfile) {
+      const long long t = clock64();
+      t_phase[2] += t - t_mark;
+      t_mark = t;
+    }
     // only a still-active ray needs its next nearest entry: entries only
     // grow and best t only shrinks, so an inactive ray stays inactive (and
     // resolved) with its stale nearest entry
-    if (nb.id[0] == cstar && nb.e[0] < best_t) advance(r, boxes, s_dead, k, nb);
+    bool need = false;
+    if (nb.id[0] == cstar && nb.e[0] < best_t) need = pop(s_dead, k, nb);
+    rescans += need;
+    if constexpr (kG) {
+      warp_rescan(r, need, boxes, groups, s_dead, k, gsize, nb, tests);
+    } else if (need) {
+      tests += scan<kG>(r, boxes, groups, s_dead, k, gsize, nb);
+    }
+    if (kProfile) {
+      __syncthreads();
+      const long long t = clock64();
+      t_phase[3] += t - t_mark;
+      t_mark = t;
+    }
   }
 
   float* o = out + row * kCols;
@@ -281,41 +452,90 @@ __global__ void fused_kernel(const float* __restrict__ rays, const float* __rest
   o[5] = nb.e[0] < best_t ? 0.0f : 1.0f;  // a nearer candidate is left: unresolved
   o[6] = static_cast<float>(steps);
   o[7] = 0.0f;
+  if (kProfile) {
+    counts[2 * row] = rescans;
+    counts[2 * row + 1] = tests;
+    __syncthreads();
+    if (tid == 0) {
+      long long* p = profile + static_cast<long long>(blockIdx.x) * kProfileCols;
+#pragma unroll
+      for (int x = 0; x < 4; ++x) p[x] = t_phase[x];
+      p[4] = clock64() - t_start;
+      p[5] = steps;
+    }
+  }
+}
+
+template <int kScan, bool kProfile>
+void* kernel_of() {
+  return reinterpret_cast<void*>(fused_kernel<kScan, kProfile>);
+}
+
+// The instantiation of scan kind `scan` (nullptr if none).
+template <bool kProfile>
+void* kernel_for(int scan) {
+  switch (scan) {
+    case kSerial: return kernel_of<kSerial, kProfile>();
+    case kWarpGroups: return kernel_of<kWarpGroups, kProfile>();
+    default: return nullptr;
+  }
+}
+
+int launch(bool profile_on, const float* rays, const float* boxes, const float* groups, const float* planes,
+           float* out, long long n, int k, int c, int gsize, int block, int max_steps, int scan,
+           long long* profile, int* counts, void* stream) {
+  if (n <= 0 || block < 32 || block > 1024 || (block & 31) || n % block || k <= 0 || c <= 0 || gsize <= 0 ||
+      max_steps < 0 || n / block > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  void* kernel = profile_on ? kernel_for<true>(scan) : kernel_for<false>(scan);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = shared_bytes(k, c);
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const unsigned grid = static_cast<unsigned>(n / block);
+  void* args[] = {&rays, &boxes, &groups, &planes, &out, &k, &c, &gsize, &max_steps, &profile, &counts};
+  const cudaError_t e = cudaLaunchKernel(kernel, dim3(grid), dim3(block), args, smem,
+                                         static_cast<cudaStream_t>(stream));
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // namespace
 
 // Registers per thread, dynamic shared bytes per block and resident blocks
-// per SM at (k, c, block) on the current device -> out[0..2]; returns the
-// CUDA error.
-extern "C" int owlpt_fused_traverse_resources(int k, int c, int block, int* out) {
+// per SM of scan kind `scan` at (k, c, block) on the current device ->
+// out[0..2]; returns the CUDA error.
+extern "C" int owlpt_fused_traverse_resources(int k, int c, int block, int scan, int* out) {
   const size_t smem = shared_bytes(k, c);
+  const void* kernel = kernel_for<false>(scan);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncSetAttribute(fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, fused_kernel);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
   int blocks = 0;
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fused_kernel, block, smem);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, block, smem);
   out[0] = e == cudaSuccess ? attr.numRegs : -1;
   out[1] = static_cast<int>(smem);
   out[2] = blocks;
   return static_cast<int>(e);
 }
 
-extern "C" int owlpt_fused_traverse(const float* rays, const float* boxes, const float* planes,
-                                    float* out, long long n, int k, int c, int block, int max_steps,
-                                    void* stream) {
-  if (n <= 0 || block < 32 || block > 1024 || (block & 31) || n % block || k <= 0 || c <= 0 ||
-      max_steps < 0 || n / block > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = shared_bytes(k, c);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const unsigned grid = static_cast<unsigned>(n / block);
-  fused_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(rays, boxes, planes, out, k, c,
-                                                                          max_steps);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int owlpt_fused_traverse(const float* rays, const float* boxes, const float* groups,
+                                    const float* planes, float* out, long long n, int k, int c, int gsize,
+                                    int block, int max_steps, int scan, void* stream) {
+  return launch(false, rays, boxes, groups, planes, out, n, k, c, gsize, block, max_steps, scan, nullptr, nullptr,
+                stream);
+}
+
+// Diagnostic (no render path): the same traversal with clock64 phase times
+// per block -> profile [N / block, kProfileCols] (int64), and per ray its
+// rescans and boxes slab-tested -> counts [N, 2] (int32).
+extern "C" int owlpt_fused_traverse_profile(const float* rays, const float* boxes, const float* groups,
+                                            const float* planes, float* out, long long n, int k, int c,
+                                            int gsize, int block, int max_steps, int scan, long long* profile,
+                                            int* counts, void* stream) {
+  return launch(true, rays, boxes, groups, planes, out, n, k, c, gsize, block, max_steps, scan, profile, counts,
+                stream);
 }

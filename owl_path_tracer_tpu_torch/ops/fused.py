@@ -14,6 +14,16 @@ strictly nearer.  A block that is still active after ``max_steps``
 retirements leaves the rays that still have a nearer entry unresolved, and
 :func:`fused_closest_hit` answers those with the exact cluster query.
 
+In the kernel each thread keeps its ray's KCAND nearest un-retired entries
+and scans the boxes again when they are used up.  Its default scan skips
+every member of a group of GROUP_SIZE consecutive clusters whose group box
+(:func:`group_boxes`, the exact bounds of its members) the ray enters no
+nearer than its list's last entry, and a rescan is shared by the whole warp;
+``scan="serial"`` (SCANS), every thread scanning all K boxes itself, is kept
+as the yardstick it is timed against.  Both build the same lists, so the
+outputs do not depend on the scan (:func:`nearest_lists` is the plain
+version of a scan).
+
 :func:`fused_traverse` launches the CUDA kernel (``csrc/fused_traverse.cu``)
 for CUDA tensors and raises if it cannot; for CPU tensors it takes
 :func:`fused_traverse_plain`, the same block algorithm in PyTorch, all blocks
@@ -26,11 +36,11 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import pathlib
+import types
 
 import torch
 
-from ..native import bind_resources, build_cuda_library
-from ..native import kernel_resources as _kernel_resources
+from ..native import build_cuda_library
 from ..utils.tensors import TensorBundle
 from . import math as m
 from .cluster import ClusterBVH, _cluster_entries, cluster_closest_hit
@@ -40,9 +50,21 @@ from .intersect import HitRecord, mt_components
 BLOCK_RAYS = 128
 MAX_STEPS = 192
 OUT_COLS = 8
+# entries a kernel thread lists per scan, and clusters per group box
+KCAND = 8
+GROUP_SIZE = 32
+# the kernel's list scans (csrc/fused_traverse.cu Scan): both give the same
+# outputs; "serial" is the form before group boxes and warp rescans
+SCANS = {"serial": 0, "warp_groups": 1}
+SCAN = "warp_groups"
+# profile columns per block (fused_traverse_profile): clock64 cycles of the
+# set-up scan, pick and staging, the slot loop, the list updates and
+# rescans, the whole block, and its retirement steps
+PROFILE_COLS = ("setup", "pick_stage", "slot_loop", "rescans", "total", "steps")
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "fused_traverse.cu"
 ENTRY = "owlpt_fused_traverse"
+PROFILE_ENTRY = "owlpt_fused_traverse_profile"
 
 # launches of the CUDA kernel (one per call that ran it)
 LAUNCHES = {ENTRY: 0}
@@ -64,6 +86,13 @@ class FusedBVH(TensorBundle):
     boxes: torch.Tensor  # [8,K] rows cmin xyz, cmax xyz, 0, 0
     planes: torch.Tensor  # [K,16,C] rows p0(3) e1(3) e2(3) tid(1) zero(6)
     cluster: ClusterBVH  # the exact query for unresolved rays
+    # [8,ceil(K/GROUP_SIZE)] group boxes in the boxes' layout (group_boxes);
+    # made from boxes when not given
+    groups: torch.Tensor | None = None
+
+    def __post_init__(self):
+        if self.groups is None:
+            self.groups = group_boxes(self.boxes)
 
     @property
     def num_clusters(self) -> int:
@@ -72,6 +101,19 @@ class FusedBVH(TensorBundle):
     @property
     def cluster_size(self) -> int:
         return self.planes.shape[2]
+
+
+def group_boxes(boxes, size: int = GROUP_SIZE):
+    """[8,K] boxes -> [8,ceil(K/size)]: per run of ``size`` consecutive
+    clusters the minimum of their cmin and the maximum of their cmax (the
+    last group takes the clusters that are left), so each group box contains
+    its members' boxes."""
+    k = boxes.shape[1]
+    kg = (k + size - 1) // size
+    pad = kg * size - k
+    lo = torch.nn.functional.pad(boxes[0:3], (0, pad), value=torch.inf).view(3, kg, size).amin(-1)
+    hi = torch.nn.functional.pad(boxes[3:6], (0, pad), value=-torch.inf).view(3, kg, size).amax(-1)
+    return torch.cat([lo, hi, boxes.new_zeros((2, kg))]).contiguous()
 
 
 def build_fused(cb: ClusterBVH) -> FusedBVH:
@@ -152,62 +194,141 @@ def fused_traverse_plain(ray_o, ray_d, t_max, fb: FusedBVH, block: int = BLOCK_R
     return out.view(n, OUT_COLS)
 
 
+def _boxes_as_clusters(boxes) -> types.SimpleNamespace:
+    """[8,K'] boxes in the shape ``cluster._cluster_entries`` reads."""
+    return types.SimpleNamespace(cmin=boxes[0:3].T, cmax=boxes[3:6].T, num_clusters=boxes.shape[1])
+
+
+def nearest_lists(ray_o, ray_d, t_max, fb: FusedBVH, retired=None, groups: bool = True):
+    """Plain version of the kernel's list scan: per ray the KCAND smallest
+    (entry, id) pairs over the clusters not ``retired`` ([K] bool), and how
+    many boxes a thread's scan slab-tests -> (entries [N,KCAND] (inf where
+    none), ids [N,KCAND] (K where none), boxes tested [N]).
+
+    ``groups`` scans as the kernel's default set-up scan: group by group in
+    ascending id, a group's box first, its un-retired members only where the
+    group's entry is below the list's last entry; else every un-retired box
+    (the serial scan).  The lists are the same either way."""
+    n, k = ray_o.shape[0], fb.num_clusters
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=ray_o.device).expand(n)
+    live = torch.ones(k, dtype=torch.bool, device=ray_o.device) if retired is None else ~retired
+    ent = torch.where(live, _cluster_entries(ray_o, ray_d, fb.cluster, m.T_MIN, t_max), torch.inf)
+    ids = torch.arange(k, device=ray_o.device).expand(n, k)
+    if not groups:
+        e, order = torch.sort(ent, dim=1, stable=True)
+        e, i = e[:, :KCAND], order[:, :KCAND]
+        return e, torch.where(torch.isinf(e), k, i), live.sum().expand(n).clone()
+    gent = _cluster_entries(ray_o, ray_d, _boxes_as_clusters(fb.groups), m.T_MIN, t_max)
+    size = GROUP_SIZE
+    e = torch.full((n, KCAND), torch.inf, device=ray_o.device)
+    i = torch.full((n, KCAND), k, dtype=torch.int64, device=ray_o.device)
+    tests = torch.zeros(n, dtype=torch.int64, device=ray_o.device)
+    for gi in range(fb.groups.shape[1]):
+        j0, j1 = gi * size, min(k, (gi + 1) * size)
+        take = gent[:, gi] < e[:, -1]
+        tests += 1 + take * int(live[j0:j1].sum())
+        # list ids all come from earlier groups: the concatenation ascends
+        # by id, so a stable sort orders it by (entry, id)
+        cand_e = torch.cat([e, torch.where(take[:, None], ent[:, j0:j1], torch.inf)], 1)
+        cand_i = torch.cat([i, ids[:, j0:j1]], 1)
+        se, order = torch.sort(cand_e, dim=1, stable=True)
+        e = se[:, :KCAND]
+        i = torch.where(torch.isinf(e), k, torch.gather(cand_i, 1, order[:, :KCAND]))
+    return e, i, tests
+
+
 def build_kernels() -> tuple:
     """Build (if needed) and load the kernel library -> (path, seconds, log)."""
     global _cuda_lib
     path, seconds, log = build_cuda_library("owlpt_fused", [CSRC])
     if _cuda_lib is None:
         lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, ENTRY)
+        head = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 6
+        for name, tail in ((ENTRY, []), (PROFILE_ENTRY, [ctypes.c_void_p] * 2)):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = head + tail + [ctypes.c_void_p]
+        fn = getattr(lib, f"{ENTRY}_resources")
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        bind_resources(lib, ENTRY)
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
         _cuda_lib = lib
     return path, seconds, log
 
 
-def kernel_resources(fb: FusedBVH, block: int = BLOCK_RAYS) -> dict:
-    """Registers, shared bytes and blocks per SM (``native.kernel_resources``)
-    of the kernel at ``fb``'s K and C, on the current CUDA device."""
+def kernel_resources(fb: FusedBVH, block: int = BLOCK_RAYS, scan: str = SCAN) -> dict:
+    """Registers, shared bytes and blocks per SM of the kernel's ``scan``
+    kind at ``fb``'s K and C, on the current CUDA device."""
     if _cuda_lib is None:
         build_kernels()
-    return _kernel_resources(_cuda_lib, ENTRY, fb.num_clusters, fb.cluster_size, block)
+    out = (ctypes.c_int * 3)()
+    err = getattr(_cuda_lib, f"{ENTRY}_resources")(fb.num_clusters, fb.cluster_size, block, SCANS[scan], out)
+    if err != 0:
+        raise RuntimeError(f"kernel {ENTRY} ({scan}): resource query failed: CUDA error {err}")
+    return {"entry": ENTRY, "scan": scan, "registers": out[0], "shared_bytes": out[1], "blocks_per_sm": out[2]}
 
 
-def _fused_traverse_cuda(rays, fb: FusedBVH, block: int, max_steps: int):
-    """Launch the kernel on the current stream -> [N,8] (no sync)."""
+def _fused_traverse_cuda(rays, fb: FusedBVH, block: int, max_steps: int, scan: str = SCAN, profile: bool = False):
+    """Launch the kernel (``profile``: its diagnostic entry, which also
+    returns the per-block profile and per-ray counts) on the current stream
+    -> [N,8] (no sync)."""
     if rays.device.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError(f"the fused kernel needs CUDA tensors on a CUDA device; got {rays.device}")
+    if scan not in SCANS:
+        raise ValueError(f"unknown scan kind {scan!r}; expected one of {tuple(SCANS)}")
     n = rays.shape[0]
     k, c = fb.num_clusters, fb.cluster_size
     if block % 32 or not 32 <= block <= 1024 or n % block:
         raise ValueError(f"block {block} must be a multiple of 32 in [32, 1024] dividing N={n}")
     _check_operand("rays", rays, (n, OUT_COLS), rays.device)
     _check_operand("boxes", fb.boxes, (8, k), rays.device)
+    _check_operand("groups", fb.groups, (8, -(-k // GROUP_SIZE)), rays.device)
     _check_operand("planes", fb.planes, (k, 16, c), rays.device)
     out = torch.empty((n, OUT_COLS), dtype=torch.float32, device=rays.device)
+    stats = (torch.empty((n // block, len(PROFILE_COLS)), dtype=torch.int64, device=rays.device),
+             torch.empty((n, 2), dtype=torch.int32, device=rays.device)) if profile else ()
     if n == 0:
-        return out
+        return (out, *stats) if profile else out
     if _cuda_lib is None:
         build_kernels()
     with torch.cuda.device(rays.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(_cuda_lib, ENTRY)(rays.data_ptr(), fb.boxes.data_ptr(), fb.planes.data_ptr(),
-                                         out.data_ptr(), n, k, c, block, max_steps, stream)
+        args = (rays.data_ptr(), fb.boxes.data_ptr(), fb.groups.data_ptr(), fb.planes.data_ptr(), out.data_ptr(),
+                n, k, c, GROUP_SIZE, block, max_steps, SCANS[scan])
+        if profile:
+            err = getattr(_cuda_lib, PROFILE_ENTRY)(*args, stats[0].data_ptr(), stats[1].data_ptr(), stream)
+        else:
+            err = getattr(_cuda_lib, ENTRY)(*args, stream)
     if err != 0:
-        raise RuntimeError(f"fused kernel {ENTRY} launch failed: CUDA error {err}")
+        raise RuntimeError(f"fused kernel {PROFILE_ENTRY if profile else ENTRY} launch failed: CUDA error {err}")
+    if profile:
+        return (out, *stats)
     LAUNCHES[ENTRY] += 1
     return out
 
 
 def fused_traverse(ray_o, ray_d, t_max, fb: FusedBVH, block: int = BLOCK_RAYS,
-                   max_steps: int = MAX_STEPS):
+                   max_steps: int = MAX_STEPS, scan: str = SCAN):
     """Raw sweep: [N] rays (``t_max`` scalar or [N]) -> [N,8] (t, u, v, tri,
-    hit, resolved, steps, 0): the kernel for CUDA tensors, the plain version
-    for CPU tensors.  N must be a multiple of ``block``."""
+    hit, resolved, steps, 0): the kernel (its list scan ``scan``, SCANS) for
+    CUDA tensors, the plain version for CPU tensors.  N must be a multiple
+    of ``block``."""
     if ray_o.device.type == "cpu":
+        if scan not in SCANS:
+            raise ValueError(f"unknown scan kind {scan!r}; expected one of {tuple(SCANS)}")
         return fused_traverse_plain(ray_o, ray_d, t_max, fb, block, max_steps)
-    return _fused_traverse_cuda(pack_rays(ray_o, ray_d, t_max), fb, block, max_steps)
+    return _fused_traverse_cuda(pack_rays(ray_o, ray_d, t_max), fb, block, max_steps, scan)
+
+
+def fused_traverse_profile(ray_o, ray_d, t_max, fb: FusedBVH, block: int = BLOCK_RAYS,
+                           max_steps: int = MAX_STEPS, scan: str = SCAN):
+    """The kernel's diagnostic entry (CUDA tensors only, no render path):
+    the sweep with clock64 phase times -> (out [N,8] as fused_traverse,
+    profile [N/block, PROFILE_COLS] int64 cycles and steps per block, counts
+    [N,2] int32: each ray's rescans and boxes slab-tested).  Not counted in
+    LAUNCHES."""
+    if ray_o.device.type != "cuda":
+        raise RuntimeError(f"the fused kernel's profile needs CUDA tensors; got {ray_o.device}")
+    return _fused_traverse_cuda(pack_rays(ray_o, ray_d, t_max), fb, block, max_steps, scan, profile=True)
 
 
 def fused_closest_hit(ray_o, ray_d, fb: FusedBVH, t_min: float = m.T_MIN, t_max=m.T_MAX,

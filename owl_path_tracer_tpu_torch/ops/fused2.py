@@ -20,12 +20,15 @@ with one entry per (layout, mode): ``closest`` (closest hit + attributes;
 K1, K1b), ``closest`` with ``with_attrs=False`` (loop t/u/v and the in-plane
 tri id, no attributes; K4), ``any_hit`` (occlusion; K2, K1b) and ``mixed``
 (closest hit for lanes whose ray column 7 is 0, occlusion for the shadow
-lanes whose column 7 is 1; K3, K1b).  On bf16 planes the three modes take
-the feature products on the tensor cores, whose sums may differ from the
-plain version's by a few ulps of the summed magnitudes
-(:func:`mxu_slot_sums` gives both); ``exact=True`` runs closest hit on CUDA
-cores in the plain version's arithmetic instead (the in-call yardstick of
-the tensor form, off every render path).  :func:`fused2_traverse_packed` launches
+lanes whose column 7 is 1; K3, K1b).  On the MXU layout the three modes take
+the feature products on the tensor cores (bf16 planes: bf16 products; f32
+planes: 3xTF32, each operand split into two TF32 terms), whose sums may
+differ from the plain version's by a few ulps of the summed magnitudes
+(:func:`mxu_slot_sums` gives the plain sums and their magnitudes,
+:func:`mxu_tensor_sums` the f32 tensor-core ones on the card);
+``exact=True`` runs closest hit on CUDA cores in the plain version's
+arithmetic instead (the in-call yardstick of the tensor form, off every
+render path).  :func:`fused2_traverse_packed` launches
 it for CUDA tensors and raises if it cannot; for CPU tensors it takes the
 plain version, :func:`fused2_traverse_packed_plain` (an exact per-ray walk
 over the clusters in entry order, same [N,32] output contract).  Rays a
@@ -103,12 +106,17 @@ _ENTRY = {
     ("mxu_f32", "any_hit", False): "owlpt_fused2_mxu_occluded",
     ("mxu_f32", "mixed", True): "owlpt_fused2_mxu_sweep_mixed",
     ("mxu_f32", "closest", False): "owlpt_fused2_mxu_closest_hit_noattr",
+    # f32 closest hit on CUDA cores, bit-exact to the plain version (exact=True)
+    ("mxu_f32_exact", "closest", True): "owlpt_fused2_mxu_exact_closest_hit",
     ("mxu_bf16", "closest", True): "owlpt_fused2_mxu_bf16_closest_hit",
     ("mxu_bf16", "any_hit", False): "owlpt_fused2_mxu_bf16_occluded",
     ("mxu_bf16", "mixed", True): "owlpt_fused2_mxu_bf16_sweep_mixed",
     # bf16 closest hit on CUDA cores, bit-exact to the plain version (exact=True)
     ("mxu_bf16_exact", "closest", True): "owlpt_fused2_mxu_bf16_exact_closest_hit",
 }
+
+# diagnostic entry (no render path): the f32 tensor-core feature sums
+SUMS_ENTRY = "owlpt_fused2_mxu_tf32_sums"
 
 # launches of the CUDA kernel, by entry point (one per call that ran it)
 LAUNCHES = dict.fromkeys(_ENTRY.values(), 0)
@@ -454,14 +462,14 @@ def _check_mode(mode: str, fb: Fused2BVH, with_attrs: bool = True):
 
 def _entry(fb: Fused2BVH, mode: str, with_attrs: bool, exact: bool = False) -> str:
     """Kernel entry point of a layout and mode (any-hit reads no attributes,
-    mixed always does); ``exact`` picks the CUDA-core form of bf16 closest
+    mixed always does); ``exact`` picks the CUDA-core form of MXU closest
     hit."""
     attrs = mode == "mixed" or (mode == "closest" and with_attrs)
     if exact:
-        if (fb.layout, mode, attrs) != ("mxu_bf16", "closest", True):
-            raise ValueError("exact=True is the CUDA-core form of closest hit with attributes on bf16 planes; "
+        if not fb.mxu or (mode, attrs) != ("closest", True):
+            raise ValueError("exact=True is the CUDA-core form of closest hit with attributes on MXU planes; "
                              f"got layout {fb.layout}, mode {mode!r}, with_attrs={with_attrs}")
-        return _ENTRY[("mxu_bf16_exact", mode, attrs)]
+        return _ENTRY[(f"{fb.layout}_exact", mode, attrs)]
     return _ENTRY[(fb.layout, mode, attrs)]
 
 
@@ -651,6 +659,9 @@ def build_kernels() -> tuple:
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
             bind_resources(lib, name)
+        fn = getattr(lib, SUMS_ENTRY)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
         _cuda_lib = lib
     return path, seconds, log
 
@@ -712,6 +723,31 @@ def _fused2_traverse_cuda(rays, fb: Fused2BVH, block: int, max_steps: int, mode:
     return out
 
 
+def mxu_tensor_sums(rays, fb: Fused2BVH, cids):
+    """The f32 tensor-core feature sums on the card (a diagnostic entry, off
+    every render path): for the 32 packed rays of each warp w ([N,8], N a
+    multiple of 32) and cluster ``cids[w]`` ([N/32] int), det | u*det | v*det
+    | t*det of every slot -> [N,4,C], by the staging and products of the f32
+    tensor-core traversal (compare :func:`mxu_slot_sums`)."""
+    if rays.device.type != "cuda" or fb.layout != "mxu_f32":
+        raise ValueError(f"mxu_tensor_sums needs f32 MXU planes and CUDA rays; got {fb.layout} on {rays.device}")
+    n, c = rays.shape[0], fb.cluster_size
+    if n % 32 or tuple(cids.shape) != (n // 32,):
+        raise ValueError(f"{n} rays are not whole warps of 32, or cids has shape {tuple(cids.shape)}")
+    _check_operand("rays", rays, (n, 8), rays.device)
+    _check_operand("planes", fb.planes, (fb.num_clusters, 16, 4 * c), rays.device)
+    cids = cids.to(device=rays.device, dtype=torch.int32).contiguous()
+    out = torch.empty((n, 4, c), dtype=torch.float32, device=rays.device)
+    if _cuda_lib is None:
+        build_kernels()
+    with torch.cuda.device(rays.device):
+        err = getattr(_cuda_lib, SUMS_ENTRY)(rays.data_ptr(), fb.planes.data_ptr(), cids.data_ptr(), out.data_ptr(),
+                                             n, c, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{SUMS_ENTRY} launch failed: CUDA error {err}")
+    return out
+
+
 def fused2_traverse_packed(rays, fb: Fused2BVH, block: int = BLOCK_RAYS, max_steps: int = MAX_STEPS,
                            mode: str = "closest", fanout: int = FANOUT, with_attrs: bool = True,
                            exact: bool = False):
@@ -719,9 +755,9 @@ def fused2_traverse_packed(rays, fb: Fused2BVH, block: int = BLOCK_RAYS, max_ste
     the plain version for CPU tensors.  N must be a multiple of ``block``.
     ``fanout`` (clusters retired per loop iteration, MXU layout only) does
     not change the answers; ``with_attrs=False`` is closest hit without
-    attributes (K4); ``exact=True`` (bf16 planes, closest hit with
-    attributes) launches the CUDA-core form of the bf16 kernel instead of
-    the tensor-core one."""
+    attributes (K4); ``exact=True`` (MXU planes, closest hit with
+    attributes) launches the CUDA-core form of the kernel instead of the
+    tensor-core one."""
     if rays.device.type == "cpu":
         if exact:
             _entry(fb, mode, with_attrs, exact)  # the same argument check as on the card

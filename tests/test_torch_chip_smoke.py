@@ -160,3 +160,56 @@ def test_flip_onto_a_failing_window_fails(soup):
     got[i, 3:9] = out[j, 3:9]
     with pytest.raises(chip_smoke.SmokeFailure, match="beyond the near-tie rule"):
         chip_smoke.compare_near_tie(got, out, rays, planted, "planted flip", tensor=True)
+
+
+# ── any-hit flags under the sums' rounding kind (compare_flags with rays) ──
+
+
+def test_flag_flip_within_rounding_bound_passes(soup):
+    """A ray whose only hit slot's u margin is an exact cancellation (within
+    any rounding bound): its flag flipped, as a tensor-core any-hit kernel
+    may report it, is explained; the rule without the rays fails it, and
+    so does the rule with the rays when the share it allows off the park
+    point is 0."""
+    fb, rays, want = soup
+    i, planted, _ = _planted_u_margin(fb, rays, want, extra=False)
+    want_a = fused2.fused2_traverse_packed_plain(rays, planted, "any_hit")
+    got = want_a.clone()
+    got[i, 4] = 1.0 - got[i, 4]
+    assert bool(chip_smoke.flag_rounding(rays[i : i + 1], planted)[0])
+    share = 1.0 - 1.0 / rays.shape[0]
+    assert chip_smoke.compare_flags(got, want_a, "planted flag", share, rays=rays, fb=planted) == 1
+    with pytest.raises(chip_smoke.SmokeFailure, match="flags differ"):
+        chip_smoke.compare_flags(got, want_a, "planted flag", min_share=1.0)
+    with pytest.raises(chip_smoke.SmokeFailure, match="off the park point"):
+        chip_smoke.compare_flags(got, want_a, "planted flag", 1.0, rays=rays, fb=planted)
+
+
+def test_flag_flip_beyond_rounding_bound_fails(soup):
+    """A flipped flag on a ray none of whose entered slots is decided within
+    the bound is not explained."""
+    fb, rays, want = soup
+    want_a = fused2.fused2_traverse_packed_plain(rays, fb, "any_hit")
+    far = chip_smoke.flag_rounding(rays[:300], fb)
+    i = int(torch.nonzero(~far).squeeze(1)[0])
+    got = want_a.clone()
+    got[i, 4] = 1.0 - got[i, 4]
+    with pytest.raises(chip_smoke.SmokeFailure, match="beyond the sums' rounding"):
+        chip_smoke.compare_flags(got, want_a, "planted flag", rays=rays, fb=fb)
+
+
+def test_tf32_bound_counts_three_tf32_products_per_f32_product():
+    """The f32 tensor-core rows' second bound: the same slots with three TF32
+    products each at the TF32 rate, against the window chain at fp32 and the
+    bytes; never above the fp32-peak bound."""
+    fb, (o, d, tmax) = chip_smoke.soup("cpu", plane_dtype=torch.float32)
+    rays = fused2.pack_rays(*fused2._pad_rays(o, d, tmax, 128)[:3])
+    want = fused2.fused2_traverse_packed_plain(rays, fb)
+    closest = torch.zeros(rays.shape[0], dtype=torch.bool)
+    (fp32_ms, _), need = chip_smoke.bound(rays, want, fb, closest)
+    (tf32_ms, by), need_tf32 = chip_smoke.bound(rays, want, fb, closest, tf32=True)
+    slots = fb.cluster_size * float(chip_smoke.needed_clusters(rays, want, fb, closest).sum())
+    ops = max(3 * chip_smoke.MXU_FLOP * slots / chip_smoke.TF32_FLOPS,
+              chip_smoke.CHAIN_OPS * slots / chip_smoke.FP32_FLOPS) * 1e3
+    assert need_tf32 == need and tf32_ms <= fp32_ms
+    assert tf32_ms == ops if by == "operations" else tf32_ms > ops

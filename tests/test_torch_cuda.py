@@ -239,10 +239,9 @@ def mxu_soups(soup):
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("block", [128, 256])
 def test_mxu_kernel_matches_plain(soup, mxu_soups, cuda_device, block, dtype, mode):
-    """K1b on the soup: f32 equal to the plain version (both sum the feature
-    products in one order without FMAs; the soup has no near ties); bf16
-    (tensor cores) under the near-tie rule with the sums' rounding kind;
-    fanout 1 and 2 identical but for the steps column."""
+    """K1b on the soup, tensor cores (bf16 products; f32 planes: 3xTF32)
+    under the near-tie rule with the sums' rounding kind; any-hit flags
+    equal; fanout 1 and 2 identical but for the steps column."""
     fb = mxu_soups[dtype].to(cuda_device)
     _, (o, d, tmax, dist, shadow) = _mixed_inputs(soup, cuda_device)
     t = dist if mode == "mixed" else tmax
@@ -263,12 +262,43 @@ def test_mxu_kernel_matches_plain(soup, mxu_soups, cuda_device, block, dtype, mo
         torch.testing.assert_close(got[:, 4], want[:, 4], rtol=0, atol=0)
         return
     lanes = ~sh_p if mode == "mixed" else torch.ones_like(got[:, 0], dtype=torch.bool)
-    if dtype == "bf16":
-        chip_smoke.compare_near_tie(got[lanes], want[lanes], rays[lanes], fb, f"{name} soup", tensor=True)
-    else:
-        assert_kernel_output_matches(got[lanes], want[lanes])
+    chip_smoke.compare_near_tie(got[lanes], want[lanes], rays[lanes], fb, f"{name} soup", tensor=True)
     if mode == "mixed":
         torch.testing.assert_close(got[sh_p, 4], want[sh_p, 4], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("block", [128, 256])
+def test_f32_exact_kernel_matches_plain(soup, mxu_soups, cuda_device, block):
+    """The exact CUDA-core form of K1b f32 closest hit (the tensor form's
+    yardstick): the plain version's arithmetic, equal to it on every ray of
+    the soup, counted under its own entry; the tensor form's entry is not
+    launched by it."""
+    fb = mxu_soups["f32"].to(cuda_device)
+    _, o, d, tmax = soup
+    args = [torch.as_tensor(x[:300], device=cuda_device) for x in (o, d, tmax)]
+    rays = tf2.pack_rays(*tf2._pad_rays(*args, block)[:3])
+    name, tensor = "owlpt_fused2_mxu_exact_closest_hit", "owlpt_fused2_mxu_closest_hit"
+    launches, tensor_launches = tf2.LAUNCHES[name], tf2.LAUNCHES[tensor]
+    got = tf2.fused2_traverse_packed(rays, fb, block=block, exact=True)
+    assert tf2.LAUNCHES[name] == launches + 1 and tf2.LAUNCHES[tensor] == tensor_launches
+    want = tf2.fused2_traverse_packed_plain(rays, fb)
+    torch.cuda.synchronize()
+    assert_kernel_output_matches(got, want)
+    with pytest.raises(ValueError, match="exact=True"):
+        tf2.fused2_traverse_packed(rays, fb, block=block, mode="mixed", exact=True)
+
+
+def test_f32_tensor_sums_within_gamma(soup, mxu_soups, cuda_device):
+    """The f32 tensor-core feature sums (the diagnostic entry, the
+    traversal's own staging and products) lie within SUM_GAMMA_F32 of the
+    plain version's sums per unit of the sum of the terms' magnitudes, on
+    every slot of each warp's cluster."""
+    fb = mxu_soups["f32"].to(cuda_device)
+    _, o, d, tmax = soup
+    rays = tf2.pack_rays(*(torch.as_tensor(x, device=cuda_device) for x in (o, d, tmax)))
+    want = tf2.fused2_traverse_packed_plain(rays, fb)
+    worst, count = chip_smoke.tensor_sums_ratio(rays, want, fb, warps=rays.shape[0] // 32)
+    assert count > 0 and 0.0 <= worst <= chip_smoke.SUM_GAMMA_F32
 
 
 @pytest.mark.parametrize("block", [128, 256])
@@ -296,10 +326,20 @@ def test_bf16_tensor_kernel_ragged_cluster_size(soup, cuda_device, mode):
     """Clusters of C=60 slots (not a whole number of 8-slot n-tiles): the
     tensor-core entries stage the planes element by element with zero pad
     slots and hold to the same rule as at C=64."""
+    _ragged_cluster_size(soup, cuda_device, mode, torch.bfloat16)
+
+
+@pytest.mark.parametrize("mode", ["closest", "any_hit", "mixed"])
+def test_f32_tensor_kernel_ragged_cluster_size(soup, cuda_device, mode):
+    """The same for the f32 tensor-core entries (3xTF32)."""
+    _ragged_cluster_size(soup, cuda_device, mode, torch.float32)
+
+
+def _ragged_cluster_size(soup, cuda_device, mode, dtype):
     r = np.random.default_rng(0)
     tri = r.uniform(-4, 4, (3000, 1, 3)) + r.normal(0, 0.4, (3000, 3, 3))
     verts = tri.reshape(-1, 3).astype(np.float32)
-    fb = tf2.build_fused2(verts, np.arange(9000, dtype=np.int32).reshape(3000, 3), 60, plane_dtype=torch.bfloat16,
+    fb = tf2.build_fused2(verts, np.arange(9000, dtype=np.int32).reshape(3000, 3), 60, plane_dtype=dtype,
                           device=cuda_device)
     assert fb.cluster_size == 60
     _, (o, d, tmax, dist, shadow) = _mixed_inputs(soup, cuda_device)
@@ -349,6 +389,45 @@ def dragon_waves():
     return accel, {"primary": (o, d), "bounce": (bounce_o, bounce.ray_d)}, (bounce_o, sh_d, sh_t)
 
 
+@pytest.fixture(scope="module")
+def dragon_f32(dragon_waves):
+    """dragon_waves' scene on fused2 (f32 planes)."""
+    dev = torch.device("cuda")
+    return make_accel(compile_scene(ASSETS, ensure_dragon(5), (64, 64), device=dev), "fused2")
+
+
+@pytest.mark.parametrize("block", [128, 256])
+@pytest.mark.parametrize("wave", ["primary", "bounce"])
+def test_f32_tensor_kernel_on_dragon_wave(dragon_waves, dragon_f32, block, wave):
+    """K1b f32 (tensor cores, 3xTF32) closest hit on a sorted dragon wave
+    under the near-tie rule with the sums' rounding kind (SUM_GAMMA_F32;
+    explained rows at most 0.5%, rounded up); the exact form under the rule
+    without it; fanout 1 and 2 bit for bit."""
+    _, waves, _ = dragon_waves
+    o, d = waves[wave]
+    t = torch.full((o.shape[0],), 1e10, device=o.device)
+    rays, _ = chip_smoke.sorted_rays(o, d, t, dragon_f32, "morton")
+    want = tf2.fused2_traverse_packed_plain(rays, dragon_f32)
+    got = tf2.fused2_traverse_packed(rays, dragon_f32, block=block)
+    chip_smoke.compare_near_tie(got, want, rays, dragon_f32, f"dragon {wave} f32", tensor=True)
+    assert chip_smoke.same_outputs(tf2.fused2_traverse_packed(rays, dragon_f32, block=block, fanout=1), got)
+    exact = tf2.fused2_traverse_packed(rays, dragon_f32, block=block, exact=True)
+    chip_smoke.compare_near_tie(exact, want, rays, dragon_f32, f"dragon {wave} f32, exact form")
+
+
+@pytest.mark.parametrize("block", [128, 256])
+def test_f32_tensor_any_hit_and_mixed_on_dragon_wave(dragon_waves, dragon_f32, block):
+    """K1b f32 (tensor cores) any-hit on the shadow rays and the mixed sweep
+    (closest-hit lanes under the rule with the sums' rounding kind); a flag
+    that differs must be decided within the sums' rounding
+    (``compare_flags`` with the rays): the fixture's dead lanes shoot shadow
+    rays from the park point at 1e8, whose features' terms are ~1e8 and
+    whose window sums cancel to far less, and a block tests them against
+    every cluster it retires (measured: 4 flags of 4096 differ at block 128,
+    132 at block 256); every differing flag is on such a ray."""
+    _any_hit_and_mixed(dragon_waves, dragon_f32, block, tensor_flags=True)
+
+
 @pytest.mark.parametrize("block", [128, 256])
 @pytest.mark.parametrize("wave", ["primary", "bounce"])
 def test_bf16_tensor_kernel_on_dragon_wave(dragon_waves, block, wave):
@@ -371,12 +450,19 @@ def test_bf16_tensor_any_hit_and_mixed_on_dragon_wave(dragon_waves, block):
     """K1b bf16 (tensor cores) any-hit on the shadow rays (flags at least
     99.99% equal) and the mixed sweep of bounce and shadow rays (closest-hit
     lanes under the rule with the sums' rounding kind, shadow flags likewise)."""
-    accel, waves, (sh_o, sh_d, sh_t) = dragon_waves
+    _any_hit_and_mixed(dragon_waves, dragon_waves[0], block)
+
+
+def _any_hit_and_mixed(dragon_waves, accel, block, tensor_flags=False):
+    _, waves, (sh_o, sh_d, sh_t) = dragon_waves
     rays, _ = chip_smoke.sorted_rays(sh_o, sh_d, sh_t, accel, "morton")
     got = tf2.fused2_traverse_packed(rays, accel, block=block, mode="any_hit")
     want = tf2.fused2_traverse_packed_plain(rays, accel, "any_hit")
     assert (got[:, 5] == 1).all() and 0 < int(want[:, 4].sum()) < rays.shape[0]
-    chip_smoke.compare_flags(got, want, "dragon shadow wave")
+    rule = dict(rays=rays, fb=accel) if tensor_flags else {}
+    chip_smoke.compare_flags(got, want, "dragon shadow wave", **rule)
+    if tensor_flags:
+        assert (rays[got[:, 4] != want[:, 4], 0:3] == wavefront.PARK).all()
     bo, bd = waves["bounce"]
     co, cd = torch.cat([bo, sh_o]), torch.cat([bd, sh_d])
     ct = torch.cat([torch.full((bo.shape[0],), 1e10, device=bo.device), sh_t])
@@ -386,7 +472,10 @@ def test_bf16_tensor_any_hit_and_mixed_on_dragon_wave(dragon_waves, block):
     got = tf2.fused2_traverse_packed(rays, accel, block=block, mode="mixed")
     want = tf2.fused2_traverse_packed_plain(rays, accel, "mixed")
     chip_smoke.compare_near_tie(got[~sh], want[~sh], rays[~sh], accel, "dragon mixed wave", tensor=True)
-    chip_smoke.compare_flags(got[sh], want[sh], "dragon mixed wave shadow lanes")
+    rule = dict(rays=rays[sh], fb=accel) if tensor_flags else {}
+    chip_smoke.compare_flags(got[sh], want[sh], "dragon mixed wave shadow lanes", **rule)
+    if tensor_flags:
+        assert (rays[sh][got[sh, 4] != want[sh, 4], 0:3] == wavefront.PARK).all()
 
 
 @pytest.mark.parametrize("layout", ["component", "f32"])
@@ -488,6 +577,71 @@ def test_fused_kernel_above_old_cluster_limit(cuda_device):
     torch.cuda.synchronize()
     assert torch.equal(got[:, :7], want[:, :7])  # resolved (col 5) and steps (col 6) too
     assert 0 < int(got[:, 4].sum()) < n and 0 < int(got[:, 5].sum()) < n
+
+
+@pytest.fixture(scope="module")
+def rescan_scene():
+    """Many small clusters along every ray: 80,000 small random triangles in
+    a 2 x 2 x 40 column, in clusters of C=8 (K = 13,568, above the old
+    cluster limit), and 16 blocks of 128 nearly parallel rays down the
+    column, each block a narrow bundle; the plain version's outputs.  A ray
+    enters ~46 boxes before its hit (measured on the CPU), so it uses up
+    its list of KCAND entries several times; the blocks take 300-460 steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    r = np.random.default_rng(4)
+    n_t, length = 80000, 20
+    base = np.stack([r.uniform(-1, 1, n_t), r.uniform(-1, 1, n_t), r.uniform(-length, length, n_t)], -1)[:, None]
+    verts = (base + r.normal(0, 0.012, (n_t, 3, 3))).reshape(-1, 3).astype(np.float32)
+    idx = np.arange(3 * n_t, dtype=np.int32).reshape(n_t, 3)
+    fb = tfu.build_fused(tcl.build_clusters(verts, idx, 8, device=dev))
+    n = 2048
+    centre = np.repeat(r.uniform(-0.8, 0.8, (n // 128, 2)), 128, 0)
+    o = np.concatenate([centre + r.normal(0, 0.01, (n, 2)), np.full((n, 1), -length - 2.0)], 1)
+    d = np.array([0.0, 0.0, 1.0]) + r.normal(0, 0.002, (n, 3))
+    o = torch.as_tensor(o.astype(np.float32), device=dev)
+    d = torch.nn.functional.normalize(torch.as_tensor(d.astype(np.float32), device=dev), dim=-1)
+    return fb, o, d, tfu.fused_traverse_plain(o, d, 1e10, fb, max_steps=RESCAN_STEPS)
+
+
+RESCAN_STEPS = 1024
+
+
+@pytest.mark.parametrize("scan", list(tfu.SCANS))
+def test_fused_scan_kinds_match_plain_with_rescans(rescan_scene, scan):
+    """K5 with both list-scan kinds: columns 0-6 (steps and resolved too)
+    bit-equal to the plain version where rays rescan several times; the
+    profile entry gives the same outputs and steps, the same rescans as the
+    serial scan, and (group skips) slab-tests fewer boxes."""
+    fb, o, d, want = rescan_scene
+    assert fb.num_clusters > 9500
+    got = tfu.fused_traverse(o, d, 1e10, fb, max_steps=RESCAN_STEPS, scan=scan)
+    assert torch.equal(got[:, :7], want[:, :7])
+    assert 0 < int(got[:, 4].sum()) and (got[:, 5] == 1).all()
+    out, prof, counts = tfu.fused_traverse_profile(o, d, 1e10, fb, max_steps=RESCAN_STEPS, scan=scan)
+    assert torch.equal(out[:, :7], got[:, :7])
+    assert float(counts[:, 0].float().mean()) > 2.0, "several rescans per ray"
+    assert (prof[:, 4] > 0).all() and torch.equal(prof[:, 5].float(), got.view(-1, tfu.BLOCK_RAYS, 8)[:, 0, 6])
+    serial = tfu.fused_traverse_profile(o, d, 1e10, fb, max_steps=RESCAN_STEPS, scan="serial")[2]
+    assert torch.equal(counts[:, 0], serial[:, 0])
+    if scan == "warp_groups":
+        assert int(counts[:, 1].sum()) < int(serial[:, 1].sum())
+
+
+@pytest.mark.parametrize("scan", list(tfu.SCANS))
+def test_fused_group_entered_with_no_member_entered(cuda_device, scan):
+    """chip_smoke.corner_groups: every ray enters group 0's box and none of
+    its members; both scan kinds give the plain version's columns 0-6 (a
+    hit on cluster 32 at t = 4), and the group-skip set-up scan tests the
+    plain list scan's boxes."""
+    fb, o, d = chip_smoke.corner_groups(cuda_device)
+    got = tfu.fused_traverse(o, d, 1e10, fb, scan=scan)
+    want = tfu.fused_traverse_plain(o, d, 1e10, fb)
+    assert torch.equal(got[:, :7], want[:, :7]) and (got[:, 0] == 4.0).all() and (got[:, 3] == 32).all()
+    _, _, counts = tfu.fused_traverse_profile(o, d, 1e10, fb, max_steps=0, scan=scan)
+    if scan == "warp_groups":
+        assert torch.equal(counts[:, 1].long(), tfu.nearest_lists(o, d, 1e10, fb, groups=True)[2])
 
 
 @pytest.mark.parametrize("kind", ["fused2", "component"])

@@ -17,6 +17,7 @@ import torch
 
 from owl_path_tracer_tpu.ops import cluster as jcl
 from owl_path_tracer_tpu.ops import fused as jfu
+import chip_smoke
 from owl_path_tracer_tpu_torch import native
 from owl_path_tracer_tpu_torch.convert import fused_from_numpy
 from owl_path_tracer_tpu_torch.ops import cluster as tcl
@@ -157,3 +158,92 @@ def test_cuda_request_raises_instead_of_falling_back(setup, monkeypatch):
         tfu.build_kernels()
     assert tfu.LAUNCHES == launches
 
+
+
+# ── the kernel's list scans: group boxes and the plain list scan ──────────
+
+
+@pytest.fixture(scope="module")
+def small_clusters():
+    """The soup in clusters of C=8 (K in the hundreds: a dozen group boxes)
+    and 256 rays, a quarter of them with a short t_max."""
+    verts, idx, r = _soup()
+    fb = tfu.build_fused(tcl.build_clusters(verts, idx, 8, device="cpu"))
+    n = 256
+    o = torch.as_tensor(r.uniform(-6, 6, (n, 3)).astype(np.float32))
+    d = torch.nn.functional.normalize(torch.as_tensor(r.normal(size=(n, 3)).astype(np.float32)), dim=-1)
+    tmax = torch.as_tensor(np.where(r.random(n) < 0.25, r.uniform(1.0, 4.0, n), 1e10).astype(np.float32))
+    return fb, o, d, tmax
+
+
+def test_group_boxes_contain_their_members(small_clusters):
+    """Each group box is the exact min / max over its GROUP_SIZE members
+    (the last group over the clusters left), so it contains every member's
+    box; it is made from the boxes on construction and survives .to()."""
+    fb = small_clusters[0]
+    k, size = fb.num_clusters, tfu.GROUP_SIZE
+    kg = -(-k // size)
+    assert fb.groups.shape == (8, kg)
+    part = tfu.group_boxes(fb.boxes[:, : k - 5])  # a partial last group
+    assert part.shape == (8, -(-(k - 5) // size))
+    assert torch.equal(part[:, -1], torch.cat([fb.boxes[0:3, (kg - 1) * size : k - 5].amin(1),
+                                               fb.boxes[3:6, (kg - 1) * size : k - 5].amax(1), torch.zeros(2)]))
+    for gi in range(kg):
+        members = fb.boxes[:, gi * size : min(k, (gi + 1) * size)]
+        assert torch.equal(fb.groups[0:3, gi], members[0:3].amin(1))
+        assert torch.equal(fb.groups[3:6, gi], members[3:6].amax(1))
+    assert (fb.groups[0:3].repeat_interleave(size, 1)[:, :k] <= fb.boxes[0:3]).all()
+    assert (fb.groups[3:6].repeat_interleave(size, 1)[:, :k] >= fb.boxes[3:6]).all()
+    assert torch.equal(fb.to("cpu").groups, fb.groups)
+    assert torch.equal(tfu.FusedBVH(boxes=fb.boxes, planes=fb.planes, cluster=fb.cluster).groups, fb.groups)
+
+
+@pytest.mark.parametrize("retired_share", [0.0, 0.3, 0.9])
+def test_group_skips_give_the_full_scans_lists(small_clusters, retired_share):
+    """The plain list scan with group skips gives every ray the same KCAND
+    (entry, id) pairs as the scan of every box, with clusters retired or
+    not, and slab-tests fewer boxes; the lists are the KCAND nearest entries
+    in (entry, id) order."""
+    fb, o, d, tmax = small_clusters
+    k = fb.num_clusters
+    retired = torch.as_tensor(np.random.default_rng(5).random(k) < retired_share)
+    e_g, i_g, tests_g = tfu.nearest_lists(o, d, tmax, fb, retired, groups=True)
+    e_f, i_f, tests_f = tfu.nearest_lists(o, d, tmax, fb, retired, groups=False)
+    assert torch.equal(e_g, e_f) and torch.equal(i_g, i_f)
+    assert (tests_f == int((~retired).sum())).all()
+    assert (tests_g < tests_f).float().mean() > 0.5
+    ent = torch.where(~retired, tcl._cluster_entries(o, d, fb.cluster, tm.T_MIN, tmax), torch.inf)
+    finite = torch.isfinite(e_f)
+    assert torch.equal(e_f[finite], torch.gather(ent, 1, i_f.clamp(max=k - 1))[finite])
+    assert (i_f[~finite] == k).all() and finite.any() and (~finite).any()
+    order = e_f[:, :-1] < e_f[:, 1:]
+    ties = (e_f[:, :-1] == e_f[:, 1:]) & finite[:, 1:]
+    assert (order | ties | ~finite[:, 1:]).all() and (i_f[:, :-1][ties] < i_f[:, 1:][ties]).all()
+    if retired_share == 0.0:
+        assert int(finite.sum(1).max()) == tfu.KCAND
+
+
+def test_group_entered_with_no_member_entered():
+    """chip_smoke.corner_groups: rays that enter group 0's box and none of
+    its 32 members; the group-skip scan tests the members (and skips them),
+    its lists equal the full scan's (cluster 32, behind), and the plain
+    traversal hits cluster 32 at t = 4."""
+    fb, o, d = chip_smoke.corner_groups("cpu")
+    assert fb.num_clusters == 64 and fb.groups.shape == (8, 2)
+    tmax = torch.full((o.shape[0],), 1e10)
+    gent = tcl._cluster_entries(o, d, tfu._boxes_as_clusters(fb.groups), tm.T_MIN, tmax)
+    ent = tcl._cluster_entries(o, d, fb.cluster, tm.T_MIN, tmax)
+    assert torch.isfinite(gent).all()
+    assert torch.isinf(ent[:, :32]).all() and (torch.isfinite(ent).sum(1) == 1).all()
+    e_g, i_g, tests_g = tfu.nearest_lists(o, d, tmax, fb, groups=True)
+    e_f, i_f, _ = tfu.nearest_lists(o, d, tmax, fb, groups=False)
+    assert torch.equal(e_g, e_f) and torch.equal(i_g, i_f) and (i_g[:, 0] == 32).all()
+    assert (tests_g == 2 + 64).all()  # both groups entered: every member tested
+    out = tfu.fused_traverse(o, d, tmax, fb)
+    assert (out[:, 4] == 1).all() and (out[:, 0] == 4.0).all() and (out[:, 3] == 32).all()
+
+
+def test_unknown_scan_kind_raises(setup):
+    _, tfb, o, d, tmax = setup
+    with pytest.raises(ValueError, match="scan kind"):
+        tfu.fused_traverse(torch.as_tensor(o[:128]), torch.as_tensor(d[:128]), 1e10, tfb, 128, scan="tree")
