@@ -121,6 +121,30 @@ with the wavefront's drained checkpoints:
      refused under another accelerator or scene; then render_production's
      main in process into chiprun_out/smoke_production/tool/ (nothing under
      docs/gallery/).
+The gradient path (render/diff.py; K1b under autograd, the refit of
+make_intersectors(..., differentiable=True)):
+  5g. gradients on the card against the same calls on CPU tensors (the
+     plain versions), per field allclose(rtol 1e-4, atol 1e-6 max|g|):
+     material gradients of tests/test_diff.py's 16x16 sphere (spp 4, depth
+     3), its camera gradients through the refit (the radius-2 sphere), the
+     car's material gradients and cornell-box's with NEE (32x32, spp 2,
+     depth 3; K1b f32 closest hit and any-hit), all on make_accel("fused2");
+     every kernel wave recorded and held to the plain version by
+     compare_near_tie / compare_flags (tensor-core rounding kinds), pixels
+     whose winners differ left out of the gradient comparison; an element
+     float32 cannot resolve (the CPU's value outside the tolerance of the
+     float64 gradient, brute sweep on the card) is printed and held to the
+     float64 value; one FD check of base_color through K1b (rtol 0.05);
+     fused2-bf16 material gradients finite; brute equal to cluster bit for
+     bit on the card (a frame, hits and occlusion);
+  6g. material recovery at full size (BASELINE.json config 5): mitsuba and
+     the car (22,084 triangles) on make_accel("fused2"), 256x256 (one scan
+     chunk), spp 4, depth 3, auto sky, 10 Adam steps on one material's
+     base_color (the car's window glass alone, by grad_mask); the loss must
+     fall (car: below 0.7 of its first value); seconds per step, fwd+bwd
+     Mrays/s (live rays of one more loss + backward over its synchronised
+     wall time), peak memory and K1b launches per step; one loss + backward
+     under metrics.profile_trace: device busy share and the owlpt.* ranges.
 The second-to-last lines are the kernels JSON (the K1b rows give the
 tensor-core entries; fused2_mxu_exact_closest_hit and
 fused2_mxu_bf16_exact_closest_hit, off every render path, the exact forms'
@@ -220,6 +244,12 @@ SUM_GAMMA_F32 = 2.0**-17
 # one rounding of a float32 operation, relative (the window's own sums,
 # products and the t division round on both sides)
 EPS32 = 2.0**-23
+# the gradient path (phases 5g, 6g): tests/test_diff.py's sphere frame, the
+# car / cornell frame held card vs CPU, the full-size recovery frame (one scan
+# chunk) and its Adam steps; card vs CPU gradients per field to
+# allclose(rtol=GRAD_RTOL, atol=GRAD_ATOL_OF_MAX * max|g_cpu|)
+GRAD_SIZE, GRAD_CAR_SIZE, GRAD_FULL, GRAD_STEPS = 16, 32, 256, 10
+GRAD_RTOL, GRAD_ATOL_OF_MAX = 1e-4, 1e-6
 
 
 class SmokeFailure(Exception):
@@ -1608,6 +1638,414 @@ def phase_6f(dev):
     return launches
 
 
+# ── the gradient path (render/diff.py): phases 5g and 6g ─────────────────
+
+
+def sphere_mesh(radius, n_theta=24, n_phi=48):
+    """tests/test_integrator.py's UV sphere about the origin -> (vertices, indices, normals)."""
+    import numpy as np
+
+    th = np.linspace(0, np.pi, n_theta + 1)
+    ph = np.linspace(0, 2 * np.pi, n_phi, endpoint=False)
+    tt, pp = np.meshgrid(th, ph, indexing="ij")
+    n = np.stack([np.sin(tt) * np.cos(pp), np.cos(tt), np.sin(tt) * np.sin(pp)], -1).reshape(-1, 3)
+    idx = []
+    for i in range(n_theta):
+        for j in range(n_phi):
+            a, b = i * n_phi + j, (i + 1) * n_phi + j
+            c, d = (i + 1) * n_phi + (j + 1) % n_phi, i * n_phi + (j + 1) % n_phi
+            if i > 0:
+                idx.append((a, b, d))
+            if i < n_theta - 1:
+                idx.append((b, c, d))
+    return (radius * n).astype(np.float32), np.asarray(idx, np.int32), n.astype(np.float32)
+
+
+def grad_sphere(radius=1.0, size=GRAD_SIZE, **mat):
+    """tests/test_diff.py's diffuse sphere (camera at (3, 0, 0)) on the CPU."""
+    import numpy as np
+
+    from owl_path_tracer_tpu_torch.models import camera, material
+    from owl_path_tracer_tpu_torch.models.scene import scene_from_arrays
+    from owl_path_tracer_tpu_torch.utils.parser import CameraDesc
+
+    v, idx, n = sphere_mesh(radius)
+    mats = material.single(device="cpu", **{"base_color": (0.6, 0.4, 0.3), "roughness": 0.7, "specular": 0.0, **mat})
+    cam = camera.make_camera(CameraDesc((3, 0, 0), (0, 0, 0), (0, 1, 0), 45), (size, size), device="cpu")
+    return scene_from_arrays(v, idx, mats, np.zeros(len(idx), np.int32), cam, normals=n, device="cpu")
+
+
+class recorded_waves:
+    """Context: every launch of the fused2 kernel as (packed rays, accel,
+    launch arguments, output), for checking the waves against the plain
+    version afterwards."""
+
+    def __enter__(self):
+        from owl_path_tracer_tpu_torch.ops import fused2
+
+        self.waves, self.launch = [], fused2._fused2_traverse_cuda
+
+        def record(rays, fb, *args):
+            out = self.launch(rays, fb, *args)
+            self.waves.append((rays, fb, args, out))
+            return out
+
+        fused2._fused2_traverse_cuda = record
+        return self.waves
+
+    def __exit__(self, *exc):
+        from owl_path_tracer_tpu_torch.ops import fused2
+
+        fused2._fused2_traverse_cuda = self.launch
+
+
+class counted_rays:
+    """Context: the live-ray counts of every ``integrator.sample_sum`` call
+    (0-dim tensors; the gradient path renders through it)."""
+
+    def __enter__(self):
+        from owl_path_tracer_tpu_torch.render import integrator
+
+        self.counts, self.inner = [], integrator.sample_sum
+
+        def sample_sum(*args, **kw):
+            acc, state, rays = self.inner(*args, **kw)
+            self.counts.append(rays)
+            return acc, state, rays
+
+        integrator.sample_sum = sample_sum
+        return self.counts
+
+    def __exit__(self, *exc):
+        from owl_path_tracer_tpu_torch.render import integrator
+
+        integrator.sample_sum = self.inner
+
+
+def differing_rows(waves, what):
+    """Each recorded wave against the plain version of its rays, by
+    compare_near_tie (closest, mixed) or compare_flags (any-hit), the
+    tensor-core rounding kinds -> the rows (= pixels of the scan loop) whose
+    winners or flags differ, every one explained."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.ops import fused2
+
+    rows = set()
+    for i, (rays, fb, args, out) in enumerate(waves):
+        mode, with_attrs = args[2], args[4]
+        want = fused2.fused2_traverse_packed_plain(rays, fb, mode, with_attrs)
+        if mode == "any_hit":
+            compare_flags(out, want, f"{what}, wave {i} (any-hit)", min_share=0.995, rays=rays, fb=fb)
+            differ = out[:, 4] != want[:, 4]
+        else:
+            compare_near_tie(out, want, rays, fb, f"{what}, wave {i} ({mode})", blob=with_attrs,
+                             tensor=fb.layout != "component")
+            differ = out[:, 3] != want[:, 3]
+        rows |= set(torch.nonzero(differ).squeeze(1).tolist())
+    return rows
+
+
+def as_arrays(grads):
+    """Gradients (a tensor or a dataclass of tensors) -> dict of numpy arrays."""
+    from owl_path_tracer_tpu_torch import convert
+
+    if hasattr(grads, "shape"):
+        return {"env_map": grads.detach().cpu().numpy()}
+    return convert.to_numpy(grads)
+
+
+def float64(bundle):
+    """A dataclass of tensors with its floating fields in float64."""
+    import dataclasses
+
+    def cast(v):
+        if dataclasses.is_dataclass(v):
+            return float64(v)
+        return v.double() if v.is_floating_point() else v
+
+    return dataclasses.replace(bundle, **{f.name: cast(getattr(bundle, f.name)) for f in dataclasses.fields(bundle)})
+
+
+def hold_grads(got, want, what, exact=None):
+    """Card gradients against the CPU's, per field allclose(rtol=GRAD_RTOL,
+    atol=GRAD_ATOL_OF_MAX * max|g_cpu|) -> worst ratio of the difference to
+    that tolerance.  ``exact()`` (the same loss in float64 on the card, the
+    brute sweep) is asked only when an element is outside it: such an
+    element passes only when float32 cannot resolve it, i.e. the CPU's
+    float32 value lies outside the tolerance of the float64 one and the
+    card's within 4x the CPU's distance from it; they are counted and printed."""
+    import numpy as np
+
+    worst, explained = 0.0, []
+    e = None
+    for name, w in want.items():
+        g = got[name]
+        check(g.shape == w.shape and np.isfinite(g).all(), f"{what}: {name} gradient not finite")
+        tol = GRAD_RTOL * np.abs(w) + GRAD_ATOL_OF_MAX * np.abs(w).max()
+        off = ~(np.abs(g - w) <= tol)
+        if off.any():
+            e = exact() if e is None else e
+            x = e[name]
+            ok = (np.abs(w - x) > tol) & (np.abs(g - x) <= 4 * np.abs(w - x))
+            check(bool(ok[off].all()), f"{what}: {name} card {g[off][:4]} vs CPU {w[off][:4]} (float64 {x[off][:4]})")
+            explained.append(f"{name}{np.argwhere(off).tolist()}: card {g[off]}, CPU {w[off]}, float64 {x[off]}")
+            g = np.where(off, w, g)
+        if tol.max() > 0:
+            worst = max(worst, float((np.abs(g - w) / np.where(tol > 0, tol, 1.0)).max()))
+    print(f"  {what}: worst |card - CPU| / tolerance {worst:.3g}; {len(explained)} fields with elements float32 "
+          f"cannot resolve" + "".join(f"\n    {x}" for x in explained), flush=True)
+    return worst
+
+
+def grads_card_vs_cpu(dev, what, fn, scene, accel, px, exact=None):
+    """``fn(scene, accel, px) -> (loss, grads)`` on the card (its fused2
+    waves recorded and held against the plain version) and on the CPU (the
+    plain versions); where winners differ, both again without those pixels.
+    -> (card launches by entry, worst ratio)."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.ops import fused2
+
+    fused2.reset_counts()
+    with recorded_waves() as waves:
+        loss_g, g_g = fn(scene.to(dev), None if accel is None else accel.to(dev), px.to(dev))
+    launches = {k: v for k, v in fused2.LAUNCHES.items() if v}
+    rows = differing_rows(waves, what)
+    keep = torch.ones(px.shape[0], dtype=torch.bool)
+    if rows:
+        keep[sorted(rows)] = False
+        print(f"  {what}: {len(rows)} pixels whose winners differ are left out", flush=True)
+        loss_g, g_g = fn(scene.to(dev), accel.to(dev), px[keep].to(dev))
+    loss_c, g_c = fn(scene, accel, px[keep])
+    check(math.isclose(float(loss_g), float(loss_c), rel_tol=GRAD_RTOL),
+          f"{what}: loss {float(loss_g)} on the card, {float(loss_c)} on the CPU")
+    worst = hold_grads(as_arrays(g_g), as_arrays(g_c), what,
+                       exact=None if exact is None else lambda: as_arrays(exact(px[keep].to(dev))[1]))
+    print(f"  {what}: loss {float(loss_g):.7g} (CPU {float(loss_c):.7g}), launches {launches}", flush=True)
+    return launches, worst
+
+
+def phase_5g(dev):
+    """Gradients on the card against the CPU: material, camera and NEE
+    gradients through make_accel("fused2") (K1b f32 under autograd,
+    differentiable=True), an FD check through K1b, fused2-bf16 material
+    gradients, and brute against cluster bit for bit -> K1b launches of the
+    gradient path by entry."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from owl_path_tracer_tpu_torch.models.scene import RenderSettings, compile_scene
+    from owl_path_tracer_tpu_torch.ops import fused2
+    from owl_path_tracer_tpu_torch.ops.cluster import cluster_closest_hit, cluster_occluded
+    from owl_path_tracer_tpu_torch.ops.intersect import any_hit_brute, closest_hit_brute
+    from owl_path_tracer_tpu_torch.render import diff
+    from owl_path_tracer_tpu_torch.render.film import _pixel_grid, make_accel, render_image
+    from owl_path_tracer_tpu_torch.tools.probe_common import ensure_car
+
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def zeros(px):
+        return torch.zeros((px.shape[0], 3), device=px.device)
+
+    def material_fn(settings, spp):
+        return lambda scene, accel, px: diff.loss_and_grad(scene, scene.materials, settings, px, zeros(px), spp,
+                                                           accel)
+
+    def exact_of(scene, settings, spp):
+        s64 = float64(scene.to(dev))
+        return lambda px: diff.loss_and_grad(s64, s64.materials, settings, px, zeros(px), spp, None)
+
+    # the 16x16 diffuse sphere of tests/test_diff.py, 4 spp, depth 3
+    sphere = grad_sphere()
+    sset = RenderSettings(width=GRAD_SIZE, height=GRAD_SIZE, max_samples=4, max_path_depth=3,
+                          environment_color=(1.0, 0.9, 0.8), environment_intensity=1.0)
+    px = _pixel_grid(GRAD_SIZE, GRAD_SIZE, "cpu")
+    accel = make_accel(sphere, "fused2")
+    counts, _ = grads_card_vs_cpu(dev, "sphere materials, fused2", material_fn(sset, 4), sphere, accel, px,
+                                  exact=exact_of(sphere, sset, 4))
+    check(counts.get("owlpt_fused2_mxu_closest_hit", 0) > 0, "the gradient path did not launch K1b f32 closest hit")
+    add(counts)
+    # one FD check of base_color through K1b (tests/test_diff.py's rtol 0.05)
+    sc, ac, pxd = sphere.to(dev), accel.to(dev), px.to(dev)
+    target = torch.zeros((pxd.shape[0], 3), device=dev)
+    _, g = diff.loss_and_grad(sc, sc.materials, sset, pxd, target, 4, ac)
+
+    def loss_at(delta):
+        bc = sc.materials.base_color.clone()
+        bc[0, 0] += delta
+        return float(diff.image_loss(sc, dataclasses.replace(sc.materials, base_color=bc), sset, pxd, target, 4, ac))
+
+    fd = (loss_at(1e-3) - loss_at(-1e-3)) / 2e-3
+    ad = float(g.base_color[0, 0])
+    print(f"  sphere base_color[0,0] through K1b: autograd {ad:.7g}, central difference {fd:.7g}", flush=True)
+    check(abs(ad - fd) <= 0.05 * abs(fd), f"FD check through K1b: {ad} vs {fd}")
+
+    # camera gradients through the refit: tests/test_diff.py's radius-2 sphere
+    big = grad_sphere(radius=2.0)
+    cset = dataclasses.replace(sset, environment_auto=True)
+
+    def camera_fn(scene, accel, px):
+        return diff.camera_loss_and_grad(scene, scene.camera, cset, px, zeros(px), 4, accel)
+
+    b64 = float64(big.to(dev))
+    counts, _ = grads_card_vs_cpu(dev, "sphere camera, fused2 refit", camera_fn, big, make_accel(big, "fused2"), px,
+                                  exact=lambda p: camera_fn(b64, None, p))
+    add(counts)
+
+    # the car at 32x32 (materials), and cornell-box with NEE (K1b any-hit too)
+    ensure_car()
+    car = compile_scene(ROOT / "assets", "car", (GRAD_CAR_SIZE, GRAD_CAR_SIZE), env_map_path=None, device="cpu")
+    carset = RenderSettings(width=GRAD_CAR_SIZE, height=GRAD_CAR_SIZE, max_samples=2, max_path_depth=3,
+                            environment_auto=True)
+    cpx = _pixel_grid(GRAD_CAR_SIZE, GRAD_CAR_SIZE, "cpu")
+    counts, _ = grads_card_vs_cpu(dev, "car materials, fused2", material_fn(carset, 2), car, make_accel(car, "fused2"), cpx,
+                                  exact=exact_of(car, carset, 2))
+    add(counts)
+    cornell = compile_scene(ROOT / "assets", NEE_SCENE, (GRAD_CAR_SIZE, GRAD_CAR_SIZE), env_map_path=None,
+                            device="cpu")
+    nset = dataclasses.replace(carset, use_nee=True)
+    counts, _ = grads_card_vs_cpu(dev, "cornell NEE materials, fused2", material_fn(nset, 2), cornell,
+                                  make_accel(cornell, "fused2"), cpx, exact=exact_of(cornell, nset, 2))
+    check(counts.get("owlpt_fused2_mxu_occluded", 0) > 0, "the NEE gradient path did not launch K1b f32 any-hit")
+    add(counts)
+
+    # fused2-bf16: material gradients must be finite
+    fused2.reset_counts()
+    cd = car.to(dev)
+    loss, g = diff.loss_and_grad(cd, cd.materials, carset, cpx.to(dev), zeros(cpx.to(dev)), 2,
+                                 make_accel(cd, "fused2-bf16"))
+    arrays = as_arrays(g)
+    check(all(np.isfinite(a).all() for a in arrays.values()) and np.abs(arrays["base_color"]).max() > 0,
+          "fused2-bf16 material gradients are not finite")
+    check(fused2.LAUNCHES["owlpt_fused2_mxu_bf16_closest_hit"] > 0, "the bf16 gradient path did not launch K1b bf16")
+    print(f"  car materials on fused2-bf16: loss {float(loss):.7g}, |base_color grad| max "
+          f"{np.abs(arrays['base_color']).max():.4g}, launches "
+          f"{ {k: v for k, v in fused2.LAUNCHES.items() if v} }", flush=True)
+    add({k: v for k, v in fused2.LAUNCHES.items() if v})
+
+    # brute against cluster, bit for bit, on the card
+    cs = cornell.to(dev)
+    cb = make_accel(cs, "cluster", cluster_size=64)
+    frame = RenderSettings(width=GRAD_CAR_SIZE, height=GRAD_CAR_SIZE, max_samples=2, max_path_depth=DEPTH,
+                           environment_auto=True)
+    a = render_image(cs, frame, pixel_chunk=4096, intersector="brute")
+    b = render_image(cs, frame, pixel_chunk=4096, accel=cb)
+    check(torch.equal(a, b), "brute and cluster frames differ on the card")
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    lo, hi = cs.vertices.min(0).values, cs.vertices.max(0).values
+    o = lo + (torch.rand((8192, 3), generator=gen) * 0.8 + 0.1).to(dev) * (hi - lo)
+    d = torch.nn.functional.normalize(torch.randn((8192, 3), generator=gen), dim=-1).to(dev)
+    rb, rc = closest_hit_brute(o, d, cs.vertices, cs.tri_idx), cluster_closest_hit(o, d, cb)
+    check(torch.equal(rb.tri, rc.tri) and torch.equal(rb.t, rc.t) and torch.equal(rb.uv, rc.uv),
+          "brute and cluster hits differ on the card")
+    tmax = torch.full((8192,), 0.5, device=dev)
+    check(torch.equal(any_hit_brute(o, d, cs.vertices, cs.tri_idx, t_max=tmax), cluster_occluded(o, d, cb, t_max=tmax)),
+          "brute and cluster occlusion differ on the card")
+    print(f"  brute = cluster on the card: {NEE_SCENE} {GRAD_CAR_SIZE}x{GRAD_CAR_SIZE} frame bit for bit, 8192 rays' "
+          f"tri/t/u/v ({int((rb.tri >= 0).sum())} hits) and occlusion", flush=True)
+    return launches
+
+
+def phase_6g(dev, smi):
+    """Material recovery at full size (BASELINE.json config 5): mitsuba and
+    the car on make_accel("fused2"), GRAD_FULL x GRAD_FULL (one scan chunk),
+    spp 4, depth 3, auto sky, 10 Adam steps on one material's base_color
+    -> K1b launches per step by scene."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from owl_path_tracer_tpu_torch.models.material import Materials
+    from owl_path_tracer_tpu_torch.models.scene import RenderSettings, compile_scene
+    from owl_path_tracer_tpu_torch.ops import fused2
+    from owl_path_tracer_tpu_torch.render import diff, metrics
+    from owl_path_tracer_tpu_torch.render.film import _pixel_grid, make_accel
+    from owl_path_tracer_tpu_torch.tools.probe_common import ensure_car, ensure_mitsuba
+
+    size, spp, steps = GRAD_FULL, 4, GRAD_STEPS
+    settings = RenderSettings(width=size, height=size, max_samples=spp, max_path_depth=3, environment_auto=True,
+                              environment_intensity=1.0)
+    px = _pixel_grid(size, size, dev)
+    per_step = {}
+    for name, lr in ((ensure_mitsuba(), 0.1), (ensure_car(), 0.08)):
+        scene = compile_scene(ROOT / "assets", name, (size, size), env_map_path=None, device=dev)
+        accel = make_accel(scene, "fused2")
+        with torch.no_grad():
+            target = diff.render_with_materials(scene, scene.materials, settings, px, spp, accel)
+        mats, mask = scene.materials, None
+        row = 0
+        if name == "car":  # the window glass, alone (tests/test_diff.py::test_car_recovery_smoke)
+            row = int(torch.nonzero(mats.specular_transmission >= 0.99)[0])
+            mask = Materials(**{f.name: torch.zeros_like(getattr(mats, f.name)) for f in dataclasses.fields(Materials)})
+            mask.base_color[row] = 1.0
+        bc = mats.base_color.clone()
+        bc[row] = torch.tensor([0.2, 0.2, 0.2] if name == "car" else [0.5, 0.5, 0.5], device=dev)
+        init = dataclasses.replace(mats, base_color=bc)
+        # warm-up, untimed (the first Adam step of a process imports and sets up the optimiser's code)
+        diff.recover_materials(scene, settings, target, px, init, steps=1, lr=lr, num_samples=spp, accel=accel,
+                               trainable=("base_color",), grad_mask=mask)
+        fused2.reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        res = diff.recover_materials(scene, settings, target, px, init, steps=steps, lr=lr, num_samples=spp,
+                                     accel=accel, trainable=("base_color",), grad_mask=mask)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = {k: v for k, v in fused2.LAUNCHES.items() if v}
+        peak = torch.cuda.max_memory_allocated()
+        losses = [round(float(x), 7) for x in res.losses]
+        drop = 0.7 if name == "car" else 1.0
+        check(all(math.isfinite(x) for x in losses) and losses[-1] < drop * losses[0],
+              f"{name} recovery: the loss did not fall below {drop} of its first value: {losses}")
+        # one more loss + backward, timed alone with its live rays and under the profiler
+        with counted_rays() as counts:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            diff.loss_and_grad(scene, res.materials, settings, px, target, spp, accel)
+            torch.cuda.synchronize()
+            fwd_bwd = time.perf_counter() - start
+        rays = int(sum(int(c) for c in counts))
+        with tempfile.TemporaryDirectory() as trace_dir, metrics.profile_trace(trace_dir) as prof:
+            start = time.perf_counter()
+            diff.loss_and_grad(scene, res.materials, settings, px, target, spp, accel)
+            torch.cuda.synchronize()
+            traced = time.perf_counter() - start
+        # host time of each owlpt.* range (CPU events) and the span of its
+        # work on the card (the range's device annotation); device busy =
+        # the kernels' and copies' own time, annotations left out
+        host, span, kernels = {}, {}, {}
+        for ev in prof.events():
+            us = ev.time_range.elapsed_us()
+            if ev.name.startswith("owlpt."):
+                side = span if ev.device_type == torch.autograd.DeviceType.CUDA else host
+                side[ev.name] = side.get(ev.name, 0.0) + us / 1e3
+            elif ev.device_type == torch.autograd.DeviceType.CUDA:
+                kernels[ev.name] = kernels.get(ev.name, 0.0) + us / 1e3
+        device_us = 1e3 * sum(kernels.values())
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
+        per_step[name] = {k: v / steps for k, v in launches.items()}
+        print(f"  {name} {size}x{size} spp {spp} depth 3 on fused2 ({int(scene.tri_idx.shape[0])} triangles, "
+              f"K={accel.num_clusters}, C={accel.cluster_size}), {steps} Adam steps on base_color row {row}: "
+              f"losses {losses}", flush=True)
+        print(f"  {name}: {seconds / steps:.4f} s per step; loss + backward {fwd_bwd:.4f} s for {rays} live rays = "
+              f"{rays / fwd_bwd / 1e6:.4f} Mrays/s (fwd+bwd); peak memory {peak / 2**30:.3f} GiB; K1b launches per "
+              f"step {per_step[name]}; [{smi}]", flush=True)
+        print(f"  {name}, one traced loss + backward ({traced:.4f} s): device busy {device_us / 1e6:.4f} s "
+              f"({device_us / 1e6 / traced:.1%} of the wall time); forward ranges, host ms / device span ms: "
+              + ", ".join(f"{k} {v:.1f} / {span.get(k, 0.0):.1f}" for k, v in sorted(host.items()))
+              + "; top device kernels, ms: " + "; ".join(f"{k[:70]} {v:.1f}" for k, v in top), flush=True)
+    return per_step
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--spp", type=int, default=8, help="main-path samples per pixel (64: headline)")
@@ -2036,6 +2474,16 @@ def main():
     phase_6f(dev)
     phase("6f production path, checkpoint and resume", t0)
 
+    # 5g ── gradients on the card against the CPU
+    t0 = time.perf_counter()
+    grad_launches = phase_5g(dev)
+    phase("5g gradients, card vs CPU", t0)
+
+    # 6g ── material recovery at full size
+    t0 = time.perf_counter()
+    recovery = phase_6g(dev, smi)
+    phase("6g material recovery at full size", t0)
+
     check("jax" not in sys.modules and "owl_path_tracer_tpu" not in sys.modules,
           "the JAX package was imported")
 
@@ -2050,6 +2498,9 @@ def main():
         check(launches > 0, f"the {path} path did not launch {name}")
         r = results[key]
         row = entry(name, launches, max(err, r["err"]), r["ms"], r["plain_ms"], r["bound"])
+        # the gradient path's launches (phase 5g's card runs; 6g's per recovery step)
+        row["gradient_launches"] = grad_launches.get(f"owlpt_{name}", 0)
+        row["recovery_launches_per_step"] = {s: c.get(f"owlpt_{name}", 0) for s, c in recovery.items()}
         if r["bound_tf32"] is not None:
             # the f32 tensor-core entries: the same work at the TF32 rate
             row["bound_tf32_ms"], row["bound_tf32_by"] = r["bound_tf32"]

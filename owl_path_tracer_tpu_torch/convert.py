@@ -4,8 +4,10 @@ Each function takes a structure as a dict of numpy arrays -- the JAX
 package's ``Scene``, ``ClusterBVH``, ``FusedBVH`` or ``Fused2BVH`` as
 ``{field: np.asarray(getattr(x, field))}``, nested structures (materials,
 camera, cluster) as nested dicts -- and returns the port's dataclass with its
-tensors on ``device``.  Feeding both packages the same arrays is how the
-tests give them the same scene and the same clusters.
+tensors on ``device``; ``to_numpy`` brings a dataclass of tensors
+(parameters or their gradients) back as a dict of numpy arrays.  Feeding
+both packages the same arrays is how the tests give them the same scene,
+the same clusters and the same parameters to differentiate.
 """
 from __future__ import annotations
 
@@ -39,6 +41,21 @@ def materials_from_numpy(d: dict, *, device) -> Materials:
 
 def camera_from_numpy(d: dict, *, device) -> CameraData:
     return _tensors(CameraData, d, device)
+
+
+def to_numpy(bundle) -> dict:
+    """A dataclass of tensors (nested ones as nested dicts) -> dict of numpy
+    arrays, detached and on the host; other fields as they are."""
+    out = {}
+    for f in dataclasses.fields(bundle):
+        v = getattr(bundle, f.name)
+        if dataclasses.is_dataclass(v):
+            out[f.name] = to_numpy(v)
+        elif torch.is_tensor(v):
+            out[f.name] = v.detach().cpu().numpy()
+        else:
+            out[f.name] = v
+    return out
 
 
 def scene_from_numpy(d: dict, *, device) -> Scene:

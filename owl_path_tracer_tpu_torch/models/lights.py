@@ -50,7 +50,7 @@ def build_light_table(scene: Scene) -> LightTable | None:
     p0, p1, p2 = v[tri[:, 0]], v[tri[:, 1]], v[tri[:, 2]]
     area = 0.5 * np.linalg.norm(np.cross(p1 - p0, p2 - p0), axis=-1)
     mat_id = scene.tri_mat.cpu().numpy()[ids]
-    emission = scene.materials.emission.cpu().numpy()[mat_id]
+    emission = scene.materials.emission.detach().cpu().numpy()[mat_id]  # a constant of the table
     as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=scene.vertices.device)  # noqa: E731
     return LightTable(
         p0=as_t(p0), p1=as_t(p1), p2=as_t(p2),

@@ -356,9 +356,14 @@ def sample(mat, wo, state, prev_lobe, corrected: bool = False) -> BsdfSample:
     with the same draw accounting.
 
     Every lobe runs on every lane and the selected lane values are picked,
-    so unselected lanes may hold non-finite values that the pick discards
-    (the JAX package sanitizes them for its gradients; the port has no
-    autograd).
+    so unselected lanes may hold non-finite values that the pick discards.
+    While autograd records (and ``mat`` or ``wo`` requires gradients), each
+    lobe runs on its selected lanes' inputs and on benign constants
+    elsewhere, as in the JAX package: a lane's zero cotangent then never
+    meets an inf or NaN partial of a lobe it did not select.  The selected
+    lanes' values are the same either way, so the forward is bit-equal with
+    and without recording.  The sample (``wi``, ``pdf``, lobe, stream) is
+    detached: gradients flow through ``f`` only.
     """
     u, states = rng_mod.next_f32_n(state, 6)
     p = u[0]
@@ -374,14 +379,16 @@ def sample(mat, wo, state, prev_lobe, corrected: bool = False) -> BsdfSample:
     sel_diff = ~force_btdf & (p > c2) & (p <= c3)
     sel_glass = ~(sel_metal | sel_cc | sel_diff)
 
-    wi_m, f_m, pdf_m = sample_specular_brdf(mat, wo, u2, corrected=corrected)
-    wi_c, f_c, pdf_c = sample_clearcoat(mat, wo, u2, corrected=corrected)
-    wi_d, f_d, pdf_d = sample_diffuse(mat, wo, u2)
-    wi_g, f_g, pdf_g, consumed_g = sample_glass(
-        mat, wo, u2, u[3],
-        torch.stack([u[3], u[4]], dim=-1),
-        torch.stack([u[4], u[5]], dim=-1),
-    )
+    u_t = (u[3], torch.stack([u[3], u[4]], dim=-1), torch.stack([u[4], u[5]], dim=-1))
+    ins = {k: (mat, wo, u2, u_t) for k in ("m", "c", "d", "g")}
+    if torch.is_grad_enabled() and (wo.requires_grad or any(
+            getattr(mat, f.name).requires_grad for f in dataclasses.fields(mat))):
+        ins = {k: _lobe_inputs(sel, mat, wo, u2, u_t)
+               for k, sel in (("m", sel_metal), ("c", sel_cc), ("d", sel_diff), ("g", sel_glass))}
+    wi_m, f_m, pdf_m = sample_specular_brdf(*ins["m"][:3], corrected=corrected)
+    wi_c, f_c, pdf_c = sample_clearcoat(*ins["c"][:3], corrected=corrected)
+    wi_d, f_d, pdf_d = sample_diffuse(*ins["d"][:3])
+    wi_g, f_g, pdf_g, consumed_g = sample_glass(*ins["g"][:3], *ins["g"][3])
 
     def pick(vm, vc, vd, vg):
         sel = [s[..., None] if vm.dim() > s.dim() else s for s in (sel_metal, sel_cc, sel_diff)]
@@ -401,7 +408,20 @@ def sample(mat, wo, state, prev_lobe, corrected: bool = False) -> BsdfSample:
         torch.where(consumed == 4, states[3], torch.where(consumed == 5, states[4], states[5])),
     )
     f = f + eval_sheen(mat, wo, wi)
-    return BsdfSample(f=f, wi=wi, pdf=pdf, lobe=lobe, state=new_state)
+    return BsdfSample(f=f, wi=wi.detach(), pdf=pdf.detach(), lobe=lobe, state=new_state)
+
+
+def _lobe_inputs(sel, mat, wo, u2, u_t):
+    """A lobe's inputs: the real ones on its selected lanes ``sel`` [N],
+    benign constants elsewhere (0.5 for material fields, ior 1.5, wo +z,
+    uniforms 0.25)."""
+    def keep(v, other):
+        return torch.where(sel[..., None] if v.dim() > sel.dim() else sel, v, other)
+
+    benign = dataclasses.replace(mat, **{f.name: keep(getattr(mat, f.name), 1.5 if f.name == "ior" else 0.5)
+                                         for f in dataclasses.fields(mat)})
+    up = torch.tensor([0.0, 0.0, 1.0], dtype=wo.dtype, device=wo.device).expand(wo.shape)
+    return benign, keep(wo, up), keep(u2, 0.25), tuple(keep(x, 0.25) for x in u_t)
 
 
 # ── combined eval for NEE/MIS ─────────────────────────────────────────────

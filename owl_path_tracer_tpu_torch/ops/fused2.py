@@ -268,9 +268,18 @@ def build_fused2_scene(scene, cluster_size: int = 512, mxu: bool = True,
 # ── rays ──────────────────────────────────────────────────────────────────
 
 
+def _detached(*xs):
+    """Each tensor argument detached from autograd (others as they are)."""
+    return tuple(x.detach() if torch.is_tensor(x) else x for x in xs)
+
+
 def pack_rays(ray_o, ray_d, t_max, shadow=None):
     """[N,8] kernel ray layout: o(3) d(3) tmax flag.  The flag column marks
-    the shadow (any-hit) lanes of a mixed sweep; 0 otherwise."""
+    the shadow (any-hit) lanes of a mixed sweep; 0 otherwise.  Detached, as
+    in the JAX package: the traversal is not differentiable (hit records do
+    not depend on materials or the environment; camera gradients take
+    :func:`fused2_closest_hit_diff`'s refit)."""
+    ray_o, ray_d, t_max, shadow = _detached(ray_o, ray_d, t_max, shadow)
     n = ray_o.shape[0]
     t_max = torch.as_tensor(t_max, dtype=torch.float32, device=ray_o.device).expand(n)
     if shadow is None:
@@ -758,6 +767,7 @@ def fused2_traverse_packed(rays, fb: Fused2BVH, block: int = BLOCK_RAYS, max_ste
     attributes (K4); ``exact=True`` (MXU planes, closest hit with
     attributes) launches the CUDA-core form of the kernel instead of the
     tensor-core one."""
+    rays = rays.detach()  # no kernel has a backward pass; the plain version gets none either
     if rays.device.type == "cpu":
         if exact:
             _entry(fb, mode, with_attrs, exact)  # the same argument check as on the card
@@ -769,7 +779,7 @@ def _sweep(ray_o, ray_d, t_max, fb: Fused2BVH, sort, block: int, max_steps: int,
            fanout: int, shadow=None, with_attrs: bool = True):
     """Pad to whole blocks, pack, optionally sort by the coherence key (the
     shadow class on key bit 30), traverse in ``mode`` and unsort -> [N,32]
-    rows of the first N (unpadded) rays."""
+    rows of the first N (unpadded) rays (``pack_rays`` detaches them)."""
     n0 = ray_o.shape[0]
     ray_o_p, ray_d_p, t_max_p, _ = _pad_rays(ray_o, ray_d, t_max, block)
     if shadow is not None:
@@ -794,8 +804,10 @@ def _hits_from_output(out, ray_o, ray_d, fb: Fused2BVH, t_min, t_max):
     Rows the kernel left unresolved get the exact cluster query's answer and
     the attribute-table row of its winner; a miss keeps a zero payload, as
     on the resolved path (the JAX package gives such a miss row 0 of the
-    table, which no caller reads)."""
+    table, which no caller reads).  Everything it returns is detached, the
+    fallback's answers too (the JAX package stops their gradient)."""
     global UNRESOLVED_RAYS
+    ray_o, ray_d, t_max = _detached(ray_o, ray_d, t_max)
     t = out[:, 0].clone()
     hit = out[:, 4] > 0.0
     tri = torch.where(hit, out[:, 3].to(torch.int64), -1)
@@ -835,8 +847,9 @@ def fused2_occluded(ray_o, ray_d, fb: Fused2BVH, t_min: float = m.T_MIN, t_max=m
 
     The first valid hit retires a ray (terminate-on-first-hit).  Pads, sorts
     and unsorts like :func:`fused2_closest_hit`; rows a block leaves
-    unresolved take ``cluster_occluded``."""
+    unresolved take ``cluster_occluded`` on the detached rays."""
     global UNRESOLVED_RAYS
+    ray_o, ray_d, t_max = _detached(ray_o, ray_d, t_max)
     out = _sweep(ray_o, ray_d, t_max, fb, sort, block, max_steps, "any_hit", fanout)
     occ = out[:, 4] > 0.0
     rows = torch.nonzero(out[:, 5] <= 0.0).squeeze(1)
@@ -872,5 +885,50 @@ def make_fused2_intersector(fb: Fused2BVH, **kw):
 
     def intersect(ray_o, ray_d):
         return fused2_closest_hit(ray_o, ray_d, fb, **kw)
+
+    return intersect
+
+
+def fused2_closest_hit_diff(ray_o, ray_d, fb: Fused2BVH, vertices, tri_idx, **kw):
+    """:func:`fused2_closest_hit` with differentiable hit geometry -> (HitRecord, attr_blob).
+
+    The traversal picks the winning triangle on detached rays (a discrete
+    choice); t, u and v are then derived again in plain PyTorch from the
+    live rays and the winner's vertices, by the pvec/qvec Moller-Trumbore
+    form with the same ``det`` guard, so camera gradients (and geometry
+    gradients, where ``vertices`` requires them) flow through hit positions.
+    The refit's values lie within rounding of the traversal's; rows where
+    the winner's ``det`` is degenerate keep the traversal's answer.  The
+    blob stays detached."""
+    rec, blob = fused2_closest_hit(ray_o, ray_d, fb, **kw)
+    hit = rec.tri >= 0
+    tri = tri_idx[rec.tri.clamp(min=0)].long()
+    p0 = vertices[tri[:, 0]]
+    e1 = vertices[tri[:, 1]] - p0
+    e2 = vertices[tri[:, 2]] - p0
+    pvec = torch.linalg.cross(ray_d, e2)
+    det = _dot3(e1, pvec)
+    det_ok = torch.abs(det) > 1e-12
+    inv = 1.0 / torch.where(det_ok, det, 1.0)
+    tvec = ray_o - p0
+    u = _dot3(tvec, pvec) * inv
+    qvec = torch.linalg.cross(tvec, e1)
+    v = _dot3(ray_d, qvec) * inv
+    t = _dot3(e2, qvec) * inv
+    use = hit & det_ok
+    return HitRecord(t=torch.where(use, t, rec.t), tri=rec.tri,
+                     uv=torch.where(use[:, None], torch.stack([u, v], -1), rec.uv)), blob
+
+
+def _dot3(a, b):
+    """Row dot product of [N,3] tensors, summed left to right."""
+    return a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1] + a[:, 2] * b[:, 2]
+
+
+def make_fused2_intersector_diff(fb: Fused2BVH, vertices, tri_idx, **kw):
+    """Intersector of :func:`fused2_closest_hit_diff` (the gradient path's)."""
+
+    def intersect(ray_o, ray_d):
+        return fused2_closest_hit_diff(ray_o, ray_d, fb, vertices, tri_idx, **kw)
 
     return intersect

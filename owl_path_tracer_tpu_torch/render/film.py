@@ -68,8 +68,9 @@ def make_accel(scene: Scene, kind: str = "cluster", cluster_size: int | None = N
     512 for enclosed scenes (the cid2 sort), and for open scenes halved from
     512 (down to 128) while the scene would have fewer than 64 clusters.
     ``cluster`` is the exact cluster query (C=128 by default) and ``fused``
-    the same clusters traversed by kernel K5.  ``bvh`` and ``brute`` are not
-    ported yet (ROADMAP queue 1, items 9 and 10)."""
+    the same clusters traversed by kernel K5.  ``brute`` returns None, which
+    every renderer takes for the brute sweep over every triangle, as in the
+    JAX package.  ``bvh`` is not ported yet (ROADMAP queue 1, item 1)."""
     if kind in ("fused2", "fused2-bf16"):
         if kind == "fused2-bf16":
             plane_dtype = torch.bfloat16
@@ -84,9 +85,10 @@ def make_accel(scene: Scene, kind: str = "cluster", cluster_size: int | None = N
         cb = build_clusters(scene.vertices.cpu().numpy(), scene.tri_idx.cpu().numpy(),
                             cluster_size=cluster_size or 128, device=scene.vertices.device)
         return build_fused(cb) if kind == "fused" else cb
-    if kind in ("bvh", "brute"):
-        raise NotImplementedError(
-            f"accelerator {kind!r} is not ported yet: ROADMAP queue 1, item {9 if kind == 'bvh' else 10}")
+    if kind == "brute":
+        return None
+    if kind == "bvh":
+        raise NotImplementedError("accelerator 'bvh' is not ported yet: ROADMAP queue 1, item 1")
     raise ValueError(f"unknown intersector kind {kind!r}")
 
 
@@ -97,7 +99,7 @@ def scene_has_textures(scene: Scene) -> bool:
 def add_samples(scene: Scene, settings: RenderSettings, film: Film, num_samples: int,
                 pixel_chunk: int = 65536, accel=None, fused2_block: int | None = None) -> Film:
     """Accumulate ``num_samples`` more samples per pixel into a new film,
-    ``pixel_chunk`` pixels at a time.  The last chunk is padded to the full
+    ``pixel_chunk`` pixels at a time (``accel=None``: the brute sweep).  The last chunk is padded to the full
     chunk with copies of the last pixel, as in the JAX package (whose padded
     lanes count in ``rays_traced`` too).  ``fused2_block`` is the fused2
     kernel's rays per block."""
@@ -119,8 +121,9 @@ def add_samples(scene: Scene, settings: RenderSettings, film: Film, num_samples:
         s, r, n_rays = integrator.sample_sum(scene, settings, px[idx], state[idx], num_samples, intersect_fn,
                                              enable_textures, lights=lights, occlude_fn=occlude_fn,
                                              env_light=env_light)
-        acc[lo:hi] += s[: hi - lo]
-        state[lo:hi] = r[: hi - lo]
+        with torch.profiler.record_function("owlpt.film"):
+            acc[lo:hi] += s[: hi - lo]
+            state[lo:hi] = r[: hi - lo]
         rays = rays + n_rays
     return Film(acc=acc, rng=state, spp_done=film.spp_done + num_samples, width=film.width,
                 height=film.height, rays_traced=film.rays_traced + int(rays))

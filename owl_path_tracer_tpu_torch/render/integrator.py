@@ -43,8 +43,9 @@ from ..ops.cluster import ClusterBVH, cluster_closest_hit, cluster_occluded
 from ..ops.fused import FusedBVH, fused_occluded, make_fused_intersector
 from ..ops.fused2 import (
     BLOCK_RAYS, FANOUT, Fused2BVH, fused2_occluded, fused2_sweep_mixed, make_fused2_intersector,
+    make_fused2_intersector_diff,
 )
-from ..ops.intersect import HitRecord
+from ..ops.intersect import HitRecord, any_hit_brute, closest_hit_brute
 from ..utils.tensors import TensorBundle
 
 
@@ -102,11 +103,19 @@ def _tex_lookup(scene: Scene, mat_id, tc, base_color):
 def _fetch_surface_blob(scene: Scene, hit, blob, ray_o, ray_d, enable_textures: bool):
     """Surface data from the traversal's attribute payload -> (hit position
     ``o + t*d``, interpolated shading normal (unit +z for miss lanes, whose
-    payload is zero), material with its optional texture)."""
+    payload is zero), material with its optional texture).
+
+    A miss lane's ``o + t*d`` lies at t = T_MAX; while autograd records a
+    gradient of the scene or the rays, its position is the ray origin
+    instead, or the NEE light samples it draws there (masked, but evaluated)
+    make inf / NaN factors that a zero cotangent turns into NaN gradients.
+    The lanes that hit are the same either way, so the forward values are too."""
     u = hit.uv[..., 0:1]
     v = hit.uv[..., 1:2]
     w = 1.0 - u - v
     pos = ray_o + hit.t[..., None] * ray_d
+    if _recording(scene, ray_o, ray_d, hit.t):
+        pos = torch.where(hit.hit[..., None], pos, ray_o)
 
     sh_n = w * blob[:, 0:3] + u * blob[:, 3:6] + v * blob[:, 6:9]
     len2 = m.dot(sh_n, sh_n)
@@ -122,9 +131,21 @@ def _fetch_surface_blob(scene: Scene, hit, blob, ray_o, ray_d, enable_textures: 
     return pos, sh_n, mat
 
 
+def _recording(scene: Scene, *tensors) -> bool:
+    """Does autograd record a gradient of the scene's materials or
+    environment, or of one of ``tensors``?"""
+    if not torch.is_grad_enabled():
+        return False
+    mats = scene.materials
+    return (scene.env_map.requires_grad or any(t.requires_grad for t in tensors)
+            or any(getattr(mats, f.name).requires_grad for f in dataclasses.fields(mats)))
+
+
 def _intersect(intersect_fn, ray_o, ray_d):
-    """Intersector result -> (HitRecord, attribute blob or None)."""
-    res = intersect_fn(ray_o, ray_d)
+    """Intersector result -> (HitRecord, attribute blob or None), under the
+    profiler range ``owlpt.intersect``."""
+    with torch.profiler.record_function("owlpt.intersect"):
+        res = intersect_fn(ray_o, ray_d)
     if isinstance(res, HitRecord):
         return res, None
     return res
@@ -160,9 +181,15 @@ def _fetch_surface(scene: Scene, hit, enable_textures: bool):
 
 def trace_bounce(scene: Scene, settings: RenderSettings, state: PathState,
                  intersect_fn: Callable, enable_textures: bool) -> PathState:
-    """One wavefront bounce for every lane."""
+    """One wavefront bounce for every lane: the closest-hit query, then the
+    shading under the profiler range ``owlpt.shade``."""
     hit, blob = _intersect(intersect_fn, state.ray_o, state.ray_d)
+    with torch.profiler.record_function("owlpt.shade"):
+        return _shade_bounce(scene, settings, state, hit, blob, enable_textures)
 
+
+def _shade_bounce(scene: Scene, settings: RenderSettings, state: PathState, hit, blob,
+                  enable_textures: bool) -> PathState:
     # miss -> environment, terminate
     miss = state.alive & ~hit.hit
     env = _environment_radiance(scene, settings, state.ray_d)
@@ -227,7 +254,9 @@ def trace_bounce_nee(scene: Scene, settings: RenderSettings, lights, state: Path
     untested light sample, which the caller traces in the next step's mixed
     sweep -- the same draws and contribution as the immediate form, banked one
     step later.  ``precomputed`` = (HitRecord, blob) of this step's rays when
-    the caller has traced them already.
+    the caller has traced them already.  The shading runs under the
+    profiler range ``owlpt.shade``, its shadow tests under
+    ``owlpt.occlude`` inside it.
     """
     if deferred and env_light is not None:
         raise ValueError("deferred NEE supports area lights only")
@@ -235,7 +264,13 @@ def trace_bounce_nee(scene: Scene, settings: RenderSettings, lights, state: Path
         hit, blob = precomputed
     else:
         hit, blob = _intersect(intersect_fn, state.ray_o, state.ray_d)
+    with torch.profiler.record_function("owlpt.shade"):
+        return _shade_bounce_nee(scene, settings, lights, state, hit, blob, occlude_fn, enable_textures,
+                                 allow_nee, env_light, deferred)
 
+
+def _shade_bounce_nee(scene: Scene, settings: RenderSettings, lights, state: PathState, hit, blob,
+                      occlude_fn: Callable, enable_textures: bool, allow_nee, env_light, deferred: bool):
     # miss -> environment; MIS-weighted against environment sampling when an
     # EnvLight is active (primary rays keep weight 1)
     first = (state.depth == 0) | (state.prev_pdf <= 0.0)
@@ -284,7 +319,8 @@ def trace_bounce_nee(scene: Scene, settings: RenderSettings, lights, state: Path
             pend_on = can_light & (pend_c != 0.0).any(dim=-1)
             pending = (pos, ls.direction, ls.distance - m.T_MIN, pend_c, pend_on)
         else:
-            occluded = occlude_fn(pos, ls.direction, ls.distance - m.T_MIN)
+            with torch.profiler.record_function("owlpt.occlude"):
+                occluded = occlude_fn(pos, ls.direction, ls.distance - m.T_MIN)
             contrib = torch.where((can_light & ~occluded)[..., None], contrib, 0.0)
             result = result + state.throughput * torch.nan_to_num(contrib, nan=0.0, posinf=0.0)
 
@@ -296,7 +332,8 @@ def trace_bounce_nee(scene: Scene, settings: RenderSettings, lights, state: Path
         we_local = m.to_local(t_b, b_b, sh_n, es.direction)
         f_e, pdf_b_e = disney.eval_all(mat, local_wo, we_local)
         can_env = alive & (es.pdf > 0.0) & allow_nee
-        env_occluded = occlude_fn(pos, es.direction, torch.full(pos.shape[:1], m.T_MAX, device=pos.device))
+        with torch.profiler.record_function("owlpt.occlude"):
+            env_occluded = occlude_fn(pos, es.direction, torch.full(pos.shape[:1], m.T_MAX, device=pos.device))
         w_e = lights_mod.power_heuristic(1.0, es.pdf, 1.0, pdf_b_e)
         contrib_e = f_e * es.radiance * (
             torch.abs(m.cos_theta(we_local)) * w_e / torch.where(es.pdf > 0.0, es.pdf, 1.0))[..., None]
@@ -323,10 +360,11 @@ def trace_bounce_nee(scene: Scene, settings: RenderSettings, lights, state: Path
     prev_lobe = torch.where(ok, bs.lobe, state.prev_lobe)
     prev_pdf = torch.where(ok, pdf_mix, state.prev_pdf)
 
-    # standard compensated Russian roulette
+    # standard compensated Russian roulette; the survival probability is
+    # detached, so the 1/q compensation leaks no score terms into gradients
     beta_max = torch.amax(throughput, dim=-1)
     rr_active = ok & (state.depth > settings.rr_start_depth)
-    q = torch.clamp(beta_max, 0.05, 1.0)
+    q = torch.clamp(beta_max, 0.05, 1.0).detach()
     rr_draw, rr_state = rng_mod.next_f32(rng_state)
     rng_state = torch.where(rr_active, rr_state, rng_state)
     survive = ~rr_active | (rr_draw < q)
@@ -365,19 +403,39 @@ def make_mixed_sweep_fn(accel, fused2_block: int | None = None, fused2_sort=Fals
     return sweep
 
 
-def make_intersectors(scene: Scene, accel, fused2_block: int | None = None, fused2_sort=False,
-                      fused2_fanout: int | None = None):
-    """Accel -> (intersect_fn, occlude_fn), shared by the scan renderer and
-    the wavefront.
+def make_brute_intersector(scene: Scene, tri_chunk: int = 512) -> Callable:
+    """Closest hit by the brute sweep over every triangle (the exact oracle)."""
+    def intersect(ray_o, ray_d):
+        return closest_hit_brute(ray_o, ray_d, scene.vertices, scene.tri_idx, tri_chunk=tri_chunk)
+
+    return intersect
+
+
+def make_brute_occluder(scene: Scene, tri_chunk: int = 512) -> Callable:
+    """Occlusion by the brute sweep, ``occlude(pos, direction, max_dist)``."""
+    def occlude(pos, direction, max_dist):
+        return any_hit_brute(pos, direction, scene.vertices, scene.tri_idx, t_max=max_dist, tri_chunk=tri_chunk)
+
+    return occlude
+
+
+def make_intersectors(scene: Scene, accel, tri_chunk: int = 512, fused2_block: int | None = None,
+                      fused2_sort=False, fused2_fanout: int | None = None, differentiable: bool = False):
+    """Accel -> (intersect_fn, occlude_fn), shared by the scan renderer, the
+    wavefront and the gradient path.
 
     * ``Fused2BVH``: closest hit + attribute blob through kernel K1 (component
       planes) or K1b (MXU planes), occlusion through K2 or K1b's any-hit mode;
       ``fused2_block``, ``fused2_sort`` and ``fused2_fanout`` (default FANOUT,
       clusters retired per loop iteration on the MXU layout) apply to it only;
+      ``differentiable=True`` (render/diff.py) re-derives the winner's t/u/v
+      from the live rays (``fused2_closest_hit_diff``), so camera gradients
+      flow through the kernel's detached winners;
     * ``FusedBVH``: closest hit through kernel K5, occlusion as its hit test;
-    * ``ClusterBVH``: the exact cluster query (plain PyTorch).
-    The per-ray stack BVH and brute force are not ported yet (ROADMAP queue 1,
-    items 9 and 10)."""
+    * ``ClusterBVH``: the exact cluster query (plain PyTorch);
+    * ``None``: the brute sweep over every triangle, ``tri_chunk`` at a time
+      (plain PyTorch; the exact oracle of the gradient tests).
+    The per-ray stack BVH is not ported yet (ROADMAP queue 1, item 1)."""
     if isinstance(accel, Fused2BVH):
         blk = fused2_block or BLOCK_RAYS
         fo = fused2_fanout or FANOUT
@@ -386,16 +444,22 @@ def make_intersectors(scene: Scene, accel, fused2_block: int | None = None, fuse
             return fused2_occluded(pos, direction, accel, t_max=max_dist, block=blk, sort=fused2_sort,
                                    fanout=fo)
 
-        return make_fused2_intersector(accel, block=blk, sort=fused2_sort, fanout=fo), occlude
+        if differentiable:
+            isect = make_fused2_intersector_diff(accel, scene.vertices, scene.tri_idx, block=blk,
+                                                 sort=fused2_sort, fanout=fo)
+        else:
+            isect = make_fused2_intersector(accel, block=blk, sort=fused2_sort, fanout=fo)
+        return isect, occlude
     if isinstance(accel, FusedBVH):
         return (make_fused_intersector(accel),
                 lambda p, d, dist: fused_occluded(p, d, accel, t_max=dist))
     if isinstance(accel, ClusterBVH):
         return (lambda o, d: cluster_closest_hit(o, d, accel),
                 lambda p, d, dist: cluster_occluded(p, d, accel, t_max=dist))
+    if accel is None:
+        return make_brute_intersector(scene, tri_chunk), make_brute_occluder(scene, tri_chunk)
     raise NotImplementedError(
-        f"accelerator {type(accel).__name__} is not ported yet: the per-ray stack BVH and brute force "
-        "are ROADMAP queue 1, items 9 and 10"
+        f"accelerator {type(accel).__name__} is not ported yet: the per-ray stack BVH is ROADMAP queue 1, item 1"
     )
 
 
@@ -445,7 +509,8 @@ def sample_sum(scene: Scene, settings: RenderSettings, pixel_xy, rng_state, num_
         o, d = primary_rays(scene.camera, pixel_xy, torch.stack([j0, j1], -1), (settings.width, settings.height))
         radiance, st, r = trace_paths(scene, settings, o, d, st, intersect_fn, enable_textures,
                                       lights=lights, occlude_fn=occlude_fn, env_light=env_light)
-        acc = acc + radiance
+        with torch.profiler.record_function("owlpt.film"):
+            acc = acc + radiance
         rays = rays + r
     return acc, st, rays
 

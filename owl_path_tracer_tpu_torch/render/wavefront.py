@@ -249,14 +249,15 @@ def _run_chunk(scene: Scene, settings: RenderSettings, st: PoolState, accel,
     return st, torch.stack([st.work_counter >= work_hi, (st.alive | st.sh_active).any()])
 
 
-def render_image_wavefront(scene: Scene, settings: RenderSettings, accel, lanes: int = 131072,
+def render_image_wavefront(scene: Scene, settings: RenderSettings, accel=None, lanes: int = 131072,
                            iters_per_launch: int = 32, max_launches: int = 1000,
                            fused2_block: int | None = None, fused2_sort=False,
                            sample_base: int = 0, fused_nee: bool = False,
                            fused2_fanout: int | None = None, checkpoint_path: str | None = None,
                            checkpoint_every_s: float = 600.0, progress: bool = False) -> tuple:
     """Full frame via the persistent pool -> (image [H,W,3] top row first, on
-    the scene's device; live rays traced).
+    the scene's device; live rays traced).  ``accel=None`` (``make_accel``'s
+    ``"brute"``) is the brute sweep over every triangle.
 
     ``fused2_sort=True`` picks the sort mode from the scene (cid2 for
     enclosed scenes, else morton).  Launch size adapts to the frame: the

@@ -54,6 +54,12 @@ def ensure_car() -> str:
     return "car"
 
 
+def ensure_mitsuba() -> str:
+    """Write ``assets/mitsuba.obj.scene`` unless present -> the scene name."""
+    generate("obj = generate.HERE / 'mitsuba.obj.scene'\nobj.exists() or generate.gen_mitsuba_scene(obj)\n")
+    return "mitsuba"
+
+
 def load(sub: int, size: int = 1024, *, device):
     """The dragon at icosphere subdivision ``sub`` -> (scene, settings), the
     reference's probe configuration."""

@@ -14,8 +14,8 @@
   with the scan renderer, which writes none, ``--checkpoint`` raises where
   the JAX package ignores it.
 
-Not ported yet: the ``bvh`` and ``brute`` intersectors (ROADMAP queue 1,
-items 9 and 10) raise NotImplementedError.
+Not ported yet: the ``bvh`` intersector (ROADMAP queue 1, item 1) raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -166,7 +166,8 @@ def main(argv=None):
         choices=["brute", "bvh", "cluster", "fused", "fused2", "fused2-bf16"],
         default="cluster",
         help="cluster = exact cluster query; fused = the same clusters through the fused kernel; "
-             "fused2 / fused2-bf16 = fat-cluster kernel with f32 / bf16 planes; bvh and brute are not ported yet",
+             "fused2 / fused2-bf16 = fat-cluster kernel with f32 / bf16 planes; brute = every triangle; "
+             "bvh is not ported yet",
     )
     ap.add_argument("--cluster-size", type=int, default=None,
                     help="tris per cluster (default: 128; 512 for fused2)")

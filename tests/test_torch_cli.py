@@ -136,8 +136,9 @@ def test_cli_main_single_frame(tmp_path, renderer):
 
 @pytest.mark.parametrize("extra,error,match", [
     (["--checkpoint", "film.ck"], ValueError, "needs --renderer wavefront"),  # the scan renderer has none
-    (["--intersector", "bvh"], NotImplementedError, "item 9"),
-    (["--intersector", "brute"], NotImplementedError, "item 10"),
+    (["--intersector", "bvh"], NotImplementedError, "ROADMAP queue 1, item 1"),
+    # brute is ported: it gets past make_accel to the scan renderer's refusal
+    (["--intersector", "brute", "--checkpoint", "film.ck"], ValueError, "needs --renderer wavefront"),
 ], ids=["checkpoint", "bvh", "brute"])
 def test_unported_parts_raise(tmp_path, extra, error, match):
     work = _assets(tmp_path, SWEEP)

@@ -6,7 +6,10 @@ kernel (K5, also above the cluster count one block's shared memory once
 held) and the latency probe (K6), against their plain versions, and frames
 (wavefront without and with NEE, stopped and resumed from a checkpoint, and
 the scan renderer on the fused kernel) rendered on the card against the same
-frames on the CPU or uninterrupted, and the wavefront film rendered twice.
+frames on the CPU or uninterrupted, the wavefront film rendered twice, and
+the gradient path (material and camera gradients through K1b on f32 and
+bf16 planes against the CPU's plain version, by chip_smoke.py's phase-5g
+rule; the brute sweep against the cluster query).
 
 Imports nothing of JAX (the card's machine has none).  Every test is marked
 ``cuda`` and skips where there is no CUDA device.  On the card:
@@ -733,3 +736,81 @@ def test_resume_on_card_gives_the_uninterrupted_frame(cuda_device, tmp_path):
     close = np.isclose(img, want, rtol=1e-4, atol=1e-5)
     assert close.mean() > 0.995, f"only {close.mean():.4%} pixels match"
     np.testing.assert_allclose(img.mean(), want.mean(), rtol=1e-3)
+
+
+# ── the gradient path (render/diff.py) on the card ──
+
+
+def _grad_settings(**kw):
+    return RenderSettings(width=16, height=16, max_samples=2, max_path_depth=3, environment_color=(1.0, 0.9, 0.8),
+                          environment_intensity=1.0, **kw)
+
+
+@pytest.mark.parametrize("kind", ["fused2", "fused2-bf16"])
+def test_material_gradients_card_vs_cpu(cuda_device, kind):
+    """Material gradients through K1b (f32 and bf16 planes, under autograd)
+    against the same call on CPU tensors (the plain version): chip_smoke's
+    rule (phase 5g), every wave held to the plain version first."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.render import diff
+
+    sphere = chip_smoke.grad_sphere()
+    settings = _grad_settings()
+    px = tfilm._pixel_grid(16, 16, "cpu")
+
+    def fn(scene, accel, px):
+        return diff.loss_and_grad(scene, scene.materials, settings, px, torch.zeros((px.shape[0], 3), device=px.device),
+                                  2, accel)
+
+    s64 = chip_smoke.float64(sphere.to(cuda_device))
+    counts, worst = chip_smoke.grads_card_vs_cpu(cuda_device, f"sphere materials, {kind}", fn, sphere,
+                                                 make_accel(sphere, kind), px, exact=lambda p: fn(s64, None, p))
+    entry = "owlpt_fused2_mxu_closest_hit" if kind == "fused2" else "owlpt_fused2_mxu_bf16_closest_hit"
+    assert counts.get(entry, 0) > 0 and worst <= 1.0
+
+
+@pytest.mark.parametrize("kind", ["fused2", "fused2-bf16"])
+def test_camera_gradients_card_vs_cpu(cuda_device, kind):
+    """Camera gradients through the refit of K1b's winners (the radius-2
+    sphere fills the view), card vs CPU."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.render import diff
+
+    big = chip_smoke.grad_sphere(radius=2.0)
+    settings = _grad_settings(environment_auto=True)
+    px = tfilm._pixel_grid(16, 16, "cpu")
+
+    def fn(scene, accel, px):
+        return diff.camera_loss_and_grad(scene, scene.camera, settings, px,
+                                         torch.zeros((px.shape[0], 3), device=px.device), 2, accel)
+
+    b64 = chip_smoke.float64(big.to(cuda_device))
+    counts, worst = chip_smoke.grads_card_vs_cpu(cuda_device, f"sphere camera, {kind}", fn, big,
+                                                 make_accel(big, kind), px, exact=lambda p: fn(b64, None, p))
+    assert sum(counts.values()) > 0 and worst <= 1.0
+
+
+def test_brute_equals_cluster_on_the_card(cuda_device):
+    """The brute sweep and the cluster query (both plain PyTorch) give the
+    same hits, flags and frame bit for bit on the card."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.ops.intersect import any_hit_brute, closest_hit_brute
+
+    scene = compile_scene(ASSETS, "cornell-box", (24, 24), device=cuda_device)
+    cb = make_accel(scene, "cluster", cluster_size=64)
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    lo, hi = scene.vertices.min(0).values, scene.vertices.max(0).values
+    o = lo + torch.rand((4096, 3), generator=gen).to(cuda_device) * (hi - lo)
+    d = torch.nn.functional.normalize(torch.randn((4096, 3), generator=gen), dim=-1).to(cuda_device)
+    got, want = closest_hit_brute(o, d, scene.vertices, scene.tri_idx), tcl.cluster_closest_hit(o, d, cb)
+    assert (got.tri >= 0).sum() > 1000
+    assert torch.equal(got.tri, want.tri) and torch.equal(got.t, want.t) and torch.equal(got.uv, want.uv)
+    tmax = torch.full((4096,), 0.7, device=cuda_device)
+    assert torch.equal(any_hit_brute(o, d, scene.vertices, scene.tri_idx, t_max=tmax),
+                       tcl.cluster_occluded(o, d, cb, t_max=tmax))
+    settings = RenderSettings(width=24, height=24, max_samples=2, max_path_depth=3, environment_auto=True)
+    assert torch.equal(tfilm.render_image(scene, settings, intersector="brute"),
+                       tfilm.render_image(scene, settings, accel=cb))

@@ -29,6 +29,7 @@ bad = sorted(m for m in new if m.split(".")[0] in ("jax", "jaxlib", "owl_path_tr
 assert not bad, bad
 assert "jax" not in sys.modules and "owl_path_tracer_tpu" not in sys.modules
 print(len(names))
+print(*names, file=sys.stderr)
 """
 
 
@@ -38,7 +39,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 24  # every sub-package and module was walked
+    assert int(proc.stdout.strip()) >= 26  # every sub-package and module was walked
+    for name in ("render.diff", "render.metrics"):  # the gradient path's modules among them
+        assert f"owl_path_tracer_tpu_torch.{name}" in proc.stderr.split()
 
 
 def test_native_sources_lie_inside_the_port(monkeypatch):
