@@ -145,10 +145,40 @@ make_intersectors(..., differentiable=True)):
      Mrays/s (live rays of one more loss + backward over its synchronised
      wall time), peak memory and K1b launches per step; one loss + backward
      under metrics.profile_trace: device busy share and the owlpt.* ranges.
+Multi-device rendering (parallel/shard.py on torch.distributed), the
+per-ray-stack bvh accelerator and the strided film:
+  6h. phase 6's main path through render_image_wavefront_sharded on
+     fused2-bf16 in an NCCL group of world size 1 (work_map the identity),
+     counts reset just before it: the film equal to render_image_wavefront's
+     at the same settings bit for bit, K1b launches counted; then
+     sharded_loss_and_grad at world size 1 on mitsuba 256x256, spp 4, depth
+     3, fused2, against render/diff.py::loss_and_grad to rtol 1e-6 (atol 1e-6
+     max|g|), K1b launches per call; then two ranks spawned on the one card
+     (gloo, explicitly: NCCL refuses two ranks on one card) render the
+     dragon at 256x256 on fused2-bf16 with both work splits, each image held
+     to the world-1 frame by the golden rule, with per_chip_rays and
+     load_balance;
+  6i. the bvh accelerator (make_accel("bvh"), plain PyTorch): bvh_closest_hit
+     on phase 4's primary and bounce waves equal to cluster_closest_hit bit
+     for bit (tri, t, u, v; an exact t tie between two triangles is counted
+     and excused), bvh_occluded on phase 4b's cornell shadow wave equal to
+     cluster_occluded, each timed beside the cluster query; then one frame
+     of the dragon at 1024x1024, depth 4, spp 1 through
+     render_image_wavefront on bvh and on cluster, with their seconds and
+     Mrays/s, then the bvh frame again with every wave held to the cluster
+     query on its own rays: winners may differ only at exact t ties between
+     two triangles (either is the closest hit; one of 1.85M rays on dragon7
+     at spp 1), and the frames must then meet the golden rule with equal
+     rays, else be equal bit for bit;
+  6j. the strided film at phase 6's configuration on the component layout
+     (8 pixels per lane), held to the queue film by tests/test_wavefront.py's
+     rule (rtol 1e-5, atol 1e-6, equal rays), timed in turns queue,
+     strided, strided, queue; then once each on fused2-bf16 (golden rule).
 The second-to-last lines are the kernels JSON (the K1b rows give the
-tensor-core entries; fused2_mxu_exact_closest_hit and
-fused2_mxu_bf16_exact_closest_hit, off every render path, the exact forms'
-times from the same turns) and the GPU's nvidia-smi line;
+tensor-core entries, with sharded_launches, their launches on phase 6h's
+sharded paths, and on the bf16 closest-hit row sharded_launches_two_ranks;
+fused2_mxu_exact_closest_hit and fused2_mxu_bf16_exact_closest_hit, off
+every render path, the exact forms' times from the same turns) and the GPU's nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.  Each kernel's bound_ms is
 the largest of its times at the wave it was timed on, per ray and slot of
 each cluster that ray's exact query needs (see needed_clusters; K5 adds
@@ -250,6 +280,9 @@ EPS32 = 2.0**-23
 # allclose(rtol=GRAD_RTOL, atol=GRAD_ATOL_OF_MAX * max|g_cpu|)
 GRAD_SIZE, GRAD_CAR_SIZE, GRAD_FULL, GRAD_STEPS = 16, 32, 256, 10
 GRAD_RTOL, GRAD_ATOL_OF_MAX = 1e-4, 1e-6
+# phase 6h's two-rank frame (the dragon, cut from 1024x1024 so that two
+# spawned ranks on one card build and render it in well under a minute)
+TWO_RANK_SIZE = 256
 
 
 class SmokeFailure(Exception):
@@ -2046,6 +2079,249 @@ def phase_6g(dev, smi):
     return per_step
 
 
+def two_rank_frames(mesh, dragon, size, spp, lanes, block):
+    """One rank of phase 6h's two-rank run (spawned): dragon at ``size`` on
+    fused2-bf16, both work splits -> (split, image, rays, stats, K1b bf16
+    closest-hit launches) per split, as numpy and ints."""
+    from owl_path_tracer_tpu_torch.models.scene import RenderSettings, compile_scene
+    from owl_path_tracer_tpu_torch.ops import fused2
+    from owl_path_tracer_tpu_torch.parallel import shard
+    from owl_path_tracer_tpu_torch.render.film import make_accel
+
+    scene = compile_scene(ROOT / "assets", dragon, (size, size), device=mesh.device)
+    settings = RenderSettings(width=size, height=size, max_samples=spp, max_path_depth=DEPTH, environment_auto=True)
+    accel = make_accel(scene, "fused2-bf16")
+    out = []
+    for split in ("sample", "contiguous"):
+        fused2.reset_counts()
+        img, rays, stats = shard.render_image_wavefront_sharded(
+            scene, settings, mesh=mesh, accel=accel, lanes_per_chip=lanes, fused2_block=block, fused2_sort=True,
+            work_split=split, return_stats=True)
+        out.append((split, img.cpu().numpy(), rays, stats, fused2.LAUNCHES["owlpt_fused2_mxu_bf16_closest_hit"]))
+    return out
+
+
+def phase_6h(dev, scene, settings, dragon, lanes, block, smi):
+    """Multi-device rendering (parallel/shard.py) -> K1b launches of the
+    sharded paths: {"bf16": world-1 frame, "f32": per sharded loss call,
+    "two_ranks": each rank's bf16 launches per split}."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from owl_path_tracer_tpu_torch.models.scene import RenderSettings, compile_scene
+    from owl_path_tracer_tpu_torch.ops import fused2, rng
+    from owl_path_tracer_tpu_torch.parallel import shard
+    from owl_path_tracer_tpu_torch.render import diff, wavefront
+    from owl_path_tracer_tpu_torch.render.film import _pixel_grid, make_accel, scene_has_textures
+    from owl_path_tracer_tpu_torch.tools.probe_common import ensure_mitsuba
+
+    launches = {}
+    accel = make_accel(scene, "fused2-bf16")
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = shard.make_pixel_mesh(dev, init_method=(pathlib.Path(tmp) / "store").as_uri(), rank=0,
+                                     world_size=1)
+        try:
+            check(mesh.size == 1, f"world 1 mesh {mesh}")
+            # the main path, sharded at world size 1 (work_map the identity),
+            # in turns with the unsharded frame: unsharded, sharded, sharded, unsharded
+            def frame(sharded):
+                torch.cuda.synchronize()
+                fused2.reset_counts()
+                start = time.perf_counter()
+                if sharded:
+                    img, rays, _ = shard.render_image_wavefront_sharded(
+                        scene, settings, mesh=mesh, accel=accel, lanes_per_chip=lanes, fused2_block=block,
+                        fused2_sort=True, return_stats=True)
+                else:
+                    img, rays = wavefront.render_image_wavefront(scene, settings, accel, lanes=lanes,
+                                                                 fused2_block=block, fused2_sort=True)
+                torch.cuda.synchronize()
+                return img, rays, time.perf_counter() - start, fused2.LAUNCHES["owlpt_fused2_mxu_bf16_closest_hit"]
+
+            turns = [frame(sharded) for sharded in (False, True, True, False)]
+            (want, rays_want, _, _), (img, rays, _, launches["bf16"]) = turns[0], turns[1]
+            check(launches["bf16"] > 0, "the sharded main path launched no K1b")
+            differ = max(int((t[0] != want).sum()) for t in turns)
+            print(f"  {dragon} {settings.width}x{settings.height} spp {settings.max_samples} on fused2-bf16 through "
+                  f"{mesh.backend} at world size 1: {rays} rays, {turns[1][2]:.3f} / {turns[2][2]:.3f} s = "
+                  f"{rays / statistics.median([turns[1][2], turns[2][2]]) / 1e6:.3f} Mrays/s; unsharded, in turns: "
+                  f"{rays_want} rays, {turns[0][2]:.3f} / {turns[3][2]:.3f} s; K1b launches {launches['bf16']} "
+                  f"(unsharded {turns[0][3]}); differing film values {differ}; [{smi}]", flush=True)
+            check(differ == 0 and all(t[1] == rays_want for t in turns),
+                  "the world-1 sharded frame differs from render_image_wavefront")
+
+            # sharded_loss_and_grad at world size 1 against render/diff.py::loss_and_grad
+            gscene = compile_scene(ROOT / "assets", ensure_mitsuba(), (GRAD_FULL, GRAD_FULL), env_map_path=None,
+                                   device=dev)
+            gset = RenderSettings(width=GRAD_FULL, height=GRAD_FULL, max_samples=4, max_path_depth=3,
+                                  environment_auto=True, environment_intensity=1.0)
+            check(not scene_has_textures(gscene), "mitsuba has textures: the two losses would differ")
+            gaccel = make_accel(gscene, "fused2")
+            px = _pixel_grid(GRAD_FULL, GRAD_FULL, dev)
+            target = torch.full((px.shape[0], 3), 0.5, device=dev)
+            fn = shard.sharded_loss_and_grad(mesh, gscene, gset, gaccel, 4)
+            fused2.reset_counts()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            loss, grads = fn(gscene.materials, px, rng.seed(px[:, 0], px[:, 1]), target)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            launches["f32"] = fused2.LAUNCHES["owlpt_fused2_mxu_closest_hit"]
+            loss_1, grads_1 = diff.loss_and_grad(gscene, gscene.materials, gset, px, target, 4, gaccel)
+            worst = 0.0
+            for f in dataclasses.fields(grads_1):
+                g, w = getattr(grads, f.name), getattr(grads_1, f.name)
+                torch.testing.assert_close(g, w, rtol=1e-6, atol=GRAD_ATOL_OF_MAX * float(w.abs().max()))
+                worst = max(worst, float(((g - w).abs() / w.abs().clamp(min=1e-30)).max()))
+            torch.testing.assert_close(loss, loss_1, rtol=1e-6, atol=0.0)
+            print(f"  sharded_loss_and_grad, mitsuba {GRAD_FULL}x{GRAD_FULL} spp 4 depth 3 on fused2, world size 1: "
+                  f"loss {float(loss):.7g} vs {float(loss_1):.7g}, worst relative gradient difference {worst:.3g} "
+                  f"(rtol 1e-6, atol 1e-6 max|g|), {seconds:.3f} s, K1b f32 closest-hit launches per call {launches['f32']}", flush=True)
+            check(launches["f32"] > 0, "sharded_loss_and_grad launched no K1b")
+        finally:
+            mesh.close()
+
+    # two ranks on the one card (gloo: NCCL refuses two ranks on one card)
+    size = TWO_RANK_SIZE
+    wset = RenderSettings(width=size, height=size, max_samples=settings.max_samples, max_path_depth=DEPTH,
+                          environment_auto=True)
+    wscene = compile_scene(ROOT / "assets", dragon, (size, size), device=dev)
+    want, rays_want = wavefront.render_image_wavefront(wscene, wset, make_accel(wscene, "fused2-bf16"), lanes=lanes,
+                                                       fused2_block=block, fused2_sort=True)
+    start = time.perf_counter()
+    ranks = shard.spawn_ranks(two_rank_frames, 2, device=str(dev), backend="gloo",
+                              args=(dragon, size, settings.max_samples, lanes, block), timeout_s=600)
+    print(f"  two gloo ranks on one card, {dragon} {size}x{size} spp {settings.max_samples} on fused2-bf16: "
+          f"{time.perf_counter() - start:.1f} s with the ranks' start-up", flush=True)
+    launches["two_ranks"] = {}
+    for i, (split, img, rays, stats, _) in enumerate(ranks[0]):
+        check(all(r[i][2] == rays and r[i][3] == stats for r in ranks), f"{split}: the ranks disagree")
+        check(all(np.array_equal(r[i][1], img) for r in ranks), f"{split}: the ranks' images differ")
+        golden(torch.as_tensor(img), want.cpu(), rays, rays_want, f"two ranks, {split} split, vs world 1")
+        launches["two_ranks"][split] = [r[i][4] for r in ranks]
+        print(f"  {split}: per_chip_rays {stats['per_chip_rays']}, load_balance {stats['load_balance']:.4f}, "
+              f"K1b launches per rank {launches['two_ranks'][split]}", flush=True)
+    return launches
+
+
+def phase_6i(scene, settings, waves, nee_scene, nee_waves, lanes, smi):
+    """The per-ray-stack BVH (ops/traverse.py): the main path's waves and the
+    cornell shadow wave against the cluster query, and one frame."""
+    import dataclasses
+    import unittest.mock
+
+    import torch
+
+    from owl_path_tracer_tpu_torch.ops import cluster, traverse
+    from owl_path_tracer_tpu_torch.render import integrator, wavefront
+    from owl_path_tracer_tpu_torch.render.film import make_accel
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - start
+
+    start = time.perf_counter()
+    bvh = make_accel(scene, "bvh")
+    cb = make_accel(scene, "cluster")
+    torch.cuda.synchronize()
+    print(f"  bvh of {scene.num_tris} triangles: {bvh.node_a.shape[0]} nodes; bvh + cluster build "
+          f"{time.perf_counter() - start:.2f} s", flush=True)
+    for name, (wo, wd) in waves.items():
+        got, s_bvh = timed(lambda: traverse.bvh_closest_hit(wo, wd, bvh))
+        want, s_cl = timed(lambda: cluster.cluster_closest_hit(wo, wd, cb))
+        same = got.tri == want.tri
+        ties = int((~same & (got.t == want.t)).sum())
+        check(bool((same | (got.t == want.t)).all()), f"bvh {name} wave: {int((~same).sum())} winners differ")
+        check(torch.equal(got.t, want.t) and torch.equal(got.uv[same], want.uv[same]),
+              f"bvh {name} wave: t/u/v differ from the cluster query")
+        print(f"  bvh {name} wave ({wo.shape[0]} rays, {int((got.tri >= 0).sum())} hits): equal to the cluster "
+              f"query bit for bit ({ties} exact t ties with another triangle); bvh {s_bvh:.3f} s = "
+              f"{wo.shape[0] / s_bvh / 1e6:.3f} Mrays/s, cluster query {s_cl:.3f} s", flush=True)
+    sh_o, sh_d, sh_t = nee_waves["shadow"]
+    nbvh, ncb = make_accel(nee_scene, "bvh"), make_accel(nee_scene, "cluster")
+    occ, s_bvh = timed(lambda: traverse.bvh_occluded(sh_o, sh_d, nbvh, t_max=sh_t))
+    want, s_cl = timed(lambda: cluster.cluster_occluded(sh_o, sh_d, ncb, t_max=sh_t))
+    check(torch.equal(occ, want), f"bvh shadow wave: {int((occ != want).sum())} flags differ")
+    print(f"  bvh shadow wave ({sh_o.shape[0]} rays, {int(occ.sum())} occluded): flags equal the cluster query's; "
+          f"bvh {s_bvh:.3f} s, cluster query {s_cl:.3f} s", flush=True)
+
+    fset = dataclasses.replace(settings, max_samples=1)
+    (img, rays), s_bvh = timed(lambda: wavefront.render_image_wavefront(scene, fset, bvh, lanes=lanes))
+    (want, rays_want), s_cl = timed(lambda: wavefront.render_image_wavefront(scene, fset, cb, lanes=lanes))
+    differ = int((img != want).sum())
+    print(f"  bvh frame {fset.width}x{fset.height} spp 1 depth {fset.max_path_depth}: {rays} rays in {s_bvh:.3f} s = "
+          f"{rays / s_bvh / 1e6:.4f} Mrays/s; cluster frame {rays_want} rays in {s_cl:.3f} s = "
+          f"{rays_want / s_cl / 1e6:.4f} Mrays/s; differing image values {differ}; [{smi}]", flush=True)
+    # the frame again, every wave held to the cluster query on its own rays:
+    # winners may differ only at an exact t tie between two triangles (a
+    # shared edge), where either is the closest hit and the traversal order
+    # picks one (tests/test_bvh.py allows the same)
+    held = {"waves": 0, "rows": 0, "ties": 0}
+
+    def held_intersector(acc, max_leaf=4):
+        def intersect(o, d):
+            got = traverse.bvh_closest_hit(o, d, acc, max_leaf=max_leaf)
+            ref = cluster.cluster_closest_hit(o, d, cb)
+            rows = (got.tri != ref.tri) | (got.t != ref.t) | (got.uv != ref.uv).any(-1)
+            held["waves"] += 1
+            held["rows"] += int(rows.sum())
+            held["ties"] += int((rows & (got.t == ref.t) & (got.tri != ref.tri)).sum())
+            return got
+        return intersect
+
+    with unittest.mock.patch.object(integrator, "make_bvh_intersector", held_intersector):
+        again, rays_again = wavefront.render_image_wavefront(scene, fset, bvh, lanes=lanes)
+    check(torch.equal(again, img) and rays_again == rays, "two bvh frames differ")
+    print(f"  bvh frame's {held['waves']} waves held to the cluster query: {held['rows']} rows differ, "
+          f"{held['ties']} of them exact t ties between two triangles", flush=True)
+    check(held["rows"] == held["ties"], f"bvh: {held['rows'] - held['ties']} rows differ from the cluster query "
+          "beyond exact ties")
+    check(rays == rays_want, f"bvh frame traced {rays} rays, the cluster frame {rays_want}")
+    if held["ties"]:
+        golden(img.cpu(), want.cpu(), rays, rays_want, "bvh frame vs cluster frame, with exact ties")
+    else:
+        check(differ == 0, "the bvh frame differs from the cluster frame")
+
+
+def phase_6j(scene, settings, comp_accel, lanes, block, smi):
+    """The strided film at full size against the queue film, on the
+    component layout (its winners do not depend on a block's other rays),
+    timed in turns queue, strided, strided, queue; then once each on
+    fused2-bf16."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.render import wavefront
+    from owl_path_tracer_tpu_torch.render.film import make_accel
+
+    def render(accel, strided):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        img, rays = wavefront.render_image_wavefront(scene, settings, accel, lanes=lanes, fused2_block=block,
+                                                     fused2_sort=True, strided=strided)
+        torch.cuda.synchronize()
+        return img, rays, time.perf_counter() - start
+
+    q1, s1, s2, q2 = (render(comp_accel, strided) for strided in (False, True, True, False))
+    p = settings.width * settings.height * settings.max_samples // lanes // settings.max_samples
+    torch.testing.assert_close(s1[0], q1[0], rtol=1e-5, atol=1e-6)
+    check(s1[1] == q1[1] == s2[1] == q2[1], f"strided rays {s1[1]} / {s2[1]}, queue {q1[1]} / {q2[1]}")
+    check(torch.equal(s1[0], s2[0]), "two strided frames differ")
+    print(f"  strided film ({p} pixels per lane) vs queue film, {settings.width}x{settings.height} spp "
+          f"{settings.max_samples} on the component layout: max |diff| {float((s1[0] - q1[0]).abs().max()):.3g} "
+          f"(rtol 1e-5, atol 1e-6), rays {s1[1]} both; frame s in turns: queue {q1[2]:.3f} / {q2[2]:.3f}, strided "
+          f"{s1[2]:.3f} / {s2[2]:.3f}; [{smi}]", flush=True)
+    bf16 = make_accel(scene, "fused2-bf16")
+    q, s = render(bf16, False), render(bf16, True)
+    golden(s[0].cpu(), q[0].cpu(), s[1], q[1], "strided vs queue film on fused2-bf16")
+    print(f"  on fused2-bf16: queue {q[2]:.3f} s ({q[1]} rays), strided {s[2]:.3f} s ({s[1]} rays)", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--spp", type=int, default=8, help="main-path samples per pixel (64: headline)")
@@ -2484,6 +2760,21 @@ def main():
     recovery = phase_6g(dev, smi)
     phase("6g material recovery at full size", t0)
 
+    # 6h ── multi-device rendering on torch.distributed
+    t0 = time.perf_counter()
+    sharded = phase_6h(dev, scene, settings, dragon, lanes, block, smi)
+    phase("6h multi-device rendering (NCCL at world size 1, two gloo ranks on one card)", t0)
+
+    # 6i ── the per-ray-stack bvh accelerator
+    t0 = time.perf_counter()
+    phase_6i(scene, settings, waves, nee_scene, nee_waves, lanes, smi)
+    phase("6i the bvh accelerator", t0)
+
+    # 6j ── the strided film
+    t0 = time.perf_counter()
+    phase_6j(scene, settings, accel, lanes, block, smi)
+    phase("6j the strided film", t0)
+
     check("jax" not in sys.modules and "owl_path_tracer_tpu" not in sys.modules,
           "the JAX package was imported")
 
@@ -2504,6 +2795,12 @@ def main():
         if r["bound_tf32"] is not None:
             # the f32 tensor-core entries: the same work at the TF32 rate
             row["bound_tf32_ms"], row["bound_tf32_by"] = r["bound_tf32"]
+        # the sharded paths' launches (phase 6h): the world-1 frame on
+        # fused2-bf16, one sharded loss + backward on fused2, the two ranks'
+        row["sharded_launches"] = sharded.get(
+            {"_bf16_closest_hit": "bf16", "_closest_hit": "f32"}.get(f"{layout}_{mode}"), 0)
+        if layout == "_bf16" and mode == "closest_hit":
+            row["sharded_launches_two_ranks"] = sharded["two_ranks"]
         return row
 
     kernels = [

@@ -757,6 +757,15 @@ def mxu_tensor_sums(rays, fb: Fused2BVH, cids):
     return out
 
 
+def fused2_traverse(ray_o, ray_d, t_max, fb: Fused2BVH, block: int = BLOCK_RAYS, max_steps: int = MAX_STEPS,
+                    with_attrs: bool = True, any_hit: bool = False, fanout: int = FANOUT):
+    """Raw sweep of unpacked rays -> [N,32] (closest hit, or any-hit with
+    ``any_hit``): :func:`pack_rays`, then :func:`fused2_traverse_packed`.
+    N must be a multiple of ``block``."""
+    return fused2_traverse_packed(pack_rays(ray_o, ray_d, t_max), fb, block=block, max_steps=max_steps,
+                                  mode="any_hit" if any_hit else "closest", fanout=fanout, with_attrs=with_attrs)
+
+
 def fused2_traverse_packed(rays, fb: Fused2BVH, block: int = BLOCK_RAYS, max_steps: int = MAX_STEPS,
                            mode: str = "closest", fanout: int = FANOUT, with_attrs: bool = True,
                            exact: bool = False):

@@ -1,5 +1,6 @@
 """Texture and environment lookups (counterpart of ``owl_path_tracer_tpu/ops/texture.py``):
-nearest filtering, clamp addressing, lat-long environment via ``uv_on_sphere``."""
+nearest filtering (the reference's) or bilinear (a quality mode no parity
+render uses), clamp addressing, lat-long environment via ``uv_on_sphere``."""
 from __future__ import annotations
 
 import torch
@@ -22,9 +23,25 @@ def sample_nearest(tex, uv):
     return tex[y, x]
 
 
-def sample_environment(env, d):
+def sample_bilinear(tex, uv):
+    """Bilinear-clamp lookup of tex [H,W,C] at uv [...,2] (texel centres at (i + 0.5) / W)."""
+    h, w = tex.shape[0], tex.shape[1]
+    fx = uv[..., 0] * w - 0.5
+    fy = uv[..., 1] * h - 0.5
+    x0 = torch.floor(fx).to(torch.int64)
+    y0 = torch.floor(fy).to(torch.int64)
+    tx = (fx - x0)[..., None]
+    ty = (fy - y0)[..., None]
+    x0c, x1c = torch.clamp(x0, 0, w - 1), torch.clamp(x0 + 1, 0, w - 1)
+    y0c, y1c = torch.clamp(y0, 0, h - 1), torch.clamp(y0 + 1, 0, h - 1)
+    return (tex[y0c, x0c] * (1 - tx) * (1 - ty) + tex[y0c, x1c] * tx * (1 - ty)
+            + tex[y1c, x0c] * (1 - tx) * ty + tex[y1c, x1c] * tx * ty)
+
+
+def sample_environment(env, d, bilinear: bool = False):
     """Environment radiance for miss directions."""
-    return sample_nearest(env, uv_on_sphere(d))
+    uv = uv_on_sphere(d)
+    return sample_bilinear(env, uv) if bilinear else sample_nearest(env, uv)
 
 
 def sky_gradient(d):

@@ -25,9 +25,11 @@ from ..models.envlight import build_env_light
 from ..models.lights import build_light_table
 from ..models.scene import RenderSettings, Scene
 from ..ops import rng as rng_mod
+from ..ops.bvh import build_bvh_cached
 from ..ops.cluster import build_clusters
 from ..ops.fused import build_fused
 from ..ops.fused2 import auto_sort_mode, build_fused2_scene
+from ..ops.traverse import device_bvh
 from . import integrator
 
 
@@ -59,6 +61,14 @@ def new_film(settings: RenderSettings, *, device) -> Film:
     )
 
 
+def build_scene_bvh(scene: Scene, cache_dir=None):
+    """The per-ray-stack BVH (``ops/traverse.py``), built (cached in
+    ``cache_dir``, default ``ops/bvh.CACHE_DIR``) and put on the scene's device."""
+    verts, tris = scene.vertices.cpu().numpy(), scene.tri_idx.cpu().numpy()
+    return device_bvh(build_bvh_cached(verts, tris, cache_dir=cache_dir), verts, tris,
+                      device=scene.vertices.device)
+
+
 def make_accel(scene: Scene, kind: str = "cluster", cluster_size: int | None = None, plane_dtype=None):
     """Build the acceleration structure on the scene's device.
 
@@ -68,9 +78,10 @@ def make_accel(scene: Scene, kind: str = "cluster", cluster_size: int | None = N
     512 for enclosed scenes (the cid2 sort), and for open scenes halved from
     512 (down to 128) while the scene would have fewer than 64 clusters.
     ``cluster`` is the exact cluster query (C=128 by default) and ``fused``
-    the same clusters traversed by kernel K5.  ``brute`` returns None, which
+    the same clusters traversed by kernel K5.  ``bvh`` is the per-ray-stack
+    traversal (:func:`build_scene_bvh`).  ``brute`` returns None, which
     every renderer takes for the brute sweep over every triangle, as in the
-    JAX package.  ``bvh`` is not ported yet (ROADMAP queue 1, item 1)."""
+    JAX package."""
     if kind in ("fused2", "fused2-bf16"):
         if kind == "fused2-bf16":
             plane_dtype = torch.bfloat16
@@ -85,15 +96,26 @@ def make_accel(scene: Scene, kind: str = "cluster", cluster_size: int | None = N
         cb = build_clusters(scene.vertices.cpu().numpy(), scene.tri_idx.cpu().numpy(),
                             cluster_size=cluster_size or 128, device=scene.vertices.device)
         return build_fused(cb) if kind == "fused" else cb
+    if kind == "bvh":
+        return build_scene_bvh(scene)
     if kind == "brute":
         return None
-    if kind == "bvh":
-        raise NotImplementedError("accelerator 'bvh' is not ported yet: ROADMAP queue 1, item 1")
     raise ValueError(f"unknown intersector kind {kind!r}")
 
 
 def scene_has_textures(scene: Scene) -> bool:
     return bool((scene.mat_tex >= 0).any())
+
+
+def scene_lights(scene: Scene, settings: RenderSettings):
+    """(light table, environment light) of a render: both None without
+    NEE, the environment light only with ``settings.environment_use``."""
+    lights = env_light = None
+    if settings.use_nee:
+        lights = build_light_table(scene)
+        if settings.environment_use:
+            env_light = build_env_light(scene.env_map, settings.environment_intensity)
+    return lights, env_light
 
 
 def add_samples(scene: Scene, settings: RenderSettings, film: Film, num_samples: int,
@@ -105,11 +127,7 @@ def add_samples(scene: Scene, settings: RenderSettings, film: Film, num_samples:
     kernel's rays per block."""
     enable_textures = scene_has_textures(scene)
     intersect_fn, occlude_fn = integrator.make_intersectors(scene, accel, fused2_block=fused2_block)
-    lights = env_light = None
-    if settings.use_nee:
-        lights = build_light_table(scene)
-        if settings.environment_use:
-            env_light = build_env_light(scene.env_map, settings.environment_intensity)
+    lights, env_light = scene_lights(scene, settings)
     dev = film.acc.device
     px = _pixel_grid(film.width, film.height, dev)
     total = px.shape[0]

@@ -46,6 +46,7 @@ from ..ops.fused2 import (
     make_fused2_intersector_diff,
 )
 from ..ops.intersect import HitRecord, any_hit_brute, closest_hit_brute
+from ..ops.traverse import DeviceBVH, bvh_occluded, make_bvh_intersector
 from ..utils.tensors import TensorBundle
 
 
@@ -433,9 +434,9 @@ def make_intersectors(scene: Scene, accel, tri_chunk: int = 512, fused2_block: i
       flow through the kernel's detached winners;
     * ``FusedBVH``: closest hit through kernel K5, occlusion as its hit test;
     * ``ClusterBVH``: the exact cluster query (plain PyTorch);
+    * ``DeviceBVH``: the per-ray-stack traversal (plain PyTorch);
     * ``None``: the brute sweep over every triangle, ``tri_chunk`` at a time
-      (plain PyTorch; the exact oracle of the gradient tests).
-    The per-ray stack BVH is not ported yet (ROADMAP queue 1, item 1)."""
+      (plain PyTorch; the exact oracle of the gradient tests)."""
     if isinstance(accel, Fused2BVH):
         blk = fused2_block or BLOCK_RAYS
         fo = fused2_fanout or FANOUT
@@ -456,11 +457,12 @@ def make_intersectors(scene: Scene, accel, tri_chunk: int = 512, fused2_block: i
     if isinstance(accel, ClusterBVH):
         return (lambda o, d: cluster_closest_hit(o, d, accel),
                 lambda p, d, dist: cluster_occluded(p, d, accel, t_max=dist))
+    if isinstance(accel, DeviceBVH):
+        return (make_bvh_intersector(accel),
+                lambda p, d, dist: bvh_occluded(p, d, accel, t_max=dist))
     if accel is None:
         return make_brute_intersector(scene, tri_chunk), make_brute_occluder(scene, tri_chunk)
-    raise NotImplementedError(
-        f"accelerator {type(accel).__name__} is not ported yet: the per-ray stack BVH is ROADMAP queue 1, item 1"
-    )
+    raise TypeError(f"unknown accelerator {type(accel).__name__}")
 
 
 def trace_paths(scene: Scene, settings: RenderSettings, ray_o, ray_d, rng_state, intersect_fn: Callable,

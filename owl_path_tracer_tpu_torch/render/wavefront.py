@@ -24,6 +24,15 @@ with a guard of the configuration; a rerun with the same path resumes from
 it with a fresh pool.  Every work item seeds its stream from its id alone, so
 finished items are in the film once and the rest render as they would have.
 
+With ``strided=True`` (and a frame whose work divides into the pool) the
+film is strided: lane l owns the work items of P consecutive pixels (all
+their samples) and banks into its own slots of an accumulator [P,3,L] (lane
+axis minor) with a one-hot add, no scatter; the frame is done when every
+lane has walked its slice.  Under the sharded renderer's "sample" split
+(``parallel/shard.py``) ``work_map`` maps the pool's local queue ids to
+global (pixel, sample) ids; the strided film's slot arithmetic assumes
+unmapped ids, so the two exclude each other.
+
 Differences from the JAX package, all exact in value:
   * the film is banked in place into the pool's accumulator (:func:`_bank`):
     on the CPU with ``index_add_``, lane by lane (its ``film_mode="scatter"``);
@@ -53,8 +62,7 @@ import numpy as np
 import torch
 
 from ..models.camera import primary_rays
-from ..models.envlight import build_env_light
-from ..models.lights import build_light_table
+from ..models.lights import build_light_table  # noqa: F401  (callers stepping a pool build lights through it)
 from ..models.scene import RenderSettings, Scene
 from ..ops import disney
 from ..ops import math as m
@@ -63,7 +71,7 @@ from ..ops.fused2 import auto_sort_mode, resolve_sort
 from ..ops.intersect import HitRecord
 from ..utils.tensors import TensorBundle
 from . import integrator
-from .film import scene_has_textures
+from .film import scene_has_textures, scene_lights
 
 # ray origin of parked (dead) lanes: far outside every scene AABB, so their
 # traversal blocks retire at the scene gate
@@ -85,9 +93,11 @@ class PoolState(TensorBundle):
     prev_lobe: torch.Tensor  # [L] int64
     depth: torch.Tensor  # [L] int64
     prev_pdf: torch.Tensor  # [L] f32
-    work_counter: torch.Tensor  # [] int64 next work item of the queue
-    acc: torch.Tensor  # [W*H,3] film accumulator
+    work_counter: torch.Tensor  # [] int64 next work item of the queue, or the
+    #                             pool's work base (strided film)
+    acc: torch.Tensor  # film accumulator: [W*H,3] (queue), or [P,3,L] per-lane pixel slots (strided)
     rays: torch.Tensor  # [] int64 live rays traced
+    work_local: torch.Tensor  # [L] int64 each lane's position in its slice (strided film)
     # deferred NEE (fused_nee): the previous vertex's light sample, traced in
     # this step's mixed sweep beside the bounce rays (zeros otherwise)
     sh_o: torch.Tensor  # [L,3] shadow origin (the previous vertex)
@@ -130,10 +140,24 @@ def _bank(acc, pixel, contrib):
 
 def wavefront_step(scene: Scene, settings: RenderSettings, st: PoolState, intersect_fn,
                    enable_textures: bool, total_work: int, sample_base: int = 0, lights=None,
-                   occlude_fn=None, env_light=None, mixed_fn=None) -> PoolState:
+                   occlude_fn=None, env_light=None, mixed_fn=None, work_map=None,
+                   local_spp: int | None = None) -> PoolState:
     """One bounce for every lane, banking of finished paths (in place into
     ``st.acc``) and regeneration of idle lanes.  With ``mixed_fn`` and area
-    lights only, NEE takes the deferred form."""
+    lights only, NEE takes the deferred form.
+
+    The film's layout picks the work assignment: a [W*H,3] film hands idle
+    lanes the next ids of the pool's queue (up to ``total_work``); a
+    [P,3,L] film (strided) lets each lane walk its own slice of P pixels.
+    ``work_map`` maps queue ids to the (pixel, sample) ids they render
+    (identity when None); ``local_spp`` is the samples per pixel that queue
+    draws (under the sharded "sample" split; in the JAX package it sizes the
+    window film, which the port does not have).  Neither goes with the
+    strided film: ValueError."""
+    strided = st.acc.dim() == 3
+    if strided and (work_map is not None or local_spp is not None):
+        raise ValueError("the strided film is incompatible with work_map/local_spp (the sharded 'sample' "
+                         "split): use the queue film there")
     ray_o_t = torch.where(st.alive[:, None], st.ray_o, PARK)
     lanes = st.pixel.shape[0]
     use_nee = settings.use_nee and occlude_fn is not None and (
@@ -184,15 +208,33 @@ def wavefront_step(scene: Scene, settings: RenderSettings, st: PoolState, inters
     # non-zombie dead lanes respawn (sh_active is all False outside deferred NEE)
     idle = path_done | (~st.alive & ~st.sh_active)
 
-    # bank finished paths into the film
-    acc = _bank(st.acc, st.pixel, torch.where(path_done[:, None], ps.result, 0.0))
-
-    # regenerate idle lanes on fresh work items
-    order = torch.cumsum(idle.to(torch.int64), 0) - 1
-    new_ids = st.work_counter + order
-    can_spawn = idle & (new_ids < total_work)
-    handed_out = torch.minimum(idle.sum(), torch.clamp(total_work - st.work_counter, min=0))
-    pixel_s, o_s, d_s, rng_s = _spawn(scene, settings, torch.clamp(new_ids, min=0), sample_base)
+    contrib = torch.where(path_done[:, None], ps.result, 0.0)
+    if strided:
+        # bank into each lane's own pixel slots (one-hot add, no scatter)
+        p_slots = st.acc.shape[0]
+        slice_items = p_slots * settings.max_samples
+        lane_idx = torch.arange(lanes, device=st.acc.device)
+        lane_first_pixel = (st.work_counter + lane_idx * slice_items) // settings.max_samples
+        onehot = torch.arange(p_slots, device=st.acc.device)[:, None] == (st.pixel - lane_first_pixel)[None, :]
+        acc = st.acc.add_(torch.where(onehot[:, None, :], contrib.T[None], 0.0))
+        # regenerate: each lane walks its own slice
+        new_ids = st.work_counter + lane_idx * slice_items + st.work_local
+        can_spawn = idle & (st.work_local < slice_items)
+        work_local = st.work_local + can_spawn.to(torch.int64)
+        work_counter = st.work_counter
+    else:
+        acc = _bank(st.acc, st.pixel, contrib)
+        # regenerate idle lanes on fresh work items of the queue
+        order = torch.cumsum(idle.to(torch.int64), 0) - 1
+        new_ids = st.work_counter + order
+        can_spawn = idle & (new_ids < total_work)
+        handed_out = torch.minimum(idle.sum(), torch.clamp(total_work - st.work_counter, min=0))
+        work_counter = st.work_counter + handed_out
+        work_local = st.work_local
+    mapped_ids = torch.clamp(new_ids, min=0)
+    if work_map is not None:
+        mapped_ids = work_map(mapped_ids)
+    pixel_s, o_s, d_s, rng_s = _spawn(scene, settings, mapped_ids, sample_base)
 
     def sel(new, old):
         mask = can_spawn[:, None] if old.dim() > 1 else can_spawn
@@ -222,9 +264,10 @@ def wavefront_step(scene: Scene, settings: RenderSettings, st: PoolState, inters
         prev_lobe=sel(disney.LOBE_NONE, ps.prev_lobe),
         depth=sel(0, ps.depth),
         prev_pdf=sel(0.0, ps.prev_pdf),
-        work_counter=st.work_counter + handed_out,
+        work_counter=work_counter,
         acc=acc,
         rays=rays,
+        work_local=work_local,
         **shadow,
     )
 
@@ -232,8 +275,9 @@ def wavefront_step(scene: Scene, settings: RenderSettings, st: PoolState, inters
 def _run_chunk(scene: Scene, settings: RenderSettings, st: PoolState, accel,
                enable_textures: bool, work_hi: int, iters: int, fused2_block=None,
                fused2_sort=False, sample_base: int = 0, lights=None, env_light=None,
-               fused_nee: bool = False, fused2_fanout=None):
-    """``iters`` wavefront steps -> (pool, status [work_done, busy])."""
+               fused_nee: bool = False, fused2_fanout=None, work_map=None, local_spp: int | None = None):
+    """``iters`` wavefront steps -> (pool, status [work_done, busy]); the
+    strided film's work is done when every lane has walked its slice."""
     intersect_fn, occlude_fn = integrator.make_intersectors(
         scene, accel, fused2_block=fused2_block, fused2_sort=fused2_sort, fused2_fanout=fused2_fanout
     )
@@ -244,9 +288,13 @@ def _run_chunk(scene: Scene, settings: RenderSettings, st: PoolState, accel,
     for _ in range(iters):
         st = wavefront_step(scene, settings, st, intersect_fn, enable_textures, work_hi, sample_base,
                             lights=lights, occlude_fn=occlude_fn, env_light=env_light,
-                            mixed_fn=mixed_fn)
+                            mixed_fn=mixed_fn, work_map=work_map, local_spp=local_spp)
+    if st.acc.dim() == 3:
+        work_done = st.work_local.min() >= st.acc.shape[0] * settings.max_samples
+    else:
+        work_done = st.work_counter >= work_hi
     # a pending shadow ray keeps the frame busy: its zombie lane has not banked
-    return st, torch.stack([st.work_counter >= work_hi, (st.alive | st.sh_active).any()])
+    return st, torch.stack([work_done, (st.alive | st.sh_active).any()])
 
 
 def render_image_wavefront(scene: Scene, settings: RenderSettings, accel=None, lanes: int = 131072,
@@ -254,7 +302,8 @@ def render_image_wavefront(scene: Scene, settings: RenderSettings, accel=None, l
                            fused2_block: int | None = None, fused2_sort=False,
                            sample_base: int = 0, fused_nee: bool = False,
                            fused2_fanout: int | None = None, checkpoint_path: str | None = None,
-                           checkpoint_every_s: float = 600.0, progress: bool = False) -> tuple:
+                           checkpoint_every_s: float = 600.0, progress: bool = False,
+                           strided: bool = False) -> tuple:
     """Full frame via the persistent pool -> (image [H,W,3] top row first, on
     the scene's device; live rays traced).  ``accel=None`` (``make_accel``'s
     ``"brute"``) is the brute sweep over every triangle.
@@ -271,17 +320,22 @@ def render_image_wavefront(scene: Scene, settings: RenderSettings, accel=None, l
     one (module docstring); ``progress`` prints each resume and each
     checkpoint with the seconds its drain and its write took.
     ``max_launches`` bounds the launches of this call (drains not counted).
+    ``strided=True`` takes the strided film where the frame's work divides
+    into the pool (W*H*spp a multiple of ``lanes``, and the work per lane a
+    multiple of spp: P = W*H*spp / lanes / spp pixels per lane), and the
+    queue film otherwise, as in the JAX package; checkpoints need the queue
+    film (ValueError).
     """
     enable_textures = scene_has_textures(scene)
     if fused2_sort is True:
         fused2_sort = auto_sort_mode(scene)
     total_work = settings.width * settings.height * settings.max_samples
-    lights = env_light = None
-    if settings.use_nee:
-        lights = build_light_table(scene)
-        if settings.environment_use:
-            env_light = build_env_light(scene.env_map, settings.environment_intensity)
-    st = new_pool(settings, lanes, device=scene.vertices.device)
+    lights, env_light = scene_lights(scene, settings)
+    spp = settings.max_samples
+    strided_pixels = None
+    if strided and total_work % lanes == 0 and (total_work // lanes) % spp == 0:
+        strided_pixels = total_work // lanes // spp
+    st = new_pool(settings, lanes, strided_pixels=strided_pixels, device=scene.vertices.device)
     est_steps = (total_work + lanes - 1) // lanes + settings.max_path_depth + 3
     chunk = functools.partial(
         _run_chunk, scene, settings, accel=accel, enable_textures=enable_textures,
@@ -291,6 +345,8 @@ def render_image_wavefront(scene: Scene, settings: RenderSettings, accel=None, l
     )
     guard = None
     if checkpoint_path is not None:
+        if strided_pixels is not None:
+            raise ValueError("checkpointing requires the queue film (strided=False)")
         guard = checkpoint_guard(scene, settings, accel, lanes, fused2_sort, fused_nee, sample_base)
         if os.path.exists(checkpoint_path):
             st = _resume(st, checkpoint_path, guard)
@@ -315,7 +371,10 @@ def render_image_wavefront(scene: Scene, settings: RenderSettings, accel=None, l
                       f"{int(st.rays) / 1e6:.0f}M rays, drain {t_write - t_drain:.6f} s, write "
                       f"{time.perf_counter() - t_write:.6f} s", flush=True)
             last_ck = time.monotonic()
-    img = st.acc.reshape(settings.height, settings.width, 3) / settings.max_samples
+    acc = st.acc
+    if acc.dim() == 3:  # [P,3,L] -> [L*P,3]: lane l holds pixels l*P .. l*P + P - 1
+        acc = acc.permute(2, 0, 1).reshape(-1, 3)
+    img = acc.reshape(settings.height, settings.width, 3) / settings.max_samples
     return img.flip(0), int(st.rays)
 
 
@@ -385,8 +444,11 @@ def _write_checkpoint(path: str, st: PoolState, guard: dict):
     os.replace(tmp, path)
 
 
-def new_pool(settings: RenderSettings, lanes: int, work_lo: int = 0, *, device) -> PoolState:
-    """Fresh all-idle pool; lanes spawn on the first step from work item ``work_lo``."""
+def new_pool(settings: RenderSettings, lanes: int, work_lo: int = 0, strided_pixels: int | None = None, *,
+             device) -> PoolState:
+    """Fresh all-idle pool; lanes spawn on the first step from work item
+    ``work_lo``.  ``strided_pixels=P`` makes the strided film: lane l owns
+    the P * spp work items from ``work_lo + l * P * spp``, acc [P,3,lanes]."""
     z = lambda *shape, dtype=torch.float32: torch.zeros(shape, dtype=dtype, device=device)  # noqa: E731
     return PoolState(
         pixel=z(lanes, dtype=torch.int64),
@@ -400,8 +462,9 @@ def new_pool(settings: RenderSettings, lanes: int, work_lo: int = 0, *, device) 
         depth=z(lanes, dtype=torch.int64),
         prev_pdf=z(lanes),
         work_counter=torch.tensor(work_lo, dtype=torch.int64, device=device),
-        acc=z(settings.width * settings.height, 3),
+        acc=z(strided_pixels, 3, lanes) if strided_pixels else z(settings.width * settings.height, 3),
         rays=torch.tensor(0, dtype=torch.int64, device=device),
+        work_local=z(lanes, dtype=torch.int64),
         sh_o=z(lanes, 3),
         sh_d=torch.tensor([0.0, 0.0, 1.0], device=device).repeat(lanes, 1),
         sh_dist=z(lanes),

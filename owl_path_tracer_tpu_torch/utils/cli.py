@@ -13,9 +13,6 @@
   ``PATH.<frame index>``, where the JAX package reuses PATH for every frame;
   with the scan renderer, which writes none, ``--checkpoint`` raises where
   the JAX package ignores it.
-
-Not ported yet: the ``bvh`` intersector (ROADMAP queue 1, item 1) raises
-NotImplementedError.
 """
 from __future__ import annotations
 
@@ -167,7 +164,7 @@ def main(argv=None):
         default="cluster",
         help="cluster = exact cluster query; fused = the same clusters through the fused kernel; "
              "fused2 / fused2-bf16 = fat-cluster kernel with f32 / bf16 planes; brute = every triangle; "
-             "bvh is not ported yet",
+             "bvh = per-ray-stack BVH traversal",
     )
     ap.add_argument("--cluster-size", type=int, default=None,
                     help="tris per cluster (default: 128; 512 for fused2)")

@@ -54,6 +54,24 @@ def _rgbe_to_float(rgbe: np.ndarray) -> np.ndarray:
     return rgbe[..., :3].astype(np.float32) * scale[..., None]
 
 
+def _float_to_rgbe(rgb: np.ndarray) -> np.ndarray:
+    """f32 [H,W,3] -> uint8 [H,W,4] RGBE."""
+    maxc = rgb.max(axis=-1)
+    mant, exp = np.frexp(maxc)
+    scale = np.where(maxc > 1e-32, mant * 256.0 / np.maximum(maxc, 1e-32), 0.0)
+    out = np.zeros(rgb.shape[:-1] + (4,), np.uint8)
+    out[..., :3] = np.clip(rgb * scale[..., None] + 0.5, 0, 255).astype(np.uint8)
+    out[..., 3] = np.where(maxc > 1e-32, exp + 128, 0).astype(np.uint8)
+    return out
+
+
+def write_hdr(path, rgb: np.ndarray):
+    """Linear f32 [H,W,3] -> an uncompressed Radiance .hdr (``-Y H +X W``)."""
+    h, w = rgb.shape[:2]
+    header = f"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y {h} +X {w}\n".encode("latin-1")
+    pathlib.Path(path).write_bytes(header + _float_to_rgbe(np.asarray(rgb, np.float32)).tobytes())
+
+
 def read_hdr(path) -> np.ndarray:
     """Radiance .hdr (``-Y H +X W``, adaptive RLE or flat scanlines) -> f32 [H,W,3]."""
     data = pathlib.Path(path).read_bytes()

@@ -1,7 +1,7 @@
 """Wavefront OBJ loading -> per-object numpy mesh arrays.
 
 Counterpart of ``owl_path_tracer_tpu/utils/obj.py`` (``load_obj`` and its
-mesh cache).  One mesh per ``o``/``g`` object, global->local vertex index
+mesh cache, ``save_obj``).  One mesh per ``o``/``g`` object, global->local vertex index
 remapping keyed on the vertex index, triangle fans for polygons, and the
 reference loader's normal/texcoord back-fill: the first time a local vertex
 slot needs a normal or texcoord it takes the one of the face corner at hand.
@@ -157,3 +157,22 @@ def _load_obj_uncached(path) -> List[Tuple[str, MeshData]]:
             has_texcoords=any_t,
         )))
     return out
+
+
+def save_obj(path, meshes: List[Tuple[str, MeshData]]):
+    """Write meshes as OBJ (the JAX package's text, byte for byte): one
+    ``o`` per mesh, ``v`` with 6 decimals, ``vn`` with 4, ``f v//vn``."""
+    with open(path, "w") as f:
+        f.write("# owl_path_tracer_tpu generated\n")
+        base_v = base_n = 1
+        for name, mesh in meshes:
+            f.write(f"o {name}\n")
+            for v in mesh.vertices:
+                f.write(f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f}\n")
+            for n in mesh.normals:
+                f.write(f"vn {n[0]:.4f} {n[1]:.4f} {n[2]:.4f}\n")
+            for tri in mesh.indices:
+                a, b, c = (int(t) for t in tri)
+                f.write(f"f {a + base_v}//{a + base_n} {b + base_v}//{b + base_n} {c + base_v}//{c + base_n}\n")
+            base_v += len(mesh.vertices)
+            base_n += len(mesh.normals)

@@ -29,6 +29,7 @@ from owl_path_tracer_tpu_torch.models import scene as tscene
 from owl_path_tracer_tpu_torch.models.camera import primary_rays
 from owl_path_tracer_tpu_torch.ops import intersect as tint
 from owl_path_tracer_tpu_torch.ops.cluster import cluster_closest_hit, cluster_occluded
+from owl_path_tracer_tpu_torch.ops.traverse import DeviceBVH
 from owl_path_tracer_tpu_torch.render import film as tfilm
 from owl_path_tracer_tpu_torch.render import integrator
 from owl_path_tracer_tpu_torch.render import wavefront as twf
@@ -141,11 +142,13 @@ def test_brute_image_equals_cluster_image(config):
 
 
 def test_make_accel_brute_is_none():
-    """As in the JAX package (``film.py:132-133``); ``bvh`` still raises."""
+    """As in the JAX package (``film.py:132-133``); ``bvh`` (ported since)
+    gives the per-ray-stack BVH, and an unknown kind raises."""
     sc = tscene.compile_scene(ASSETS, "cube", (8, 8), device="cpu")
     assert tfilm.make_accel(sc, "brute") is None
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 1"):
-        tfilm.make_accel(sc, "bvh")
+    assert isinstance(tfilm.make_accel(sc, "bvh"), DeviceBVH)
+    with pytest.raises(ValueError, match="unknown intersector kind"):
+        tfilm.make_accel(sc, "octree")
 
 
 def test_make_intersectors_none_is_the_brute_pair():

@@ -1,8 +1,8 @@
 """The port's CLI (``utils/cli.py``), settings parser and PNG writers against
 the JAX package's: sweep values, ``{:.1f}`` naming, settings.json parsing, a
 material change that leaves its input alone, an end-to-end sweep on the CPU
-through the fused kernel's plain version, and the parts not ported yet
-raising."""
+through the fused kernel's plain version, the refusals raising, and the
+``bvh`` intersector (once unported) rendering the cluster frame."""
 import argparse
 import dataclasses
 import json
@@ -136,12 +136,24 @@ def test_cli_main_single_frame(tmp_path, renderer):
 
 @pytest.mark.parametrize("extra,error,match", [
     (["--checkpoint", "film.ck"], ValueError, "needs --renderer wavefront"),  # the scan renderer has none
-    (["--intersector", "bvh"], NotImplementedError, "ROADMAP queue 1, item 1"),
+    # bvh is ported: it renders, and its PNG is the cluster one
+    (["--intersector", "bvh", "--cluster-size", "64", "--pixel-chunk", "256"], None, None),
     # brute is ported: it gets past make_accel to the scan renderer's refusal
     (["--intersector", "brute", "--checkpoint", "film.ck"], ValueError, "needs --renderer wavefront"),
 ], ids=["checkpoint", "bvh", "brute"])
 def test_unported_parts_raise(tmp_path, extra, error, match):
+    """Refusals raise before any PNG is written; the once-unported ``bvh``
+    case now renders the cluster frame's PNG."""
     work = _assets(tmp_path, SWEEP)
+    if error is None:
+        outs = {}
+        for kind, args in (("bvh", extra), ("cluster", ["--intersector", "cluster", *extra[2:]])):
+            outs[kind] = [np.asarray(Image.open(p)) for p in tcli.main(
+                ["--assets", str(work), "--out", str(tmp_path / kind), "--device", "cpu", *args])]
+        assert len(outs["bvh"]) == 3 and outs["bvh"][0][..., :3].max() > 0
+        for got, want in zip(outs["bvh"], outs["cluster"]):
+            np.testing.assert_array_equal(got, want)
+        return
     with pytest.raises(error, match=match):
         tcli.main(["--assets", str(work), "--out", str(tmp_path / "out"), "--device", "cpu", *extra])
     assert not list((tmp_path / "out").glob("*.png"))

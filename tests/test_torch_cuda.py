@@ -9,7 +9,9 @@ the scan renderer on the fused kernel) rendered on the card against the same
 frames on the CPU or uninterrupted, the wavefront film rendered twice, and
 the gradient path (material and camera gradients through K1b on f32 and
 bf16 planes against the CPU's plain version, by chip_smoke.py's phase-5g
-rule; the brute sweep against the cluster query).
+rule; the brute sweep against the cluster query), the per-ray-stack BVH on
+the card against the CPU, the sharded wavefront at world size 1 over NCCL
+against the unsharded one, and the debug layer's checks on CUDA tensors.
 
 Imports nothing of JAX (the card's machine has none).  Every test is marked
 ``cuda`` and skips where there is no CUDA device.  On the card:
@@ -814,3 +816,77 @@ def test_brute_equals_cluster_on_the_card(cuda_device):
     settings = RenderSettings(width=24, height=24, max_samples=2, max_path_depth=3, environment_auto=True)
     assert torch.equal(tfilm.render_image(scene, settings, intersector="brute"),
                        tfilm.render_image(scene, settings, accel=cb))
+
+
+def test_bvh_on_the_card_equals_the_cpu(cuda_device, tmp_path):
+    """The per-ray-stack BVH (plain PyTorch) on the card: hits, flags and a
+    frame bit for bit equal to the same calls on the CPU, and to the
+    cluster query on the card."""
+    from owl_path_tracer_tpu_torch.ops import traverse
+
+    scene = compile_scene(ASSETS, "cornell-box", (24, 24), device="cpu")
+    bvh = tfilm.build_scene_bvh(scene, cache_dir=tmp_path)
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    lo, hi = scene.vertices.min(0).values, scene.vertices.max(0).values
+    o = lo + torch.rand((4096, 3), generator=gen) * (hi - lo)
+    d = torch.nn.functional.normalize(torch.randn((4096, 3), generator=gen), dim=-1)
+    tmax = torch.full((4096,), 0.7)
+    want, want_occ = traverse.bvh_closest_hit(o, d, bvh), traverse.bvh_occluded(o, d, bvh, t_max=tmax)
+    card = bvh.to(cuda_device)
+    got = traverse.bvh_closest_hit(o.to(cuda_device), d.to(cuda_device), card)
+    assert (want.tri >= 0).sum() > 1000
+    for field in ("tri", "t", "uv"):
+        assert torch.equal(getattr(got, field).cpu(), getattr(want, field)), field
+    assert torch.equal(traverse.bvh_occluded(o.to(cuda_device), d.to(cuda_device), card,
+                                             t_max=tmax.to(cuda_device)).cpu(), want_occ)
+    cb = tcl.cluster_closest_hit(o.to(cuda_device), d.to(cuda_device),
+                                 make_accel(scene.to(cuda_device), "cluster", cluster_size=64))
+    assert torch.equal(got.tri, cb.tri) and torch.equal(got.t, cb.t)
+    settings = RenderSettings(width=24, height=24, max_samples=2, max_path_depth=3, environment_auto=True)
+    img = tfilm.render_image(scene.to(cuda_device), settings, accel=card)
+    chip_smoke.golden(img.cpu(), tfilm.render_image(scene, settings, accel=bvh), 0, 0, "bvh frame, card vs CPU")
+
+
+def test_sharded_wavefront_over_nccl_equals_unsharded(cuda_device, tmp_path):
+    """World size 1 through an initialised NCCL group: the sharded wavefront
+    frame (both work splits) equals render_image_wavefront's bit for bit on
+    fused2-bf16 (K1b launched), and the sharded scan frame render_image's."""
+    import dataclasses
+
+    from owl_path_tracer_tpu_torch.parallel import shard
+
+    scene = compile_scene(ASSETS, "cornell-box", (32, 32), device=cuda_device)
+    accel = make_accel(scene, "fused2-bf16")
+    settings = RenderSettings(width=32, height=32, max_samples=4, max_path_depth=3, environment_auto=True)
+    mesh = shard.make_pixel_mesh(cuda_device, init_method=(tmp_path / "store").as_uri(), rank=0, world_size=1)
+    try:
+        assert mesh.backend == "nccl" and mesh.device.type == "cuda"
+        want, rays_want = render_image_wavefront(scene, settings, accel, lanes=4096, fused2_sort=True)
+        for split in ("sample", "contiguous"):
+            tf2.reset_counts()
+            img, rays, stats = shard.render_image_wavefront_sharded(
+                scene, settings, mesh=mesh, accel=accel, lanes_per_chip=4096, fused2_sort=True, work_split=split,
+                return_stats=True)
+            assert tf2.LAUNCHES["owlpt_fused2_mxu_bf16_closest_hit"] > 0
+            assert torch.equal(img, want) and rays == rays_want and stats["per_chip_rays"] == [rays]
+        cb = make_accel(scene, "cluster", cluster_size=64)
+        scan = shard.render_image_sharded(scene, dataclasses.replace(settings, max_samples=2), mesh=mesh, accel=cb)
+        assert torch.equal(scan, tfilm.render_image(scene, dataclasses.replace(settings, max_samples=2), accel=cb))
+    finally:
+        mesh.close()
+
+
+def test_checked_gather_raises_in_debug_on_the_card(cuda_device):
+    from owl_path_tracer_tpu_torch.ops import debug
+
+    table = torch.arange(10.0, device=cuda_device)
+    debug.set_debug(True)
+    try:
+        with pytest.raises(debug.DebugCheckError, match="out of bounds"):
+            debug.checked_gather(table, torch.tensor([3, 12], device=cuda_device))
+        with pytest.raises(debug.DebugCheckError, match="non-finite"):
+            debug.assert_finite(torch.tensor([1.0, float("nan")], device=cuda_device))
+        assert debug.checked_gather(table, torch.tensor([3, 9], device=cuda_device)).tolist() == [3.0, 9.0]
+    finally:
+        debug.set_debug(False)
+    assert debug.checked_gather(table, torch.tensor([3, 12], device=cuda_device)).tolist() == [3.0, 9.0]
