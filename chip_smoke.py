@@ -12,20 +12,28 @@ Phases (one line each, with times; any failure exits non-zero):
   2. build the kernels from csrc/ (nvcc, sm_90a), with ptxas' registers per
      entry and the HMMA (tensor-core) instruction count of each bf16 K1b
      instantiation in the SASS (cuobjdump): the tensor-core forms hold some,
-     the exact CUDA-core form none;
+     the exact CUDA-core form none; threads, CTAs per block of rays,
+     registers, shared bytes and blocks per SM of each component entry (the
+     slot-parallel K1-K4 and the serial yardsticks) at dragon7's K and C;
   3. kernel vs plain version on a small triangle soup, blocks 128 and 256,
      per-ray t_max, padding rays, and max_steps=1 (unresolved blocks);
   4. kernel vs plain version at the main path's shapes: the dragon scene at
      icosphere subdivision 7 (~328k triangles), one 131072-ray wave of
      primaries through the image centre and the bounce wave the port's own
-     trace_bounce makes of it; median
-     of timed runs (CUDA events) for both;
+     trace_bounce makes of it (K1; K4 on the bounce wave): every column equal
+     bit for bit to the serial body's (component_wave), the profile entry's
+     clock64 split of both bodies (slowest and mean block), resources, the
+     slot-parallel body timed in turns with the serial one (serial, new, new,
+     serial; CUDA events), the plain version's time, the fp32-peak bound and
+     the no-FMA ceiling;
   3b. the any-hit (K2) and mixed (K3) modes vs their plain versions on the
      soup: blocks 128 and 256, per-ray t_max, max_steps=1;
   4b. K2 and K3 vs plain at the NEE path's shapes (cornell-box, C=512,
      cid2): a 131072-ray wave of shadow rays from the bounce wave's vertices
      toward sample_lights points, and the 262144-ray mixed wave the deferred
-     form traces (those bounce rays plus those shadow rays); CUDA events;
+     form traces (those bounce rays plus those shadow rays); as phase 4 (K2
+     has no serial entry: its serial body runs through the profile entry and
+     is not timed);
   5. frame parity: cornell-box 64x64, spp 4, depth 4, rendered on the GPU
      and through the port on the CPU (plain version), golden rule;
   5b. the same with NEE, both forms, card vs CPU, and the deferred form vs
@@ -174,7 +182,12 @@ per-ray-stack bvh accelerator and the strided film:
      (8 pixels per lane), held to the queue film by tests/test_wavefront.py's
      rule (rtol 1e-5, atol 1e-6, equal rays), timed in turns queue,
      strided, strided, queue; then once each on fused2-bf16 (golden rule).
-The second-to-last lines are the kernels JSON (the K1b rows give the
+The second-to-last lines are the kernels JSON (the component rows K1-K4
+give the slot-parallel entries, with bound_no_fma_ms, the ceiling of a
+kernel built with --fmad=false, and serial_ms, the serial body's time from
+the same turns; fused2_serial_closest_hit and fused2_serial_sweep_mixed,
+the serial yardsticks, and fused2_profile, the profile entry, are off every
+render path; the K1b rows give the
 tensor-core entries, with sharded_launches, their launches on phase 6h's
 sharded paths, and on the bf16 closest-hit row sharded_launches_two_ranks;
 fused2_mxu_exact_closest_hit and fused2_mxu_bf16_exact_closest_hit, off
@@ -249,6 +262,11 @@ MT_OPS, MXU_FLOP, CHAIN_OPS = 45, 2 * 16 * 4, 28
 # the far clamp, the compare and the select
 SLAB_OPS = 28
 FP32_FLOPS, BF16_FLOPS, HBM_BYTES_S = 67e12, 989e12, 3.35e12
+# The component kernels' ceiling: the fp32 peak counts a fused multiply-add
+# as two operations, and the kernels are built with --fmad=false (the
+# bit-equality contract), so each operation is one instruction issued at
+# half that rate; no component kernel can pass half of its fp32-peak bound.
+FP32_NO_FMA_OPS = FP32_FLOPS / 2
 # dense TF32 tensor-core FLOP/s of one H100 SXM (K1b f32's second bound:
 # three TF32 products per f32 product)
 TF32_FLOPS = 495e12
@@ -344,7 +362,8 @@ def hmma_counts(lib):
     counts, key = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            found = re.search(r"fused2_kernelILi(\d)ELi(\d)ELb(\d)ELb(\d)E", line)
+            # the fifth flag is the profile form (component layout only)
+            found = re.search(r"fused2_kernelILi(\d)ELi(\d)ELb(\d)ELb(\d)ELb0E", line)
             key = tuple(int(x) for x in found.groups()) if found else None
             if key:
                 counts[key] = 0
@@ -407,14 +426,16 @@ def needed_clusters(rays, want, fb, any_hit):
     return torch.cat(counts)
 
 
-def bound(rays, want, fb, any_hit, with_attrs=True, tf32=False):
+def bound(rays, want, fb, any_hit, with_attrs=True, tf32=False, no_fma=False):
     """(bound_ms, bound_by, needed clusters per ray) of one kernel call: the
     operations on the slots of the clusters each ray needs over their peak
     (component: Moller-Trumbore over fp32; MXU: the feature products over
     the planes' dtype peak, and the winner chain over fp32, whichever takes
     longer), vs inputs read once and output written once over HBM bytes/s.
     ``tf32``: f32 planes' products as three TF32 products each at the TF32
-    tensor-core rate (the f32 tensor-core form's own work)."""
+    tensor-core rate (the f32 tensor-core form's own work).  ``no_fma``
+    (component): the operations at FP32_NO_FMA_OPS, one instruction each,
+    the ceiling of a kernel built with --fmad=false."""
     need = needed_clusters(rays, want, fb, any_hit)
     slots = fb.cluster_size * float(need.sum())
     if fb.mxu:
@@ -423,7 +444,7 @@ def bound(rays, want, fb, any_hit, with_attrs=True, tf32=False):
             flop, peak = 3 * MXU_FLOP, TF32_FLOPS
         t_ops = max(flop * slots / peak, CHAIN_OPS * slots / FP32_FLOPS) * 1e3
     else:
-        t_ops = MT_OPS * slots / FP32_FLOPS * 1e3
+        t_ops = MT_OPS * slots / (FP32_NO_FMA_OPS if no_fma else FP32_FLOPS) * 1e3
     nbytes = (4 * (rays.numel() + want.numel() + fb.boxes.numel() + (fb.attrs.numel() if with_attrs else 0))
               + fb.planes.numel() * fb.planes.dtype.itemsize)
     t_bytes = nbytes / HBM_BYTES_S * 1e3
@@ -618,6 +639,48 @@ def compare_flags(got, want, what, min_share=0.9999, rays=None, fb=None):
     return differ.numel()
 
 
+def differing_columns(got, want):
+    """{column: rows} of the [N,32] columns where two outputs differ bit for
+    bit (float32 bits compared, so -0.0 differs from 0.0 and NaN equals
+    itself)."""
+    import torch
+
+    diff = got.contiguous().view(torch.int32) != want.contiguous().view(torch.int32)
+    per_col = diff.sum(0)
+    return {int(col): int(per_col[col]) for col in torch.nonzero(per_col).flatten()}
+
+
+def profile_split(prof):
+    """A profile entry's [blocks, PROFILE_COLS] clock64 rows -> the slowest
+    block (by total cycles) and the mean block: cycles and each phase's share
+    of them, and clusters retired per block (mean, max, the slowest's)."""
+    from owl_path_tracer_tpu_torch.ops import fused2
+
+    cols = fused2.PROFILE_COLS
+    phases, tot, st = cols[: cols.index("total")], cols.index("total"), cols.index("steps")
+    prof = prof.double().cpu()
+    slow = int(prof[:, tot].argmax())
+    mean = prof.mean(0)
+    share = lambda row: {ph: float(row[i] / row[tot]) if row[tot] > 0 else 0.0 for i, ph in enumerate(phases)}  # noqa: E731
+    return {"slowest": {"block": slow, "cycles": float(prof[slow, tot]), "share": share(prof[slow]),
+                        "clusters": int(prof[slow, st])},
+            "mean": {"cycles": float(mean[tot]), "share": share(mean)},
+            "clusters_per_block": {"mean": float(mean[st]), "max": int(prof[:, st].max())}}
+
+
+def format_split(split, mhz=None):
+    """One line of a profile_split: cycles (and ms at ``mhz``) and phase
+    shares of the slowest and the mean block, clusters per block."""
+    def part(what, x):
+        ms = f" = {x['cycles'] / (mhz * 1e3):.3f} ms at {mhz:.0f} MHz" if mhz else ""
+        shares = ", ".join(f"{ph} {100 * v:.1f}%" for ph, v in x["share"].items())
+        return f"{what} {x['cycles']:.0f} cycles{ms} ({shares})"
+
+    cpb = split["clusters_per_block"]
+    return (f"{part('slowest block', split['slowest'])}, {split['slowest']['clusters']} clusters; "
+            f"{part('mean block', split['mean'])}; clusters per block mean {cpb['mean']:.2f} max {cpb['max']}")
+
+
 def same_outputs(a, b):
     """Fanout-1 vs fanout-2 outputs: every column but steps (col 6) bit-identical."""
     import torch
@@ -656,6 +719,35 @@ def soup_arrays():
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     tmax = np.where(r.random(n) < 0.5, r.uniform(1.0, 8.0, n), 1e10).astype(np.float32)
     return (verts, idx, normals, tc, mat), (o, d, tmax)
+
+
+def tie_soup_arrays():
+    """Exact-t ties inside one cluster: 62 random triangles and two copies of
+    one triangle (z = 0.5, around the origin), from seed 2, with normals,
+    texcoords and material ids; at C=64 the copies share cluster 0 at slots
+    29 and 32, one below and one above the slot halves (tests check it).
+    128 rays (o, d, t_max, shadow flags): 64 through the copies (along +z
+    and -z, and tilted), 64 random ones; every other pair a shadow lane."""
+    import numpy as np
+
+    r = np.random.default_rng(2)
+    fill = r.uniform(-4, 4, (62, 1, 3)) + r.normal(0, 0.3, (62, 3, 3))
+    copy = np.array([[[-1.0, -1.0, 0.5], [1.0, -1.0, 0.5], [0.0, 1.0, 0.5]]])
+    verts = np.concatenate([fill, copy, copy]).astype(np.float32).reshape(-1, 3)
+    idx = np.arange(len(verts), dtype=np.int32).reshape(-1, 3)
+    normals = r.normal(size=verts.shape).astype(np.float32)
+    texcoords = r.uniform(0, 1, (len(verts), 2)).astype(np.float32)
+    tri_mat = r.integers(0, 5, len(idx)).astype(np.int32)
+    xy = r.uniform(-0.3, 0.3, (64, 2))
+    side = np.where(np.arange(64) % 2 == 0, -1.0, 1.0)
+    tie_o = np.stack([xy[:, 0], xy[:, 1], 0.5 + 3.0 * side], 1)
+    tie_d = np.stack([r.normal(0, 0.05, 64), r.normal(0, 0.05, 64), -side], 1)
+    o = np.concatenate([tie_o, r.uniform(-6, 6, (64, 3))]).astype(np.float32)
+    d = np.concatenate([tie_d, r.normal(size=(64, 3))]).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tmax = np.full(128, 1e10, np.float32)
+    shadow = np.arange(128) % 4 >= 2
+    return (verts, idx, normals, texcoords, tri_mat), (o, d, tmax, shadow)
 
 
 def soup(device, **build):
@@ -738,6 +830,200 @@ def wrapper_reference(fb, rays, raw):
     keep = raw[:, 5] > 0
     want[keep] = raw[keep]
     return want
+
+
+def component_resources(k=768, c=512, block=BLOCK):
+    """Phase 2: threads, registers, shared bytes and blocks per SM of each
+    component entry (the slot-parallel body, then the serial yardsticks) at
+    dragon7's K and C and the main path's block (phase 4 prints them again
+    at each scene's own K)."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.ops import fused2
+
+    fb = fused2.Fused2BVH(boxes=torch.zeros(8, k), planes=torch.zeros(k, 16, c), attrs=torch.zeros(k, 32, c),
+                          attr_table=torch.zeros(1, 32), bounds=torch.zeros(2, 3), cluster=None)
+    for mode, attrs, serial in (("closest", True, False), ("any_hit", False, False), ("mixed", True, False),
+                                ("closest", False, False), ("closest", True, True), ("mixed", True, True)):
+        res = fused2.kernel_resources(fb, mode, block, attrs, serial=serial)
+        print(f"  {res['entry']} at K={k} C={c} block {block}: {res['threads']} threads, {res['registers']} "
+              f"registers, {res['shared_bytes']} bytes of shared memory, {res['blocks_per_sm']} blocks per SM",
+              flush=True)
+
+
+def dragon_setup(dev, spp):
+    """Phase 4's inputs: the dragon scene (icosphere subdivision DRAGON_SUB)
+    at SIZE x SIZE on the component layout, its sort mode, the main path's
+    settings at ``spp``, and a mid-frame wave (the work items of the rows
+    through the image centre) of LANES primaries and the bounce wave the
+    port's own trace_bounce makes of it -> (dragon, scene, accel, mode,
+    settings, waves {"primary", "bounce": (o, d)}, ids)."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.models.scene import RenderSettings, compile_scene
+    from owl_path_tracer_tpu_torch.ops import fused2
+    from owl_path_tracer_tpu_torch.render import integrator, wavefront
+    from owl_path_tracer_tpu_torch.render.film import scene_has_textures
+    from owl_path_tracer_tpu_torch.tools.probe_common import ensure_dragon
+
+    dragon = ensure_dragon(DRAGON_SUB)
+    scene = compile_scene(ROOT / "assets", dragon, (SIZE, SIZE), device=dev)
+    accel = fused2.build_fused2_scene(scene, mxu=False)
+    mode = fused2.auto_sort_mode(scene)
+    print(f"  {dragon}: {scene.num_tris} triangles, K={accel.num_clusters} C={accel.cluster_size}, sort {mode}")
+    settings = RenderSettings(width=SIZE, height=SIZE, max_samples=spp, max_path_depth=DEPTH,
+                              environment_auto=True)
+    ids = settings.width * settings.height * spp // 2 - LANES // 2 + torch.arange(LANES, device=dev)
+    state = fresh_paths(scene, settings, ids)
+    isect, _ = integrator.make_intersectors(scene, accel, fused2_block=BLOCK, fused2_sort=mode)
+    bounce = integrator.trace_bounce(scene, settings, state, isect, scene_has_textures(scene))
+    waves = {
+        "primary": (state.ray_o, state.ray_d),
+        "bounce": (torch.where(bounce.alive[:, None], bounce.ray_o, wavefront.PARK), bounce.ray_d),
+    }
+    return dragon, scene, accel, mode, settings, waves, ids
+
+
+def fresh_paths(scene, settings, ids):
+    """integrator.PathState of the work items ``ids`` at their camera rays."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.render import integrator, wavefront
+
+    n, dev = ids.shape[0], ids.device
+    _, ray_o, ray_d, rng = wavefront._spawn(scene, settings, ids)
+    return integrator.PathState(
+        ray_o=ray_o, ray_d=ray_d, result=torch.zeros_like(ray_o), throughput=torch.ones_like(ray_o),
+        rng=rng, alive=torch.ones(n, dtype=torch.bool, device=dev),
+        prev_lobe=torch.full((n,), -1, dtype=torch.int64, device=dev),
+        depth=torch.zeros(n, dtype=torch.int64, device=dev), prev_pdf=torch.zeros(n, device=dev),
+    )
+
+
+def nee_setup(dev, spp, ids):
+    """Phase 4b's inputs: NEE_SCENE on the component layout, its sort mode
+    and NEE settings at ``spp``; from the work items ``ids``, the bounce wave
+    and a wave of shadow rays from its vertices toward sample_lights points
+    -> (scene, accel, mode, settings, waves {"shadow": (o, d, t), "mixed":
+    (o, d, t, shadow flags) of the bounce rays then the shadow rays, the
+    wave the deferred form traces})."""
+    import numpy as np
+    import torch
+
+    from owl_path_tracer_tpu_torch.models.lights import build_light_table, sample_lights
+    from owl_path_tracer_tpu_torch.models.scene import RenderSettings, compile_scene
+    from owl_path_tracer_tpu_torch.ops import fused2
+    from owl_path_tracer_tpu_torch.ops import math as m
+    from owl_path_tracer_tpu_torch.render import integrator, wavefront
+
+    nee_scene = compile_scene(ROOT / "assets", NEE_SCENE, (SIZE, SIZE), env_map_path=None, device=dev)
+    nee_accel = fused2.build_fused2_scene(nee_scene, mxu=False)
+    nee_mode = fused2.auto_sort_mode(nee_scene)
+    lights = build_light_table(nee_scene)
+    print(f"  {NEE_SCENE}: {nee_scene.num_tris} triangles, {lights.count} light triangles, "
+          f"K={nee_accel.num_clusters} C={nee_accel.cluster_size}, sort {nee_mode}")
+    nset = RenderSettings(width=SIZE, height=SIZE, max_samples=spp, max_path_depth=DEPTH,
+                          environment_auto=True, use_nee=True)
+    lanes = ids.shape[0]
+    state = fresh_paths(nee_scene, nset, ids)
+    isect, _ = integrator.make_intersectors(nee_scene, nee_accel, fused2_block=BLOCK, fused2_sort=nee_mode)
+    bounce = integrator.trace_bounce(nee_scene, nset, state, isect, False)
+    # shadow rays from the bounce wave's vertices (its rays' origins) toward light samples
+    u3 = torch.as_tensor(np.random.default_rng(2).random((lanes, 3), dtype=np.float32), device=dev)
+    ls = sample_lights(lights, bounce.ray_o, u3)
+    on = bounce.alive & (ls.pdf > 0)
+    sh_o = torch.where(on[:, None], bounce.ray_o, wavefront.PARK)
+    sh_d = torch.where(on[:, None], ls.direction, torch.tensor([0.0, 0.0, 1.0], device=dev))
+    sh_t = torch.where(on, ls.distance - m.T_MIN, m.T_MIN)
+    print(f"  shadow wave: {int(on.sum())}/{lanes} live")
+    b_o = torch.where(bounce.alive[:, None], bounce.ray_o, wavefront.PARK)
+    b_t = torch.full((lanes,), m.T_MAX, device=dev)
+    comb_sh = torch.cat([torch.zeros(lanes, dtype=torch.bool, device=dev),
+                         torch.ones(lanes, dtype=torch.bool, device=dev)])
+    waves = {"shadow": (sh_o, sh_d, sh_t),
+             "mixed": (torch.cat([b_o, sh_o]), torch.cat([bounce.ray_d, sh_d]), torch.cat([b_t, sh_t]), comb_sh)}
+    return nee_scene, nee_accel, nee_mode, nset, waves
+
+
+def component_wave(what, rays, fb, block, mode="closest", with_attrs=True, shadow=None, mhz=None):
+    """One sorted main-path wave through a component entry (the
+    slot-parallel body): its outputs held to the plain version (winners
+    equal but for true ties between clusters, t/u/v to rtol 5e-6, blob
+    exact; any-hit and the mixed sweep's shadow flags identical); every
+    column equal bit for bit to the serial body's (its entry for closest hit
+    with attributes and the mixed sweep, the profile entry's serial body for
+    any-hit and K4); the profile entry's clock64 split of both bodies, each
+    with outputs equal to its plain entry's; registers, shared bytes, blocks
+    per SM and threads; and the kernel's time, in turns with the serial
+    entry where there is one (serial, new, new, serial), beside the plain
+    version's, the fp32-peak bound and the no-FMA ceiling -> dict."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.ops import fused2
+
+    def run(serial=False):
+        return fused2.fused2_traverse_packed(rays, fb, block=block, mode=mode, with_attrs=with_attrs, serial=serial)
+
+    n = rays.shape[0]
+    got = run()
+    want = fused2.fused2_traverse_packed_plain(rays, fb, mode, with_attrs)
+    ties = 0
+    if mode == "any_hit":
+        check(bool((got[:, 5] == 1).all()), f"{what}: rays unresolved")
+        err = k2_error(got, want, rays)
+        check(err == 0.0, f"{what}: flags differ from the plain version or t was lowered: max error {err}")
+        any_hit = torch.ones(n, dtype=torch.bool, device=rays.device)
+    elif mode == "mixed":
+        err, ties = compare(got[~shadow], want[~shadow], allow_ties=True)
+        check(bool((got[shadow, 5] == 1).all()), f"{what}: shadow rays unresolved")
+        check(bool((got[shadow, 4] == want[shadow, 4]).all()), f"{what}: shadow flags differ from the plain version")
+        any_hit = shadow
+    else:
+        err, ties = compare(got, want, allow_ties=True)
+        any_hit = torch.zeros(n, dtype=torch.bool, device=rays.device)
+    has_entry = mode == "mixed" or (mode == "closest" and with_attrs)
+    if has_entry:
+        serial = run(serial=True)
+    else:
+        serial, _ = fused2.fused2_traverse_profile(rays, fb, block, mode=mode, with_attrs=with_attrs, serial=True)
+    diff = differing_columns(got, serial)
+    check(not diff, f"{what}: the slot-parallel body differs from the serial body in {{column: rows}} {diff}")
+    splits = {}
+    for body, ref in (("slot-parallel", got), ("serial", serial)):
+        out, prof = fused2.fused2_traverse_profile(rays, fb, block, mode=mode, with_attrs=with_attrs,
+                                                   serial=body == "serial")
+        diff = differing_columns(out, ref)
+        check(not diff, f"{what}: the {body} profile entry's outputs differ from its plain entry's: {diff}")
+        phases = prof[:, : fused2.PROFILE_COLS.index("total")].sum(1)
+        check(bool((phases == prof[:, fused2.PROFILE_COLS.index("total")]).all()),
+              f"{what}: the {body} profile's phases do not add up to its total")
+        splits[body] = profile_split(prof)
+        print(f"  {what}, {body} body: {format_split(splits[body], mhz)}", flush=True)
+    res = fused2.kernel_resources(fb, mode, block, with_attrs)
+    print(f"  {res['entry']} at K={fb.num_clusters} C={fb.cluster_size} block {block}: {res['threads']} threads, "
+          f"{res['registers']} registers, {res['shared_bytes']} bytes of shared memory, {res['blocks_per_sm']} "
+          "blocks per SM", flush=True)
+    if has_entry:
+        s_ms, k_ms = in_turns(lambda: run(serial=True), run)
+        turns = (f"serial body {s_ms:.3f} ms (in turns serial, new, new, serial; {s_ms / k_ms:.2f}x), ")
+    else:
+        s_ms, k_ms = None, cuda_ms(run)
+        turns = ""
+    prof_ms = cuda_ms(lambda: fused2.fused2_traverse_profile(rays, fb, block, mode=mode, with_attrs=with_attrs))
+    p_ms = cuda_ms(lambda: fused2.fused2_traverse_packed_plain(rays, fb, mode, with_attrs))
+    attrs = with_attrs and mode != "any_hit"
+    bnd, need = bound(rays, want, fb, any_hit, with_attrs=attrs)
+    ceiling = bound(rays, want, fb, any_hit, with_attrs=attrs, no_fma=True)[0]
+    steps = got[:, 6].reshape(-1, block)[:, 0]
+    hits = int(got[~any_hit, 4].sum()) if mode == "mixed" else int(got[:, 4].sum())
+    print(f"  {what}: {hits}/{n} {'hit' if mode != 'any_hit' else 'occluded'}"
+          f"{f', {int(got[shadow, 4].sum())} shadow lanes occluded' if mode == 'mixed' else ''}, {ties} tie swaps, "
+          f"max err {err:.3g}, every column equal to the serial body's, clusters/block mean {float(steps.mean()):.2f} "
+          f"max {int(steps.max())}, clusters needed/ray mean {need:.3f}; slot-parallel {k_ms:.3f} ms, {turns}"
+          f"profile entry {prof_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, {100 * bnd[0] / k_ms:.2f}% reached), no-FMA "
+          f"ceiling {ceiling[0]:.4f} ms ({ceiling[1]}, {100 * ceiling[0] / k_ms:.2f}% reached)", flush=True)
+    return {"err": err, "ms": k_ms, "serial_ms": s_ms, "profile_ms": prof_ms, "plain_ms": p_ms, "bound": bnd,
+            "bound_no_fma": ceiling, "split": splits, "resources": res}
 
 
 def phase_3c(dev, results):
@@ -939,7 +1225,7 @@ def tensor_sums_ratio(rays, want, fb, warps: int = 256):
     return worst, count
 
 
-def phase_4c(scene, comp_accel, mode, waves, nee_scene, nee_mode, nee_waves, block, results, hmma):
+def phase_4c(scene, mode, waves, nee_scene, nee_mode, nee_waves, block, results, hmma):
     """K1b and K4 vs plain at the main path's shapes."""
     import torch
 
@@ -970,10 +1256,8 @@ def phase_4c(scene, comp_accel, mode, waves, nee_scene, nee_mode, nee_waves, blo
                       f"{worst:.3g} = 2^{math.log2(worst) if worst > 0 else -math.inf:.2f} over {count} sums, "
                       f"SUM_GAMMA_F32 = 2^{math.log2(SUM_GAMMA_F32):.0f}", flush=True)
                 check(worst <= SUM_GAMMA_F32, f"f32 tensor-core sums exceed SUM_GAMMA_F32: {worst}")
-            if kind == "fused2" and name == "bounce":
+            if kind == "fused2" and name == "bounce":  # K4 component: phase 4
                 results["K4 mxu"] = time_kernel(f"K4 {kind} {name} wave", rays, accel, block, with_attrs=False)
-                results["K4 component"] = time_kernel(f"K4 component {name} wave", rays, comp_accel, block,
-                                                      with_attrs=False)
         nee_accel = make_accel(nee_scene, kind)
         sh_o, sh_d, sh_t = nee_waves["shadow"]
         rays, _ = sorted_rays(sh_o, sh_d, sh_t, nee_accel, nee_mode)
@@ -2386,6 +2670,7 @@ def main():
     for layout_i, want in ((1, 5), (2, 4)):
         check(sum(1 for key in hmma if key[1] == layout_i) == want,
               f"expected {want} instantiations of layout {layout_i} in the SASS, got {hmma}")
+    component_resources()
     phase("2 build", t0)
 
     # 3 ── kernel vs plain, small
@@ -2467,123 +2752,31 @@ def main():
 
     # 4 ── kernel vs plain at the main path's shapes
     t0 = time.perf_counter()
-    dragon = ensure_dragon(DRAGON_SUB)
     size, lanes, block = SIZE, LANES, BLOCK
-    scene = compile_scene(ROOT / "assets", dragon, (size, size), device=dev)
-    accel = fused2.build_fused2_scene(scene, mxu=False)
-    mode = fused2.auto_sort_mode(scene)
-    print(f"  {dragon}: {scene.num_tris} triangles, K={accel.num_clusters} C={accel.cluster_size}, sort {mode}")
-    settings = RenderSettings(width=size, height=size, max_samples=args.spp, max_path_depth=DEPTH,
-                              environment_auto=True)
-    # a mid-frame wave: the work items of the rows through the image centre
-    ids = settings.width * settings.height * args.spp // 2 - lanes // 2 + torch.arange(lanes, device=dev)
-    _, ray_o, ray_d, rng = wavefront._spawn(scene, settings, ids)
-    state = integrator.PathState(
-        ray_o=ray_o, ray_d=ray_d, result=torch.zeros_like(ray_o), throughput=torch.ones_like(ray_o),
-        rng=rng, alive=torch.ones(lanes, dtype=torch.bool, device=dev),
-        prev_lobe=torch.full((lanes,), -1, dtype=torch.int64, device=dev),
-        depth=torch.zeros(lanes, dtype=torch.int64, device=dev), prev_pdf=torch.zeros(lanes, device=dev),
-    )
-    isect, _ = integrator.make_intersectors(scene, accel, fused2_block=block, fused2_sort=mode)
-    bounce = integrator.trace_bounce(scene, settings, state, isect, scene_has_textures(scene))
-    waves = {
-        "primary": (state.ray_o, state.ray_d),
-        "bounce": (torch.where(bounce.alive[:, None], bounce.ray_o, wavefront.PARK), bounce.ray_d),
-    }
-    timing = {}
+    dragon, scene, accel, mode, settings, waves, ids = dragon_setup(dev, args.spp)
     for name, (wo, wd) in waves.items():
         tm = torch.full((lanes,), 1e10, device=dev)
-        keys = fused2.wave_sort_keys(wo, wd, tm, accel, mode=mode)
-        rays = pack_rays(wo, wd, tm)[torch.sort(keys, stable=True).indices]
-        got = fused2.fused2_traverse_packed(rays, accel, block=block)
-        want = fused2.fused2_traverse_packed_plain(rays, accel)
-        err, ties = compare(got, want, allow_ties=True)
-        results["max_abs_err"] = max(results["max_abs_err"], err)
-        k_ms = cuda_ms(lambda: fused2.fused2_traverse_packed(rays, accel, block=block))
-        p_ms = cuda_ms(lambda: fused2.fused2_traverse_packed_plain(rays, accel))
-        timing[name] = (k_ms, p_ms)
-        bnd, need = bound(rays, want, accel, torch.zeros_like(got[:, 0], dtype=torch.bool))
-        results[f"k1_bound_{name}"] = bnd
-        steps = got[:, 6].reshape(-1, block)[:, 0]
-        print(f"  {name} wave: {int(got[:, 4].sum())}/{lanes} hits, {ties} tie swaps, "
-              f"max |tuv err| {err:.3g}, clusters/block mean {float(steps.mean()):.1f} max {int(steps.max())}, "
-              f"clusters needed/ray mean {need:.3f}, kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
-              f"bound {bnd[0]:.4f} ms ({bnd[1]})")
-    results["ms"], results["plain_ms"] = timing["bounce"]
-    results["k1_bound"] = results["k1_bound_bounce"]
+        rays, _ = sorted_rays(wo, wd, tm, accel, mode)
+        results[f"k1 {name}"] = r = component_wave(f"{name} wave", rays, accel, block, mhz=sm_mhz)
+        results["max_abs_err"] = max(results["max_abs_err"], r["err"])
+        if name == "bounce":  # K4: the same body without attributes
+            results["K4 component"] = component_wave(f"K4 {name} wave", rays, accel, block, with_attrs=False,
+                                                     mhz=sm_mhz)
     phase("4 kernel vs plain, main-path shapes", t0)
 
     # 4b ── K2 and K3 vs plain at the NEE path's shapes
     t0 = time.perf_counter()
-    nee_scene = compile_scene(ROOT / "assets", NEE_SCENE, (size, size), env_map_path=None, device=dev)
-    nee_accel = fused2.build_fused2_scene(nee_scene, mxu=False)
-    nee_mode = fused2.auto_sort_mode(nee_scene)
-    lights = build_light_table(nee_scene)
-    print(f"  {NEE_SCENE}: {nee_scene.num_tris} triangles, {lights.count} light triangles, "
-          f"K={nee_accel.num_clusters} C={nee_accel.cluster_size}, sort {nee_mode}")
-    nset = RenderSettings(width=size, height=size, max_samples=args.spp, max_path_depth=DEPTH,
-                          environment_auto=True, use_nee=True)
-    _, ray_o, ray_d, rng = wavefront._spawn(nee_scene, nset, ids)
-    state = integrator.PathState(
-        ray_o=ray_o, ray_d=ray_d, result=torch.zeros_like(ray_o), throughput=torch.ones_like(ray_o),
-        rng=rng, alive=torch.ones(lanes, dtype=torch.bool, device=dev),
-        prev_lobe=torch.full((lanes,), -1, dtype=torch.int64, device=dev),
-        depth=torch.zeros(lanes, dtype=torch.int64, device=dev), prev_pdf=torch.zeros(lanes, device=dev),
-    )
-    isect, _ = integrator.make_intersectors(nee_scene, nee_accel, fused2_block=block, fused2_sort=nee_mode)
-    bounce = integrator.trace_bounce(nee_scene, nset, state, isect, False)
-    # shadow rays from the bounce wave's vertices (its rays' origins) toward light samples
-    u3 = torch.as_tensor(np.random.default_rng(2).random((lanes, 3), dtype=np.float32), device=dev)
-    ls = sample_lights(lights, bounce.ray_o, u3)
-    on = bounce.alive & (ls.pdf > 0)
-    sh_o = torch.where(on[:, None], bounce.ray_o, wavefront.PARK)
-    sh_d = torch.where(on[:, None], ls.direction, torch.tensor([0.0, 0.0, 1.0], device=dev))
-    sh_t = torch.where(on, ls.distance - m.T_MIN, m.T_MIN)
-    b_o = torch.where(bounce.alive[:, None], bounce.ray_o, wavefront.PARK)
-    b_t = torch.full((lanes,), m.T_MAX, device=dev)
-    keys = fused2.wave_sort_keys(sh_o, sh_d, sh_t, nee_accel, mode=nee_mode)
-    rays2 = pack_rays(sh_o, sh_d, sh_t)[torch.sort(keys, stable=True).indices]
-    got = fused2.fused2_traverse_packed(rays2, nee_accel, block=block, mode="any_hit")
-    want = fused2.fused2_traverse_packed_plain(rays2, nee_accel, mode="any_hit")
-    check(bool((got[:, 5] == 1).all()), "K2 left rays unresolved at the NEE shapes")
-    e2 = k2_error(got, want, rays2)
-    check(e2 == 0.0, f"K2 differs from the plain version at the NEE shapes: max error {e2}")
-    results["k2_err"] = max(results["k2_err"], e2)
-    results["k2_ms"] = cuda_ms(lambda: fused2.fused2_traverse_packed(rays2, nee_accel, block=block, mode="any_hit"))
-    results["k2_plain_ms"] = cuda_ms(lambda: fused2.fused2_traverse_packed_plain(rays2, nee_accel, mode="any_hit"))
-    results["k2_bound"], need = bound(rays2, want, nee_accel, torch.ones_like(got[:, 0], dtype=torch.bool),
-                                      with_attrs=False)
-    steps = got[:, 6].reshape(-1, block)[:, 0]
-    print(f"  shadow wave: {int(on.sum())}/{lanes} live, {int(got[:, 4].sum())} occluded (identical flags), "
-          f"max error {e2}, clusters/block mean {float(steps.mean()):.2f} max {int(steps.max())}, "
-          f"clusters needed/ray mean {need:.3f}, "
-          f"K2 {results['k2_ms']:.3f} ms, plain {results['k2_plain_ms']:.3f} ms, "
-          f"bound {results['k2_bound'][0]:.4f} ms ({results['k2_bound'][1]})")
-
-    comb_o, comb_d = torch.cat([b_o, sh_o]), torch.cat([bounce.ray_d, sh_d])
-    comb_t = torch.cat([b_t, sh_t])
-    comb_sh = torch.cat([torch.zeros(lanes, dtype=torch.bool, device=dev), torch.ones(lanes, dtype=torch.bool, device=dev)])
-    keys = fused2.wave_sort_keys(comb_o, comb_d, comb_t, nee_accel, mode=nee_mode)
-    keys = keys | (comb_sh.to(torch.int64) << fused2.SHADOW_CLASS_BIT)
-    perm = torch.sort(keys, stable=True).indices
-    rays3, sh3 = pack_rays(comb_o, comb_d, comb_t, comb_sh)[perm], comb_sh[perm]
-    nee_waves = {"shadow": (sh_o, sh_d, sh_t), "mixed": (comb_o, comb_d, comb_t, comb_sh)}
-    got = fused2.fused2_traverse_packed(rays3, nee_accel, block=block, mode="mixed")
-    want = fused2.fused2_traverse_packed_plain(rays3, nee_accel, mode="mixed")
-    err, ties = compare(got[~sh3], want[~sh3], allow_ties=True)
-    results["k3_err"] = max(results["k3_err"], err)
-    check(bool((got[sh3, 5] == 1).all()), "K3 left shadow rays unresolved at the NEE shapes")
-    check(bool((got[sh3, 4] == want[sh3, 4]).all()), "K3 shadow flags differ from the plain version")
-    results["k3_ms"] = cuda_ms(lambda: fused2.fused2_traverse_packed(rays3, nee_accel, block=block, mode="mixed"))
-    results["k3_plain_ms"] = cuda_ms(lambda: fused2.fused2_traverse_packed_plain(rays3, nee_accel, mode="mixed"))
-    results["k3_bound"], need = bound(rays3, want, nee_accel, sh3)
-    steps = got[:, 6].reshape(-1, block)[:, 0]
-    print(f"  mixed wave ({2 * lanes} rays): {int(got[~sh3, 4].sum())} bounce hits, {ties} tie swaps, "
-          f"max |tuv err| {err:.3g}, {int(got[sh3, 4].sum())} shadow rays occluded (identical flags), "
-          f"clusters/block mean {float(steps.mean()):.2f} max {int(steps.max())}, "
-          f"clusters needed/ray mean {need:.3f}, "
-          f"K3 {results['k3_ms']:.3f} ms, plain {results['k3_plain_ms']:.3f} ms, "
-          f"bound {results['k3_bound'][0]:.4f} ms ({results['k3_bound'][1]})")
+    nee_scene, nee_accel, nee_mode, nset, nee_waves = nee_setup(dev, args.spp, ids)
+    sh_o, sh_d, sh_t = nee_waves["shadow"]
+    rays2, _ = sorted_rays(sh_o, sh_d, sh_t, nee_accel, nee_mode)
+    results["k2"] = r = component_wave("shadow wave", rays2, nee_accel, block, "any_hit", with_attrs=False,
+                                       mhz=sm_mhz)
+    results["k2_err"] = max(results["k2_err"], r["err"])
+    comb_o, comb_d, comb_t, comb_sh = nee_waves["mixed"]
+    rays3, perm = sorted_rays(comb_o, comb_d, comb_t, nee_accel, nee_mode, shadow=comb_sh)
+    results["k3"] = r = component_wave(f"mixed wave ({rays3.shape[0]} rays)", rays3, nee_accel, block, "mixed",
+                                       shadow=comb_sh[perm], mhz=sm_mhz)
+    results["k3_err"] = max(results["k3_err"], r["err"])
     phase("4b any-hit and mixed vs plain, NEE shapes", t0)
 
     # 5 ── frame parity: GPU (kernel) vs CPU (plain version)
@@ -2650,6 +2843,10 @@ def main():
           f"{unresolved}, image mean {img.mean().item():.6f}")
     phase("6 main path", t0)
     k1_launches = launches
+    # the serial entries and the profile entry on the component main paths
+    # (phases 6 and 6b): no render path launches them
+    off_path = ("owlpt_fused2_serial_closest_hit", "owlpt_fused2_serial_sweep_mixed", fused2.PROFILE_ENTRY)
+    serial_launches = {e: comp_launches[e] for e in off_path}
 
     # 6b ── the NEE main path, separate and deferred
     t0 = time.perf_counter()
@@ -2670,6 +2867,8 @@ def main():
         seconds = time.perf_counter() - start
         counts = tuple(fused2.LAUNCHES[f"owlpt_fused2_{e}"] for e in ("closest_hit", "occluded", "sweep_mixed"))
         nee_launches[form] = counts
+        for e in off_path:
+            serial_launches[e] += fused2.LAUNCHES[e]
         check(bool(torch.isfinite(img).all()), f"NEE {form}: non-finite pixels")
         check(img.shape == (size, size, 3), f"NEE {form}: image shape {tuple(img.shape)}")
         check(0.0 < img.mean().item() < 10.0, f"NEE {form}: implausible image mean {img.mean().item()}")
@@ -2688,7 +2887,7 @@ def main():
 
     # 4c ── K1b and K4 vs plain at the main path's shapes
     t0 = time.perf_counter()
-    phase_4c(scene, accel, mode, waves, nee_scene, nee_mode, nee_waves, block, results, hmma)
+    phase_4c(scene, mode, waves, nee_scene, nee_mode, nee_waves, block, results, hmma)
     phase("4c K1b and K4 vs plain, main-path shapes", t0)
 
     # 5c ── fused2-bf16 frame parity
@@ -2803,14 +3002,28 @@ def main():
             row["sharded_launches_two_ranks"] = sharded["two_ranks"]
         return row
 
+    def component_entry(name, launches, err, r):
+        # the slot-parallel body's row, with the serial body's time from the
+        # same turns (where it has an entry) and the no-FMA ceiling
+        row = entry(name, launches, err, r["ms"], r["plain_ms"], r["bound"])
+        row["bound_no_fma_ms"], row["bound_no_fma_by"] = r["bound_no_fma"]
+        if r["serial_ms"] is not None:
+            row["serial_ms"] = r["serial_ms"]
+        return row
+
+    k1, k3 = results["k1 bounce"], results["k3"]
     kernels = [
-        entry("fused2_closest_hit", k1_launches, results["max_abs_err"], results["ms"], results["plain_ms"],
-              results["k1_bound"]),
-        entry("fused2_occluded", nee_launches["separate"][1], results["k2_err"], results["k2_ms"],
-              results["k2_plain_ms"],
-              results["k2_bound"]),
-        entry("fused2_sweep_mixed", nee_launches["deferred"][2], results["k3_err"], results["k3_ms"],
-              results["k3_plain_ms"], results["k3_bound"]),
+        component_entry("fused2_closest_hit", k1_launches, results["max_abs_err"], k1),
+        component_entry("fused2_occluded", nee_launches["separate"][1], results["k2_err"], results["k2"]),
+        component_entry("fused2_sweep_mixed", nee_launches["deferred"][2], results["k3_err"], k3),
+        # the serial body, K1's and K3's yardstick (timed in turns with them)
+        # and the profile entry (a diagnostic): no render path launches them
+        entry("fused2_serial_closest_hit", serial_launches["owlpt_fused2_serial_closest_hit"],
+              results["max_abs_err"], k1["serial_ms"], k1["plain_ms"], k1["bound"]),
+        entry("fused2_serial_sweep_mixed", serial_launches["owlpt_fused2_serial_sweep_mixed"], results["k3_err"],
+              k3["serial_ms"], k3["plain_ms"], k3["bound"]),
+        entry("fused2_profile", serial_launches[fused2.PROFILE_ENTRY], results["max_abs_err"], k1["profile_ms"],
+              k1["plain_ms"], k1["bound"]),
     ]
     for layout, kind in (("", "fused2"), ("_bf16", "fused2-bf16")):
         err = results[f"k1b_{'f32' if kind == 'fused2' else 'bf16'}_err"]
@@ -2830,11 +3043,12 @@ def main():
                              x["exact"]["ms"], x["plain_ms"], x["bound"]))
     # K4 is an entry point off the main paths: its launches on the dragon
     # main path of its layout (phase 6, component; phase 6c, fused2)
-    for name, key, counts in (("fused2_closest_hit_noattr", "K4 component", comp_launches),
-                              ("fused2_mxu_closest_hit_noattr", "K4 mxu", mxu["fused2"])):
-        r = results[key]
-        kernels.append(entry(name, counts.get(f"owlpt_{name}", 0), max(results["k4_err"], r["err"]), r["ms"],
-                             r["plain_ms"], r["bound"]))
+    r = results["K4 component"]
+    kernels.append(component_entry("fused2_closest_hit_noattr", comp_launches["owlpt_fused2_closest_hit_noattr"],
+                                   max(results["k4_err"], r["err"]), r))
+    r = results["K4 mxu"]
+    kernels.append(entry("fused2_mxu_closest_hit_noattr", mxu["fused2"].get("owlpt_fused2_mxu_closest_hit_noattr", 0),
+                         max(results["k4_err"], r["err"]), r["ms"], r["plain_ms"], r["bound"]))
     k5 = results["k5 centre chunk bounce"]
     kernels.append(dict(entry("fused_traverse", k5_launches, results["k5_err"], k5["ms"], k5["plain_ms"],
                               k5["bound"]), source=FUSED_SOURCE, replaces=FUSED_REPLACES))

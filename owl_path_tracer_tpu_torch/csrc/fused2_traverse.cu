@@ -20,9 +20,15 @@
 // out [N,32] (t u v tri hit resolved steps wcid wslot, 0..., attr rows 0-15).
 // One templated body serves every (mode, layout, attrs) combination, as the
 // Pallas kernel's static flags do, and on MXU planes the tensor-core or the
-// CUDA-core slot test; each has its own extern "C" entry point.
+// CUDA-core slot test; each has its own extern "C" entry point.  The
+// component entries (K1-K4) run a second body, slot-parallel (slot_kernel
+// below): the same block algorithm, with the slots of a cluster tested in
+// parallel; the one-thread-per-ray body stays on the component layout as
+// the yardstick entries owlpt_fused2_serial_closest_hit and
+// owlpt_fused2_serial_sweep_mixed (no render path launches them).
 //
-// One CUDA block per `block` rays, one thread per ray:
+// The block algorithm, one CUDA block per `block` rays (in the serial body
+// one thread per ray):
 //   1. scene gate: the block skips everything when no ray enters the scene AABB;
 //   2. phase A: the block frontier bent[K] (nearest entry over the block's
 //      rays, per cluster) in shared memory -- each thread owns the clusters
@@ -116,7 +122,26 @@
 // the answers still do not depend on the fanout.
 //
 // What bounds it on the card.  Component: the Moller-Trumbore arithmetic,
-// about 45 fp32 operations per ray and slot.  MXU: 2 x 16 x 4 = 128 product
+// about 45 fp32 operations per ray and slot; built with --fmad=false each is
+// one instruction, so the kernels issue them at half the fp32 peak (which
+// counts an FMA as two) and can reach at most half of the fp32-peak bound.
+// The slot-parallel body issues about 80 instructions per ray and 32-slot
+// warp step (the window, the division's range check and its rcp and Newton
+// step, the ray's shared loads and the ballot), and every ray of a block
+// tests every cluster the block retires, 2-3x the clusters its own exact
+// query needs.  Its design answers what held the serial body back (the
+// profile entry's clock64 split, chip_smoke.py phase 4 on an H100, dragon7
+// bounce wave: slot tests 90-95% of the slowest block, which retired 42
+// clusters against a mean of 6.7 and ran nearly alone at the end of the
+// wave, 8 warps deep): a cluster's slots are split over up
+// to 4 CTAs of 512 threads, a thread block cluster, so a block's tests run
+// on 4 SMs at 16 warps each; the blocks that enter the most clusters start
+// first (frontier_kernel, order_blocks), so no heavy block is left alone at
+// the end; the next cluster's plane rows are staged by cp.async during the
+// current test.  What paces it then is the issue rate of the slot tests
+// (below the SM's four warp instructions per cycle) and the blocks'
+// over-retirement, which the reference's pick rule sets.
+// MXU: 2 x 16 x 4 = 128 product
 // FLOP per ray and slot as the reference's matmul counts them, plus the
 // 28-operation window and winner chain.  On CUDA cores (K4, the exact
 // yardsticks) both are fp32 work (67 TFLOP/s), the products the larger share
@@ -136,6 +161,7 @@
 // block, not once per ray, and stay L2-resident for the scene sizes of the
 // main path.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cmath>
@@ -677,8 +703,9 @@ __device__ __forceinline__ void tensor_test(const TensorOps<kLayout>& ops, const
 // Frontier pass: bent[j] = min over rays of the entry distance of rays that
 // need cluster j (entry within [t_min, min(t_far, tmax)] and, unless first,
 // below the ray's cap).  Retired (inf) clusters stay retired unless first.
+// The clusters j0 <= j < j1 (default all k).
 __device__ void frontier_update(float* bent, const float* __restrict__ boxes, int k,
-                                const float* s_ray, int b, bool first) {
+                                const float* s_ray, int b, bool first, int j0 = 0, int j1 = -1) {
   const float* s_ox = s_ray;
   const float* s_oy = s_ray + b;
   const float* s_oz = s_ray + 2 * b;
@@ -687,7 +714,7 @@ __device__ void frontier_update(float* bent, const float* __restrict__ boxes, in
   const float* s_iz = s_ray + 5 * b;
   const float* s_tmax = s_ray + 6 * b;
   const float* s_cap = s_ray + 7 * b;
-  for (int j = threadIdx.x; j < k; j += blockDim.x) {
+  for (int j = j0 + threadIdx.x; j < (j1 < 0 ? k : j1); j += blockDim.x) {
     if (!first && bent[j] == kInf) continue;
     const float bmin[3] = {boxes[j], boxes[k + j], boxes[2 * k + j]};
     const float bmax[3] = {boxes[3 * k + j], boxes[4 * k + j], boxes[5 * k + j]};
@@ -704,6 +731,45 @@ __device__ void frontier_update(float* bent, const float* __restrict__ boxes, in
   }
   __syncthreads();
 }
+
+// Per-block clock64 split of the component bodies (the profile entry): the
+// cycles of the scene gate and the first frontier (setup), of the picks with
+// their bound reductions, the frontier refreshes and the overflow test
+// (pick), of the wait for a cluster's plane rows (stage), of the slot tests
+// with the per-ray combine (test) and of the winner payload (payload), each
+// phase up to the barrier that ends it, so that a phase's time is its
+// slowest thread's; then the block's total cycles (the sum of the five) and
+// its retired clusters.  Thread 0's clock is the one written.
+enum Phase { kPhSetup = 0, kPhPick, kPhStage, kPhTest, kPhPayload, kPhases };
+constexpr int kProfileCols = kPhases + 2;
+
+template <bool kOn>
+struct PhaseClock {
+  long long start = 0, last = 0, cycles[kPhases] = {0, 0, 0, 0, 0};
+  __device__ PhaseClock() {
+    if (kOn) start = last = clock64();
+  }
+  // call right after a barrier: the cycles since the last mark go to `phase`
+  __device__ __forceinline__ void mark(int phase) {
+    if (kOn) {
+      const long long t = clock64();
+      cycles[phase] += t - last;
+      last = t;
+    }
+  }
+  // the payload up to a final barrier, then thread 0 writes row `row`
+  __device__ __forceinline__ void finish(long long* profile, int steps, int row) {
+    if (!kOn) return;
+    __syncthreads();
+    mark(kPhPayload);
+    if (threadIdx.x == 0) {
+      long long* p = profile + static_cast<long long>(row) * kProfileCols;
+      for (int ph = 0; ph < kPhases; ++ph) p[ph] = cycles[ph];
+      p[kPhases] = last - start;
+      p[kPhases + 1] = steps;
+    }
+  }
+};
 
 // Staged rows per cluster on CUDA cores; the MXU tri id row only for the no-attrs mode.
 template <int kMode, int kLayout, bool kAttrs>
@@ -724,14 +790,17 @@ size_t shared_bytes(int k, int c, int b) {
   return static_cast<size_t>(staged_rows<kMode, kLayout, kAttrs>()) * c * sizeof(float) + tail;
 }
 
-template <int kMode, int kLayout, bool kAttrs, bool kTensor>
+template <int kMode, int kLayout, bool kAttrs, bool kTensor, bool kProfile = false>
 __global__ void fused2_kernel(
     const float* __restrict__ rays, const float* __restrict__ boxes,
     const void* __restrict__ planes, const float* __restrict__ attrs,
-    float* __restrict__ out, int k, int c, int max_steps, int refresh, int fanout) {
+    float* __restrict__ out, int k, int c, int max_steps, int refresh, int fanout,
+    long long* __restrict__ profile) {
   constexpr bool kMxu = kLayout != kComponent;
   static_assert(!kTensor || (kMxu && kAttrs == (kMode != kAnyHit)),
                 "the tensor-core test serves the MXU closest, any-hit and mixed entries");
+  static_assert(!kProfile || kLayout == kComponent, "the profile serves the component layout");
+  PhaseClock<kProfile> clock;
   // the tensor-core operands of this layout (unused on CUDA cores)
   constexpr int kOpsLayout = kLayout == kMxuF32 ? kMxuF32 : kMxuBf16;
   constexpr int kRows = staged_rows<kMode, kLayout, kAttrs>();
@@ -786,6 +855,7 @@ __global__ void fused2_kernel(
   float gtf;
   const float g_e = slab_enter(ox, oy, oz, ix, iy, iz, lo, hi, gtf);
   const bool scene_live = __syncthreads_or(g_e <= fminf(gtf, tmax));
+  if (!scene_live) clock.mark(kPhSetup);
 
   float best_t = tmax, best_u = 0.0f, best_v = 0.0f, best_tri = -1.0f;
   bool hit = false;
@@ -812,6 +882,7 @@ __global__ void fused2_kernel(
     s_ray[7 * b + tid] = tmax;
     __syncthreads();
     frontier_update(bent, boxes, k, s_ray, b, true);
+    clock.mark(kPhSetup);
     int grp[kMaxFanout], nxt[kMaxFanout];
     pick_group(bent, k, block_max(bound_t(), red_f), fanout, grp, red_f, red_i);
     bool done = grp[0] >= k;
@@ -885,6 +956,7 @@ __global__ void fused2_kernel(
           continue;
         }
         // stage this cluster's plane rows in smem
+        clock.mark(kPhPick);
         if (!kMxu) {
           const float* src = static_cast<const float*>(planes) + static_cast<long long>(cur) * kPlaneRows * c;
           if ((c & 3) == 0) {
@@ -905,6 +977,7 @@ __global__ void fused2_kernel(
           }
         }
         __syncthreads();
+        clock.mark(kPhStage);
 
         if (searching()) {
           float tc = kInf, tu = 0.0f, tv = 0.0f;
@@ -964,6 +1037,7 @@ __global__ void fused2_kernel(
           }
         }
         __syncthreads();  // s_plane is restaged next
+        clock.mark(kPhTest);
       }
       // a shadow lane with a hit is done: t -> t_min
       if (kMode == kMixed && shadow && hit) best_t = kTMin;
@@ -981,6 +1055,7 @@ __global__ void fused2_kernel(
       const float nearest = block_min(near_j, red_f);
       resolved = !(nearest < block_max(bound_t(), red_f));
     }
+    clock.mark(kPhPick);
   }
 
   float* o = out + ray * kOutCols;
@@ -1013,6 +1088,498 @@ __global__ void fused2_kernel(
   o[8] = static_cast<float>(wslot);
 #pragma unroll
   for (int col = 9; col < 16; ++col) o[col] = 0.0f;
+  clock.finish(profile, steps, blockIdx.x);
+}
+
+// ── the slot-parallel component body (K1-K4) ──
+
+// At most kSlotCluster CTAs, a thread block cluster, share the slots of one
+// block of rays.
+constexpr int kSlotCluster = 4;
+static_assert(kSlotCluster >= 1 && kSlotCluster <= 8, "a portable thread block cluster has at most 8 CTAs");
+// threads per CTA of the slot-parallel body
+constexpr int kSlotThreads = 512;
+// a CTA tests at least this many 32-slot chunks of a cluster
+constexpr int kMinCtaChunks = 4;
+
+// CTAs per block of rays (the thread block cluster's size) at C slots: the
+// 32-slot chunks split over up to kSlotCluster CTAs, each with at least
+// kMinCtaChunks of them.  Any-hit keeps one CTA up to kAnyHitChunks chunks,
+// since its blocks retire about one cluster each (the first hit ends a
+// shadow ray) and the CTAs' shared work would outweigh the split slot tests;
+// above that its two staged clusters (80 bytes a slot) would crowd out the
+// rays' shared memory, so it splits like the other modes.
+constexpr int kAnyHitChunks = 64;
+__host__ __device__ constexpr int slot_ctas(int c, int mode) {
+  const int chunks = (c + 31) >> 5, n = chunks / kMinCtaChunks;
+  return (mode == kAnyHit && chunks <= kAnyHitChunks) || n < 1 ? 1 : (n > kSlotCluster ? kSlotCluster : n);
+}
+// slots per CTA (whole chunks)
+__host__ __device__ constexpr int slot_span(int c, int mode) {
+  return (((c + 31) >> 5) + slot_ctas(c, mode) - 1) / slot_ctas(c, mode) * 32;
+}
+
+// Dynamic shared memory of one slot-parallel CTA, in slot_kernel's carve-up
+// order: a ring of two clusters' plane rows 0-9 over the CTA's slots
+// ([2][10][slot_span(c, mode)] f32), the test's ray rows [b] float4 x 2 (o, dx |
+// dy, dz, best t, shadow flag), the combine keys [b] u64 and the combined
+// keys [b] u64, bent [k] (padded to 4), the frontier's ray rows [8, b],
+// hit / winner cluster / winner slot / any-hit flag / searching list [b]
+// int each, 32 segment counts and the list length (36 ints), reductions
+// [64].
+size_t slot_shared_bytes(int k, int c, int b, int mode) {
+  return 4 * 2 * static_cast<size_t>(kMtRows) * slot_span(c, mode) + 16 * 2 * static_cast<size_t>(b) +
+         8 * 2 * static_cast<size_t>(b) +
+         4 * (static_cast<size_t>((k + 3) & ~3) + 8 * static_cast<size_t>(b) + 5 * static_cast<size_t>(b) + 36 + 64);
+}
+
+// 4-byte cp.async; src_bytes 0 fills the destination with zeros
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// Stage plane rows 0-9 of cluster cid over slots [s0, s0 + span) into one
+// ring buffer ([10][span] f32, slot-major rows; slots past C are zeros,
+// which fail the det window): 16-byte copies where C is a multiple of 4,
+// else 4-byte ones.
+__device__ void stage_slots(float* dst, const float* __restrict__ planes, int cid, int c, int s0, int span) {
+  const float* src = planes + static_cast<long long>(cid) * kPlaneRows * c;
+  if ((c & 3) == 0) {
+    const int quads = span >> 2;
+    for (int q = threadIdx.x; q < kMtRows * quads; q += blockDim.x) {
+      const int row = q / quads, s = s0 + 4 * (q - row * quads);
+      float* d = dst + row * span + (s - s0);
+      if (s < c) cp_async16(d, src + row * c + s);
+      else *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  } else {
+    for (int q = threadIdx.x; q < kMtRows * span; q += blockDim.x) {
+      const int row = q / span, s = s0 + (q - row * span);
+      cp_async4(dst + row * span + (s - s0), src + row * c + (s < c ? s : 0), s < c ? 4 : 0);
+    }
+  }
+}
+
+// The frontier's rows of ray r (o, 1/d, tmax, cap = tmax) from its packed row rr.
+__device__ __forceinline__ void load_ray_rows(float* s_ray, const float* rr, int b, int r) {
+  s_ray[r] = rr[0];
+  s_ray[b + r] = rr[1];
+  s_ray[2 * b + r] = rr[2];
+  s_ray[3 * b + r] = inv_dir(rr[3]);
+  s_ray[4 * b + r] = inv_dir(rr[4]);
+  s_ray[5 * b + r] = inv_dir(rr[5]);
+  s_ray[6 * b + r] = rr[6];
+  s_ray[7 * b + r] = rr[6];
+}
+
+__device__ int block_sum(int v, int* red_i) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  v = __reduce_add_sync(0xffffffffu, v);
+  if (lane == 0) red_i[warp] = v;
+  __syncthreads();
+  int r = 0;
+  for (int w = 0; w < nw; ++w) r += red_i[w];
+  __syncthreads();
+  return r;
+}
+
+// The serial body's scene gate over the block's ray rows (s_ray, [8, b]):
+// does any ray enter the AABB of all real boxes (pads sit at >= 1e30)?
+// Every thread gets the answer.
+__device__ bool scene_gate(const float* __restrict__ boxes, int k, const float* s_ray, int b, float* red_f) {
+  const int nt = blockDim.x, tid = threadIdx.x;
+  float lo[3], hi[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    float l = kInf, h = -kInf;
+    for (int j = tid; j < k; j += nt) {
+      const float bl = boxes[a * k + j], bh = boxes[(3 + a) * k + j];
+      if (bl < 1e30f) l = fminf(l, bl);
+      if (bh < 1e30f) h = fmaxf(h, bh);
+    }
+    lo[a] = block_min(l, red_f);
+    hi[a] = block_max(h, red_f);
+  }
+  bool enters = false;
+  for (int r = tid; r < b; r += nt) {
+    float gtf;
+    const float g_e = slab_enter(s_ray[r], s_ray[b + r], s_ray[2 * b + r], s_ray[3 * b + r], s_ray[4 * b + r],
+                                 s_ray[5 * b + r], lo, hi, gtf);
+    enters = enters || g_e <= fminf(gtf, s_ray[6 * b + r]);
+  }
+  return __syncthreads_or(enters);
+}
+
+// Dynamic shared memory of one frontier_kernel CTA: the frontier's ray rows
+// [8, b], reductions [64].
+size_t frontier_shared_bytes(int b) { return 4 * (8 * static_cast<size_t>(b) + 64); }
+
+// Ahead of the slot-parallel traversal, one CTA per block of b rays: the
+// serial body's scene gate (the AABB of all real boxes) and its first
+// frontier pass (phase A) into bent0[blk, 0:k], and the number of clusters
+// the block's rays enter (the finite entries) into entered[blk]; -1 when no
+// ray enters the scene, and bent0's row is then not written.
+__global__ void __launch_bounds__(kSlotThreads)
+frontier_kernel(const float* __restrict__ rays, const float* __restrict__ boxes, float* __restrict__ bent0,
+                int* __restrict__ entered, int k, int b) {
+  extern __shared__ __align__(16) float smem[];
+  float* s_ray = smem;  // [8, b]
+  float* red_f = s_ray + 8 * b;
+  int* red_i = reinterpret_cast<int*>(red_f + 32);
+  const int nt = blockDim.x, tid = threadIdx.x;
+  const long long blk = blockIdx.x;
+  for (int r = tid; r < b; r += nt) load_ray_rows(s_ray, rays + (blk * b + r) * 8, b, r);
+  __syncthreads();
+  if (!scene_gate(boxes, k, s_ray, b, red_f)) {
+    if (tid == 0) entered[blk] = -1;
+    return;
+  }
+  float* bent = bent0 + blk * k;
+  frontier_update(bent, boxes, k, s_ray, b, true);
+  int count = 0;
+  for (int j = tid; j < k; j += nt) count += bent[j] < kInf;  // this thread's own entries
+  count = block_sum(count, red_i);
+  if (tid == 0) entered[blk] = count;
+}
+
+// order[rank] = blk: the blocks by clusters entered, most first, ties in
+// block order (a stable rank by counting), so that the blocks that retire
+// the most clusters start first and none is left alone at the end.
+// Any-hit skips the ordering: its blocks retire about one cluster each.
+__host__ __device__ constexpr bool ordered_blocks(int mode) { return mode != kAnyHit; }
+__global__ void order_blocks(const int* __restrict__ entered, int* __restrict__ order, int blocks) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= blocks) return;
+  const int e = entered[i];
+  int rank = 0;
+  for (int j = 0; j < blocks; ++j) {
+    const int f = entered[j];
+    rank += f > e || (f == e && j < i);
+  }
+  order[rank] = i;
+}
+
+// The component entries' body, slot-parallel (K1 closest + attributes, K2
+// any-hit, K3 mixed, K4 closest without attributes).  The block's picks,
+// frontier, prune bound, refresh, overflow rule and payload are the serial
+// body's (fused2_kernel on the component layout, kept as the yardstick
+// entries owlpt_fused2_serial_*), run by kSlotThreads threads over the b
+// rays' rows in shared memory.  A block of rays is a thread block cluster of
+// slot_ctas(c, mode) CTAs: each holds all of the block's ray state and runs
+// the same picks, tests its own slot_span(c, mode) slots of each cluster, and
+// computes its share of each frontier refresh, which the CTAs then exchange
+// through distributed shared memory.  Except for any-hit, the scene gate and
+// the first frontier come from frontier_kernel, and the clusters take their
+// blocks in order_blocks' order (`order`, `bent0`, `entered`; any-hit runs
+// both itself, in launch order).  A
+// cluster's test: each warp owns one 32-slot chunk of its CTA's slots and a
+// share of the rays (several warps share a chunk and split the rays); the
+// CTA's plane rows are staged by cp.async into a two-cluster ring while the
+// previous cluster is tested.  Per (ray, warp): mt_components on the warp's
+// 32 slots with the ray's best t from before the cluster, a ballot of the
+// valid slots and, only when one is valid, the warp's (t, slot) minimum
+// (the lowest slot of the lowest t) into the ray's 64-bit key by a shared
+// atomicMin on (bits of t, slot): t > t_min > 0, so its bits order as an
+// unsigned integer, and across warps the minimum is again the lowest slot of
+// the lowest t, the serial loop's strict-< winner.  Any-hit ORs the ballots.
+// The CTAs of a cluster then take the minimum of their keys (and the OR of
+// their flags) through distributed shared memory, so every CTA applies the
+// same winners (best t, winner, hit), takes a mixed-mode shadow lane with a
+// hit to t_min, and rebuilds the list of rays still searching (best t above
+// t_min, any-hit lanes without a hit): a done ray is skipped by whole warps.
+template <int kMode, bool kAttrs, bool kProfile>
+__global__ void __launch_bounds__(kSlotThreads, 2)
+slot_kernel(const float* __restrict__ rays, const float* __restrict__ boxes, const float* __restrict__ planes,
+            const float* __restrict__ attrs, float* __restrict__ out, const int* __restrict__ order,
+            const float* __restrict__ bent0, const int* __restrict__ entered, int k, int c, int b, int max_steps,
+            int refresh, long long* __restrict__ profile) {
+  PhaseClock<kProfile> clock;
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) float smem[];
+  const int nt = blockDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
+  const int ctas = slot_ctas(c, kMode), span = slot_span(c, kMode);
+  const int rank = ctas > 1 ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
+  // this CTA's share of the frontier pass: clusters [f0, f1)
+  const int kshare = (k + ctas - 1) / ctas;
+  const int f0 = rank * kshare < k ? rank * kshare : k, f1 = f0 + kshare < k ? f0 + kshare : k;
+  float* ring = smem;  // [2][10][span]
+  float4* s_ta = reinterpret_cast<float4*>(ring + 2 * kMtRows * span);  // [b] ox oy oz dx
+  float4* s_tb = s_ta + b;                                               // [b] dy dz best_t shadow
+  unsigned long long* s_key = reinterpret_cast<unsigned long long*>(s_tb + b);  // [b] this CTA's
+  unsigned long long* s_all = s_key + b;                                         // [b] the cluster's
+  float* bent = reinterpret_cast<float*>(s_all + b);  // [k], padded to a multiple of 4
+  float* s_ray = bent + ((k + 3) & ~3);               // [8, b]: o, 1/d, tmax, cap (frontier_update)
+  int* s_hit = reinterpret_cast<int*>(s_ray + 8 * b);
+  int* s_wcid = s_hit + b;
+  int* s_wslot = s_wcid + b;
+  int* s_flag = s_wslot + b;  // any-hit: a slot of the current cluster hit (this CTA's)
+  int* s_list = s_flag + b;   // the rays still searching, ascending
+  int* s_cnt = s_list + b;    // [36]: per 32-ray segment counts; [32] the list length
+  float* red_f = reinterpret_cast<float*>(s_cnt + 36);
+  int* red_i = reinterpret_cast<int*>(red_f + 32);
+  constexpr unsigned long long kNoKey = ~0ull;
+  constexpr bool kOrdered = ordered_blocks(kMode);
+  // this cluster's block of rays: heavy blocks first (order_blocks)
+  const int blk = kOrdered ? order[blockIdx.x / ctas] : blockIdx.x / ctas;
+  const long long base = static_cast<long long>(blk) * b;
+
+  for (int r = tid; r < b; r += nt) {
+    const float* rr = rays + (base + r) * 8;
+    const float dx = rr[3], dy = rr[4], dz = rr[5];
+    s_ta[r] = make_float4(rr[0], rr[1], rr[2], dx);
+    s_tb[r] = make_float4(dy, dz, rr[6], kMode == kMixed && rr[7] > 0.0f ? 1.0f : 0.0f);
+    s_key[r] = kNoKey;
+    s_hit[r] = 0;
+    s_wcid[r] = -1;
+    s_wslot[r] = -1;
+    s_flag[r] = 0;
+    load_ray_rows(s_ray, rr, b, r);
+  }
+  __syncthreads();
+  // the scene gate and the first frontier: frontier_kernel's, or here
+  const bool scene_live = kOrdered ? entered[blk] >= 0 : scene_gate(boxes, k, s_ray, b, red_f);
+  if (kOrdered && scene_live) {
+    const float* src = bent0 + static_cast<long long>(blk) * k;
+    for (int j = tid; j < k; j += nt) bent[j] = src[j];
+  }
+
+  // a ray's share of the block prune bound and its refresh cap (the serial
+  // body's bound_t and cap_t), and whether it still needs slot tests
+  auto bound_of = [&](int r) { return kMode == kAnyHit && s_hit[r] ? -kInf : s_tb[r].z; };
+  auto cap_of = [&](int r) { return kMode == kAnyHit && s_hit[r] ? 0.0f : s_tb[r].z; };
+  auto searching = [&](int r) { return s_tb[r].z > kTMin && !(kMode == kAnyHit && s_hit[r]); };
+  auto block_bound = [&]() {
+    float v = -kInf;
+    for (int r = tid; r < b; r += nt) v = fmaxf(v, bound_of(r));
+    return block_max(v, red_f);
+  };
+  // s_list / s_cnt[32] := the searching rays in ascending order (b is a
+  // multiple of 32: one 32-ray segment per ballot)
+  auto build_list = [&]() {
+    const int nseg = b >> 5;
+    for (int seg = warp; seg < nseg; seg += nw) {
+      const unsigned m = __ballot_sync(0xffffffffu, searching(seg * 32 + lane));
+      if (lane == 0) s_cnt[seg] = __popc(m);
+    }
+    __syncthreads();
+    for (int seg = warp; seg < nseg; seg += nw) {
+      int off = 0;
+      for (int q = 0; q < seg; ++q) off += s_cnt[q];
+      const int r = seg * 32 + lane;
+      const bool on = searching(r);
+      const unsigned m = __ballot_sync(0xffffffffu, on);
+      if (on) s_list[off + __popc(m & ((1u << lane) - 1u))] = r;
+      if (seg == nseg - 1 && lane == 0) s_cnt[32] = off + __popc(m);
+    }
+    __syncthreads();
+  };
+  // one warp's (t, slot) minimum over its ballot into ray r's key, or its hit flag
+  auto record = [&](int r, bool ok, float t, int slot0) {
+    const unsigned any = __ballot_sync(0xffffffffu, ok);
+    if (any == 0u) return;
+    if (kMode == kAnyHit) {
+      if (lane == 0) s_flag[r] = 1;
+    } else {
+      const unsigned bits = ok ? __float_as_uint(t) : 0xffffffffu;
+      const unsigned lowest = __reduce_min_sync(0xffffffffu, bits);
+      const unsigned at = __ballot_sync(0xffffffffu, bits == lowest);
+      if (lane == 0)
+        atomicMin(&s_key[r], (static_cast<unsigned long long>(lowest) << 32) |
+                                 static_cast<unsigned>(slot0 + __ffs(at) - 1));
+    }
+  };
+
+  // this CTA's chunks (32 slots each) and each warp's (chunk, ray group)
+  // pairs: with fewer chunks than warps, `groups` warps share each chunk and
+  // split the rays
+  const int cw = span >> 5;
+  const int groups = cw <= nw ? nw / cw : 1;
+  const int pairs = cw * groups;
+  const int s0 = rank * span;  // this CTA's first slot
+
+  // the frontier pass, each CTA over its share of the clusters, then every
+  // CTA reads the others' shares (bent is the same in every CTA after it)
+  auto frontier = [&](bool first) {
+    frontier_update(bent, boxes, k, s_ray, b, first, f0, f1);
+    if (ctas > 1) {
+      cg::cluster_group cluster = cg::this_cluster();
+      cluster.sync();
+      for (int j = tid; j < k; j += nt) {
+        const int owner = j / kshare;
+        if (owner != rank) bent[j] = cluster.map_shared_rank(bent, owner)[j];
+      }
+      cluster.sync();  // no CTA reads another's shares any more
+    }
+  };
+
+  if (!kOrdered && scene_live) frontier(true);
+  __syncthreads();
+  clock.mark(kPhSetup);
+
+  int steps = 0;
+  bool resolved = true;
+  if (scene_live) {
+    build_list();
+    int cur;
+    pick_group(bent, k, block_bound(), 1, &cur, red_f, red_i);
+    bool done = cur >= k;
+    if (!done) stage_slots(ring, planes, cur, c, s0, span);
+    cp_async_commit();
+    const int refresh_p = refresh > 1 ? refresh : 1;
+    int i = 0, buf = 0;
+    while (!done && i < max_steps) {
+      if (i % refresh_p == refresh_p - 1) {
+        for (int r = tid; r < b; r += nt) s_ray[7 * b + r] = cap_of(r);
+        __syncthreads();
+        frontier(false);
+      }
+      if (tid == 0) bent[cur] = kInf;  // retire the current cluster
+      __syncthreads();
+      // the next pick uses the bound from BEFORE this cluster's test
+      int nxt;
+      pick_group(bent, k, block_bound(), 1, &nxt, red_f, red_i);
+      // the next cluster's rows land while this one is tested
+      if (nxt < k) stage_slots(ring + (buf ^ 1) * kMtRows * span, planes, nxt, c, s0, span);
+      cp_async_commit();
+      clock.mark(kPhPick);
+      cp_async_wait<1>();  // this thread's copies of cur have landed ...
+      __syncthreads();     // ... and every thread's
+      clock.mark(kPhStage);
+      ++steps;
+
+      const int nl = s_cnt[32];
+      const float* cur_rows = ring + buf * kMtRows * span;
+      for (int p = warp; p < pairs; p += nw) {
+        const int chunk = p % cw, grp = p / cw;
+        float q[kMtRows];
+#pragma unroll
+        for (int row = 0; row < kMtRows; ++row) q[row] = cur_rows[row * span + chunk * 32 + lane];
+        const bool slot_ok = q[9] >= 0.0f;  // a real triangle (pads: tri id -1 or zero rows)
+        const int slot0 = s0 + chunk * 32;
+        for (int idx = grp; idx < nl; idx += groups) {
+          const int r = s_list[idx];
+          // any-hit: a ray another warp already found a hit for needs no test
+          if (kMode == kAnyHit && __any_sync(0xffffffffu, s_flag[r])) continue;
+          const float4 ta = s_ta[r], tb = s_tb[r];
+          float t, u, v, det;
+          const bool ok = mt_components(ta.x, ta.y, ta.z, ta.w, tb.x, tb.y, q[0], q[1], q[2], q[3], q[4], q[5],
+                                        q[6], q[7], q[8], kTMin, tb.z, t, u, v, det) && slot_ok;
+          record(r, ok, t, slot0);
+        }
+      }
+      // the cluster's winners: the minimum of the CTAs' keys (the OR of their flags)
+      const unsigned long long* keys = s_key;
+      if (ctas > 1) {
+        cg::cluster_group cluster = cg::this_cluster();
+        cluster.sync();  // every CTA's keys are final
+        for (int r = tid; r < b; r += nt) {
+          unsigned long long key = kMode == kAnyHit ? 0ull : kNoKey;
+          for (int q = 0; q < ctas; ++q) {
+            if (kMode == kAnyHit) {
+              key |= static_cast<unsigned long long>(cluster.map_shared_rank(s_flag, q)[r]);
+            } else {
+              const unsigned long long other = cluster.map_shared_rank(s_key, q)[r];
+              key = other < key ? other : key;
+            }
+          }
+          s_all[r] = key;
+        }
+        cluster.sync();  // no CTA reads another's keys any more
+        keys = s_all;
+      } else {
+        __syncthreads();
+      }
+      // apply them; a shadow lane with a hit is done: t -> t_min
+      for (int r = tid; r < b; r += nt) {
+        if (kMode == kAnyHit) {
+          if (ctas > 1 ? keys[r] != 0ull : s_flag[r] != 0) {
+            s_hit[r] = 1;
+            s_flag[r] = 1;
+          }
+        } else {
+          const unsigned long long key = keys[r];
+          if (key != kNoKey) {
+            s_tb[r].z = __uint_as_float(static_cast<unsigned>(key >> 32));
+            s_wcid[r] = cur;
+            s_wslot[r] = static_cast<int>(key & 0xffffffffu);
+            s_hit[r] = 1;
+          }
+          s_key[r] = kNoKey;
+          if (kMode == kMixed && s_tb[r].w > 0.0f && s_hit[r]) s_tb[r].z = kTMin;
+        }
+      }
+      __syncthreads();
+      // closest hit keeps its list: best t stays above t_min
+      if (kMode != kClosest) build_list();
+      clock.mark(kPhTest);
+      ++i;
+      cur = nxt;
+      buf ^= 1;
+      done = cur >= k;
+    }
+    cp_async_wait<0>();  // no copy is left in flight
+    if (!done) {
+      // max_steps overflow: a candidate nearer than the block's prune bound
+      // taints the whole block
+      float near_j = kInf;
+      for (int j = tid; j < k; j += nt) near_j = fminf(near_j, bent[j]);
+      const float nearest = block_min(near_j, red_f);
+      resolved = !(nearest < block_bound());
+    }
+    clock.mark(kPhPick);
+  }
+
+  // the payload: each CTA of the cluster writes every ctas-th ray
+  for (int r = tid * ctas + rank; r < b; r += nt * ctas) {
+    const float4 ta = s_ta[r], tb = s_tb[r];
+    const bool hit = s_hit[r] != 0;
+    const int wcid = s_wcid[r], wslot = s_wslot[r];
+    float* o = out + (base + r) * kOutCols;
+    float tri = -1.0f, t_out = tb.z, u_out = 0.0f, v_out = 0.0f;
+    bool loop_uv = false;
+    if (kMode != kAnyHit && kAttrs && hit) {
+      // winner payload, and (t, u, v) replayed from its geometry rows
+      const float* a = attrs + static_cast<long long>(wcid) * kAttrRows * c + wslot;
+#pragma unroll
+      for (int row = 0; row < 16; ++row) o[16 + row] = a[row * c];
+      tri = a[16 * c];
+      float t3, u3, v3, det3;
+      mt_components(ta.x, ta.y, ta.z, ta.w, tb.x, tb.y, a[17 * c], a[18 * c], a[19 * c], a[20 * c], a[21 * c],
+                    a[22 * c], a[23 * c], a[24 * c], a[25 * c], kTMin, kInf, t3, u3, v3, det3);
+      if (fabsf(det3) > 1e-12f) {
+        t_out = t3; u_out = u3; v_out = v3;
+      } else {
+        loop_uv = true;
+      }
+    } else {
+      loop_uv = kMode != kAnyHit && hit;
+#pragma unroll
+      for (int row = 0; row < 16; ++row) o[16 + row] = 0.0f;
+    }
+    if (loop_uv) {
+      // the loop's (u, v) of the winner: mt_components on its plane rows with
+      // the same operands, so the same bits (u and v do not read t_max)
+      const float* pw = planes + static_cast<long long>(wcid) * kPlaneRows * c + wslot;
+      float t2, det2;
+      mt_components(ta.x, ta.y, ta.z, ta.w, tb.x, tb.y, pw[0], pw[c], pw[2 * c], pw[3 * c], pw[4 * c], pw[5 * c],
+                    pw[6 * c], pw[7 * c], pw[8 * c], kTMin, kInf, t2, u_out, v_out, det2);
+      if (!kAttrs) tri = pw[9 * c];  // the no-attrs mode: the in-plane tri id
+    }
+    o[0] = t_out;
+    o[1] = u_out;
+    o[2] = v_out;
+    o[3] = tri;
+    o[4] = hit ? 1.0f : 0.0f;
+    o[5] = resolved ? 1.0f : 0.0f;
+    o[6] = static_cast<float>(steps);
+    o[7] = static_cast<float>(wcid);
+    o[8] = static_cast<float>(wslot);
+#pragma unroll
+    for (int col = 9; col < 16; ++col) o[col] = 0.0f;
+  }
+  if (rank == 0) clock.finish(profile, steps, blk);  // the block's row: rank 0's clock
+  else if (kProfile) __syncthreads();
 }
 
 // Diagnostic (no render path): the tensor-core feature sums of the f32
@@ -1052,17 +1619,17 @@ __global__ void tf32_sums_kernel(const float* __restrict__ rays, const float* __
   }
 }
 
-template <int kMode, int kLayout, bool kAttrs, bool kTensor>
+template <int kMode, int kLayout, bool kAttrs, bool kTensor, bool kProfile = false>
 int launch(const float* rays, const float* boxes, const void* planes, const float* attrs,
            float* out, long long n, int k, int c, int block, int max_steps, int refresh,
-           int fanout, void* stream) {
+           int fanout, void* stream, long long* profile = nullptr) {
   constexpr bool kMxu = kLayout != kComponent;
   if (n <= 0 || block < 32 || block > 1024 || (block & 31) || n % block || k <= 0 ||
       c <= 0 || refresh <= 0 || n / block > 0x7fffffffLL || fanout < 1 || fanout > kMaxFanout ||
       (!kMxu && fanout != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = shared_bytes<kMode, kLayout, kAttrs, kTensor>(k, c, block);
-  const auto kernel = fused2_kernel<kMode, kLayout, kAttrs, kTensor>;
+  const auto kernel = fused2_kernel<kMode, kLayout, kAttrs, kTensor, kProfile>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -1070,26 +1637,96 @@ int launch(const float* rays, const float* boxes, const void* planes, const floa
   }
   const unsigned grid = static_cast<unsigned>(n / block);
   kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      rays, boxes, planes, attrs, out, k, c, max_steps, refresh, fanout);
+      rays, boxes, planes, attrs, out, k, c, max_steps, refresh, fanout, profile);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The slot-parallel component body, three launches on `stream`: the scene
+// gates and first frontiers (frontier_kernel, into the scratch bent0
+// [n / block, k] f32 and entered [n / block] int32), the blocks' order
+// (order_blocks, into order [n / block] int32), then the traversal, each
+// block of `block` rays a thread block cluster of slot_ctas(c, mode) CTAs
+// of kSlotThreads threads.
+template <int kMode, bool kAttrs, bool kProfile = false>
+int launch_slot(const float* rays, const float* boxes, const void* planes, const float* attrs,
+                float* out, int* order, float* bent0, int* entered, long long n, int k, int c, int block,
+                int max_steps, int refresh, int fanout, void* stream, long long* profile = nullptr) {
+  const int ctas = slot_ctas(c, kMode);
+  if (n <= 0 || block < 32 || block > 1024 || (block & 31) || n % block || k <= 0 ||
+      c <= 0 || refresh <= 0 || n / block * ctas > 0x7fffffffLL || fanout != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = slot_shared_bytes(k, c, block, kMode);
+  const auto kernel = slot_kernel<kMode, kAttrs, kProfile>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int blocks = static_cast<int>(n / block);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (ordered_blocks(kMode)) {
+    frontier_kernel<<<blocks, kSlotThreads, frontier_shared_bytes(block), st>>>(rays, boxes, bent0, entered, k,
+                                                                                block);
+    order_blocks<<<(blocks + 255) / 256, 256, 0, st>>>(entered, order, blocks);
+    const cudaError_t pre = cudaGetLastError();
+    if (pre != cudaSuccess) return static_cast<int>(pre);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(n / block * ctas));
+  cfg.blockDim = dim3(kSlotThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = static_cast<unsigned>(ctas);
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, kernel, rays, boxes, static_cast<const float*>(planes), attrs, out,
+                         static_cast<const int*>(order), static_cast<const float*>(bent0),
+                         static_cast<const int*>(entered), k, c, block, max_steps, refresh, profile);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
 // Registers per thread, dynamic shared bytes per block and resident blocks
-// per SM of one entry at (k, c, block) on the current device -> out[0..2];
-// returns the CUDA error.
-template <int kMode, int kLayout, bool kAttrs, bool kTensor>
-int resources(int k, int c, int block, int* out) {
-  const size_t smem = shared_bytes<kMode, kLayout, kAttrs, kTensor>(k, c, block);
-  const auto kernel = fused2_kernel<kMode, kLayout, kAttrs, kTensor>;
+// per SM of a kernel launched with `threads` threads and `smem` bytes on the
+// current device -> out[0..2]; returns the CUDA error.
+template <typename Kernel>
+int kernel_resources(Kernel kernel, int threads, size_t smem, int* out) {
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
   int blocks = 0;
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, block, smem);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
   out[0] = e == cudaSuccess ? attr.numRegs : -1;
   out[1] = static_cast<int>(smem);
   out[2] = blocks;
   return static_cast<int>(e);
+}
+
+template <int kMode, int kLayout, bool kAttrs, bool kTensor>
+int resources(int k, int c, int block, int* out) {
+  return kernel_resources(fused2_kernel<kMode, kLayout, kAttrs, kTensor>, block,
+                          shared_bytes<kMode, kLayout, kAttrs, kTensor>(k, c, block), out);
+}
+
+template <int kMode, bool kAttrs>
+int resources_slot(int k, int c, int block, int* out) {
+  return kernel_resources(slot_kernel<kMode, kAttrs, false>, kSlotThreads, slot_shared_bytes(k, c, block, kMode),
+                          out);
+}
+
+// The profile entry's instantiation of (mode, attrs, serial body or not).
+template <int kMode, bool kAttrs>
+int launch_profile(bool serial, const float* rays, const float* boxes, const void* planes, const float* attrs,
+                   float* out, int* order, float* bent0, int* entered, long long n, int k, int c, int block,
+                   int max_steps, int refresh, long long* profile, void* stream) {
+  return serial ? launch<kMode, kComponent, kAttrs, false, true>(rays, boxes, planes, attrs, out, n, k, c, block,
+                                                                 max_steps, refresh, 1, stream, profile)
+                : launch_slot<kMode, kAttrs, true>(rays, boxes, planes, attrs, out, order, bent0, entered, n, k, c,
+                                                   block, max_steps, refresh, 1, stream, profile);
 }
 
 }  // namespace
@@ -1108,6 +1745,45 @@ extern "C" int owlpt_fused2_mxu_tf32_sums(const float* rays, const float* planes
   return static_cast<int>(cudaGetLastError());
 }
 
+// Launch shape of the slot-parallel component entries at C slots in mode
+// `mode` (0 closest, 1 any-hit, 2 mixed): threads per CTA -> out[0], CTAs
+// per block of rays (the thread block cluster) -> out[1], whether the
+// blocks are ordered (frontier_kernel and order_blocks run first, and the
+// entry reads the scratch order, bent0 and entered; else it may get null
+// pointers) -> out[2].
+extern "C" void owlpt_fused2_slot_shape(int c, int mode, int* out) {
+  out[0] = kSlotThreads;
+  out[1] = slot_ctas(c, mode);
+  out[2] = ordered_blocks(mode) ? 1 : 0;
+}
+
+// Diagnostic (no render path): a component entry with clock64 phase times
+// per block of rays -> profile [N / block, kProfileCols] (int64;
+// PhaseClock).  mode 0 closest, 1 any-hit, 2 mixed; with_attrs 0 only with
+// closest (K4); serial 1 runs the serial body (the yardstick; order, bent0
+// and entered unused), 0 the slot-parallel one (its scratch as for
+// launch_slot; the profile's setup phase then counts the copy of the first
+// frontier, not frontier_kernel).
+extern "C" int owlpt_fused2_profile(const float* rays, const float* boxes, const void* planes, const float* attrs,
+                                    float* out, int* order, float* bent0, int* entered, long long n, int k, int c,
+                                    int block, int max_steps, int refresh, int mode, int with_attrs, int serial,
+                                    long long* profile, void* stream) {
+  const bool s = serial != 0;
+  if (mode == kClosest && with_attrs)
+    return launch_profile<kClosest, true>(s, rays, boxes, planes, attrs, out, order, bent0, entered, n, k, c, block,
+                                          max_steps, refresh, profile, stream);
+  if (mode == kClosest)
+    return launch_profile<kClosest, false>(s, rays, boxes, planes, attrs, out, order, bent0, entered, n, k, c,
+                                           block, max_steps, refresh, profile, stream);
+  if (mode == kAnyHit && !with_attrs)
+    return launch_profile<kAnyHit, false>(s, rays, boxes, planes, attrs, out, order, bent0, entered, n, k, c, block,
+                                          max_steps, refresh, profile, stream);
+  if (mode == kMixed && with_attrs)
+    return launch_profile<kMixed, true>(s, rays, boxes, planes, attrs, out, order, bent0, entered, n, k, c, block,
+                                        max_steps, refresh, profile, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 #define OWLPT_FUSED2_ENTRY(name, mode, layout, with_attrs, tensor)                            \
   extern "C" int name(const float* rays, const float* boxes, const void* planes,              \
                       const float* attrs, float* out, long long n, int k, int c, int block,    \
@@ -1119,11 +1795,28 @@ extern "C" int owlpt_fused2_mxu_tf32_sums(const float* rays, const float* planes
     return resources<mode, layout, with_attrs, tensor>(k, c, block, out);                      \
   }
 
-// component layout: K1, K2, K3, K4
-OWLPT_FUSED2_ENTRY(owlpt_fused2_closest_hit, kClosest, kComponent, true, false)
-OWLPT_FUSED2_ENTRY(owlpt_fused2_occluded, kAnyHit, kComponent, false, false)
-OWLPT_FUSED2_ENTRY(owlpt_fused2_sweep_mixed, kMixed, kComponent, true, false)
-OWLPT_FUSED2_ENTRY(owlpt_fused2_closest_hit_noattr, kClosest, kComponent, false, false)
+#define OWLPT_FUSED2_SLOT_ENTRY(name, mode, with_attrs)                                             \
+  extern "C" int name(const float* rays, const float* boxes, const void* planes,                   \
+                      const float* attrs, float* out, int* order, float* bent0, int* entered,       \
+                      long long n, int k, int c, int block, int max_steps, int refresh, int fanout, \
+                      void* stream) {                                                               \
+    return launch_slot<mode, with_attrs>(rays, boxes, planes, attrs, out, order, bent0, entered, n, \
+                                         k, c, block, max_steps, refresh, fanout, stream);          \
+  }                                                                                                 \
+  extern "C" int name##_resources(int k, int c, int block, int* out) {                              \
+    return resources_slot<mode, with_attrs>(k, c, block, out);                                      \
+  }
+
+// component layout, the slot-parallel body: K1, K2, K3, K4
+OWLPT_FUSED2_SLOT_ENTRY(owlpt_fused2_closest_hit, kClosest, true)
+OWLPT_FUSED2_SLOT_ENTRY(owlpt_fused2_occluded, kAnyHit, false)
+OWLPT_FUSED2_SLOT_ENTRY(owlpt_fused2_sweep_mixed, kMixed, true)
+OWLPT_FUSED2_SLOT_ENTRY(owlpt_fused2_closest_hit_noattr, kClosest, false)
+// component layout, the serial body (one thread per ray, the slots of each
+// cluster in turn): K1's and K3's in-call speed yardsticks and bit-exact
+// witnesses; no render path calls them
+OWLPT_FUSED2_ENTRY(owlpt_fused2_serial_closest_hit, kClosest, kComponent, true, false)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_serial_sweep_mixed, kMixed, kComponent, true, false)
 // MXU layout, f32 planes: K1b in its three modes on the tensor cores
 // (3xTF32), closest hit on CUDA cores in the plain version's arithmetic (the
 // in-call speed yardstick and bit-exact witness of the tensor form), and K4

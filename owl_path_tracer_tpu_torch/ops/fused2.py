@@ -20,10 +20,17 @@ with one entry per (layout, mode): ``closest`` (closest hit + attributes;
 K1, K1b), ``closest`` with ``with_attrs=False`` (loop t/u/v and the in-plane
 tri id, no attributes; K4), ``any_hit`` (occlusion; K2, K1b) and ``mixed``
 (closest hit for lanes whose ray column 7 is 0, occlusion for the shadow
-lanes whose column 7 is 1; K3, K1b).  On the MXU layout the three modes take
-the feature products on the tensor cores (bf16 planes: bf16 products; f32
-planes: 3xTF32, each operand split into two TF32 terms), whose sums may
-differ from the plain version's by a few ulps of the summed magnitudes
+lanes whose column 7 is 1; K3, K1b).  The component entries run the
+slot-parallel body (a cluster's slots tested in parallel by a thread block
+cluster of CTAs per block of rays, heavy blocks first); ``serial=True``
+(closest hit with attributes, mixed) runs the serial body instead, one
+thread per ray, with the same outputs bit for bit: the in-call yardstick,
+off every render path.  :func:`fused2_traverse_profile` (the profile entry)
+splits either body's time per block by clock64.  On the MXU layout the
+three modes take the feature products on the tensor cores (bf16 planes:
+bf16 products; f32 planes: 3xTF32, each operand split into two TF32
+terms), whose sums may differ from the plain version's by a few ulps of
+the summed magnitudes
 (:func:`mxu_slot_sums` gives the plain sums and their magnitudes,
 :func:`mxu_tensor_sums` the f32 tensor-core ones on the card);
 ``exact=True`` runs closest hit on CUDA cores in the plain version's
@@ -102,6 +109,10 @@ _ENTRY = {
     ("component", "any_hit", False): "owlpt_fused2_occluded",
     ("component", "mixed", True): "owlpt_fused2_sweep_mixed",
     ("component", "closest", False): "owlpt_fused2_closest_hit_noattr",
+    # the serial component body (one thread per ray), kept as K1's and K3's
+    # in-call yardstick and bit-exact witness (serial=True)
+    ("component_serial", "closest", True): "owlpt_fused2_serial_closest_hit",
+    ("component_serial", "mixed", True): "owlpt_fused2_serial_sweep_mixed",
     ("mxu_f32", "closest", True): "owlpt_fused2_mxu_closest_hit",
     ("mxu_f32", "any_hit", False): "owlpt_fused2_mxu_occluded",
     ("mxu_f32", "mixed", True): "owlpt_fused2_mxu_sweep_mixed",
@@ -115,11 +126,28 @@ _ENTRY = {
     ("mxu_bf16_exact", "closest", True): "owlpt_fused2_mxu_bf16_exact_closest_hit",
 }
 
+# the slot-parallel component entries (K1-K4) take scratch besides the
+# common arguments: the blocks' launch order, first frontiers and entered
+# cluster counts (csrc launch_slot)
+_SLOT_ENTRIES = frozenset(v for (layout, _, _), v in _ENTRY.items() if layout == "component")
+
 # diagnostic entry (no render path): the f32 tensor-core feature sums
 SUMS_ENTRY = "owlpt_fused2_mxu_tf32_sums"
+# diagnostic entry (no render path): a component entry, slot-parallel or
+# serial, with clock64 phase cycles per block (csrc PhaseClock): the scene
+# gate and first frontier, the picks with their bound reductions and
+# refreshes, the wait for a cluster's plane rows, the slot tests with the
+# per-ray combine, the winner payload, the block's total (their sum) and its
+# retired clusters
+PROFILE_ENTRY = "owlpt_fused2_profile"
+PROFILE_COLS = ("setup", "pick", "stage", "test", "payload", "total", "steps")
+# launch shape of the slot-parallel component entries at (C, mode): threads
+# per CTA, CTAs per block of rays, and whether the blocks are ordered (the
+# entry then takes scratch)
+SHAPE_ENTRY = "owlpt_fused2_slot_shape"
 
 # launches of the CUDA kernel, by entry point (one per call that ran it)
-LAUNCHES = dict.fromkeys(_ENTRY.values(), 0)
+LAUNCHES = dict.fromkeys([*_ENTRY.values(), PROFILE_ENTRY], 0)
 # rays (of every mode) answered by the exact cluster query because their
 # block overflowed
 UNRESOLVED_RAYS = 0
@@ -469,11 +497,16 @@ def _check_mode(mode: str, fb: Fused2BVH, with_attrs: bool = True):
         raise ValueError("bf16 planes require with_attrs=True for closest-hit sweeps")
 
 
-def _entry(fb: Fused2BVH, mode: str, with_attrs: bool, exact: bool = False) -> str:
+def _entry(fb: Fused2BVH, mode: str, with_attrs: bool, exact: bool = False, serial: bool = False) -> str:
     """Kernel entry point of a layout and mode (any-hit reads no attributes,
     mixed always does); ``exact`` picks the CUDA-core form of MXU closest
-    hit."""
+    hit, ``serial`` the serial body of component closest hit or mixed."""
     attrs = mode == "mixed" or (mode == "closest" and with_attrs)
+    if serial:
+        if fb.mxu or exact or (mode, attrs) not in (("closest", True), ("mixed", True)):
+            raise ValueError("serial=True is the serial body of closest hit with attributes or of the mixed sweep on "
+                             f"component planes; got layout {fb.layout}, mode {mode!r}, with_attrs={with_attrs}")
+        return _ENTRY[("component_serial", mode, attrs)]
     if exact:
         if not fb.mxu or (mode, attrs) != ("closest", True):
             raise ValueError("exact=True is the CUDA-core form of closest hit with attributes on MXU planes; "
@@ -666,24 +699,46 @@ def build_kernels() -> tuple:
         for name in _ENTRY.values():
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            scratch = [ctypes.c_void_p] * 3 if name in _SLOT_ENTRIES else []
+            fn.argtypes = [ctypes.c_void_p] * 5 + scratch + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
             bind_resources(lib, name)
         fn = getattr(lib, SUMS_ENTRY)
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        fn = getattr(lib, PROFILE_ENTRY)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
+        fn = getattr(lib, SHAPE_ENTRY)
+        fn.restype = None
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         _cuda_lib = lib
     return path, seconds, log
 
 
 def kernel_resources(fb: Fused2BVH, mode: str = "closest", block: int = BLOCK_RAYS, with_attrs: bool = True,
-                     exact: bool = False) -> dict:
-    """Registers, shared bytes and blocks per SM (``native.kernel_resources``)
-    of the entry that ``fb``'s layout and ``mode`` launch, on the current
+                     exact: bool = False, serial: bool = False) -> dict:
+    """Registers, shared bytes and blocks per SM (``native.kernel_resources``),
+    threads per CTA and CTAs per block of rays of the entry that ``fb``'s
+    layout and ``mode`` launch for blocks of ``block`` rays, on the current
     CUDA device."""
-    name = _entry(fb, mode, with_attrs, exact)
+    name = _entry(fb, mode, with_attrs, exact, serial)
     if _cuda_lib is None:
         build_kernels()
-    return _kernel_resources(_cuda_lib, name, fb.num_clusters, fb.cluster_size, block)
+    res = _kernel_resources(_cuda_lib, name, fb.num_clusters, fb.cluster_size, block)
+    res["threads"], res["ctas"] = block, 1
+    if not fb.mxu and not serial:  # the slot-parallel body
+        res["threads"], res["ctas"], _ = _slot_shape(fb.cluster_size, mode)
+    return res
+
+
+@functools.lru_cache(maxsize=None)
+def _slot_shape(c: int, mode: str) -> tuple:
+    """(threads per CTA, CTAs per block of rays, ordered blocks) of the
+    slot-parallel component entries at C and ``mode``, as the kernel
+    library launches them."""
+    shape = (ctypes.c_int * 3)()
+    getattr(_cuda_lib, SHAPE_ENTRY)(c, MODES.index(mode), shape)
+    return shape[0], shape[1], bool(shape[2])
 
 
 def _check_operand(name, x, shape, device, dtype=torch.float32):
@@ -697,11 +752,18 @@ def _check_operand(name, x, shape, device, dtype=torch.float32):
 
 
 def _fused2_traverse_cuda(rays, fb: Fused2BVH, block: int, max_steps: int, mode: str = "closest",
-                          fanout: int = FANOUT, with_attrs: bool = True, exact: bool = False):
+                          fanout: int = FANOUT, with_attrs: bool = True, exact: bool = False, serial: bool = False,
+                          profile: bool = False):
     """Launch the kernel entry of ``fb``'s layout and ``mode`` on the current
-    stream -> [N,32] (no sync)."""
+    stream -> [N,32] (no sync); with ``profile`` the profile entry instead
+    (component layout) -> ([N,32], [N/block, PROFILE_COLS] int64)."""
     _check_mode(mode, fb, with_attrs)
-    name = _entry(fb, mode, with_attrs, exact)
+    if profile:
+        if fb.mxu or exact:
+            raise ValueError(f"the profile entry runs the component layout; got {fb.layout}")
+        name = PROFILE_ENTRY
+    else:
+        name = _entry(fb, mode, with_attrs, exact, serial)
     if rays.device.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError(f"the fused2 kernel needs CUDA tensors on a CUDA device; got {rays.device}")
     n = rays.shape[0]
@@ -716,20 +778,35 @@ def _fused2_traverse_cuda(rays, fb: Fused2BVH, block: int, max_steps: int, mode:
                    torch.bfloat16 if fb.layout == "mxu_bf16" else torch.float32)
     _check_operand("attrs", fb.attrs, (k, ATTR_ROWS, c), rays.device)
     out = torch.empty((n, OUT_COLS), dtype=torch.float32, device=rays.device)
+    prof = torch.empty((n // block, len(PROFILE_COLS)), dtype=torch.int64, device=rays.device) if profile else None
     if n == 0:
-        return out
+        return (out, prof) if profile else out
     if _cuda_lib is None:
         build_kernels()
+    args = (rays.data_ptr(), fb.boxes.data_ptr(), fb.planes.data_ptr(), fb.attrs.data_ptr(), out.data_ptr())
+    if profile or name in _SLOT_ENTRIES:
+        # the slot-parallel body's scratch where it orders the blocks: first
+        # frontiers bent0 [blocks, K] f32, then the order and the entered
+        # counts [blocks] int32 each, in one allocation; else null pointers
+        ptrs = (None, None, None)
+        if not serial and _slot_shape(c, mode)[2]:
+            blocks = n // block
+            scratch = torch.empty(blocks * (k + 2), dtype=torch.float32, device=rays.device)
+            base = scratch.data_ptr()
+            ptrs = (base + 4 * blocks * k, base, base + 4 * blocks * (k + 1))  # order, bent0, entered
+        args += ptrs
+    args += (n, k, c, block, max_steps, REFRESH_CLUSTERS)
     with torch.cuda.device(rays.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(_cuda_lib, name)(
-            rays.data_ptr(), fb.boxes.data_ptr(), fb.planes.data_ptr(), fb.attrs.data_ptr(),
-            out.data_ptr(), n, k, c, block, max_steps, REFRESH_CLUSTERS, fanout, stream,
-        )
+        if profile:
+            err = getattr(_cuda_lib, name)(*args, MODES.index(mode), int(with_attrs), int(serial), prof.data_ptr(),
+                                           stream)
+        else:
+            err = getattr(_cuda_lib, name)(*args, fanout, stream)
     if err != 0:
         raise RuntimeError(f"fused2 kernel {name} launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
-    return out
+    return (out, prof) if profile else out
 
 
 def mxu_tensor_sums(rays, fb: Fused2BVH, cids):
@@ -768,20 +845,36 @@ def fused2_traverse(ray_o, ray_d, t_max, fb: Fused2BVH, block: int = BLOCK_RAYS,
 
 def fused2_traverse_packed(rays, fb: Fused2BVH, block: int = BLOCK_RAYS, max_steps: int = MAX_STEPS,
                            mode: str = "closest", fanout: int = FANOUT, with_attrs: bool = True,
-                           exact: bool = False):
+                           exact: bool = False, serial: bool = False):
     """[N,8] packed rays -> [N,32] in ``mode``: the kernel for CUDA tensors,
     the plain version for CPU tensors.  N must be a multiple of ``block``.
     ``fanout`` (clusters retired per loop iteration, MXU layout only) does
     not change the answers; ``with_attrs=False`` is closest hit without
     attributes (K4); ``exact=True`` (MXU planes, closest hit with
     attributes) launches the CUDA-core form of the kernel instead of the
-    tensor-core one."""
+    tensor-core one; ``serial=True`` (component planes, closest hit with
+    attributes or mixed) launches the serial body (one thread per ray)
+    instead of the slot-parallel one, with the same outputs."""
     rays = rays.detach()  # no kernel has a backward pass; the plain version gets none either
     if rays.device.type == "cpu":
-        if exact:
-            _entry(fb, mode, with_attrs, exact)  # the same argument check as on the card
+        if exact or serial:
+            _entry(fb, mode, with_attrs, exact, serial)  # the same argument check as on the card
         return fused2_traverse_packed_plain(rays, fb, mode, with_attrs)
-    return _fused2_traverse_cuda(rays, fb, block, max_steps, mode, fanout, with_attrs, exact)
+    return _fused2_traverse_cuda(rays, fb, block, max_steps, mode, fanout, with_attrs, exact, serial)
+
+
+def fused2_traverse_profile(rays, fb: Fused2BVH, block: int = BLOCK_RAYS, max_steps: int = MAX_STEPS,
+                            mode: str = "closest", with_attrs: bool = True, serial: bool = False):
+    """The profile entry (CUDA tensors, component planes; no render path):
+    the slot-parallel body, or with ``serial`` the serial one, in ``mode``
+    with clock64 phase cycles per block -> (out [N,32] as
+    :func:`fused2_traverse_packed`, profile [N/block, PROFILE_COLS] int64).
+    Any-hit and K4 (``with_attrs=False``) have no serial entry; this is
+    where their serial body runs.  Counted in LAUNCHES[PROFILE_ENTRY]."""
+    if rays.device.type != "cuda":
+        raise RuntimeError(f"the fused2 profile entry needs CUDA tensors; got {rays.device}")
+    return _fused2_traverse_cuda(rays.detach(), fb, block, max_steps, mode, 1, with_attrs, serial=serial,
+                                 profile=True)
 
 
 def _sweep(ray_o, ray_d, t_max, fb: Fused2BVH, sort, block: int, max_steps: int, mode: str,

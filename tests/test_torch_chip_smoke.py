@@ -213,3 +213,61 @@ def test_tf32_bound_counts_three_tf32_products_per_f32_product():
               chip_smoke.CHAIN_OPS * slots / chip_smoke.FP32_FLOPS) * 1e3
     assert need_tf32 == need and tf32_ms <= fp32_ms
     assert tf32_ms == ops if by == "operations" else tf32_ms > ops
+
+
+def test_no_fma_ceiling_is_twice_the_fp32_peak_bound():
+    """The component rows' second bound: the same Moller-Trumbore operations
+    at half the fp32 peak (one instruction each under --fmad=false), so the
+    fp32-peak bound is half of it where operations bound both: no component
+    kernel can pass 50% of its fp32-peak bound."""
+    fb, (o, d, tmax) = chip_smoke.soup("cpu", mxu=False)
+    o, d, tmax = (x.repeat(64, *([1] * (x.dim() - 1))) for x in (o, d, tmax))  # enough rays to be op-bound
+    rays = fused2.pack_rays(o, d, tmax)
+    want = fused2.fused2_traverse_packed_plain(rays, fb)
+    closest = torch.zeros(rays.shape[0], dtype=torch.bool)
+    (fp32_ms, by), need = chip_smoke.bound(rays, want, fb, closest)
+    (ceiling_ms, ceiling_by), need_ceiling = chip_smoke.bound(rays, want, fb, closest, no_fma=True)
+    slots = fb.cluster_size * float(chip_smoke.needed_clusters(rays, want, fb, closest).sum())
+    assert by == ceiling_by == "operations" and need_ceiling == need
+    assert fp32_ms == pytest.approx(chip_smoke.MT_OPS * slots / chip_smoke.FP32_FLOPS * 1e3, rel=1e-12)
+    assert fp32_ms == pytest.approx(ceiling_ms / 2, rel=1e-12)
+    assert chip_smoke.FP32_NO_FMA_OPS == chip_smoke.FP32_FLOPS / 2
+
+
+def _profile(rows):
+    """A profile entry's rows from per-block phase cycles and retired clusters."""
+    phases = torch.tensor([r[0] for r in rows], dtype=torch.int64)
+    steps = torch.tensor([[r[1]] for r in rows], dtype=torch.int64)
+    return torch.cat([phases, phases.sum(1, keepdim=True), steps], 1)
+
+
+def test_profile_split_names_the_slowest_and_the_mean_block():
+    prof = _profile([([10, 20, 0, 60, 10], 4), ([5, 10, 5, 170, 10], 9), ([10, 10, 10, 60, 10], 2)])
+    split = chip_smoke.profile_split(prof)
+    assert split["slowest"]["block"] == 1 and split["slowest"]["cycles"] == 200.0
+    assert split["slowest"]["clusters"] == 9
+    assert split["slowest"]["share"] == pytest.approx(
+        {"setup": 0.025, "pick": 0.05, "stage": 0.025, "test": 0.85, "payload": 0.05})
+    assert split["mean"]["cycles"] == pytest.approx(400 / 3)
+    assert split["mean"]["share"]["test"] == pytest.approx(290 / 400)
+    assert sum(split["mean"]["share"].values()) == pytest.approx(1.0)
+    assert split["clusters_per_block"] == {"mean": pytest.approx(5.0), "max": 9}
+    line = chip_smoke.format_split(split, mhz=1000.0)
+    assert "slowest block 200 cycles = 0.000 ms at 1000 MHz" in line and "test 85.0%" in line
+    assert "clusters per block mean 5.00 max 9" in line
+
+
+def test_profile_split_of_idle_blocks():
+    """A block that skipped the scene (no cycles in any phase) has shares 0."""
+    split = chip_smoke.profile_split(_profile([([0, 0, 0, 0, 0], 0)]))
+    assert split["slowest"]["share"] == dict.fromkeys(fused2.PROFILE_COLS[:5], 0.0)
+
+
+def test_differing_columns_compares_bits():
+    a = torch.zeros(4, fused2.OUT_COLS)
+    b = a.clone()
+    assert chip_smoke.differing_columns(a, b) == {}
+    b[1, 3], b[2, 3], b[0, 30] = 1.0, -2.0, -0.0  # -0.0 == 0.0 as floats, not as bits
+    assert chip_smoke.differing_columns(a, b) == {3: 2, 30: 1}
+    a[:, 8] = b[:, 8] = float("nan")
+    assert 8 not in chip_smoke.differing_columns(a, b)

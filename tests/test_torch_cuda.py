@@ -1,5 +1,7 @@
 """The port on a CUDA card: the fused2 kernel in its three modes (closest hit,
-any-hit, mixed) on the component layout (K1-K3) and the MXU feature layout
+any-hit, mixed) on the component layout (K1-K3; its slot-parallel body
+against the serial body bit for bit in every column, and the profile
+entry's cycles and outputs) and the MXU feature layout
 with f32 and bf16 planes (K1b; on bf16 the tensor-core form and the exact
 CUDA-core form of closest hit), and without attributes (K4), the fused
 kernel (K5, also above the cluster count one block's shared memory once
@@ -207,6 +209,112 @@ def test_new_modes_overflow_match_plain(soup, cuda_device):
     torch.testing.assert_close(rec.t.cpu()[ns], ref.t[ns], rtol=5e-6, atol=1e-6)
     torch.testing.assert_close(blob.cpu()[ns], ref_blob[ns], rtol=0, atol=0)
     torch.testing.assert_close(occ_m.cpu()[cpu[4]], ref_occ[cpu[4]], rtol=0, atol=0)
+
+
+# the component entries: K1 closest + attributes, K2 any-hit, K3 mixed, K4 closest without attributes
+COMPONENT_MODES = {"K1": ("closest", True), "K2": ("any_hit", False), "K3": ("mixed", True), "K4": ("closest", False)}
+
+
+@pytest.fixture(scope="module")
+def component_soups():
+    """chip_smoke's random soup (3000 triangles, 300 rays with per-ray t_max,
+    every other ray a shadow lane with a light distance in the mixed sweep)
+    and its tie soup (exact t ties between two copies of one triangle in one
+    cluster), as numpy, and their component builds by C, made once."""
+    mesh, (o, d, tmax) = chip_smoke.soup_arrays()
+    r = np.random.default_rng(1)
+    shadow = np.arange(len(o)) % 2 == 1
+    dist = np.where(shadow, r.uniform(2.0, 20.0, len(o)), 1e10).astype(np.float32)
+    tie_mesh, (to, td, ttmax, tshadow) = chip_smoke.tie_soup_arrays()
+    return {"random": (mesh, o, d, tmax, shadow, dist), "ties": (tie_mesh, to, td, ttmax, tshadow, ttmax)}, {}
+
+
+def _component_case(component_soups, which, c, mode, block, device):
+    """(component build at C, packed rays padded to the block) of one soup."""
+    soups, builds = component_soups
+    mesh, o, d, tmax, shadow, dist = soups[which]
+    if (which, c) not in builds:
+        builds[(which, c)] = tf2.build_fused2(*mesh[:2], c, *mesh[2:], mxu=False, device="cpu")
+    fb = builds[(which, c)].to(device)
+    args = [torch.as_tensor(x, device=device) for x in (o, d, dist if mode == "mixed" else tmax)]
+    o_p, d_p, t_p, n = tf2._pad_rays(*args, block)
+    sh = None
+    if mode == "mixed":
+        sh = torch.as_tensor(shadow, device=device)
+        sh = torch.cat([sh, sh.new_zeros(o_p.shape[0] - n)])
+    return fb, tf2.pack_rays(o_p, d_p, t_p, sh)
+
+
+@pytest.mark.parametrize("max_steps", [tf2.MAX_STEPS, 1], ids=["max_steps", "max_steps_1"])
+@pytest.mark.parametrize("c", [8, 60, 64, 512, 1024, 2560])
+@pytest.mark.parametrize("block", [128, 256])
+@pytest.mark.parametrize("kernel", list(COMPONENT_MODES))
+@pytest.mark.parametrize("which", ["random", "ties"])
+def test_component_entry_equals_the_serial_body(component_soups, cuda_device, which, kernel, block, c, max_steps):
+    """The slot-parallel body equals the serial body (its entry for K1 and
+    K3, the profile entry's serial body for K2 and K4) bit for bit in every
+    column of every row: t/u/v, tri, hit, resolved, steps, winner cluster
+    and slot, the attribute blob.  C=64 puts the tie soup's copies in one
+    cluster on both sides of the slot halves; C=512 splits a cluster's slots
+    over a thread block cluster of CTAs (any-hit: one CTA); C=1024 gives
+    any-hit's one CTA more 32-slot chunks than warps, and C=2560 does that
+    in every CTA of every mode's thread block cluster (any-hit's too, with
+    the OR of its CTAs' flags)."""
+    mode, attrs = COMPONENT_MODES[kernel]
+    fb, rays = _component_case(component_soups, which, c, mode, block, cuda_device)
+    entry = tf2._entry(fb, mode, attrs)
+    launches = tf2.LAUNCHES[entry]
+    got = tf2.fused2_traverse_packed(rays, fb, block=block, max_steps=max_steps, mode=mode, with_attrs=attrs)
+    assert tf2.LAUNCHES[entry] == launches + 1
+    serial, _ = tf2.fused2_traverse_profile(rays, fb, block, max_steps, mode=mode, with_attrs=attrs, serial=True)
+    torch.cuda.synchronize()
+    assert chip_smoke.differing_columns(got, serial) == {}
+    if kernel in ("K1", "K3"):
+        yardstick = tf2.fused2_traverse_packed(rays, fb, block=block, max_steps=max_steps, mode=mode, serial=True)
+        assert chip_smoke.differing_columns(yardstick, serial) == {}
+    if which == "ties" and c == 64 and max_steps > 1 and mode != "any_hit":
+        tid = fb.planes[:, 9].long()
+        (cid, lo), _ = torch.nonzero(tid >= 62).tolist()
+        on_copy = (got[:, 7] == cid) & (got[:, 3] >= 62)
+        assert int(on_copy.sum()) > 0 and (got[on_copy, 8] == lo).all()  # the lower slot wins the tie
+
+
+@pytest.mark.parametrize("c, ctas, any_hit_ctas", [
+    (8, 1, 1), (60, 1, 1), (512, 4, 1), (1024, 4, 1), (2048, 4, 1), (2080, 4, 4), (2560, 4, 4)])
+def test_slot_body_launch_shape(cuda_device, c, ctas, any_hit_ctas):
+    """512 threads per CTA; the 32-slot chunks split over up to 4 CTAs, at
+    least 4 chunks each; any-hit keeps one CTA up to 2048 slots; every mode
+    but any-hit orders its blocks."""
+    tf2.build_kernels()
+    for mode in tf2.MODES:
+        want = any_hit_ctas if mode == "any_hit" else ctas
+        assert tf2._slot_shape(c, mode) == (512, want, mode != "any_hit")
+
+
+@pytest.mark.parametrize("serial", [False, True], ids=["slot_parallel", "serial"])
+@pytest.mark.parametrize("kernel", list(COMPONENT_MODES))
+def test_profile_entry_adds_up_and_equals_the_plain_entry(component_soups, cuda_device, kernel, serial):
+    """The profile entry's outputs equal its body's plain entry's bit for bit
+    (the serial body's plain outputs: its entry for K1 and K3, else the slot
+    body's, which equal them); per block its five phases add up to the
+    total, none is negative, and the steps column is the block's retired
+    clusters."""
+    mode, attrs = COMPONENT_MODES[kernel]
+    block = 256
+    fb, rays = _component_case(component_soups, "random", 512, mode, block, cuda_device)
+    launches = tf2.LAUNCHES[tf2.PROFILE_ENTRY]
+    out, prof = tf2.fused2_traverse_profile(rays, fb, block, mode=mode, with_attrs=attrs, serial=serial)
+    assert tf2.LAUNCHES[tf2.PROFILE_ENTRY] == launches + 1
+    yardstick = serial and kernel in ("K1", "K3")
+    plain = tf2.fused2_traverse_packed(rays, fb, block=block, mode=mode, with_attrs=attrs, serial=yardstick)
+    torch.cuda.synchronize()
+    assert chip_smoke.differing_columns(out, plain) == {}
+    cols = tf2.PROFILE_COLS
+    total = prof[:, cols.index("total")]
+    assert prof.shape == (rays.shape[0] // block, len(cols))
+    assert (prof[:, : cols.index("total")] >= 0).all() and (total > 0).all()
+    assert torch.equal(prof[:, : cols.index("total")].sum(1), total)
+    assert torch.equal(prof[:, cols.index("steps")], out[:, 6].reshape(-1, block)[:, 0].long())
 
 
 @pytest.mark.parametrize("fused_nee", [False, True])

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from owl_path_tracer_tpu.ops import cluster as jcl
 from owl_path_tracer_tpu.ops import fused2 as jf2
 from owl_path_tracer_tpu.ops.intersect import closest_hit_brute as j_brute
@@ -163,3 +164,124 @@ def test_brute_oracle_matches_jax_and_fused2(setup):
     np.testing.assert_allclose(got.uv.numpy(), np.asarray(ref.uv), rtol=5e-6, atol=1e-6)
     rec, _ = tf2.fused2_closest_hit(torch.as_tensor(o), torch.as_tensor(d), tfb)
     np.testing.assert_array_equal(rec.tri.numpy(), got.tri.numpy())
+
+
+@pytest.fixture(scope="module")
+def tie_soup():
+    """chip_smoke.tie_soup_arrays (exact-t ties between two copies of one
+    triangle at slots 29 and 32 of one cluster, C=64) in both packages."""
+    (verts, idx, normals, texcoords, tri_mat), (o, d, tmax, shadow) = chip_smoke.tie_soup_arrays()
+    kw = dict(cluster_size=64, normals=normals, texcoords=texcoords, tri_mat=tri_mat, mxu=False)
+    jfb = jf2.build_fused2(verts, idx, **kw)
+    tfb = tf2.build_fused2(verts, idx, device="cpu", **kw)
+    return jfb, tfb, o, d, tmax, shadow
+
+
+def test_tie_soup_copies_straddle_the_slot_halves(tie_soup):
+    """The layout the tie-rule test relies on: both copies in one cluster,
+    one below and one above C/2."""
+    _, tfb, *_ = tie_soup
+    tid = tfb.planes[:, 9].long()
+    where = torch.nonzero(tid >= 62).tolist()
+    c = tfb.cluster_size
+    assert len(where) == 2 and where[0][0] == where[1][0]
+    assert where[0][1] < c // 2 <= where[1][1]
+
+
+@pytest.mark.parametrize("mode", ["closest", "mixed"])
+def test_exact_tie_inside_a_cluster_goes_to_the_lowest_slot(tie_soup, mode):
+    """Closest-hit lanes whose nearest hit is an exact t tie between the two
+    copies take the lower slot, in the plain version as in the JAX
+    package's kernel (interpret mode): the rule the slot-parallel kernel's
+    combine across warps must keep."""
+    jfb, tfb, o, d, tmax, shadow = tie_soup
+    sh = shadow if mode == "mixed" else None
+    rays = tf2.pack_rays(torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(tmax),
+                         None if sh is None else torch.as_tensor(sh))
+    got = tf2.fused2_traverse_packed_plain(rays, tfb, mode)
+    want = np.asarray(jf2.fused2_traverse_packed(
+        jf2.pack_rays(jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmax), None if sh is None else jnp.asarray(sh)),
+        jfb, interpret=True, block=128, mixed=mode == "mixed"))
+    tid = tfb.planes[:, 9].long()
+    (cid, lo), (_, hi) = torch.nonzero(tid >= 62).tolist()
+    closest = ~torch.as_tensor(shadow) if mode == "mixed" else torch.ones(128, dtype=torch.bool)
+    on_copy = (got[:, 7] == cid) & (got[:, 3] >= 62) & closest
+    assert int(on_copy[:64].sum()) >= 24  # most tie rays reach the copies
+    assert (got[on_copy, 8] == lo).all() and (got[on_copy, 3] == int(tid[cid, lo])).all()
+    keep = closest.numpy()
+    for col in (3, 4, 7, 8):  # tri, hit, winner cluster, winner slot
+        np.testing.assert_array_equal(got[keep, col].numpy(), want[keep, col])
+    np.testing.assert_allclose(got[keep, 0].numpy(), want[keep, 0], rtol=5e-6, atol=1e-7)
+    np.testing.assert_array_equal(got[keep, 16:32].numpy(), want[keep, 16:32])
+    if mode == "mixed":
+        np.testing.assert_array_equal(got[~keep, 4].numpy(), want[~keep, 4])
+
+
+@pytest.mark.parametrize("layout, mode, with_attrs", [
+    ("component", "any_hit", False), ("component", "closest", False), ("mxu_f32", "closest", True),
+    ("mxu_bf16", "closest", True), ("mxu_f32", "mixed", True),
+])
+def test_serial_selection_raises_without_a_yardstick(setup, layout, mode, with_attrs):
+    """serial=True names the serial body of component closest hit (with
+    attributes) and of the mixed sweep; MXU layouts and the modes with no
+    serial entry raise, on the CPU as on the card."""
+    _, tfb, o, d, tmax, verts, idx = setup
+    if layout != "component":
+        tfb = tf2.build_fused2(verts, idx, 64, mxu=True, device="cpu",
+                               plane_dtype=torch.bfloat16 if layout == "mxu_bf16" else torch.float32)
+    rays = tf2.pack_rays(torch.as_tensor(o[:128]), torch.as_tensor(d[:128]), torch.as_tensor(tmax[:128]))
+    with pytest.raises(ValueError, match="serial=True"):
+        tf2.fused2_traverse_packed(rays, tfb, mode=mode, with_attrs=with_attrs, serial=True)
+
+
+@pytest.mark.parametrize("mode", ["closest", "mixed"])
+def test_serial_selection_on_the_cpu_is_the_plain_version(setup, mode):
+    _, tfb, o, d, tmax, *_ = setup
+    rays = tf2.pack_rays(torch.as_tensor(o[:128]), torch.as_tensor(d[:128]), torch.as_tensor(tmax[:128]),
+                         torch.as_tensor(np.arange(128) % 2 == 1) if mode == "mixed" else None)
+    assert tf2._entry(tfb, mode, True, serial=True) == f"owlpt_fused2_serial_{'closest_hit' if mode == 'closest' else 'sweep_mixed'}"
+    got = tf2.fused2_traverse_packed(rays, tfb, mode=mode, serial=True)
+    assert torch.equal(got, tf2.fused2_traverse_packed_plain(rays, tfb, mode))
+
+
+@pytest.fixture(scope="module")
+def wide_clusters(setup):
+    """The soup's component builds at C = 1024 (more slots than one CTA of
+    the slot-parallel body has threads) and C = 2560 (more than a full
+    thread block cluster of them), JAX and port, by C."""
+    *_, verts, idx = setup
+    r = np.random.default_rng(3)
+    normals = r.normal(size=verts.shape).astype(np.float32)
+    kw = dict(normals=normals, texcoords=r.uniform(0, 1, (len(verts), 2)).astype(np.float32),
+              tri_mat=r.integers(0, 5, len(idx)).astype(np.int32), mxu=False)
+    return {c: (jf2.build_fused2(verts, idx, cluster_size=c, **kw),
+                tf2.build_fused2(verts, idx, cluster_size=c, device="cpu", **kw)) for c in (1024, 2560)}
+
+
+@pytest.mark.parametrize("mode", ["closest", "any_hit", "mixed"])
+@pytest.mark.parametrize("c", [1024, 2560])
+def test_wide_clusters_match_jax(setup, wide_clusters, c, mode):
+    """At cluster sizes above the slot-parallel body's threads per CTA and
+    per thread block cluster, the plain version (what the card entries are
+    held to) gives the JAX package's kernel's answers (interpret mode):
+    winners, hits and attribute blobs exact, t to the reference's tolerance."""
+    _, _, o, d, tmax, *_ = setup
+    jfb, tfb = wide_clusters[c]
+    n = 128
+    o, d, tmax = o[:n], d[:n], tmax[:n]
+    shadow = np.arange(n) % 2 == 1 if mode == "mixed" else None
+    rays = tf2.pack_rays(torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(tmax),
+                         None if shadow is None else torch.as_tensor(shadow))
+    got = tf2.fused2_traverse_packed_plain(rays, tfb, mode, with_attrs=mode != "any_hit")
+    want = np.asarray(jf2.fused2_traverse_packed(
+        jf2.pack_rays(jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmax),
+                      None if shadow is None else jnp.asarray(shadow)),
+        jfb, interpret=True, block=n, with_attrs=mode != "any_hit", any_hit=mode == "any_hit",
+        mixed=mode == "mixed"))
+    assert 0 < int(got[:, 4].sum()) < n  # some rays hit, some miss
+    closest = np.zeros(n, bool) if mode == "any_hit" else ~shadow if mode == "mixed" else np.ones(n, bool)
+    np.testing.assert_array_equal(got[~closest, 4].numpy(), want[~closest, 4])
+    for col in (3, 4, 7, 8):  # tri, hit, winner cluster, winner slot
+        np.testing.assert_array_equal(got[closest, col].numpy(), want[closest, col])
+    np.testing.assert_allclose(got[closest, 0].numpy(), want[closest, 0], rtol=5e-6, atol=1e-7)
+    np.testing.assert_array_equal(got[closest, 16:32].numpy(), want[closest, 16:32])
