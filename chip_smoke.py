@@ -9,12 +9,15 @@ toolkit:
 
 Phases (one line each, with times; any failure exits non-zero):
   1. environment: GPU name and power limit, torch / CUDA / nvcc versions;
-  2. build the kernels from csrc/ (nvcc, sm_90a), with ptxas' registers per
-     entry and the HMMA (tensor-core) instruction count of each bf16 K1b
-     instantiation in the SASS (cuobjdump): the tensor-core forms hold some,
-     the exact CUDA-core form none; threads, CTAs per block of rays,
-     registers, shared bytes and blocks per SM of each component entry (the
-     slot-parallel K1-K4 and the serial yardsticks) at dragon7's K and C;
+  2. build the kernels from csrc/ (nvcc, sm_90a; the three sources in
+     parallel, csrc/tensor_ops.cuh included by two), with ptxas' registers
+     per entry and the HMMA (tensor-core) instruction count of each MXU
+     instantiation in the SASS (cuobjdump): the tensor-core forms (K1b, and
+     K4 on f32 planes) hold some, the exact CUDA-core forms none; threads,
+     CTAs per block of rays, registers, shared bytes (with the form of the
+     frontier row that launches) and blocks per SM of each component entry
+     (the slot-parallel K1-K4 and the serial yardsticks) at dragon7's K and
+     C;
   3. kernel vs plain version on a small triangle soup, blocks 128 and 256,
      per-ray t_max, padding rays, and max_steps=1 (unresolved blocks);
   4. kernel vs plain version at the main path's shapes: the dragon scene at
@@ -51,12 +54,15 @@ no-attributes closest hit (K4) follow:
      and MXU f32) vs their plain versions on the soup: blocks 128 and 256,
      fanout 1 and 2 (bit-identical), per-ray t_max, padding rays,
      max_steps=1 through the wrappers; bf16 + no attributes raises; the
-     tensor-core entries (bf16 products; f32: 3xTF32) under
-     compare_near_tie's rounding kind and the exact CUDA-core closest hits
-     equal to the plain version;
+     tensor-core entries (bf16 products; f32: 3xTF32; K4 on f32 planes too,
+     its loop t/u/v within the sums' rounding) under compare_near_tie's
+     rounding kind and the exact CUDA-core closest hits (with and without
+     attributes) equal to the plain version;
   4c. the same at the main path's shapes, CUDA events: the dragon primary and
-     bounce waves on fused2-bf16 and fused2 (K1b closest, K4; the exact form
-     and the tensor-core form timed in turns, exact, tensor, tensor, exact),
+     bounce waves on fused2-bf16 and fused2 (K1b closest, and K4 on the
+     bounce wave on fused2; the exact form and the tensor-core form timed in
+     turns, exact, tensor, tensor, exact, with the fp32-peak and TF32
+     bounds),
      the cornell shadow wave (any-hit) and 262144-ray mixed wave on
      fused2-bf16 and fused2; registers, shared memory, blocks per SM and
      HMMA count of each K1b entry at the dragon's K and C; on fused2 the
@@ -92,6 +98,26 @@ renderer (render/film.py) and the CLI:
      slab-tested per ray and per block, and timed in turns with the serial
      scan; the group-skip set-up scan's box count equal to the plain list
      scan's (fused.nearest_lists);
+  4e. the fused2 kernels above their old cluster limit (the frontier row
+     [K] of a block no longer fits in shared memory beside the rest, so it
+     lies in device memory): 480,000 random triangles in clusters of C=8
+     (K about 81,000, above every entry's old limit, printed with it), 2048
+     rays in bundles of one block each, through every fused2 entry (K1-K4,
+     the serial yardsticks, the profile entry, K1b's three modes on both
+     plane types, K4 on f32 planes, the exact forms) against the plain
+     version by each entry's usual rule; then the same clusters widened to
+     C=512 by pad slots, where a block of rays is a thread block cluster of
+     4 CTAs that share one frontier row in device memory, K1, K3 and K4 on
+     the bundles of three seeds, each launched three times, equal bit for
+     bit to the serial body at C=512 and to the C=8 entry (one CTA); then
+     on dragon8 at C=128 (K about 11,000) the fused2-bf16 and fused2
+     closest-hit entries on the centre chunk's bounce wave with the row in
+     shared memory and in device memory, equal bit for bit, timed in turns
+     (ten calls a turn, every timing's spread printed), with shared bytes
+     and blocks per SM of both forms and the form that ships
+     (``--row-timing ROUNDS`` runs only the timing of the form that ships,
+     on the package beside the script, and prints it as JSON: copied into
+     another checkout, it times that checkout's kernels);
   5d. scan-renderer frame parity on make_accel("fused"): cornell-box 64x64,
      spp 4, depth 4, card vs CPU, without and with NEE (fused_occluded), and
      the textured cube (the texture lookup of the shade-blob fetch);
@@ -108,14 +134,18 @@ tools/latency_probe.py) and the production path (tools/render_production.py)
 with the wavefront's drained checkpoints:
   3f. K6 vs its plain version on the soup's MXU clusters (C=64, f32 and bf16
      planes): every variant, blocks 128 and 256, P = 1, 2 and 4, iters 0, 3
-     and 8; column 0 bit-equal (rtol 1e-6 with the approximate reciprocal),
+     and 8; the exact CUDA-core form's column 0 bit-equal (rtol 1e-6 with
+     the approximate reciprocal), the tensor form's within the sums'
+     rounding of every slot its block tested (compare_probe_tensor),
      columns 1-15 zero;
-  4f. the probe at its default shapes through tools/latency_probe.run
-     (dragon sub 7, C=512, K=768, 131072 bounce rays, blocks of 256, iters 0,
-     8 and 16), the default variants and the bf16 and recip ones, one JSON
-     line each with its slope; launch counts reset just before it; then
-     every variant vs its plain version at iters 16, as in 3f (interleave2
-     and interleave4 on f32 planes copy in tiles of 256 and 128 slots);
+  4f. the probe at its default shapes through tools/latency_probe.run (the
+     tensor form; dragon sub 7, C=512, K=768, 131072 bounce rays, blocks of
+     256, iters 0, 8 and 16), the default variants and the bf16 and recip
+     ones, one JSON line each with its slope; launch counts reset just
+     before it; then every variant in both forms vs its plain version at
+     iters 16, as in 3f (the exact form's interleave2 and interleave4 on f32
+     planes copy in tiles of 256 and 128 slots), and the product variants
+     timed in turns (exact, tensor, tensor, exact) beside both bounds;
   6f. the production frame: assets/settings.json's car at 1080x1440, depth
      16, 131072 lanes, sort on, spp cut to 2 in segments of 1, each frame
      uninterrupted and stopped mid-segment (drained checkpoints after each
@@ -190,8 +220,12 @@ the serial yardsticks, and fused2_profile, the profile entry, are off every
 render path; the K1b rows give the
 tensor-core entries, with sharded_launches, their launches on phase 6h's
 sharded paths, and on the bf16 closest-hit row sharded_launches_two_ranks;
-fused2_mxu_exact_closest_hit and fused2_mxu_bf16_exact_closest_hit, off
-every render path, the exact forms' times from the same turns) and the GPU's nvidia-smi line;
+fused2_mxu_exact_closest_hit, fused2_mxu_bf16_exact_closest_hit and
+fused2_mxu_exact_closest_hit_noattr, off every render path, the exact forms'
+times from the same turns; the K1b closest-hit rows carry phase 4e's dragon8
+times of both frontier-row forms; latency_probe is K6's tensor form, with
+its exact form's time and per-variant times in turns, latency_probe_exact
+the exact form) and the GPU's nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.  Each kernel's bound_ms is
 the largest of its times at the wave it was timed on, per ray and slot of
 each cluster that ray's exact query needs (see needed_clusters; K5 adds
@@ -205,12 +239,16 @@ cores reach f32 only as three TF32 products, at 495 TFLOP/s), and the
 28 fp32 operations of the winner chain over 67 TFLOP/s; and for both, the
 bytes (inputs read once at their width, output written once) over 3.35 TB/s.
 The rows of the f32 tensor-core entries also carry bound_tf32_ms and
-bound_tf32_by: the same bound with their products as three TF32 products
-at 495 TFLOP/s, the rate the kernel itself computes them at.
+bound_tf32_by: the same bound with their products as the kernel computes
+them, three TF32 products of one k=8 step per column group (TF32_FLOP per
+ray and slot) at 495 TFLOP/s.
 K6's bound (probe_bound) is its launch's slab tests and, per chain and loop
-iteration, the feature products of the 10 ray feature rows that are not
-constant zeros and the window chain over the fp32 peak (the probe runs on
-CUDA cores), against its bytes.
+iteration: the exact form, the feature products of the 10 ray feature rows
+that are not constant zeros and the window chain over the fp32 peak
+(CUDA cores), against the whole planes' bytes; the tensor form, the larger
+of the products at the tensor rate (bf16 MXU_FLOP, or f32 TF32_FLOP) and
+the window chain at the fp32 peak, against the bytes of the rows it
+stages.
 
 Imports nothing of JAX or of the JAX package; the dragon scene file is made
 by assets/generate.py in a child process.  Needs no network.
@@ -267,9 +305,11 @@ FP32_FLOPS, BF16_FLOPS, HBM_BYTES_S = 67e12, 989e12, 3.35e12
 # bit-equality contract), so each operation is one instruction issued at
 # half that rate; no component kernel can pass half of its fp32-peak bound.
 FP32_NO_FMA_OPS = FP32_FLOPS / 2
-# dense TF32 tensor-core FLOP/s of one H100 SXM (K1b f32's second bound:
-# three TF32 products per f32 product)
-TF32_FLOPS = 495e12
+# dense TF32 tensor-core FLOP/s of one H100 SXM, and the TF32 FLOP per ray
+# and slot of the f32 tensor-core form (K1b f32's second bound, K6's tensor
+# form): three products (lo*hi, hi*lo, hi*hi), each one k=8 step per column
+# group, 2 x 8 x 4 FLOP (12 mma.sync m16n8k8 per 16 rays and 8 slots)
+TF32_FLOPS, TF32_FLOP = 495e12, 3 * 2 * 8 * 4
 # How far the tensor cores' feature sums (K1b on bf16 planes) may lie from
 # the plain version's, per unit of the sum of the terms' magnitudes: the
 # products are exact; the plain version rounds 9 times along its 10 live rows
@@ -289,9 +329,25 @@ SUM_GAMMA = 2.0**-19
 # the worst ratio observed on the card beside this bound); so < 71 x 2^-24
 # < 2^-17.8, and 2^-17 leaves room.
 SUM_GAMMA_F32 = 2.0**-17
+# phase 4e: the soup above every fused2 entry's old shared-row cluster
+# limit (random triangles in clusters of LIMIT_C, rays in bundles of one
+# block each)
+LIMIT_TRIS, LIMIT_C, LIMIT_BUNDLES = 480_000, 8, 8
+LIMIT_MIN_K = 60_000  # above every entry's old limit at C=8 on an H100 (232,448 bytes per block)
+# its clusters widened by pad slots to LIMIT_WIDE_C, where a slot-parallel
+# block of rays is a thread block cluster of 4 CTAs (K above their old limit
+# of 49,052), on the bundles of each of LIMIT_SEEDS, each entry launched
+# LIMIT_REPEATS times
+LIMIT_WIDE_C, LIMIT_SEEDS, LIMIT_REPEATS = 512, (5, 6, 7), 3
+# phase 4e's dragon8 timing (and --row-timing): timings a turn
+ROW_REPS = 10
 # one rounding of a float32 operation, relative (the window's own sums,
 # products and the t division round on both sides)
 EPS32 = 2.0**-23
+# K6's tensor form: roundings of t beyond its division's, by which its best t
+# may lie off a slot's plain t (the approximate reciprocal's one ulp, and the
+# window's product with the running best t, rounded on both sides)
+PROBE_T_SLACK = 3
 # the gradient path (phases 5g, 6g): tests/test_diff.py's sphere frame, the
 # car / cornell frame held card vs CPU, the full-size recovery frame (one scan
 # chunk) and its Adam steps; card vs CPU gradients per field to
@@ -336,6 +392,14 @@ def cuda_times(fn, reps: int = 3):
     return times
 
 
+def launch_times(fn, reps: int, batch: int = 10):
+    """Milliseconds per call of ``fn`` (a launch that does not wait for the
+    card), from ``reps`` timings of ``batch`` calls back to back after one
+    warm-up: the host's time between launches hides behind the card's, so
+    this is the kernel's time and not the wrapper's."""
+    return [t / batch for t in cuda_times(lambda: [fn() for _ in range(batch)], reps)]
+
+
 def cuda_ms(fn, reps: int = 3):
     """Median milliseconds of ``reps`` timed calls after one warm-up (CUDA events)."""
     return statistics.median(cuda_times(fn, reps))
@@ -352,8 +416,9 @@ def in_turns(a, b, reps: int = 3):
 
 
 def hmma_counts(lib):
-    """HMMA (tensor-core) instructions per fused2_kernel instantiation in the
-    SASS of ``lib`` (cuobjdump beside nvcc) -> {(mode, layout, attrs, tensor): count}."""
+    """HMMA (tensor-core) instructions per fused2_kernel instantiation (its
+    shared-row form) in the SASS of ``lib`` (cuobjdump beside nvcc) ->
+    {(mode, layout, attrs, tensor): count}."""
     import re
 
     from owl_path_tracer_tpu_torch.native import nvcc_path
@@ -362,8 +427,9 @@ def hmma_counts(lib):
     counts, key = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            # the fifth flag is the profile form (component layout only)
-            found = re.search(r"fused2_kernelILi(\d)ELi(\d)ELb(\d)ELb(\d)ELb0E", line)
+            # the fifth flag is the profile form (component layout only), the
+            # sixth the frontier row in device memory
+            found = re.search(r"fused2_kernelILi(\d)ELi(\d)ELb(\d)ELb(\d)ELb0ELb0E", line)
             key = tuple(int(x) for x in found.groups()) if found else None
             if key:
                 counts[key] = 0
@@ -432,8 +498,8 @@ def bound(rays, want, fb, any_hit, with_attrs=True, tf32=False, no_fma=False):
     (component: Moller-Trumbore over fp32; MXU: the feature products over
     the planes' dtype peak, and the winner chain over fp32, whichever takes
     longer), vs inputs read once and output written once over HBM bytes/s.
-    ``tf32``: f32 planes' products as three TF32 products each at the TF32
-    tensor-core rate (the f32 tensor-core form's own work).  ``no_fma``
+    ``tf32``: f32 planes' products as the f32 tensor-core form computes
+    them, TF32_FLOP per slot at the TF32 tensor-core rate.  ``no_fma``
     (component): the operations at FP32_NO_FMA_OPS, one instruction each,
     the ceiling of a kernel built with --fmad=false."""
     need = needed_clusters(rays, want, fb, any_hit)
@@ -441,7 +507,7 @@ def bound(rays, want, fb, any_hit, with_attrs=True, tf32=False, no_fma=False):
     if fb.mxu:
         flop, peak = MXU_FLOP, BF16_FLOPS if fb.planes.dtype.itemsize == 2 else FP32_FLOPS
         if tf32:
-            flop, peak = 3 * MXU_FLOP, TF32_FLOPS
+            flop, peak = TF32_FLOP, TF32_FLOPS
         t_ops = max(flop * slots / peak, CHAIN_OPS * slots / FP32_FLOPS) * 1e3
     else:
         t_ops = MT_OPS * slots / (FP32_NO_FMA_OPS if no_fma else FP32_FLOPS) * 1e3
@@ -458,28 +524,27 @@ def sum_gamma(fb):
     return SUM_GAMMA if fb.layout == "mxu_bf16" else SUM_GAMMA_F32
 
 
-def sums_decisions(rays, fb, cid, slot):
-    """How the window of slot ``slot`` of cluster ``cid`` (per ray of the
-    packed ``rays``; cid < 0: no winner) is decided, against how far the
-    tensor cores' sums may lie from the plain version's (``sum_gamma``
-    times each sum's absolute terms, ``fused2.mxu_slot_sums``) -> (within,
-    close, t, t_err):
+def window_bounds(sums, absolute, gamma, t_max):
+    """How the MXU window of slots with plain feature sums ``sums`` (det,
+    u*det, v*det, t*det) and absolute sums ``absolute`` is decided, against
+    how far another summation (the tensor cores') may move each sum
+    (``gamma`` times its absolute terms); any broadcastable shapes -> (within,
+    close, sure, t, t_err):
 
       within  every window inequality (|det| >= 1e-12, u >= 0, v >= 0,
               u + v <= det, t > t_min, t < t_max, on the sign-folded sums)
               holds in the plain arithmetic or fails by less than its bound;
       close   some inequality's margin is smaller than its bound (another
               summation could decide it the other way);
-      t       the matmul-space t (t*det / det), inf without a winner;
+      sure    every inequality holds by more than its bound;
+      t       the matmul-space t (t*det / det);
       t_err   the bound on its error (inf where |det| is within its own)."""
     import torch
 
-    from owl_path_tracer_tpu_torch.ops import fused2
     from owl_path_tracer_tpu_torch.ops import math as m
 
-    (det, ua, vb, tcd), absolute = fused2.mxu_slot_sums(rays[:, 0:3], rays[:, 3:6], fb, cid, slot)
-    e_det, e_u, e_v, e_t = (sum_gamma(fb) * a for a in absolute)
-    t_max = rays[:, 6]
+    det, ua, vb, tcd = sums
+    e_det, e_u, e_v, e_t = (gamma * a for a in absolute)
     sgn = torch.where(det < 0.0, -1.0, 1.0)
     dd, u, v, tc = det * sgn, ua * sgn, vb * sgn, tcd * sgn
     ineqs = (  # (margin, > 0 where it holds; bound on how far another summation moves it)
@@ -490,15 +555,52 @@ def sums_decisions(rays, fb, cid, slot):
         (tc - dd * m.T_MIN, e_t + m.T_MIN * e_det + EPS32 * (tc.abs() + dd * m.T_MIN)),
         (dd * t_max - tc, e_t + t_max * e_det + EPS32 * (tc.abs() + dd * t_max)),
     )
-    has = cid >= 0
-    within = has.clone()
-    close = torch.zeros_like(has)
+    within = close = None
+    sure = None
     for margin, bnd in ineqs:
-        within &= margin > -bnd
-        close |= torch.isfinite(margin) & (margin.abs() < bnd)
-    t = torch.where(has, tc / dd, torch.inf)
+        w, cl, su = margin > -bnd, torch.isfinite(margin) & (margin.abs() < bnd), margin > bnd
+        within = w if within is None else within & w
+        close = cl if close is None else close | cl
+        sure = su if sure is None else sure & su
+    t = tc / dd
     t_err = (e_t + t.abs() * e_det) / torch.clamp(dd - e_det, min=0.0) + EPS32 * t.abs()
-    return within, close & has, t, torch.where(has & (dd > e_det), t_err, torch.inf)
+    return within, close, sure, t, torch.where(dd > e_det, t_err, torch.inf)
+
+
+def sums_decisions(rays, fb, cid, slot):
+    """How the window of slot ``slot`` of cluster ``cid`` (per ray of the
+    packed ``rays``; cid < 0: no winner) is decided, against how far the
+    tensor cores' sums may lie from the plain version's (``sum_gamma``
+    times each sum's absolute terms, ``fused2.mxu_slot_sums``) -> (within,
+    close, t, t_err) of :func:`window_bounds` at the ray's t_max, false
+    and inf without a winner."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.ops import fused2
+
+    sums, absolute = fused2.mxu_slot_sums(rays[:, 0:3], rays[:, 3:6], fb, cid, slot)
+    within, close, _, t, t_err = window_bounds(sums, absolute, sum_gamma(fb), rays[:, 6])
+    has = cid >= 0
+    return within & has, close & has, torch.where(has, t, torch.inf), torch.where(has, t_err, torch.inf)
+
+
+def loop_tuv_errors(rays, fb, cid, slot):
+    """[N,3] bounds on how far the loop's t = t*det / det, u = u*det / det
+    and v = v*det / det of slot ``slot`` of cluster ``cid`` (per packed ray;
+    K4's outputs) may move when the tensor cores sum the features
+    (``sum_gamma``), each quotient's division rounded on both sides."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.ops import fused2
+
+    (det, ua, vb, tcd), absolute = fused2.mxu_slot_sums(rays[:, 0:3], rays[:, 3:6], fb, cid, slot)
+    e_det, e_u, e_v, e_t = (sum_gamma(fb) * a for a in absolute)
+    dd = det.abs()
+    errs = []
+    for num, e in ((tcd, e_t), (ua, e_u), (vb, e_v)):
+        q = (num / dd).abs()
+        errs.append(torch.where(dd > e_det, (e + q * e_det) / (dd - e_det) + 2 * EPS32 * q, torch.inf))
+    return torch.stack(errs, 1)
 
 
 def compare_near_tie(got, want, rays, fb, what, blob=True, tensor=False):
@@ -533,7 +635,10 @@ def compare_near_tie(got, want, rays, fb, what, blob=True, tensor=False):
     then all the explained rows together may be at most 0.5% of the rows
     (rounded up).
     The counts are printed.  On agreeing rows t/u/v to rtol 5e-6, and hit,
-    winner cluster and slot and (``blob``) the attribute blob exactly."""
+    winner cluster and slot and (``blob``) the attribute blob exactly; with
+    ``tensor`` and no blob (K4, whose t/u/v are the loop's quotients of the
+    tensor-core sums) a row outside rtol 5e-6 must lie within the sums'
+    rounding bound of each quotient (``loop_tuv_errors``)."""
     import torch
 
     from owl_path_tracer_tpu_torch.ops import fused2
@@ -591,7 +696,16 @@ def compare_near_tie(got, want, rays, fb, what, blob=True, tensor=False):
         check(bool((g[:, 16:32] == w[:, 16:32]).all()), f"{what}: attribute blob differs")
     else:
         check(bool((got[:, 16:32] == 0).all()), f"{what}: the no-attributes blob is not zero")
-    torch.testing.assert_close(g[:, 0:3], w[:, 0:3], rtol=5e-6, atol=1e-6)
+    if tensor and not blob:
+        far = torch.nonzero(~torch.isclose(g[:, 0:3], w[:, 0:3], rtol=5e-6, atol=1e-6).all(1)).squeeze(1)
+        if far.numel():
+            bnd = loop_tuv_errors(rays[same][far], fb, w[far, 7].long(), w[far, 8].long())
+            inside = ((g[far, 0:3] - w[far, 0:3]).abs() <= bnd).all(1)
+            print(f"  {what}: {far.numel()} agreeing rows' loop t/u/v outside rtol 5e-6, {int(inside.sum())} of them "
+                  "within the sums' rounding bound")
+            check(bool(inside.all()), f"{what}: {int((~inside).sum())} rows' loop t/u/v beyond the sums' rounding")
+    else:
+        torch.testing.assert_close(g[:, 0:3], w[:, 0:3], rtol=5e-6, atol=1e-6)
     return float((g[:, 0:3] - w[:, 0:3]).abs().max()) if len(g) else 0.0, int(diff.numel())
 
 
@@ -847,8 +961,8 @@ def component_resources(k=768, c=512, block=BLOCK):
                                 ("closest", False, False), ("closest", True, True), ("mixed", True, True)):
         res = fused2.kernel_resources(fb, mode, block, attrs, serial=serial)
         print(f"  {res['entry']} at K={k} C={c} block {block}: {res['threads']} threads, {res['registers']} "
-              f"registers, {res['shared_bytes']} bytes of shared memory, {res['blocks_per_sm']} blocks per SM",
-              flush=True)
+              f"registers, {res['shared_bytes']} bytes of shared memory (frontier row in {res['row']} memory), "
+              f"{res['blocks_per_sm']} blocks per SM", flush=True)
 
 
 def dragon_setup(dev, spp):
@@ -1113,7 +1227,9 @@ def phase_3c(dev, results):
               f"K1b {name} max_steps=1 mixed closest-hit lanes differ")
         print(f"  K1b {name} max_steps=1: closest, any-hit and mixed wrappers equal the plain version "
               "with the exact query on unresolved rows")
-    # K4: closest hit without attributes, component and MXU f32 planes
+    # K4: closest hit without attributes, component and MXU f32 planes (the
+    # tensor form under the sums' rounding rule, the exact CUDA-core form
+    # equal to the plain version)
     errs = []
     fbs = {"component": comp, "MXU f32": fb32}
     for name, fb in fbs.items():
@@ -1123,9 +1239,13 @@ def phase_3c(dev, results):
             want = plain(rays, fb, with_attrs=False)
             what = f"K4 {name} soup block {block}"
             if fb.mxu:
-                e, _ = compare_near_tie(got, want, rays, fb, what, blob=False)
+                e, _ = compare_near_tie(got, want, rays, fb, what, blob=False, tensor=True)
                 got1 = fused2.fused2_traverse_packed(rays, fb, block=block, with_attrs=False, fanout=1)
                 check(same_outputs(got1, got), f"{what}: fanout 1 and 2 differ")
+                got_x = fused2.fused2_traverse_packed(rays, fb, block=block, with_attrs=False, exact=True)
+                e_x, tie_x = compare_near_tie(got_x, want, rays, fb, f"{what} exact", blob=False)
+                check(tie_x == 0, f"{what}: the exact form differs from the plain version on {tie_x} rows")
+                errs.append(e_x)
             else:
                 e, _ = compare(got, want, allow_ties=False)
             errs.append(e)
@@ -1135,21 +1255,21 @@ def phase_3c(dev, results):
     except ValueError:
         pass
     results["k4_err"] = max(errs)
-    print(f"  K4 component and MXU f32, blocks 128/256: equal to the plain version, max |tuv err| {max(errs):.3g}; "
-          "bf16 + no attributes raises ValueError")
+    print(f"  K4 component and MXU f32 (tensor and exact forms), blocks 128/256: held to the plain version, max "
+          f"|tuv err| {max(errs):.3g}; the exact MXU form equal to it; bf16 + no attributes raises ValueError")
 
 
 def time_kernel(what, rays, fb, block, mode="closest", with_attrs=True, shadow=None):
     """Kernel vs plain on one sorted wave: checks, CUDA-event times, bound ->
-    dict.  On MXU planes the kernel is the tensor-core form (K4: CUDA
-    cores), held to the sums' rounding rule; for closest hit the exact
-    CUDA-core form is also held to the plain version and timed in turns with
-    it (key "exact")."""
+    dict.  On MXU planes the kernel is the tensor-core form, held to the
+    sums' rounding rule; for closest hit (with attributes, and K4 without)
+    the exact CUDA-core form is also held to the plain version and timed in
+    turns with it (key "exact")."""
     import torch
 
     from owl_path_tracer_tpu_torch.ops import fused2
 
-    tensor = fb.mxu and (with_attrs or mode != "closest")
+    tensor = fb.mxu
     run = lambda fo=fused2.FANOUT, exact=False: fused2.fused2_traverse_packed(  # noqa: E731
         rays, fb, block=block, mode=mode, fanout=fo, with_attrs=with_attrs, exact=exact)
     got = run()
@@ -1172,7 +1292,7 @@ def time_kernel(what, rays, fb, block, mode="closest", with_attrs=True, shadow=N
     exact = None
     if tensor and mode == "closest":
         got_x = run(exact=True)
-        err_x, ties_x = compare_near_tie(got_x, want, rays, fb, f"{what}, exact form")
+        err_x, ties_x = compare_near_tie(got_x, want, rays, fb, f"{what}, exact form", blob=with_attrs)
         x_ms, k_ms = in_turns(lambda: run(exact=True), run)
         exact = {"err": err_x, "ms": x_ms}
         print(f"  {what}: exact CUDA-core form {x_ms:.3f} ms, tensor-core form {k_ms:.3f} ms (in turns exact, "
@@ -1237,13 +1357,17 @@ def phase_4c(scene, mode, waves, nee_scene, nee_mode, nee_waves, block, results,
         layout_i = 2 if kind == "fused2-bf16" else 1
         print(f"  {kind}: K={accel.num_clusters} C={accel.cluster_size}, planes {tuple(accel.planes.shape)} "
               f"{accel.planes.dtype}", flush=True)
-        for mode_i, m_name in enumerate(fused2.MODES):
-            for exact in [False, True] if m_name == "closest" else [False]:
-                res = fused2.kernel_resources(accel, m_name, block, exact=exact)
-                count = hmma[(mode_i, layout_i, int(m_name != "any_hit"), int(not exact))]
-                print(f"  {res['entry']} at K={accel.num_clusters} C={accel.cluster_size} block {block}: "
-                      f"{res['registers']} registers, {res['shared_bytes']} bytes of shared memory, "
-                      f"{res['blocks_per_sm']} blocks per SM, {count} HMMA instructions in its SASS", flush=True)
+        forms = [(m_name, m_name != "any_hit", exact) for m_name in fused2.MODES
+                 for exact in ([False, True] if m_name == "closest" else [False])]
+        if kind == "fused2":  # K4 on f32 planes, both forms
+            forms += [("closest", False, False), ("closest", False, True)]
+        for m_name, attrs, exact in forms:
+            res = fused2.kernel_resources(accel, m_name, block, with_attrs=attrs, exact=exact)
+            count = hmma[(fused2.MODES.index(m_name), layout_i, int(attrs), int(not exact))]
+            print(f"  {res['entry']} at K={accel.num_clusters} C={accel.cluster_size} block {block}: "
+                  f"{res['registers']} registers, {res['shared_bytes']} bytes of shared memory (frontier row in "
+                  f"{res['row']} memory), {res['blocks_per_sm']} blocks per SM, {count} HMMA instructions in its "
+                  "SASS", flush=True)
         for name, (wo, wd) in waves.items():
             tm = torch.full((wo.shape[0],), 1e10, device=wo.device)
             rays, _ = sorted_rays(wo, wd, tm, accel, mode)
@@ -1618,7 +1742,312 @@ def phase_4d(scene, settings, results, mhz):
           f"rays (every 8th block), clusters retired/block mean {float(steps.mean()):.2f} max {int(steps.max())}, "
           f"clusters needed/ray mean {need:.3f}, kernel {k_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, "
           f"{100 * bnd[0] / k_ms:.2f}% reached)", flush=True)
-    return accel
+    return accel, big, (wo, wd)
+
+
+def limit_soup_arrays(block=BLOCK, seed=5):
+    """LIMIT_TRIS random triangles in [-20, 20]^3 (vertices, indices,
+    normals, texcoords, material ids; in clusters of LIMIT_C = 8, K is about
+    81,000, above every fused2 entry's old shared-row limit), from seed 5,
+    and LIMIT_BUNDLES bundles of ``block`` nearly parallel rays from 30
+    units outside toward the volume (o, d, shadow flags, light distances:
+    every other ray a shadow lane of the mixed sweep), from ``seed``.  Each
+    bundle is one block of rays and retires about 60 clusters, well inside
+    max_steps."""
+    import numpy as np
+
+    r = np.random.default_rng(5)
+    tri = r.uniform(-20, 20, (LIMIT_TRIS, 1, 3)) + r.normal(0, 0.3, (LIMIT_TRIS, 3, 3))
+    verts = tri.reshape(-1, 3).astype(np.float32)
+    idx = np.arange(3 * LIMIT_TRIS, dtype=np.int32).reshape(LIMIT_TRIS, 3)
+    normals = r.normal(size=verts.shape).astype(np.float32)
+    texcoords = r.uniform(0, 1, (len(verts), 2)).astype(np.float32)
+    mat = r.integers(0, 5, LIMIT_TRIS).astype(np.int32)
+    if seed != 5:
+        r = np.random.default_rng(seed)
+    side = r.normal(size=(LIMIT_BUNDLES, 3))
+    side /= np.linalg.norm(side, axis=1, keepdims=True)
+    start = r.uniform(-15, 15, (LIMIT_BUNDLES, 3)) + 30 * side
+    n = LIMIT_BUNDLES * block
+    o = (np.repeat(start, block, 0) + r.normal(0, 0.05, (n, 3))).astype(np.float32)
+    d = np.repeat(-side, block, 0) + r.normal(0, 0.01, (n, 3))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    shadow = np.arange(n) % 2 == 1
+    dist = np.where(shadow, r.uniform(20, 40, n), 1e10).astype(np.float32)
+    return (verts, idx, normals, texcoords, mat), (o, d, shadow, dist)
+
+
+def limit_rays(dev, block=BLOCK, seed=5):
+    """The LIMIT_TRIS soup's arrays and its packed rays on ``dev`` for
+    ``seed``'s bundles -> (mesh, closest-hit rays, mixed rays, shadow)."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.ops.fused2 import pack_rays
+
+    mesh, (o, d, shadow, dist) = limit_soup_arrays(block, seed)
+    o, d, dist = (torch.as_tensor(x, device=dev) for x in (o, d, dist))
+    shadow = torch.as_tensor(shadow, device=dev)
+    return mesh, pack_rays(o, d, 1e10), pack_rays(o, d, dist, shadow), shadow
+
+
+def old_row_limit(fb, mode, block, limit, with_attrs=True, exact=False, serial=False):
+    """The most clusters K whose frontier row [K] f32 (padded to a multiple
+    of 4) would have fitted in shared memory beside the rest of the entry's
+    block (the kernel library's count) under ``limit``: the cluster limit
+    each entry had while its row lay in shared memory."""
+    from owl_path_tracer_tpu_torch.ops import fused2
+
+    spare = limit - fused2.block_bytes(fb, mode, block, with_attrs, exact, serial, global_row=True)
+    return max(spare // 4 & ~3, 0)
+
+
+def limit_case(what, fb, rays, want, block, mode, attrs, exact=False, serial=False, shadow=None):
+    """One fused2 entry at K above its old shared-row limit: the frontier
+    rows must go to device memory, and the outputs meet the plain version
+    by the entry's usual rule (component bit for bit
+    up to true ties between clusters; the MXU forms by compare_near_tie,
+    with the sums' rounding kind and compare_flags for the tensor forms:
+    the exact forms differ only where an exact walk never tests a cluster
+    the block retires, on bf16 planes at most 0.5% of the rows) ->
+    (outputs, old limit)."""
+    from owl_path_tracer_tpu_torch.ops import fused2
+
+    limit = fused2.smem_limit(rays.device)
+    k, c = fb.num_clusters, fb.cluster_size
+    old = old_row_limit(fb, mode, block, limit, attrs, exact, serial)
+    form = fused2.row_form(fb, mode, block, rays.device, attrs, exact, serial)
+    check(k > old and form == "global", f"{what}: K={k}, old limit {old}, row form {form}")
+    got = fused2.fused2_traverse_packed(rays, fb, block=block, mode=mode, with_attrs=attrs, exact=exact,
+                                        serial=serial)
+    tensor = fb.mxu and not exact
+    lanes = ~shadow if mode == "mixed" else None
+    if mode == "any_hit":
+        check(bool((got[:, 5] == 1).all()), f"{what}: rays unresolved")
+        if fb.mxu:
+            compare_flags(got, want, what, rays=rays, fb=fb)
+        else:
+            check(k2_error(got, want, rays) == 0.0, f"{what}: flags differ from the plain version or t lowered")
+    else:
+        g, w, r = (got, want, rays) if lanes is None else (got[lanes], want[lanes], rays[lanes])
+        if fb.mxu:
+            compare_near_tie(g, w, r, fb, what, blob=attrs, tensor=tensor)
+        else:
+            compare(g, w, allow_ties=True)
+        if lanes is not None:
+            check(bool((got[shadow, 5] == 1).all()), f"{what}: shadow lanes unresolved")
+            if fb.mxu:
+                compare_flags(got[shadow], want[shadow], f"{what} shadow lanes", rays=rays[shadow], fb=fb)
+            else:
+                check(bool((got[shadow, 4] == want[shadow, 4]).all()), f"{what}: shadow flags differ")
+    steps = got[:, 6].reshape(-1, block)[:, 0]
+    print(f"  {what}: K={k} above the old shared-row limit of {old} (C={c}, block {block}, device limit {limit} "
+          f"bytes), frontier rows in device memory; {int(got[:, 4].sum())}/{got.shape[0]} hit, clusters/block "
+          f"mean {float(steps.mean()):.1f} max {int(steps.max())}; held to the plain version", flush=True)
+    return got, old
+
+
+def above_old_limit(dev, results, block):
+    """Phase 4e, first part: every fused2 entry on the LIMIT_TRIS soup (K
+    above every entry's old shared-row limit; its rows in device memory)
+    against the plain version, the serial yardsticks and the profile entry
+    against the slot-parallel body bit for bit -> the component build."""
+    import dataclasses
+
+    import torch
+
+    from owl_path_tracer_tpu_torch.ops import fused2
+
+    t0 = time.perf_counter()
+    mesh, rays, mrays, shadow = limit_rays(dev, block)
+    comp = fused2.build_fused2(*mesh[:2], LIMIT_C, *mesh[2:], mxu=False, device=dev)
+    f32 = fused2.build_fused2(*mesh[:2], LIMIT_C, *mesh[2:], device=dev)
+    bf16 = dataclasses.replace(f32, planes=f32.planes.to(torch.bfloat16))
+    k = comp.num_clusters
+    check(k >= LIMIT_MIN_K and f32.num_clusters == k, f"the limit soup has K={k} clusters")
+    print(f"  {LIMIT_TRIS} triangles in clusters of C={LIMIT_C}: K={k}, {rays.shape[0]} rays in {LIMIT_BUNDLES} "
+          f"bundles, built in {time.perf_counter() - t0:.2f} s", flush=True)
+    olds = {}
+    for fb in (comp, f32, bf16):
+        for mode, attrs in (("closest", True), ("any_hit", False), ("mixed", True), ("closest", False)):
+            if fb.layout == "mxu_bf16" and (mode, attrs) == ("closest", False):
+                continue
+            r = mrays if mode == "mixed" else rays
+            want = fused2.fused2_traverse_packed_plain(r, fb, mode, attrs)
+            sh = shadow if mode == "mixed" else None
+            name = fused2._entry(fb, mode, attrs)
+            got, olds[name] = limit_case(name, fb, r, want, block, mode, attrs, shadow=sh)
+            if fb.layout != "component" and mode == "closest":
+                name = fused2._entry(fb, mode, attrs, exact=True)
+                _, olds[name] = limit_case(name, fb, r, want, block, mode, attrs, exact=True)
+            if fb.layout == "component" and attrs:
+                name = fused2._entry(fb, mode, attrs, serial=True)
+                serial, olds[name] = limit_case(name, fb, r, want, block, mode, attrs, serial=True, shadow=sh)
+                diff = differing_columns(got, serial)
+                check(not diff, f"{name}: differs from the slot-parallel body at K={k}: {diff}")
+            if fb.layout == "component" and (mode, attrs) == ("closest", True):
+                for body in (False, True):
+                    out, _ = fused2.fused2_traverse_profile(r, fb, block, serial=body)
+                    diff = differing_columns(out, got)
+                    check(not diff, f"the profile entry (serial={body}) differs at K={k}: {diff}")
+                print(f"  {fused2.PROFILE_ENTRY} (both bodies) at K={k}: equal to the slot-parallel entry bit for "
+                      "bit", flush=True)
+    results["limit"] = {"k": k, "old_limits": olds}
+    return comp
+
+
+def widen(fb, c):
+    """A component build with its clusters widened to ``c`` slots by pad
+    slots (zero planes, tri id -1, zero attributes), which no ray hits: the
+    same clusters, boxes and answers at another C."""
+    import dataclasses
+
+    import torch
+
+    pad = c - fb.cluster_size
+    planes = torch.nn.functional.pad(fb.planes, (0, pad))
+    planes[:, 9, fb.cluster_size:] = -1.0
+    return dataclasses.replace(fb, planes=planes, attrs=torch.nn.functional.pad(fb.attrs, (0, pad)))
+
+
+def shared_rows(comp, results, block):
+    """Phase 4e, second part: the component closest hit (K1), mixed sweep
+    (K3) and closest hit without attributes (K4) at C=LIMIT_WIDE_C, where a
+    block of rays is a thread block cluster of 4 CTAs that share one
+    frontier row in device memory (each writes its share of a refresh,
+    every one retires the current cluster in it), at K above their old
+    limit: the LIMIT_TRIS soup's clusters widened by pad slots, on the
+    bundles of each of LIMIT_SEEDS.  Every launch (LIMIT_REPEATS each)
+    equals the serial body at C=512 and the entry at C=8 (one CTA, held to
+    the plain version: pad slots change no answer) bit for bit in every
+    column; a CTA that retired a cluster before another had picked it would
+    set the CTAs testing different clusters."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.ops import fused2
+
+    dev = comp.boxes.device
+    wide = widen(comp, LIMIT_WIDE_C)
+    k, limit = wide.num_clusters, fused2.smem_limit(dev)
+    ctas = fused2._slot_shape(LIMIT_WIDE_C, "closest")[1]
+    check(ctas == 4, f"C={LIMIT_WIDE_C}: {ctas} CTAs per block of rays")
+    checked = 0
+    for seed in LIMIT_SEEDS:
+        _, rays, mrays, shadow = limit_rays(dev, block, seed)
+        for mode, attrs in (("closest", True), ("mixed", True), ("closest", False)):
+            r = mrays if mode == "mixed" else rays
+            name = fused2._entry(wide, mode, attrs)
+            old = old_row_limit(wide, mode, block, limit, attrs)
+            form = fused2.row_form(wide, mode, block, dev, attrs)
+            check(k > old and form == "global", f"{name} at C={LIMIT_WIDE_C}: K={k}, old limit {old}, row form {form}")
+            narrow = fused2.fused2_traverse_packed(r, comp, block=block, mode=mode, with_attrs=attrs)
+            want = fused2.fused2_traverse_packed_plain(r, comp, mode, attrs)
+            if mode == "mixed":
+                compare(narrow[~shadow], want[~shadow], allow_ties=True)
+                check(bool((narrow[shadow, 4] == want[shadow, 4]).all()), f"{name} seed {seed}: shadow flags differ")
+            else:
+                compare(narrow, want, allow_ties=True)
+            serial, _ = fused2.fused2_traverse_profile(r, wide, block, mode=mode, with_attrs=attrs, serial=True)
+            for rep in range(LIMIT_REPEATS):
+                got = fused2.fused2_traverse_packed(r, wide, block=block, mode=mode, with_attrs=attrs)
+                for other, what in ((serial, "the serial body at C=512"), (narrow, f"the C={LIMIT_C} entry")):
+                    diff = differing_columns(got, other)
+                    check(not diff, f"{name} at C={LIMIT_WIDE_C}, K={k}, seed {seed}, launch {rep}: differs from "
+                                    f"{what}: {diff}")
+                checked += 1
+    torch.cuda.synchronize()
+    results["limit"]["wide"] = {"c": LIMIT_WIDE_C, "ctas": ctas, "launches": checked}
+    print(f"  {comp.num_clusters} clusters widened to C={LIMIT_WIDE_C} ({ctas} CTAs per block of rays sharing its "
+          f"row; K above the old limit of {old_row_limit(wide, 'closest', block, limit)}): K1, K3 and K4 on seeds "
+          f"{list(LIMIT_SEEDS)}, {LIMIT_REPEATS} launches each ({checked} in all), every one equal bit for bit to "
+          f"the serial body at C={LIMIT_WIDE_C} and to the C={LIMIT_C} entry (held to the plain version)",
+          flush=True)
+
+
+def dragon8_c128(big, big_wave):
+    """dragon8's fused2 builds at C=128 (K about 11,000, where both row
+    forms launch) and the centre chunk's bounce wave sorted for each ->
+    [(kind, build, packed rays)] for fused2-bf16 and fused2."""
+    import dataclasses
+
+    import torch
+
+    from owl_path_tracer_tpu_torch.ops import fused2
+
+    wo, wd = big_wave
+    t0 = time.perf_counter()
+    big32 = fused2.build_fused2_scene(big, cluster_size=128)
+    big16 = dataclasses.replace(big32, planes=big32.planes.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    print(f"  dragon8 fused2 at C=128: K={big32.num_clusters}, built in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    tm = torch.full((wo.shape[0],), 1e10, device=wo.device)
+    mode = fused2.auto_sort_mode(big)
+    return [(kind, fb, sorted_rays(wo, wd, tm, fb, mode)[0]) for kind, fb in (("fused2-bf16", big16), ("fused2", big32))]
+
+
+def row_placement(results, big, big_wave, block):
+    """Phase 4e, third part: on dragon8 at C=128 the fused2-bf16 and fused2
+    closest-hit entries with the frontier row in shared memory and in device
+    memory on the centre chunk's bounce wave, equal bit for bit, timed in
+    turns shared, global, global, shared (ROW_REPS timings of 10 launches
+    back to back a turn), with each form's median and range."""
+    from owl_path_tracer_tpu_torch.ops import fused2
+
+    for kind, fb, rays in dragon8_c128(big, big_wave):
+        run = lambda form, fb=fb, rays=rays: fused2._fused2_traverse_cuda(  # noqa: E731
+            rays, fb, block, fused2.MAX_STEPS, row=form)
+        diff = differing_columns(run("shared"), run("global"))
+        check(not diff, f"dragon8 {kind}: the global row differs from the shared row: {diff}")
+        times = {"shared": launch_times(lambda: run("shared"), ROW_REPS)}
+        times["global"] = launch_times(lambda: run("global"), ROW_REPS) + launch_times(lambda: run("global"), ROW_REPS)
+        times["shared"] += launch_times(lambda: run("shared"), ROW_REPS)
+        res = {form: fused2.kernel_resources(fb, "closest", block, row=form) for form in fused2.ROW_FORMS}
+        ms = {form: statistics.median(t) for form, t in times.items()}
+        ships = fused2.row_form(fb, "closest", block, rays.device)
+        results[f"row {kind}"] = {"shared_ms": ms["shared"], "global_ms": ms["global"], "ships": ships,
+                                  "range_ms": {f: [min(t), max(t)] for f, t in times.items()},
+                                  "blocks_per_sm": {f: r["blocks_per_sm"] for f, r in res.items()}}
+        print(f"  dragon8 {kind} closest hit, centre chunk bounce wave ({rays.shape[0]} rays, K={fb.num_clusters} "
+              f"C=128, block {block}): row in shared memory {ms['shared']:.3f} ms (range {min(times['shared']):.3f}-"
+              f"{max(times['shared']):.3f}; {res['shared']['shared_bytes']} bytes, {res['shared']['blocks_per_sm']} "
+              f"blocks per SM), in device memory {ms['global']:.3f} ms (range {min(times['global']):.3f}-"
+              f"{max(times['global']):.3f}; {res['global']['shared_bytes']} bytes, {res['global']['blocks_per_sm']} "
+              f"blocks per SM; in turns shared, global, global, shared, {ROW_REPS} x 10 launches each; "
+              f"{ms['global'] / ms['shared']:.3f}x); outputs equal bit for bit; the form that ships at this K: "
+              f"{ships}", flush=True)
+
+
+def row_timing(rounds):
+    """``--row-timing``: only phase 4e's dragon8 entries in the form that
+    ships, ``rounds`` rounds of ROW_REPS timings of 10 launches back to back
+    per entry, on the package beside this script, printed as one JSON line.
+    It calls only long-standing functions of the package (compile_scene,
+    make_accel, build_fused2_scene, the wave sort, _fused2_traverse_cuda),
+    so that the script copied into another checkout times that checkout's
+    kernels: run it in turns there and here (other, this, this, other) to
+    compare two trees on one card."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.models.scene import RenderSettings, compile_scene
+    from owl_path_tracer_tpu_torch.ops import fused2
+    from owl_path_tracer_tpu_torch.render import film
+    from owl_path_tracer_tpu_torch.tools.probe_common import ensure_dragon
+
+    smi = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "--id=0"])
+    print(smi, flush=True)
+    dev = torch.device("cuda", 0)
+    settings = RenderSettings(width=SIZE, height=SIZE, max_samples=8, max_path_depth=DEPTH, environment_auto=True)
+    big = compile_scene(ROOT / "assets", ensure_dragon(8), (SIZE, SIZE), device=dev)
+    wave = scan_waves(big, settings, film.make_accel(big, "fused"), ("centre chunk",))["centre chunk bounce"]
+    times = {}
+    cases = dragon8_c128(big, wave)
+    for _ in range(rounds):
+        for kind, fb, rays in cases:
+            times.setdefault(kind, []).extend(launch_times(
+                lambda fb=fb, rays=rays: fused2._fused2_traverse_cuda(rays, fb, BLOCK, fused2.MAX_STEPS), ROW_REPS))
+    print(json.dumps({"row_timing": {"root": str(ROOT), "device": smi, "ms": {
+        kind: {"median": statistics.median(t), "min": min(t), "max": max(t), "n": len(t)}
+        for kind, t in times.items()}}}), flush=True)
 
 
 def phase_5d(dev):
@@ -1724,27 +2153,104 @@ def phase_6e():
           f"{launches}, unresolved rays {tfu.UNRESOLVED_RAYS}", flush=True)
 
 
-def probe_bound(rays, boxes, planes, name, iters, block):
+def probe_bound(rays, boxes, planes, name, iters, block, tensor=False):
     """(bound_ms, bound_by) of one K6 launch: phase A's slab tests (every
-    ray against every box) and, per chain and loop iteration, the feature
-    product of the live rows (2 x 10 x 4C FLOP per ray) and the window
-    chain (CHAIN_OPS per ray and slot) over the fp32 peak (CUDA cores), vs
-    the inputs read once and the output written once over HBM bytes/s."""
+    ray against every box, fp32) and, per chain and loop iteration, the
+    product and the window chain (CHAIN_OPS per ray and slot, fp32), vs the
+    inputs read once and the output written once over HBM bytes/s.  The
+    CUDA-core (exact) form: the product of the live feature rows (2 x 10 x
+    4C FLOP per ray) beside the window over the fp32 peak, and the whole
+    planes copied.  ``tensor`` (the tensor form, a variant with a product):
+    per chain iteration the larger of the product at the tensor rate (bf16:
+    MXU_FLOP per slot at BF16_FLOPS; f32: TF32_FLOP at TF32_FLOPS) and the
+    window at the fp32 peak, and the bytes its staging copies (bf16 plane
+    rows 0-9, f32 the 19 non-zero feature rows)."""
     from owl_path_tracer_tpu_torch.ops import latency_probe as lp
 
     v = lp.variant(name)
     n, k, c = rays.shape[0], boxes.shape[1], planes.shape[2] // 4
-    per_iter = (2 * PROBE_LIVE_FEATURES * 4 * c + CHAIN_OPS * c) if v.mm else 0
-    ops = n * (SLAB_OPS * k + lp.trips(v, iters) * v.chains * per_iter)
-    nbytes = (4 * (rays.numel() + boxes.numel() + n * lp.OUT_COLS)
-              + (planes.numel() * planes.dtype.itemsize if v.copy else 0))
-    t_ops, t_bytes = ops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+    chain_iters = n * lp.trips(v, iters) * v.chains
+    io = 4 * (rays.numel() + boxes.numel() + n * lp.OUT_COLS)
+    if tensor and v.mm:
+        flop, peak = (MXU_FLOP, BF16_FLOPS) if v.bf16 else (TF32_FLOP, TF32_FLOPS)
+        t_ops = (n * SLAB_OPS * k / FP32_FLOPS + chain_iters * c * max(flop / peak, CHAIN_OPS / FP32_FLOPS)) * 1e3
+        staged = k * (10 * 4 * c * 2 if v.bf16 else 19 * c * 4)
+        nbytes = io + (staged if v.copy else 0)
+    else:
+        per_iter = (2 * PROBE_LIVE_FEATURES * 4 * c + CHAIN_OPS * c) if v.mm else 0
+        t_ops = (n * SLAB_OPS * k + chain_iters * per_iter) / FP32_FLOPS * 1e3
+        nbytes = io + (planes.numel() * planes.dtype.itemsize if v.copy else 0)
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def probe_window_bounds(rays, planes, cids, bf16):
+    """Per packed ray [n]: (lo, hi), where the tensor form of K6 may put its
+    best t, from the plain sums of every slot of the clusters ``cids`` [n, T]
+    it tests and their rounding bound (``window_bounds`` with SUM_GAMMA on
+    bf16 planes, SUM_GAMMA_F32 on f32): its best t is some slot's t that
+    passed its window, so at least lo, the least t - t_err over the slots
+    whose window may pass (within); and a slot that surely passes sets the
+    best t to its t or lower, so at most hi, the least t + t_err over those
+    slots and t_max.  t_err gains PROBE_T_SLACK roundings of t: the
+    approximate reciprocal and the window's comparison with the running
+    best t, which the plain version rounds otherwise."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.ops import fused2
+
+    gamma = SUM_GAMMA if bf16 else SUM_GAMMA_F32
+    c = planes.shape[2] // 4
+    t_max = rays[:, 6]
+    lo, hi = t_max.clone(), t_max.clone()
+    feat = fused2._ray_features(rays[:, 0:3], rays[:, 3:6], bf16)
+    for col in range(cids.shape[1]):
+        sums = fused2._feature_sums(feat, planes, cids[:, col], slice(0, c))
+        absolute = fused2._feature_sums(feat, planes, cids[:, col], slice(0, c), absolute=True)
+        within, _, sure, t, t_err = window_bounds(sums, absolute, gamma, t_max[:, None])
+        err = t_err + PROBE_T_SLACK * EPS32 * t.abs()
+        low = torch.where(torch.isfinite(err), t - err, -torch.inf)
+        lo = torch.minimum(lo, torch.where(within, low, torch.inf).amin(1))
+        hi = torch.minimum(hi, torch.where(sure & torch.isfinite(err), t + err, torch.inf).amin(1))
+    return lo, hi
+
+
+def compare_probe_tensor(got, want, rays, boxes, planes, name, iters, block, what):
+    """K6's tensor form vs the plain version: columns 1-15 zero, and column
+    0 (best t) equal, or within the bounds that the sums' rounding leaves
+    it on every slot the block tested (``probe_window_bounds``; the tested
+    clusters from ``latency_probe.tested_clusters``); a variant whose
+    product reads no planes must be equal -> (max |column 0 error|, rows
+    that differ)."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.ops import latency_probe as lp
+
+    v = lp.variant(name)
+    check(bool((got[..., 1:] == 0).all()), f"{what}: columns 1-15 are not zero")
+    g0, w0 = got[..., 0].reshape(-1), want[..., 0].reshape(-1)
+    differ = torch.nonzero(g0 != w0).squeeze(1)
+    if not differ.numel():
+        return 0.0, 0
+    check(v.mm and v.copy, f"{what}: column 0 differs from the plain version on {differ.numel()} rows without a "
+                           "product of planes")
+    cids = lp.tested_clusters(rays, boxes, name, iters, block)[differ // block]
+    inside = []
+    for lo_i in range(0, differ.numel(), 2048):
+        rows = differ[lo_i : lo_i + 2048]
+        lo, hi = probe_window_bounds(rays[rows], planes, cids[lo_i : lo_i + 2048], v.bf16)
+        inside.append((g0[rows] >= lo) & (g0[rows] <= hi))
+    inside = torch.cat(inside)
+    print(f"  {what}: best t differs from the plain version on {differ.numel()} of {g0.numel()} rays, "
+          f"{int(inside.sum())} within the sums' rounding", flush=True)
+    check(bool(inside.all()), f"{what}: {int((~inside).sum())} rays' best t beyond the sums' rounding")
+    return float((g0 - w0).abs().max()), differ.numel()
+
+
 def compare_probe(got, want, name, what):
-    """K6 output vs its plain version: column 0 bit-equal (rtol 1e-6 with the
-    approximate reciprocal), columns 1-15 zero -> max |column 0 error|."""
+    """K6's exact form vs its plain version: column 0 bit-equal (rtol 1e-6
+    with the approximate reciprocal), columns 1-15 zero -> max |column 0
+    error|."""
     import torch
 
     from owl_path_tracer_tpu_torch.ops import latency_probe as lp
@@ -1759,7 +2265,8 @@ def compare_probe(got, want, name, what):
 
 def phase_3f(dev, results):
     """K6 vs its plain version on the soup (MXU clusters of C=64, f32 and
-    bf16 planes), every variant, blocks 128 and 256, iters 0, 3 and 8."""
+    bf16 planes), every variant, blocks 128 and 256, iters 0, 3 and 8: the
+    exact form bit-equal, the tensor form by compare_probe_tensor."""
     import torch
 
     from owl_path_tracer_tpu_torch.ops import latency_probe as lp
@@ -1772,22 +2279,32 @@ def phase_3f(dev, results):
     for name in [*lp.VARIANTS, "interleave2", "interleave4"]:
         v = lp.variant(name)
         fb = fbs[torch.bfloat16 if v.bf16 else torch.float32]
-        hits = []
+        hits, differ = [], 0
         for block in (128, 256):
             for it in (0, 3, 8):
                 what = f"K6 {name} soup block {block} iters {it}"
-                got = lp.latency_probe(rays, fb.boxes, fb.planes, name, it, block)
                 want = lp.latency_probe_plain(rays, fb.boxes, fb.planes, name, it, block)
-                err = max(err, compare_probe(got, want, name, what))
+                got_x = lp.latency_probe(rays, fb.boxes, fb.planes, name, it, block, exact=True)
+                err = max(err, compare_probe(got_x, want, name, f"{what}, exact form"))
+                got = lp.latency_probe(rays, fb.boxes, fb.planes, name, it, block)
+                e, n = compare_probe_tensor(got, want, rays, fb.boxes, fb.planes, name, it, block, what)
+                err, differ = max(err, e), differ + n
                 hits.append(int((got[..., 0].reshape(-1) < rays[:, 6]).sum()))
-        print(f"  K6 {name}: equal to the plain version at blocks 128/256, iters 0/3/8 (hits {hits})", flush=True)
+        print(f"  K6 {name}: the exact form equal to the plain version, the tensor form within the sums' rounding "
+              f"({differ} rows differ) at blocks 128/256, iters 0/3/8 (tensor-form hits {hits})", flush=True)
     results["k6_err"] = err
 
 
+# K6's variants timed in turns, exact form against tensor form (phase 4f)
+PROBE_TURNS = ("pick_dma_mm", "pick_dma_mm_bf16", "sched_mm", "sched_mm_bf16", "sched_mm_recip")
+
+
 def phase_4f(results):
-    """The latency probe at its default shapes through the tool's own code,
-    every default variant and the bf16 and recip ones -> K6 launches; then
-    the kernel vs its plain version at iters 16."""
+    """The latency probe at its default shapes through the tool's own code
+    (the tensor form), every default variant and the bf16 and recip ones ->
+    K6 launches; then both forms vs the plain version at iters 16, and the
+    product variants timed in turns, exact form against tensor form, beside
+    both forms' bounds."""
     import torch
 
     from owl_path_tracer_tpu_torch.ops import latency_probe as lp
@@ -1799,30 +2316,45 @@ def phase_4f(results):
     lp.reset_counts()
     probe, records = tool.run(args)
     torch.cuda.synchronize()
-    launches = lp.LAUNCHES[lp.ENTRY]
+    launches, exact_launches = lp.LAUNCHES[lp.ENTRY], lp.LAUNCHES[lp.EXACT_ENTRY]
     iters = [int(x) for x in args.iters.split(",")]
     check(launches == len(names) * len(iters) * (1 + tool.REPEATS), f"the probe launched K6 {launches} times")
+    check(exact_launches == 0, f"the probe launched the exact form {exact_launches} times")
     for rec in records:
-        print(f"  K6 {rec['variant']}: {rec['us_per_block_iter']:.4f} us per block and iteration (tile "
-              f"{rec['tile']} slots), ms at iters {rec['ms_at']}", flush=True)
+        print(f"  K6 tensor form, {rec['variant']}: {rec['us_per_block_iter']:.4f} us per block and iteration "
+              f"(tile {rec['tile']} slots), ms at iters {rec['ms_at']}", flush=True)
     err = 0.0
-    tiles = {rec["variant"]: rec["tile"] for rec in records}
+    it = iters[-1]
     for name in names:
         planes = probe.planes_for(name)
-        got = lp.latency_probe(probe.rays, probe.boxes, planes, name, iters[-1], args.b)
-        want = lp.latency_probe_plain(probe.rays, probe.boxes, planes, name, iters[-1], args.b)
-        what = f"K6 {name} at the default shapes (tiles of {tiles[name]} slots), iters {iters[-1]}"
-        err = max(err, compare_probe(got, want, name, what))
-    full = next(r for r in records if r["variant"] == "pick_dma_mm")
+        want = lp.latency_probe_plain(probe.rays, probe.boxes, planes, name, it, args.b)
+        what = f"K6 {name} at the default shapes, iters {it}"
+        got_x = lp.latency_probe(probe.rays, probe.boxes, planes, name, it, args.b, exact=True)
+        tile_x = lp.kernel_tile(probe.rays, probe.boxes, planes, name, args.b, exact=True)
+        err = max(err, compare_probe(got_x, want, name, f"{what}, exact form (tiles of {tile_x} slots)"))
+        got = lp.latency_probe(probe.rays, probe.boxes, planes, name, it, args.b)
+        err = max(err, compare_probe_tensor(got, want, probe.rays, probe.boxes, planes, name, it, args.b,
+                                            f"{what}, tensor form")[0])
+    turns = {}
+    for name in PROBE_TURNS:
+        planes = probe.planes_for(name)
+        x_ms, t_ms = in_turns(lambda: lp.latency_probe(probe.rays, probe.boxes, planes, name, it, args.b, exact=True),
+                              lambda: lp.latency_probe(probe.rays, probe.boxes, planes, name, it, args.b))
+        bnd_t = probe_bound(probe.rays, probe.boxes, planes, name, it, args.b, tensor=True)
+        bnd_x = probe_bound(probe.rays, probe.boxes, planes, name, it, args.b)
+        turns[name] = {"ms": t_ms, "exact_ms": x_ms, "bound": bnd_t, "exact_bound": bnd_x}
+        print(f"  K6 {name} at iters {it}: exact form {x_ms:.3f} ms, tensor form {t_ms:.3f} ms (in turns exact, "
+              f"tensor, tensor, exact; {x_ms / t_ms:.2f}x); tensor bound {bnd_t[0]:.4f} ms ({bnd_t[1]}, "
+              f"{100 * bnd_t[0] / t_ms:.1f}% reached), exact bound {bnd_x[0]:.4f} ms ({bnd_x[1]}, "
+              f"{100 * bnd_x[0] / x_ms:.1f}% reached)", flush=True)
     planes = probe.planes_for("pick_dma_mm")
-    plain_ms = cuda_ms(lambda: lp.latency_probe_plain(probe.rays, probe.boxes, planes, "pick_dma_mm", iters[-1],
-                                                      args.b), reps=1)
-    bnd = probe_bound(probe.rays, probe.boxes, planes, "pick_dma_mm", iters[-1], args.b)
-    ms = full["ms_median_at"][str(iters[-1])]
-    print(f"  K6 vs plain at iters {iters[-1]}: every variant equal (max |col 0 err| {err:.3g}); pick_dma_mm "
-          f"{ms:.3f} ms (median), plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); {launches} launches",
-          flush=True)
-    results["k6"] = {"ms": ms, "plain_ms": plain_ms, "bound": bnd, "launches": launches}
+    plain_ms = cuda_ms(lambda: lp.latency_probe_plain(probe.rays, probe.boxes, planes, "pick_dma_mm", it, args.b),
+                       reps=1)
+    full = turns["pick_dma_mm"]
+    print(f"  K6 vs plain at iters {it}: every variant's exact form equal, tensor form within the sums' rounding "
+          f"(max |col 0 err| {err:.3g}); pick_dma_mm tensor {full['ms']:.3f} ms, exact {full['exact_ms']:.3f} ms, "
+          f"plain {plain_ms:.3f} ms; {launches} launches", flush=True)
+    results["k6"] = dict(full, plain_ms=plain_ms, launches=launches, exact_launches=exact_launches, turns=turns)
     results["k6_err"] = max(results["k6_err"], err)
 
 
@@ -2609,6 +3141,8 @@ def phase_6j(scene, settings, comp_accel, lanes, block, smi):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--spp", type=int, default=8, help="main-path samples per pixel (64: headline)")
+    ap.add_argument("--row-timing", type=int, default=0, metavar="ROUNDS",
+                    help="only time phase 4e's dragon8 entries, ROUNDS rounds, and print them as JSON")
     args = ap.parse_args()
 
     if not (ROOT / "owl_path_tracer_tpu_torch" / "csrc").is_dir():
@@ -2619,6 +3153,9 @@ def main():
     if not torch.cuda.is_available():
         raise SmokeFailure("no CUDA device: this smoke run needs an NVIDIA GPU")
     sys.path.insert(0, str(ROOT))
+    if args.row_timing:
+        row_timing(args.row_timing)
+        return
     from owl_path_tracer_tpu_torch.models.lights import build_light_table, sample_lights
     from owl_path_tracer_tpu_torch.models.scene import RenderSettings, compile_scene
     from owl_path_tracer_tpu_torch.native import nvcc_path
@@ -2658,7 +3195,7 @@ def main():
                 print("  ptxas:", line.strip())
         print(f"built {path.name} in {seconds:.2f} s")
     # the MXU entries (layout 1 f32, 2 bf16): the tensor-core forms hold HMMA,
-    # the CUDA-core forms (exact yardsticks, K4) none
+    # the CUDA-core forms (the exact yardsticks) none
     hmma = hmma_counts(builds[0][0])
     names = {0: "closest", 1: "any-hit", 2: "mixed"}
     for (mode_i, layout_i, attrs_i, tensor_i), count in sorted(hmma.items()):
@@ -2667,7 +3204,7 @@ def main():
             print(f"  SASS: fused2_kernel {what} {'tensor cores' if tensor_i else 'CUDA cores'}: {count} HMMA "
                   "instructions")
             check((count > 0) == bool(tensor_i), f"{what} tensor={tensor_i}: {count} HMMA")
-    for layout_i, want in ((1, 5), (2, 4)):
+    for layout_i, want in ((1, 6), (2, 4)):
         check(sum(1 for key in hmma if key[1] == layout_i) == want,
               f"expected {want} instantiations of layout {layout_i} in the SASS, got {hmma}")
     component_resources()
@@ -2916,8 +3453,17 @@ def main():
 
     # 4d ── K5 vs plain at the scan main path's shapes
     t0 = time.perf_counter()
-    fused_accel = phase_4d(scene, settings, results, sm_mhz)
+    fused_accel, big, big_wave = phase_4d(scene, settings, results, sm_mhz)
     phase("4d K5 vs plain, main-path shapes", t0)
+
+    # 4e ── fused2 above its old cluster limit; rows shared by 4 CTAs; dragon8's rows
+    t0 = time.perf_counter()
+    comp = above_old_limit(dev, results, block)
+    shared_rows(comp, results, block)
+    del comp
+    row_placement(results, big, big_wave, block)
+    del big, big_wave
+    phase("4e fused2 above the old cluster limit, frontier rows in device memory", t0)
 
     # 5d ── scan-renderer frame parity on fused
     t0 = time.perf_counter()
@@ -3000,6 +3546,8 @@ def main():
             {"_bf16_closest_hit": "bf16", "_closest_hit": "f32"}.get(f"{layout}_{mode}"), 0)
         if layout == "_bf16" and mode == "closest_hit":
             row["sharded_launches_two_ranks"] = sharded["two_ranks"]
+        if mode == "closest_hit":  # phase 4e: the frontier row in shared vs device memory, dragon8 at C=128
+            row["dragon8_row"] = results[f"row {kind}"]
         return row
 
     def component_entry(name, launches, err, r):
@@ -3047,15 +3595,28 @@ def main():
     kernels.append(component_entry("fused2_closest_hit_noattr", comp_launches["owlpt_fused2_closest_hit_noattr"],
                                    max(results["k4_err"], r["err"]), r))
     r = results["K4 mxu"]
-    kernels.append(entry("fused2_mxu_closest_hit_noattr", mxu["fused2"].get("owlpt_fused2_mxu_closest_hit_noattr", 0),
-                         max(results["k4_err"], r["err"]), r["ms"], r["plain_ms"], r["bound"]))
+    row = entry("fused2_mxu_closest_hit_noattr", mxu["fused2"].get("owlpt_fused2_mxu_closest_hit_noattr", 0),
+                max(results["k4_err"], r["err"]), r["ms"], r["plain_ms"], r["bound"])
+    row["bound_tf32_ms"], row["bound_tf32_by"] = r["bound_tf32"]
+    kernels.append(row)
+    # its exact CUDA-core form, timed in turns with it; no path launches it
+    kernels.append(entry("fused2_mxu_exact_closest_hit_noattr",
+                         mxu["fused2"].get("owlpt_fused2_mxu_exact_closest_hit_noattr", 0), r["exact"]["err"],
+                         r["exact"]["ms"], r["plain_ms"], r["bound"]))
     k5 = results["k5 centre chunk bounce"]
     kernels.append(dict(entry("fused_traverse", k5_launches, results["k5_err"], k5["ms"], k5["plain_ms"],
                               k5["bound"]), source=FUSED_SOURCE, replaces=FUSED_REPLACES))
-    # K6 runs on no render path: its launches are the probe run's (phase 4f)
+    # K6 runs on no render path: its launches are the probe run's (phase 4f),
+    # the tensor form's; the exact form is its yardstick, timed in turns
     k6 = results["k6"]
-    kernels.append(dict(entry("latency_probe", k6["launches"], results["k6_err"], k6["ms"], k6["plain_ms"],
-                              k6["bound"]), source=PROBE_SOURCE, replaces=PROBE_REPLACES))
+    row = dict(entry("latency_probe", k6["launches"], results["k6_err"], k6["ms"], k6["plain_ms"], k6["bound"]),
+               source=PROBE_SOURCE, replaces=PROBE_REPLACES)
+    row["exact_ms"], row["variants"] = k6["exact_ms"], {
+        name: {"ms": t["ms"], "exact_ms": t["exact_ms"], "bound_ms": t["bound"][0], "exact_bound_ms": t["exact_bound"][0]}
+        for name, t in k6["turns"].items()}
+    kernels.append(row)
+    kernels.append(dict(entry("latency_probe_exact", k6["exact_launches"], results["k6_err"], k6["exact_ms"],
+                              k6["plain_ms"], k6["exact_bound"]), source=PROBE_SOURCE, replaces=PROBE_REPLACES))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -31,9 +31,12 @@
 // one thread per ray):
 //   1. scene gate: the block skips everything when no ray enters the scene AABB;
 //   2. phase A: the block frontier bent[K] (nearest entry over the block's
-//      rays, per cluster) in shared memory -- each thread owns the clusters
-//      j = tid, tid + B, ... and slab-tests them against every ray, whose
-//      origin, 1/d, tmax and cap sit in shared memory;
+//      rays, per cluster) in shared memory, or in device memory where the
+//      block's bytes with the row would exceed the device's opt-in limit
+//      (the global form: any K the reference renders, as its VMEM row
+//      (1, K) does) -- each thread owns the clusters j = tid, tid + B, ...
+//      and slab-tests them against every ray, whose origin, 1/d, tmax and
+//      cap sit in shared memory;
 //   3. retirement loop (at most max_steps iterations): retire the current
 //      group of up to `fanout` clusters, pick the next group (the `fanout`
 //      nearest entries below the block's prune bound, each pick excluding the
@@ -69,9 +72,9 @@
 //
 // Arithmetic.  Component slots follow ops/intersect.py mt_components
 // operation for operation (1/det then multiply, sums left to right).  MXU
-// slots on CUDA cores (K4 and the yardstick entries
-// owlpt_fused2_mxu_exact_closest_hit, owlpt_fused2_mxu_bf16_exact_closest_hit)
-// sum feature x plane products in
+// slots on CUDA cores (the yardstick entries owlpt_fused2_mxu_exact_closest_hit,
+// owlpt_fused2_mxu_exact_closest_hit_noattr and
+// owlpt_fused2_mxu_bf16_exact_closest_hit) sum feature x plane products in
 // ascending plane-row order from each group's first non-zero row (group 0
 // rows 0-2, groups 1-2 rows 0-5, group 3 rows 6-9; the other rows are zero,
 // and adding their zero products changes no float32 sum), in float32, as
@@ -83,8 +86,9 @@
 // plain PyTorch version on every cluster both test.
 //
 // The MXU entries of the main path (closest hit, any-hit, mixed, on bf16 and
-// on f32 planes) take the feature products on the tensor cores instead
-// (TensorOps and tensor_test below):
+// on f32 planes) and K4 on f32 planes take the feature products on the
+// tensor cores instead (TensorOps and the staging in tensor_ops.cuh, shared
+// with the latency probe; tensor_test below):
 //   * each warp owns two 16-ray m-tiles; each ray's features sit in mma A
 //     fragments for the whole launch;
 //   * a ring of two cluster buffers in shared memory holds the staged
@@ -98,7 +102,9 @@
 //     lane (g, q) then holds all four sums of slots 2q, 2q+1 for rays g and
 //     g+8, so the reference's window runs on those registers with the same
 //     operations in the same order (fused2.py:616-632), each lane keeps its
-//     best (t, slot) in ascending slot order, and a quad argmin (lowest
+//     best (t, slot) in ascending slot order (K4 also the loop's u = u*det /
+//     det and v = v*det / det of it, and reads the winner's tri id from row
+//     10 of its planes once the winner is known), and a quad argmin (lowest
 //     slot on equal t) gives the ray's cluster winner; a warp whose rays are
 //     all done skips the cluster, and an m-tile whose rays are all done
 //     skips its products.
@@ -143,7 +149,7 @@
 // over-retirement, which the reference's pick rule sets.
 // MXU: 2 x 16 x 4 = 128 product
 // FLOP per ray and slot as the reference's matmul counts them, plus the
-// 28-operation window and winner chain.  On CUDA cores (K4, the exact
+// 28-operation window and winner chain.  On CUDA cores (the exact
 // yardsticks) both are fp32 work (67 TFLOP/s), the products the larger share
 // (19 non-zero multiply-add pairs, separate under --fmad=false).  On the
 // tensor cores the products run at the bf16 (989 TFLOP/s) or TF32 (495
@@ -166,17 +172,11 @@
 #include <cuda_runtime.h>
 #include <cmath>
 
+#include "tensor_ops.cuh"
+
 namespace {
 
-constexpr int kPlaneRows = 16;  // rows per cluster in planes
 constexpr int kMtRows = 10;     // component rows staged per cluster: p0 e1 e2 (9) + tri id
-// MXU rows staged per cluster: the 19 non-zero feature rows (det 3, u*det 6,
-// v*det 6, t*det 4), then the tri id (row 10 of group 0) for the no-attrs mode
-constexpr int kMxuRows = 20;
-// tensor path, bf16: plane rows 0-9 meet non-zero ray features (k 10-15 read a zero row)
-constexpr int kLiveRows = 10;
-// tensor path, f32: the 19 non-zero feature rows (staging rows 0-18 of kMxuRows)
-constexpr int kTcRows = kMxuRows - 1;
 constexpr int kMaxFanout = 4;
 constexpr int kAttrRows = 32;
 constexpr int kOutCols = 32;
@@ -185,7 +185,6 @@ constexpr float kEpsDet = 1e-12f;
 constexpr float kInf = INFINITY;
 
 enum Mode { kClosest = 0, kAnyHit = 1, kMixed = 2 };
-enum Layout { kComponent = 0, kMxuF32 = 1, kMxuBf16 = 2 };
 
 __device__ __forceinline__ float inv_dir(float dc) {
   const float safe = fabsf(dc) < 1e-12f ? (dc < 0.0f ? -1e-12f : 1e-12f) : dc;
@@ -310,15 +309,6 @@ __device__ void pick_group(const float* bent, int k, float pmax, int fanout, int
   }
 }
 
-// Plane row and column group of MXU staging row q (see kMxuRows).
-__device__ __forceinline__ void mxu_source(int q, int& row, int& group) {
-  if (q < 3) { row = q; group = 0; }
-  else if (q < 9) { row = q - 3; group = 1; }
-  else if (q < 15) { row = q - 9; group = 2; }
-  else if (q < 19) { row = q - 9; group = 3; }  // rows 6-9
-  else { row = 10; group = 0; }
-}
-
 template <int kLayout>
 __device__ __forceinline__ float plane_value(const void* planes, long long idx) {
   if (kLayout == kMxuBf16) {
@@ -332,138 +322,6 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// ── tensor path: cp.async staging, ldmatrix, mma.sync ──
-
-// Slots per column group in a staged row: C rounded up to whole 8-slot
-// n-tiles (the pad slots are zero: det = 0 fails the window).
-__host__ __device__ constexpr int tensor_cols(int c) { return (c + 7) & ~7; }
-// Bytes per staged row: four column groups, then 16 bytes of pad.
-__host__ __device__ constexpr int tensor_row_bytes(int c) { return 8 * tensor_cols(c) + 16; }
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-// wait until at most n of this thread's committed groups are in flight
-template <int n>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory"); }
-
-// Stage plane rows 0-9 of cluster cid (bf16 [16, 4C]) into one ring buffer
-// ([10][tensor_row_bytes(c)] bytes): 16-byte cp.async when each column group
-// starts on a 16-byte boundary (C a multiple of 8), else element by element
-// with the pad slots zeroed.
-__device__ void stage_bf16(unsigned char* dst, const unsigned short* __restrict__ planes, int cid, int c) {
-  const unsigned short* src = planes + static_cast<long long>(cid) * kPlaneRows * 4 * c;
-  const int rs = tensor_row_bytes(c);
-  if ((c & 7) == 0) {
-    const int chunks = c / 2;  // 16-byte chunks per row of 4C bf16
-    for (int q = threadIdx.x; q < kLiveRows * chunks; q += blockDim.x) {
-      const int row = q / chunks, ch = q - row * chunks;
-      cp_async16(dst + row * rs + ch * 16, src + row * 4 * c + ch * 8);
-    }
-  } else {
-    const int cp = tensor_cols(c);
-    for (int q = threadIdx.x; q < kLiveRows * 4 * cp; q += blockDim.x) {
-      const int row = q / (4 * cp), col = q - row * 4 * cp;
-      const int g = col / cp, slot = col - g * cp;
-      reinterpret_cast<unsigned short*>(dst + row * rs)[col] = slot < c ? src[row * 4 * c + g * c + slot] : 0;
-    }
-  }
-}
-
-// f32 planes: floats per staged row, C rounded up to whole n-tiles and then
-// padded so that rows lie 8 banks apart (stride = 8 mod 32 words): the B
-// fragment loads of a warp (rows q, columns g of an n-tile) hit 32 banks.
-__host__ __device__ constexpr int f32_row_words(int c) { return tensor_cols(c) + ((8 - tensor_cols(c)) & 31); }
-
-// Bytes of one ring buffer (one staged cluster) of the tensor path.
-template <int kLayout>
-__host__ __device__ constexpr int tensor_buffer_bytes(int c) {
-  return kLayout == kMxuBf16 ? kLiveRows * tensor_row_bytes(c) : kTcRows * f32_row_words(c) * 4;
-}
-
-// Stage the 19 non-zero feature rows of cluster cid (f32 [16, 4C], staging
-// order of mxu_source) into one ring buffer ([19][f32_row_words(c)] floats):
-// each row is a contiguous run of C floats in the planes, copied with 16-byte
-// cp.async when C is a multiple of 8, else element by element with the pad
-// slots zeroed.
-__device__ void stage_f32(unsigned char* dst, const float* __restrict__ planes, int cid, int c) {
-  const float* src = planes + static_cast<long long>(cid) * kPlaneRows * 4 * c;
-  float* d = reinterpret_cast<float*>(dst);
-  const int rw = f32_row_words(c);
-  if ((c & 7) == 0) {
-    const int chunks = c / 4;  // 16-byte chunks per row
-    for (int q = threadIdx.x; q < kTcRows * chunks; q += blockDim.x) {
-      const int srow = q / chunks, ch = q - srow * chunks;
-      int row, group;
-      mxu_source(srow, row, group);
-      cp_async16(d + srow * rw + ch * 4, src + row * 4 * c + group * c + ch * 4);
-    }
-  } else {
-    const int cp = tensor_cols(c);
-    for (int q = threadIdx.x; q < kTcRows * cp; q += blockDim.x) {
-      const int srow = q / cp, slot = q - srow * cp;
-      int row, group;
-      mxu_source(srow, row, group);
-      d[srow * rw + slot] = slot < c ? src[row * 4 * c + group * c + slot] : 0.0f;
-    }
-  }
-}
-
-template <int kLayout>
-__device__ __forceinline__ void stage_cluster(unsigned char* dst, const void* planes, int cid, int c) {
-  if constexpr (kLayout == kMxuBf16) stage_bf16(dst, static_cast<const unsigned short*>(planes), cid, c);
-  else stage_f32(dst, static_cast<const float*>(planes), cid, c);
-}
-
-// x rounded to TF32 (nearest, ties away), as fp32 bits with the low 13 bits zero.
-__device__ __forceinline__ unsigned to_tf32(float x) {
-  unsigned r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo + (a remainder below 2^-22 |x|): hi = tf32(x), lo = tf32(x - hi)
-// (x - hi is exact in fp32).
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-// d = A B + c: m16n8k8, tf32 operands, fp32 accumulate.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], unsigned a0, unsigned a1, unsigned a2, unsigned a3,
-                                         unsigned b0, unsigned b1, const float (&c)[4]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%10, %11, %12, %13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1), "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned addr, unsigned& r0, unsigned& r1, unsigned& r2,
-                                                  unsigned& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr)
-               : "memory");
-}
-
-// d = A B with a zero accumulator: m16n8k16, bf16 operands, fp32 sums.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%10, %10, %10, %10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.0f));
-}
-
-// Two bf16 values (already bf16-exact floats) in one register, lo in bits 0-15.
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  return (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xffff0000u);
-}
-
 // The MXU ray features d, m = o x d, o, 1 (reference op order).
 __device__ __forceinline__ void ray_features(float ox, float oy, float oz, float dx, float dy, float dz,
                                              float (&f)[10]) {
@@ -472,160 +330,20 @@ __device__ __forceinline__ void ray_features(float ox, float oy, float oz, float
   f[6] = ox; f[7] = oy; f[8] = oz; f[9] = 1.0f;
 }
 
-// A lane's operands of the tensor-core test: the A fragments of its warp's
-// two 16-ray m-tiles (rays 16 mt .. 16 mt + 15; built once per launch from
-// the rays' own features by shuffles), how it addresses its B fragments in a
-// staged cluster, and per 8-slot n-tile the four column-group products
-// (det, u*det, v*det, t*det; accumulator e of lane (g, q) = 4 g + q: ray
-// row g + 8 (e >> 1), slot 2 q + (e & 1) of the n-tile).
-template <int kLayout>
-struct TensorOps;
-
-// bf16 planes: per n-tile one mma.sync.m16n8k16 per column group, the ten
-// bf16 features at k 0-9 (k 10-15 zero), B from ldmatrix.x4.trans.
-template <>
-struct TensorOps<kMxuBf16> {
-  unsigned a[2][4];
-  unsigned addr_a, addr_b, step;  // ldmatrix byte offsets in a ring buffer; advance per n-tile
-  struct B {
-    unsigned d0, d1, u0, u1, v0, v1, t0, t1;
-  };
-
-  __device__ __forceinline__ void init(const float (&f)[10], int c) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-    unsigned words[5];
-#pragma unroll
-    for (int p = 0; p < 5; ++p) words[p] = pack_bf16(f[2 * p], f[2 * p + 1]);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[mt][r] = 0u;
-#pragma unroll
-      for (int p = 0; p < 5; ++p) {  // features two per register, rays in their own lanes
-        const unsigned lo = __shfl_sync(0xffffffffu, words[p], 16 * mt + g);
-        const unsigned hi = __shfl_sync(0xffffffffu, words[p], 16 * mt + g + 8);
-        if (p == q) { a[mt][0] = lo; a[mt][1] = hi; }
-        if (p == q + 4) { a[mt][2] = lo; a[mt][3] = hi; }
-      }
-    }
-    // ldmatrix.x4: lanes 8m .. 8m + 7 address matrix m = rows k = 8 (m & 1)
-    // + (lane & 7) of column group (m >> 1) (first load: det, u*det; second:
-    // v*det, t*det); rows k >= 10 read the zero row at every n-tile
-    const int kk = 8 * ((lane >> 3) & 1) + (lane & 7), grp_hi = lane >> 4;
-    addr_a = addr_b = step = 0;
-    if (kk < kLiveRows) {
-      addr_a = static_cast<unsigned>(kk * tensor_row_bytes(c) + grp_hi * tensor_cols(c) * 2);
-      addr_b = addr_a + static_cast<unsigned>(2 * tensor_cols(c) * 2);
-      step = 16;
-    }
-  }
-
-  __device__ __forceinline__ B load(const unsigned char* buf, const unsigned char* zero_row, int j) const {
-    const unsigned base = step ? smem_addr(buf) : smem_addr(zero_row);
-    B b;
-    ldmatrix_x4_trans(base + addr_a + j * step, b.d0, b.d1, b.u0, b.u1);
-    ldmatrix_x4_trans(base + addr_b + j * step, b.v0, b.v1, b.t0, b.t1);
-    return b;
-  }
-
-  __device__ __forceinline__ void sums(int mt, const B& b, float (&det)[4], float (&ua)[4], float (&vb)[4],
-                                       float (&tcd)[4]) const {
-    mma_bf16(det, a[mt], b.d0, b.d1);
-    mma_bf16(ua, a[mt], b.u0, b.u1);
-    mma_bf16(vb, a[mt], b.v0, b.v1);
-    mma_bf16(tcd, a[mt], b.t0, b.t1);
-  }
-};
-
-// f32 planes: 3xTF32.  Each operand x = hi + lo (split_tf32), and each
-// column group sums lo*hi, then hi*lo, then hi*hi (the small terms first)
-// in the fp32 accumulator, one mma.sync.m16n8k8 each: 12 per n-tile and
-// m-tile.  Each group fits one k-step: det, u*det and v*det take the
-// features d, m at k 0-5 (A1), t*det takes o, 1 at k 0-3 (A2); the staged
-// rows of each group sit at those k, and B is zero at every other k.
-template <>
-struct TensorOps<kMxuF32> {
-  unsigned a1h[2][4], a1l[2][4], a2h[2][2], a2l[2][2];
-  int rw;                                 // floats per staged row
-  int r_det, r_u0, r_u1, r_v0, r_v1, r_t;  // staged rows of B(k = q) and B(k = q + 4); -1: zero
-  struct B {
-    unsigned dh, dl, uh0, ul0, uh1, ul1, vh0, vl0, vh1, vl1, th, tl;
-  };
-
-  __device__ __forceinline__ void init(const float (&f)[10], int c) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-    unsigned h[10], l[10];
-#pragma unroll
-    for (int p = 0; p < 10; ++p) split_tf32(f[p], h[p], l[p]);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a1h[mt][r] = a1l[mt][r] = 0u;
-#pragma unroll
-      for (int p = 0; p < 10; ++p) {  // A1: features 0-5 at k 0-5; A2: features 6-9 at k 0-3
-        const unsigned xh = __shfl_sync(0xffffffffu, h[p], 16 * mt + g);
-        const unsigned yh = __shfl_sync(0xffffffffu, h[p], 16 * mt + g + 8);
-        const unsigned xl = __shfl_sync(0xffffffffu, l[p], 16 * mt + g);
-        const unsigned yl = __shfl_sync(0xffffffffu, l[p], 16 * mt + g + 8);
-        if (p == q) { a1h[mt][0] = xh; a1h[mt][1] = yh; a1l[mt][0] = xl; a1l[mt][1] = yl; }
-        if (p < 6 && p == q + 4) { a1h[mt][2] = xh; a1h[mt][3] = yh; a1l[mt][2] = xl; a1l[mt][3] = yl; }
-        if (p == q + 6) { a2h[mt][0] = xh; a2h[mt][1] = yh; a2l[mt][0] = xl; a2l[mt][1] = yl; }
-      }
-    }
-    // staging rows (mxu_source): det 0-2, u*det 3-8, v*det 9-14, t*det 15-18
-    rw = f32_row_words(c);
-    r_det = q < 3 ? q : -1;
-    r_u0 = 3 + q;
-    r_u1 = q < 2 ? 7 + q : -1;
-    r_v0 = 9 + q;
-    r_v1 = q < 2 ? 13 + q : -1;
-    r_t = 15 + q;
-  }
-
-  __device__ __forceinline__ B load(const unsigned char* buf, const unsigned char*, int j) const {
-    const float* p = reinterpret_cast<const float*>(buf) + 8 * j + ((threadIdx.x & 31) >> 2);
-    B b;
-    split_tf32(r_det >= 0 ? p[r_det * rw] : 0.0f, b.dh, b.dl);
-    split_tf32(p[r_u0 * rw], b.uh0, b.ul0);
-    split_tf32(r_u1 >= 0 ? p[r_u1 * rw] : 0.0f, b.uh1, b.ul1);
-    split_tf32(p[r_v0 * rw], b.vh0, b.vl0);
-    split_tf32(r_v1 >= 0 ? p[r_v1 * rw] : 0.0f, b.vh1, b.vl1);
-    split_tf32(p[r_t * rw], b.th, b.tl);
-    return b;
-  }
-
-  // one column group of A1 (k 0-7) or A2 (k 0-3): lo*hi + hi*lo + hi*hi
-  __device__ __forceinline__ static void group(float (&d)[4], const unsigned (&ah)[4], const unsigned (&al)[4],
-                                               unsigned bh0, unsigned bl0, unsigned bh1, unsigned bl1) {
-    const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    mma_tf32(d, al[0], al[1], al[2], al[3], bh0, bh1, zero);
-    mma_tf32(d, ah[0], ah[1], ah[2], ah[3], bl0, bl1, d);
-    mma_tf32(d, ah[0], ah[1], ah[2], ah[3], bh0, bh1, d);
-  }
-
-  __device__ __forceinline__ void sums(int mt, const B& b, float (&det)[4], float (&ua)[4], float (&vb)[4],
-                                       float (&tcd)[4]) const {
-    group(det, a1h[mt], a1l[mt], b.dh, b.dl, 0u, 0u);
-    group(ua, a1h[mt], a1l[mt], b.uh0, b.ul0, b.uh1, b.ul1);
-    group(vb, a1h[mt], a1l[mt], b.vh0, b.vl0, b.vh1, b.vl1);
-    const unsigned a2h4[4] = {a2h[mt][0], a2h[mt][1], 0u, 0u};
-    const unsigned a2l4[4] = {a2l[mt][0], a2l[mt][1], 0u, 0u};
-    group(tcd, a2h4, a2l4, b.th, b.tl, 0u, 0u);
-  }
-};
-
 // One warp's tensor-core test of one staged cluster (buf: its ring buffer).
-//   ops: the lane's operands (TensorOps above);
+//   ops: the lane's operands (TensorOps, tensor_ops.cuh);
 //   live: bit i set while warp ray i still searches; bt[mt][h]: best t of
 //   ray 16 mt + 8 h + g (lane = 4 g + q), fixed for the cluster.
 // Returns in lt / ls (closest, mixed) each of the lane's four rays' cluster
-// winner (t, slot), inf if none, reduced over the quad; in lh (any-hit) its
-// hit flag, ORed over the quad.
-template <int kMode, int kLayout>
+// winner (t, slot), inf if none, reduced over the quad, and with kLoopUV
+// (closest hit without attributes) the winner's u = u*det / det and
+// v = v*det / det in lu / lv; in lh (any-hit) its hit flag, ORed over the
+// quad.
+template <int kMode, int kLayout, bool kLoopUV>
 __device__ __forceinline__ void tensor_test(const TensorOps<kLayout>& ops, const unsigned char* buf,
                                             const unsigned char* zero_row, int ntiles, unsigned live,
                                             const float (&bt)[2][2], float (&lt)[2][2], int (&ls)[2][2],
-                                            bool (&lh)[2][2]) {
+                                            bool (&lh)[2][2], float (&lu)[2][2], float (&lv)[2][2]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
   bool sr[2][2];
 #pragma unroll
@@ -636,6 +354,7 @@ __device__ __forceinline__ void tensor_test(const TensorOps<kLayout>& ops, const
       lt[mt][h] = kInf;
       ls[mt][h] = 0;
       lh[mt][h] = false;
+      lu[mt][h] = lv[mt][h] = 0.0f;
     }
   }
   bool mt_live[2] = {(live & 0xffffu) != 0u, (live >> 16) != 0u};
@@ -661,7 +380,14 @@ __device__ __forceinline__ void tensor_test(const TensorOps<kLayout>& ops, const
           lh[mt][h] = lh[mt][h] || ok;
         } else if (ok) {
           const float t = tc / dd;
-          if (t < lt[mt][h]) { lt[mt][h] = t; ls[mt][h] = 8 * j + 2 * q + (e & 1); }
+          if (t < lt[mt][h]) {
+            lt[mt][h] = t;
+            ls[mt][h] = 8 * j + 2 * q + (e & 1);
+            if (kLoopUV) {  // the CUDA-core loop's u / dd, v / dd
+              lu[mt][h] = u / dd;
+              lv[mt][h] = v / dd;
+            }
+          }
         }
       }
     }
@@ -693,7 +419,17 @@ __device__ __forceinline__ void tensor_test(const TensorOps<kLayout>& ops, const
         for (int off = 1; off < 4; off <<= 1) {
           const float ot = __shfl_xor_sync(0xffffffffu, lt[mt][h], off);
           const int os = __shfl_xor_sync(0xffffffffu, ls[mt][h], off);
-          if (ot < lt[mt][h] || (ot == lt[mt][h] && os < ls[mt][h])) { lt[mt][h] = ot; ls[mt][h] = os; }
+          float ou = 0.0f, ov = 0.0f;
+          if (kLoopUV) {
+            ou = __shfl_xor_sync(0xffffffffu, lu[mt][h], off);
+            ov = __shfl_xor_sync(0xffffffffu, lv[mt][h], off);
+          }
+          if (ot < lt[mt][h] || (ot == lt[mt][h] && os < ls[mt][h])) {
+            lt[mt][h] = ot;
+            ls[mt][h] = os;
+            lu[mt][h] = ou;
+            lv[mt][h] = ov;
+          }
         }
       }
     }
@@ -771,39 +507,53 @@ struct PhaseClock {
   }
 };
 
-// Staged rows per cluster on CUDA cores; the MXU tri id row only for the no-attrs mode.
-template <int kMode, int kLayout, bool kAttrs>
+// Staged rows per cluster on CUDA cores.
+template <int kLayout>
 __host__ __device__ constexpr int staged_rows() {
-  return kLayout == kComponent ? kMtRows : (kMode == kClosest && !kAttrs ? kMxuRows : kMxuRows - 1);
+  return kLayout == kComponent ? kMtRows : kMxuRows;
 }
 
+// The block's frontier row bent [k] f32 lies in dynamic shared memory (the
+// shared form) wherever the block's bytes fit under the device's opt-in
+// limit, else in device memory (the global form): row blk of a scratch
+// [n / block, k] f32 that the wrapper allocates (ops/fused2.py row_form,
+// from each entry's _shared_bytes).
+// Only where the row lies differs; the arithmetic is the same.  The form is
+// a template flag of both bodies (the launch picks the instantiation), so
+// every use of the row is a shared or a global access, never a generic
+// one.  A row in device memory is read through L1 (one CTA writes and
+// reads it in fused2_kernel; slot_kernel's CTAs share it, see there).
+//
 // Dynamic shared memory of one block, in fused2_kernel's carve-up order.
-// CUDA cores: bent [k] (padded to 4), the staged cluster [rows, c] f32, the
-// ray rows [8, b], reductions [64].  Tensor cores: a ring of two clusters
-// (tensor_buffer_bytes each: bf16 [10][tensor_row_bytes(c)] bytes, f32
-// [19][f32_row_words(c)] floats), a 16-byte zero row, then bent, rays and
-// reductions as above.
-template <int kMode, int kLayout, bool kAttrs, bool kTensor>
-size_t shared_bytes(int k, int c, int b) {
-  const size_t tail = (static_cast<size_t>((k + 3) & ~3) + 8 * static_cast<size_t>(b) + 64) * sizeof(float);
+// CUDA cores: bent [k] (padded to 4; none in the global form), the staged
+// cluster [rows, c] f32, the ray rows [8, b], reductions [64].  Tensor
+// cores: a ring of two clusters (tensor_buffer_bytes each: bf16
+// [10][tensor_row_bytes(c)] bytes, f32 [19][f32_row_words(c)] floats), a
+// 16-byte zero row, then bent, rays and reductions as above.
+template <int kLayout, bool kTensor>
+size_t shared_bytes(int k, int c, int b, bool global_row) {
+  const size_t row = global_row ? 0 : static_cast<size_t>((k + 3) & ~3);
+  const size_t tail = (row + 8 * static_cast<size_t>(b) + 64) * sizeof(float);
   if (kTensor) return 2 * static_cast<size_t>(tensor_buffer_bytes<kLayout>(c)) + 16 + tail;
-  return static_cast<size_t>(staged_rows<kMode, kLayout, kAttrs>()) * c * sizeof(float) + tail;
+  return static_cast<size_t>(staged_rows<kLayout>()) * c * sizeof(float) + tail;
 }
 
-template <int kMode, int kLayout, bool kAttrs, bool kTensor, bool kProfile = false>
+template <int kMode, int kLayout, bool kAttrs, bool kTensor, bool kProfile, bool kGlobalRow>
 __global__ void fused2_kernel(
     const float* __restrict__ rays, const float* __restrict__ boxes,
     const void* __restrict__ planes, const float* __restrict__ attrs,
-    float* __restrict__ out, int k, int c, int max_steps, int refresh, int fanout,
+    float* __restrict__ out, float* __restrict__ rows, int k, int c, int max_steps, int refresh, int fanout,
     long long* __restrict__ profile) {
   constexpr bool kMxu = kLayout != kComponent;
-  static_assert(!kTensor || (kMxu && kAttrs == (kMode != kAnyHit)),
-                "the tensor-core test serves the MXU closest, any-hit and mixed entries");
+  static_assert(!kTensor || (kMxu && (kMode != kAnyHit || !kAttrs)),
+                "the tensor-core test serves the MXU entries (any-hit reads no attributes)");
+  // closest hit without attributes: the loop's t/u/v and the in-plane tri id
+  constexpr bool kLoopUV = kMode == kClosest && !kAttrs;
   static_assert(!kProfile || kLayout == kComponent, "the profile serves the component layout");
   PhaseClock<kProfile> clock;
   // the tensor-core operands of this layout (unused on CUDA cores)
   constexpr int kOpsLayout = kLayout == kMxuF32 ? kMxuF32 : kMxuBf16;
-  constexpr int kRows = staged_rows<kMode, kLayout, kAttrs>();
+  constexpr int kRows = staged_rows<kLayout>();
   extern __shared__ __align__(16) float smem[];
   const int b = blockDim.x;
   const int tid = threadIdx.x;
@@ -812,8 +562,13 @@ __global__ void fused2_kernel(
   unsigned char* ring = reinterpret_cast<unsigned char*>(smem);
   const int ring_bytes = kTensor ? tensor_buffer_bytes<kLayout>(c) : 0;  // per buffer
   unsigned char* zero_row = ring + 2 * ring_bytes;
-  float* bent = kTensor ? reinterpret_cast<float*>(zero_row + 16) : smem;  // [k], padded to a multiple of 4
-  float* s_plane = bent + ((k + 3) & ~3);  // [kRows, c], 16-byte aligned (CUDA cores)
+  float* tail = kTensor ? reinterpret_cast<float*>(zero_row + 16) : smem;
+  // the frontier row [k]: the shared form's, padded to a multiple of 4, or
+  // this block's row of the scratch in device memory (the form is a
+  // template flag, so each instantiation reads the row in one known
+  // address space)
+  float* bent = kGlobalRow ? rows + static_cast<long long>(blockIdx.x) * k : tail;
+  float* s_plane = tail + (kGlobalRow ? 0 : ((k + 3) & ~3));  // [kRows, c], 16-byte aligned (CUDA cores)
   float* s_ray = s_plane + (kTensor ? 0 : kRows * c);  // [8, b]: o, 1/d, tmax, cap
   float* red_f = s_ray + 8 * b;         // [32]
   int* red_i = reinterpret_cast<int*>(red_f + 32);  // [32]
@@ -890,7 +645,7 @@ __global__ void fused2_kernel(
     int i = 0;
     int buf = 0;  // tensor path: the ring buffer of the cluster tested next
     if (kTensor) {  // the first cluster's copy
-      if (!done) stage_cluster<kLayout>(ring, planes, grp[0], c);
+      if (!done) stage_cluster<kLayout>(ring, planes, grp[0], c, 0, c);
       cp_async_commit();
     }
     while (!done && i < max_steps) {
@@ -916,7 +671,7 @@ __global__ void fused2_kernel(
           const int nx = w + 1 < fanout && grp[w + 1] < k ? grp[w + 1] : nxt[0];
           __syncthreads();  // every warp is done with the other buffer
           if (nx < k)
-            stage_cluster<kLayout>(ring + (buf ^ 1) * ring_bytes, planes, nx, c);
+            stage_cluster<kLayout>(ring + (buf ^ 1) * ring_bytes, planes, nx, c, 0, c);
           cp_async_commit();
           cp_async_wait<1>();  // this thread's copies of cur have landed ...
           __syncthreads();     // ... and every thread's
@@ -925,14 +680,16 @@ __global__ void fused2_kernel(
             float bt[2][2], lt[2][2];
             int ls[2][2];
             bool lh[2][2];
+            float lu[2][2], lv[2][2];
 #pragma unroll
             for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
               for (int h = 0; h < 2; ++h) bt[mt][h] = __shfl_sync(0xffffffffu, best_t, 16 * mt + 8 * h + (lane >> 2));
-            tensor_test<kMode>(ops, ring + buf * ring_bytes, zero_row, tensor_cols(c) / 8, live, bt, lt, ls, lh);
+            tensor_test<kMode, kLayout, kLoopUV>(ops, ring + buf * ring_bytes, zero_row, tensor_cols(c) / 8, live,
+                                                 bt, lt, ls, lh, lu, lv);
             // this ray's answer from the quad that holds its rows (lanes 4 g .. 4 g + 3)
             const int src = 4 * (lane & 7), my_mt = lane >> 4, my_h = (lane >> 3) & 1;
-            float tc = kInf;
+            float tc = kInf, tu = 0.0f, tv = 0.0f;
             int wcol = 0;
             bool any = false;
 #pragma unroll
@@ -942,13 +699,18 @@ __global__ void fused2_kernel(
                 const float ot = __shfl_sync(0xffffffffu, lt[mt][h], src);
                 const int os = __shfl_sync(0xffffffffu, ls[mt][h], src);
                 const bool oh = __shfl_sync(0xffffffffu, lh[mt][h], src);
-                if (mt == my_mt && h == my_h) { tc = ot; wcol = os; any = oh; }
+                float ou = 0.0f, ov = 0.0f;
+                if (kLoopUV) {
+                  ou = __shfl_sync(0xffffffffu, lu[mt][h], src);
+                  ov = __shfl_sync(0xffffffffu, lv[mt][h], src);
+                }
+                if (mt == my_mt && h == my_h) { tc = ot; wcol = os; any = oh; tu = ou; tv = ov; }
               }
             }
             if (kMode == kAnyHit) {
               hit = hit || any;
             } else if (tc < best_t) {
-              best_t = tc;
+              best_t = tc; best_u = tu; best_v = tv;
               hit = true; wcid = cur; wslot = wcol;
             }
           }
@@ -1033,7 +795,7 @@ __global__ void fused2_kernel(
           if (kMode != kAnyHit && tc < best_t) {
             best_t = tc; best_u = tu; best_v = tv;
             hit = true; wcid = cur; wslot = wcol;
-            if (!kAttrs) best_tri = s_plane[(kMxu ? kMxuRows - 1 : 9) * c + wcol];
+            if (!kAttrs && !kMxu) best_tri = s_plane[9 * c + wcol];
           }
         }
         __syncthreads();  // s_plane is restaged next
@@ -1073,7 +835,10 @@ __global__ void fused2_kernel(
                   a[23 * c], a[24 * c], a[25 * c], kTMin, kInf, t3, u3, v3, det3);
     if (fabsf(det3) > 1e-12f) { t_out = t3; u_out = u3; v_out = v3; }
   } else {
-    if (kMode == kClosest && hit) tri = best_tri;  // no-attrs mode: the in-plane tri id
+    // no-attrs mode: the in-plane tri id (MXU planes: row 10 of group 0)
+    if (kMode == kClosest && hit)
+      tri = kMxu ? plane_value<kLayout>(planes, (static_cast<long long>(wcid) * kPlaneRows + 10) * 4 * c + wslot)
+                 : best_tri;
 #pragma unroll
     for (int row = 0; row < 16; ++row) o[16 + row] = 0.0f;
   }
@@ -1123,14 +888,16 @@ __host__ __device__ constexpr int slot_span(int c, int mode) {
 // order: a ring of two clusters' plane rows 0-9 over the CTA's slots
 // ([2][10][slot_span(c, mode)] f32), the test's ray rows [b] float4 x 2 (o, dx |
 // dy, dz, best t, shadow flag), the combine keys [b] u64 and the combined
-// keys [b] u64, bent [k] (padded to 4), the frontier's ray rows [8, b],
+// keys [b] u64, bent [k] (padded to 4; none in the global form, where the
+// block's row lies in device memory), the frontier's ray rows [8, b],
 // hit / winner cluster / winner slot / any-hit flag / searching list [b]
 // int each, 32 segment counts and the list length (36 ints), reductions
 // [64].
-size_t slot_shared_bytes(int k, int c, int b, int mode) {
+size_t slot_shared_bytes(int k, int c, int b, int mode, bool global_row) {
+  const size_t row = global_row ? 0 : static_cast<size_t>((k + 3) & ~3);
   return 4 * 2 * static_cast<size_t>(kMtRows) * slot_span(c, mode) + 16 * 2 * static_cast<size_t>(b) +
          8 * 2 * static_cast<size_t>(b) +
-         4 * (static_cast<size_t>((k + 3) & ~3) + 8 * static_cast<size_t>(b) + 5 * static_cast<size_t>(b) + 36 + 64);
+         4 * (row + 8 * static_cast<size_t>(b) + 5 * static_cast<size_t>(b) + 36 + 64);
 }
 
 // 4-byte cp.async; src_bytes 0 fills the destination with zeros
@@ -1272,8 +1039,21 @@ __global__ void order_blocks(const int* __restrict__ entered, int* __restrict__ 
 // through distributed shared memory.  Except for any-hit, the scene gate and
 // the first frontier come from frontier_kernel, and the clusters take their
 // blocks in order_blocks' order (`order`, `bent0`, `entered`; any-hit runs
-// both itself, in launch order).  A
-// cluster's test: each warp owns one 32-slot chunk of its CTA's slots and a
+// both itself, in launch order).  The global form (kGlobalRow: the block's
+// bytes with the row in shared memory exceed the device's opt-in limit)
+// keeps one frontier row per block of rays in device memory, row blk of
+// bent0 [blocks, k] (the ordered modes' first frontiers, worked on in
+// place; any-hit's scratch), shared by the cluster's CTAs: each writes its
+// share of a refresh, and after the cluster barrier every CTA reads the
+// whole row, with no exchange.  cluster.sync() is barrier.cluster.arrive
+// (release) and .wait (acquire) at cluster scope, which orders the CTAs'
+// device-memory writes before the other CTAs' reads of them as it orders
+// their shared-memory ones.  Every CTA retires the current cluster in the
+// row itself (each writes the same inf before its own next pick), so no CTA
+// may retire one before every CTA has made the pick that it retires: a
+// cluster barrier follows the first pick, and every later pick comes
+// before the key combine's barrier of its iteration, which the next
+// retirement follows.  A cluster's test: each warp owns one 32-slot chunk of its CTA's slots and a
 // share of the rays (several warps share a chunk and split the rays); the
 // CTA's plane rows are staged by cp.async into a two-cluster ring while the
 // previous cluster is tested.  Per (ray, warp): mt_components on the warp's
@@ -1288,11 +1068,11 @@ __global__ void order_blocks(const int* __restrict__ entered, int* __restrict__ 
 // same winners (best t, winner, hit), takes a mixed-mode shadow lane with a
 // hit to t_min, and rebuilds the list of rays still searching (best t above
 // t_min, any-hit lanes without a hit): a done ray is skipped by whole warps.
-template <int kMode, bool kAttrs, bool kProfile>
+template <int kMode, bool kAttrs, bool kProfile, bool kGlobalRow>
 __global__ void __launch_bounds__(kSlotThreads, 2)
 slot_kernel(const float* __restrict__ rays, const float* __restrict__ boxes, const float* __restrict__ planes,
             const float* __restrict__ attrs, float* __restrict__ out, const int* __restrict__ order,
-            const float* __restrict__ bent0, const int* __restrict__ entered, int k, int c, int b, int max_steps,
+            float* __restrict__ bent0, const int* __restrict__ entered, int k, int c, int b, int max_steps,
             int refresh, long long* __restrict__ profile) {
   PhaseClock<kProfile> clock;
   namespace cg = cooperative_groups;
@@ -1308,8 +1088,16 @@ slot_kernel(const float* __restrict__ rays, const float* __restrict__ boxes, con
   float4* s_tb = s_ta + b;                                               // [b] dy dz best_t shadow
   unsigned long long* s_key = reinterpret_cast<unsigned long long*>(s_tb + b);  // [b] this CTA's
   unsigned long long* s_all = s_key + b;                                         // [b] the cluster's
-  float* bent = reinterpret_cast<float*>(s_all + b);  // [k], padded to a multiple of 4
-  float* s_ray = bent + ((k + 3) & ~3);               // [8, b]: o, 1/d, tmax, cap (frontier_update)
+  float* const tail = reinterpret_cast<float*>(s_all + b);
+  constexpr unsigned long long kNoKey = ~0ull;
+  constexpr bool kOrdered = ordered_blocks(kMode);
+  // this cluster's block of rays: heavy blocks first (order_blocks)
+  const int blk = kOrdered ? order[blockIdx.x / ctas] : blockIdx.x / ctas;
+  const long long base = static_cast<long long>(blk) * b;
+  // the frontier row [k]: this CTA's in shared memory (padded to a multiple
+  // of 4), or the block's in device memory, shared by the cluster's CTAs
+  float* bent = kGlobalRow ? bent0 + static_cast<long long>(blk) * k : tail;
+  float* s_ray = tail + (kGlobalRow ? 0 : ((k + 3) & ~3));  // [8, b]: o, 1/d, tmax, cap (frontier_update)
   int* s_hit = reinterpret_cast<int*>(s_ray + 8 * b);
   int* s_wcid = s_hit + b;
   int* s_wslot = s_wcid + b;
@@ -1318,11 +1106,6 @@ slot_kernel(const float* __restrict__ rays, const float* __restrict__ boxes, con
   int* s_cnt = s_list + b;    // [36]: per 32-ray segment counts; [32] the list length
   float* red_f = reinterpret_cast<float*>(s_cnt + 36);
   int* red_i = reinterpret_cast<int*>(red_f + 32);
-  constexpr unsigned long long kNoKey = ~0ull;
-  constexpr bool kOrdered = ordered_blocks(kMode);
-  // this cluster's block of rays: heavy blocks first (order_blocks)
-  const int blk = kOrdered ? order[blockIdx.x / ctas] : blockIdx.x / ctas;
-  const long long base = static_cast<long long>(blk) * b;
 
   for (int r = tid; r < b; r += nt) {
     const float* rr = rays + (base + r) * 8;
@@ -1337,9 +1120,10 @@ slot_kernel(const float* __restrict__ rays, const float* __restrict__ boxes, con
     load_ray_rows(s_ray, rr, b, r);
   }
   __syncthreads();
-  // the scene gate and the first frontier: frontier_kernel's, or here
+  // the scene gate and the first frontier: frontier_kernel's (the global
+  // form works on its row in place), or here
   const bool scene_live = kOrdered ? entered[blk] >= 0 : scene_gate(boxes, k, s_ray, b, red_f);
-  if (kOrdered && scene_live) {
+  if (kOrdered && scene_live && !kGlobalRow) {
     const float* src = bent0 + static_cast<long long>(blk) * k;
     for (int j = tid; j < k; j += nt) bent[j] = src[j];
   }
@@ -1399,17 +1183,20 @@ slot_kernel(const float* __restrict__ rays, const float* __restrict__ boxes, con
   const int s0 = rank * span;  // this CTA's first slot
 
   // the frontier pass, each CTA over its share of the clusters, then every
-  // CTA reads the others' shares (bent is the same in every CTA after it)
+  // CTA reads the others' shares (bent is the same in every CTA after it);
+  // in the global form the shares are already in the one row
   auto frontier = [&](bool first) {
     frontier_update(bent, boxes, k, s_ray, b, first, f0, f1);
     if (ctas > 1) {
       cg::cluster_group cluster = cg::this_cluster();
-      cluster.sync();
-      for (int j = tid; j < k; j += nt) {
-        const int owner = j / kshare;
-        if (owner != rank) bent[j] = cluster.map_shared_rank(bent, owner)[j];
+      cluster.sync();  // every CTA's share is written (global form: and visible to every CTA)
+      if (!kGlobalRow) {
+        for (int j = tid; j < k; j += nt) {
+          const int owner = j / kshare;
+          if (owner != rank) bent[j] = cluster.map_shared_rank(bent, owner)[j];
+        }
+        cluster.sync();  // no CTA reads another's shares any more
       }
-      cluster.sync();  // no CTA reads another's shares any more
     }
   };
 
@@ -1423,6 +1210,9 @@ slot_kernel(const float* __restrict__ rays, const float* __restrict__ boxes, con
     build_list();
     int cur;
     pick_group(bent, k, block_bound(), 1, &cur, red_f, red_i);
+    // the global form: no CTA retires cur in the shared row (below) before
+    // every CTA has picked it
+    if (ctas > 1 && kGlobalRow) cg::this_cluster().sync();
     bool done = cur >= k;
     if (!done) stage_slots(ring, planes, cur, c, s0, span);
     cp_async_commit();
@@ -1597,7 +1387,7 @@ __global__ void tf32_sums_kernel(const float* __restrict__ rays, const float* __
   ray_features(r[0], r[1], r[2], r[3], r[4], r[5], f);
   TensorOps<kMxuF32> ops;
   ops.init(f, c);
-  stage_f32(buf, planes, cids[blockIdx.x], c);
+  stage_f32(buf, planes, cids[blockIdx.x], c, 0, c);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -1619,25 +1409,28 @@ __global__ void tf32_sums_kernel(const float* __restrict__ rays, const float* __
   }
 }
 
+// The serial body (fused2_kernel) on `stream`; `rows` (null: the shared
+// form) is the global form's scratch [n / block, k] f32.
 template <int kMode, int kLayout, bool kAttrs, bool kTensor, bool kProfile = false>
 int launch(const float* rays, const float* boxes, const void* planes, const float* attrs,
-           float* out, long long n, int k, int c, int block, int max_steps, int refresh,
+           float* out, float* rows, long long n, int k, int c, int block, int max_steps, int refresh,
            int fanout, void* stream, long long* profile = nullptr) {
   constexpr bool kMxu = kLayout != kComponent;
   if (n <= 0 || block < 32 || block > 1024 || (block & 31) || n % block || k <= 0 ||
       c <= 0 || refresh <= 0 || n / block > 0x7fffffffLL || fanout < 1 || fanout > kMaxFanout ||
       (!kMxu && fanout != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = shared_bytes<kMode, kLayout, kAttrs, kTensor>(k, c, block);
-  const auto kernel = fused2_kernel<kMode, kLayout, kAttrs, kTensor, kProfile>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const size_t smem = shared_bytes<kLayout, kTensor>(k, c, block, rows != nullptr);
+  const auto kernel = rows ? fused2_kernel<kMode, kLayout, kAttrs, kTensor, kProfile, true>
+                           : fused2_kernel<kMode, kLayout, kAttrs, kTensor, kProfile, false>;
+  // every launch sets its own bytes: a resource query or a launch at
+  // another K may have left the attribute below them
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
   const unsigned grid = static_cast<unsigned>(n / block);
   kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      rays, boxes, planes, attrs, out, k, c, max_steps, refresh, fanout, profile);
+      rays, boxes, planes, attrs, out, rows, k, c, max_steps, refresh, fanout, profile);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1646,22 +1439,24 @@ int launch(const float* rays, const float* boxes, const void* planes, const floa
 // [n / block, k] f32 and entered [n / block] int32), the blocks' order
 // (order_blocks, into order [n / block] int32), then the traversal, each
 // block of `block` rays a thread block cluster of slot_ctas(c, mode) CTAs
-// of kSlotThreads threads.
+// of kSlotThreads threads.  global_row: the blocks' frontier rows are
+// bent0's (any-hit: a scratch [n / block, k] f32 that only the traversal
+// writes).
 template <int kMode, bool kAttrs, bool kProfile = false>
 int launch_slot(const float* rays, const float* boxes, const void* planes, const float* attrs,
                 float* out, int* order, float* bent0, int* entered, long long n, int k, int c, int block,
-                int max_steps, int refresh, int fanout, void* stream, long long* profile = nullptr) {
+                int max_steps, int refresh, int fanout, int global_row, void* stream, long long* profile = nullptr) {
   const int ctas = slot_ctas(c, kMode);
   if (n <= 0 || block < 32 || block > 1024 || (block & 31) || n % block || k <= 0 ||
-      c <= 0 || refresh <= 0 || n / block * ctas > 0x7fffffffLL || fanout != 1)
+      c <= 0 || refresh <= 0 || n / block * ctas > 0x7fffffffLL || fanout != 1 || (global_row && !bent0))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = slot_shared_bytes(k, c, block, kMode);
-  const auto kernel = slot_kernel<kMode, kAttrs, kProfile>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const size_t smem = slot_shared_bytes(k, c, block, kMode, global_row != 0);
+  const auto kernel =
+      global_row ? slot_kernel<kMode, kAttrs, kProfile, true> : slot_kernel<kMode, kAttrs, kProfile, false>;
+  // every launch sets its own bytes (see launch)
+  const cudaError_t set = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (set != cudaSuccess) return static_cast<int>(set);
   const int blocks = static_cast<int>(n / block);
   const auto st = static_cast<cudaStream_t>(stream);
   if (ordered_blocks(kMode)) {
@@ -1685,8 +1480,8 @@ int launch_slot(const float* rays, const float* boxes, const void* planes, const
   cfg.numAttrs = 1;
   const cudaError_t e =
       cudaLaunchKernelEx(&cfg, kernel, rays, boxes, static_cast<const float*>(planes), attrs, out,
-                         static_cast<const int*>(order), static_cast<const float*>(bent0),
-                         static_cast<const int*>(entered), k, c, block, max_steps, refresh, profile);
+                         static_cast<const int*>(order), bent0, static_cast<const int*>(entered), k, c, block,
+                         max_steps, refresh, profile);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
@@ -1707,26 +1502,30 @@ int kernel_resources(Kernel kernel, int threads, size_t smem, int* out) {
 }
 
 template <int kMode, int kLayout, bool kAttrs, bool kTensor>
-int resources(int k, int c, int block, int* out) {
-  return kernel_resources(fused2_kernel<kMode, kLayout, kAttrs, kTensor>, block,
-                          shared_bytes<kMode, kLayout, kAttrs, kTensor>(k, c, block), out);
+int resources(int k, int c, int block, int global_row, int* out) {
+  return kernel_resources(global_row ? fused2_kernel<kMode, kLayout, kAttrs, kTensor, false, true>
+                                    : fused2_kernel<kMode, kLayout, kAttrs, kTensor, false, false>,
+                          block, shared_bytes<kLayout, kTensor>(k, c, block, global_row != 0), out);
 }
 
 template <int kMode, bool kAttrs>
-int resources_slot(int k, int c, int block, int* out) {
-  return kernel_resources(slot_kernel<kMode, kAttrs, false>, kSlotThreads, slot_shared_bytes(k, c, block, kMode),
-                          out);
+int resources_slot(int k, int c, int block, int global_row, int* out) {
+  return kernel_resources(
+      global_row ? slot_kernel<kMode, kAttrs, false, true> : slot_kernel<kMode, kAttrs, false, false>, kSlotThreads,
+      slot_shared_bytes(k, c, block, kMode, global_row != 0), out);
 }
 
-// The profile entry's instantiation of (mode, attrs, serial body or not).
+// The profile entry's instantiation of (mode, attrs, serial body or not);
+// global_row: the serial body takes bent0 as its rows scratch.
 template <int kMode, bool kAttrs>
 int launch_profile(bool serial, const float* rays, const float* boxes, const void* planes, const float* attrs,
                    float* out, int* order, float* bent0, int* entered, long long n, int k, int c, int block,
-                   int max_steps, int refresh, long long* profile, void* stream) {
-  return serial ? launch<kMode, kComponent, kAttrs, false, true>(rays, boxes, planes, attrs, out, n, k, c, block,
+                   int max_steps, int refresh, int global_row, long long* profile, void* stream) {
+  return serial ? launch<kMode, kComponent, kAttrs, false, true>(rays, boxes, planes, attrs, out,
+                                                                 global_row ? bent0 : nullptr, n, k, c, block,
                                                                  max_steps, refresh, 1, stream, profile)
                 : launch_slot<kMode, kAttrs, true>(rays, boxes, planes, attrs, out, order, bent0, entered, n, k, c,
-                                                   block, max_steps, refresh, 1, stream, profile);
+                                                   block, max_steps, refresh, 1, global_row, stream, profile);
 }
 
 }  // namespace
@@ -1745,6 +1544,14 @@ extern "C" int owlpt_fused2_mxu_tf32_sums(const float* rays, const float* planes
   return static_cast<int>(cudaGetLastError());
 }
 
+// The device's opt-in shared memory per block, in bytes; -1 if it cannot be
+// read.  Above it a block keeps its frontier row in device memory.
+extern "C" int owlpt_fused2_smem_limit(int device) {
+  int limit = 0;
+  if (cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) != cudaSuccess) return -1;
+  return limit;
+}
+
 // Launch shape of the slot-parallel component entries at C slots in mode
 // `mode` (0 closest, 1 any-hit, 2 mixed): threads per CTA -> out[0], CTAs
 // per block of rays (the thread block cluster) -> out[1], whether the
@@ -1760,51 +1567,65 @@ extern "C" void owlpt_fused2_slot_shape(int c, int mode, int* out) {
 // Diagnostic (no render path): a component entry with clock64 phase times
 // per block of rays -> profile [N / block, kProfileCols] (int64;
 // PhaseClock).  mode 0 closest, 1 any-hit, 2 mixed; with_attrs 0 only with
-// closest (K4); serial 1 runs the serial body (the yardstick; order, bent0
-// and entered unused), 0 the slot-parallel one (its scratch as for
-// launch_slot; the profile's setup phase then counts the copy of the first
-// frontier, not frontier_kernel).
+// closest (K4); serial 1 runs the serial body (the yardstick; order and
+// entered unused, bent0 its rows scratch in the global form), 0 the
+// slot-parallel one (its scratch as for launch_slot; the profile's setup
+// phase then counts the copy of the first frontier, not frontier_kernel);
+// global_row 1 the global form.
 extern "C" int owlpt_fused2_profile(const float* rays, const float* boxes, const void* planes, const float* attrs,
                                     float* out, int* order, float* bent0, int* entered, long long n, int k, int c,
                                     int block, int max_steps, int refresh, int mode, int with_attrs, int serial,
-                                    long long* profile, void* stream) {
+                                    int global_row, long long* profile, void* stream) {
   const bool s = serial != 0;
   if (mode == kClosest && with_attrs)
     return launch_profile<kClosest, true>(s, rays, boxes, planes, attrs, out, order, bent0, entered, n, k, c, block,
-                                          max_steps, refresh, profile, stream);
+                                          max_steps, refresh, global_row, profile, stream);
   if (mode == kClosest)
     return launch_profile<kClosest, false>(s, rays, boxes, planes, attrs, out, order, bent0, entered, n, k, c,
-                                           block, max_steps, refresh, profile, stream);
+                                           block, max_steps, refresh, global_row, profile, stream);
   if (mode == kAnyHit && !with_attrs)
     return launch_profile<kAnyHit, false>(s, rays, boxes, planes, attrs, out, order, bent0, entered, n, k, c, block,
-                                          max_steps, refresh, profile, stream);
+                                          max_steps, refresh, global_row, profile, stream);
   if (mode == kMixed && with_attrs)
     return launch_profile<kMixed, true>(s, rays, boxes, planes, attrs, out, order, bent0, entered, n, k, c, block,
-                                        max_steps, refresh, profile, stream);
+                                        max_steps, refresh, global_row, profile, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-#define OWLPT_FUSED2_ENTRY(name, mode, layout, with_attrs, tensor)                            \
-  extern "C" int name(const float* rays, const float* boxes, const void* planes,              \
-                      const float* attrs, float* out, long long n, int k, int c, int block,    \
-                      int max_steps, int refresh, int fanout, void* stream) {                  \
-    return launch<mode, layout, with_attrs, tensor>(rays, boxes, planes, attrs, out, n, k, c,  \
-                                                    block, max_steps, refresh, fanout, stream); \
-  }                                                                                            \
-  extern "C" int name##_resources(int k, int c, int block, int* out) {                         \
-    return resources<mode, layout, with_attrs, tensor>(k, c, block, out);                      \
+// The entries of the serial body (fused2_kernel): rows is the global form's
+// scratch [n / block, k] f32, null for the shared form; the slot-parallel
+// entries take the scratch of launch_slot and the form as global_row.  Each
+// entry's _resources(k, c, block, global_row, out) reports the form asked
+// for, and _shared_bytes(k, c, block, global_row) the dynamic shared memory
+// one block (one CTA) of that form needs: the wrapper picks the form by it.
+#define OWLPT_FUSED2_ENTRY(name, mode, layout, with_attrs, tensor)                                \
+  extern "C" int name(const float* rays, const float* boxes, const void* planes,                  \
+                      const float* attrs, float* out, float* rows, long long n, int k, int c,      \
+                      int block, int max_steps, int refresh, int fanout, void* stream) {           \
+    return launch<mode, layout, with_attrs, tensor>(rays, boxes, planes, attrs, out, rows, n, k, c, \
+                                                    block, max_steps, refresh, fanout, stream);     \
+  }                                                                                                \
+  extern "C" int name##_resources(int k, int c, int block, int global_row, int* out) {             \
+    return resources<mode, layout, with_attrs, tensor>(k, c, block, global_row, out);              \
+  }                                                                                                \
+  extern "C" long long name##_shared_bytes(int k, int c, int block, int global_row) {              \
+    return static_cast<long long>(shared_bytes<layout, tensor>(k, c, block, global_row != 0));     \
   }
 
 #define OWLPT_FUSED2_SLOT_ENTRY(name, mode, with_attrs)                                             \
   extern "C" int name(const float* rays, const float* boxes, const void* planes,                   \
                       const float* attrs, float* out, int* order, float* bent0, int* entered,       \
                       long long n, int k, int c, int block, int max_steps, int refresh, int fanout, \
-                      void* stream) {                                                               \
+                      int global_row, void* stream) {                                               \
     return launch_slot<mode, with_attrs>(rays, boxes, planes, attrs, out, order, bent0, entered, n, \
-                                         k, c, block, max_steps, refresh, fanout, stream);          \
+                                         k, c, block, max_steps, refresh, fanout, global_row,       \
+                                         stream);                                                   \
   }                                                                                                 \
-  extern "C" int name##_resources(int k, int c, int block, int* out) {                              \
-    return resources_slot<mode, with_attrs>(k, c, block, out);                                      \
+  extern "C" int name##_resources(int k, int c, int block, int global_row, int* out) {              \
+    return resources_slot<mode, with_attrs>(k, c, block, global_row, out);                          \
+  }                                                                                                 \
+  extern "C" long long name##_shared_bytes(int k, int c, int block, int global_row) {               \
+    return static_cast<long long>(slot_shared_bytes(k, c, block, mode, global_row != 0));           \
   }
 
 // component layout, the slot-parallel body: K1, K2, K3, K4
@@ -1817,15 +1638,16 @@ OWLPT_FUSED2_SLOT_ENTRY(owlpt_fused2_closest_hit_noattr, kClosest, false)
 // witnesses; no render path calls them
 OWLPT_FUSED2_ENTRY(owlpt_fused2_serial_closest_hit, kClosest, kComponent, true, false)
 OWLPT_FUSED2_ENTRY(owlpt_fused2_serial_sweep_mixed, kMixed, kComponent, true, false)
-// MXU layout, f32 planes: K1b in its three modes on the tensor cores
-// (3xTF32), closest hit on CUDA cores in the plain version's arithmetic (the
-// in-call speed yardstick and bit-exact witness of the tensor form), and K4
-// on CUDA cores
+// MXU layout, f32 planes: K1b in its three modes and K4 (closest hit without
+// attributes) on the tensor cores (3xTF32), and closest hit with and
+// without attributes on CUDA cores in the plain version's arithmetic (the
+// in-call speed yardsticks and bit-exact witnesses of the tensor forms)
 OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_closest_hit, kClosest, kMxuF32, true, true)
 OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_occluded, kAnyHit, kMxuF32, false, true)
 OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_sweep_mixed, kMixed, kMxuF32, true, true)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_closest_hit_noattr, kClosest, kMxuF32, false, true)
 OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_exact_closest_hit, kClosest, kMxuF32, true, false)
-OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_closest_hit_noattr, kClosest, kMxuF32, false, false)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_exact_closest_hit_noattr, kClosest, kMxuF32, false, false)
 // MXU layout, bf16 planes: K1b in its three modes on the tensor cores, and
 // closest hit on CUDA cores in the plain version's arithmetic (the in-call
 // speed yardstick and bit-exact witness of the tensor form)

@@ -19,39 +19,57 @@
 //              barriers), then the cluster is retired (set to inf); an
 //              all-inf row keeps picking cluster 0, as the reference does.
 //              Without pick the cluster is (i*P + p) % K.
-//     copy     the cluster's 16 x 4C plane elements into the chain's
-//              shared-memory buffer with 16-byte cp.async.cg, then
-//              cp.async.wait_group + __syncthreads (the counterpart of
-//              make_async_copy(...).start(); .wait()).  All P chains'
-//              first tiles are issued together after the picks, so chain p
-//              waits only for its own group.
-//     product  each thread multiplies its ray's 16 features into the 4C
-//              columns, summing the 16 products in ascending row order
-//              without FMA (built with --fmad=false), then the MXU layout's
-//              window (det sign flips, t in (t_min, best t)) and the best-t
-//              update; `recip` takes rcp.approx.ftz for the reference's
-//              pl.reciprocal(approx=True), else IEEE division.
+//     copy     the cluster's plane rows into the chain's shared-memory
+//              buffer with 16-byte cp.async.cg, then cp.async.wait_group +
+//              __syncthreads (the counterpart of make_async_copy(...).start();
+//              .wait()).  All P chains' first tiles are issued together after
+//              the picks, so chain p waits only for its own group.
+//     product  each ray's features times the 4C columns, then the MXU
+//              layout's window (det sign flips, t in (t_min, best t)) and the
+//              best-t update on CUDA cores; `recip` takes rcp.approx.ftz for
+//              the reference's pl.reciprocal(approx=True), else IEEE division.
 //   Chain p's window uses the best t left by chain p-1, as the reference.
 //   Without any stage the loop runs an empty volatile body: its slope is
 //   the loop-control floor.
 //
-// Design.  One chain's whole cluster is 16 x 4C x 4 B = 128 KB of float32
-// at C = 512 (64 KB bf16), against 227 KB of shared memory per block on an
-// H100; the TPU's VMEM had room for P of them.  The buffers hold column
-// tiles of `tile` slots (chosen by the wrapper so that P buffers fit:
+// Two forms of the copy and product stages, one entry each:
+//   tensor (owlpt_latency_probe, the form tools/latency_probe.py times):
+//     the stages K1b's tensor-core form runs (fused2_traverse.cu, through
+//     tensor_ops.cuh): the copy stages what K1b stages, plane rows 0-9 of
+//     4C bf16 or the 19 non-zero f32 feature rows, into the chain's buffer
+//     (stage_cluster), and the product is TensorOps' mma.sync on the
+//     tensor cores (bf16 products; f32 planes as 3xTF32), each warp's 32
+//     rays two 16-ray m-tiles, the window on the accumulator registers and
+//     a quad minimum.  Variants without a product stage run the CUDA-core
+//     form's kernel (the forms differ only where the product is on).
+//   exact (owlpt_latency_probe_exact, latency_probe(..., exact=True)): the
+//     whole [16, 4C] cluster copied, and each thread multiplies its ray's 16
+//     features into the 4C columns on CUDA cores, summing the 16 products in
+//     ascending row order without FMA (built with --fmad=false): the plain
+//     version's arithmetic bit for bit, the yardstick of the tensor form.
+// The tensor cores sum in their own order and rounding, so the tensor
+// form's best t may differ from the plain version's by the sums' rounding
+// bound (chip_smoke.py compare_probe_tensor holds it there).
+//
+// Design.  The exact form's whole cluster is 16 x 4C x 4 B = 128 KB of
+// float32 at C = 512 (64 KB bf16), the tensor form's staging about 40 KB,
+// against 227 KB of shared memory per block on an H100; the TPU's VMEM had
+// room for P of them.  The buffers hold column tiles of `tile` slots of
+// each column group (chosen by the wrapper so that P buffers fit:
 // ops/latency_probe.py tile_cols, shared_bytes below): a chain copies and
 // tests tile after tile, the whole cluster every iteration, keeping the
 // window at the best t it started with and the minimum over its slots, so
-// the tiling changes no result.  Products read four consecutive slots per
-// 16-byte shared load.
+// the tiling changes no result.  The exact form's products read four
+// consecutive slots per 16-byte shared load.
 //
-// Bound, per block and iteration of a chain: the product's 2 x 10 x 4C
-// FLOP per ray that can change the result (feature rows 10-15 are zeros,
-// multiplied all the same, as the reference's [B,16] product does; CUDA
-// cores: 67 TFLOP/s fp32; without FMA each product is two instructions),
-// the window chain's operations per slot, and the copy's 16 x 4C elements
-// (from HBM or L2); the product bounds it.  No tensor cores: the probe
-// measures the loop the traversal kernels run.
+// Bound, per block and iteration of a chain: the product's FLOP per ray and
+// slot (exact form: 2 x 10 live features x 4 groups at the fp32 CUDA-core
+// peak, 67 TFLOP/s; feature rows 10-15 are zeros, multiplied all the same,
+// as the reference's [B,16] product does; tensor form: 2 x 16 x 4 at the
+// bf16 tensor rate, or three TF32 products each at the TF32 rate), the
+// 28-operation window chain per slot at the fp32 peak, and the copy's
+// bytes (from HBM or L2).  On CUDA cores the product bounds it; on the
+// tensor cores the window does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,6 +79,8 @@
 #include <cstdint>
 #include <type_traits>
 #include <utility>
+
+#include "tensor_ops.cuh"
 
 namespace {
 
@@ -95,15 +115,6 @@ __device__ __forceinline__ float rcp_approx(float x) {
   return r;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
 // wait until at most n of this thread's most recent groups are pending
 // (wait_group takes an immediate; above 7, wait for all)
 __device__ __forceinline__ void cp_async_wait_pending(int n) {
@@ -125,9 +136,17 @@ __device__ __forceinline__ void cp_async_wait_pending(int n) {
 __host__ __device__ size_t head_floats(int k, int chains, int b) {
   return (static_cast<size_t>(chains) * k + 10 * static_cast<size_t>(b) + 64 + 3) & ~static_cast<size_t>(3);
 }
-size_t shared_bytes(int k, int chains, int b, int tile, int elem_bytes) {
-  return 4 * head_floats(k, chains, b) +
-         static_cast<size_t>(chains) * kRows * kGroups * tile * elem_bytes;
+// Bytes of one chain's buffer of `tile` slots per column group: the exact
+// form's [16][4][tile] plane elements, the tensor form's staging
+// (tensor_buffer_bytes: bf16 [10][8 tile + 16] bytes, f32 [19][row words]).
+__host__ __device__ size_t buffer_bytes(int tile, int elem_bytes, bool tensor) {
+  if (tensor) return elem_bytes == 2 ? tensor_buffer_bytes<kMxuBf16>(tile) : tensor_buffer_bytes<kMxuF32>(tile);
+  return static_cast<size_t>(kRows) * kGroups * tile * elem_bytes;
+}
+// The head, P buffers and, in the tensor form, a 16-byte zero row (bf16
+// ldmatrix reads k 10-15 from it).
+size_t shared_bytes(int k, int chains, int b, int tile, int elem_bytes, bool tensor) {
+  return 4 * head_floats(k, chains, b) + chains * buffer_bytes(tile, elem_bytes, tensor) + (tensor ? 16 : 0);
 }
 
 // Block-wide (value, id) minimum of row[0:k], lowest id among equal values;
@@ -232,19 +251,88 @@ __device__ __forceinline__ float test_tile(const float (&f)[kRows], const T* buf
   return tc;
 }
 
-template <bool PICK, bool COPY, bool MM, bool BF16, bool RECIP>
+// One tile of one chain on the tensor cores (the tensor form): the warp's
+// feature products with the staged tile (TensorOps), the window at each
+// ray's best_in on the accumulator registers, and the minimum t over the
+// tile's slots, reduced over the quad -> this lane's own ray's minimum.
+template <int kLayout, bool RECIP>
+__device__ __forceinline__ float tensor_tile(const TensorOps<kLayout>& ops, const unsigned char* buf,
+                                             const unsigned char* zero_row, int tile, float best_in) {
+  const int lane = threadIdx.x & 31, g = lane >> 2;
+  float bt[2][2], lt[2][2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      bt[mt][h] = __shfl_sync(0xffffffffu, best_in, 16 * mt + 8 * h + g);
+      lt[mt][h] = kInf;
+    }
+  }
+  for (int j = 0; j < tensor_cols(tile) / 8; ++j) {
+    const auto bf = ops.load(buf, zero_row, j);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      float det[4], ua[4], vb[4], tcd[4];
+      ops.sums(mt, bf, det, ua, vb, tcd);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // accumulator e: ray row g + 8 (e >> 1) of the m-tile
+        const int h = e >> 1;
+        const float sgn = det[e] < 0.0f ? -1.0f : 1.0f;
+        const float dd = det[e] * sgn, u = ua[e] * sgn, v = vb[e] * sgn, tc = tcd[e] * sgn;
+        const bool ok = dd >= 1e-12f && u >= 0.0f && v >= 0.0f && u + v <= dd && tc > dd * kTMin &&
+                        tc < dd * bt[mt][h];
+        const float dd_safe = dd < 1e-12f ? 1.0f : dd;
+        if (ok) lt[mt][h] = fminf(lt[mt][h], RECIP ? tc * rcp_approx(dd_safe) : tc / dd_safe);
+      }
+    }
+  }
+  // the quad's minimum, then this lane's ray from the quad that holds it (lanes 4 g' .. 4 g' + 3)
+  const int src = 4 * (lane & 7), my_mt = lane >> 4, my_h = (lane >> 3) & 1;
+  float mine = kInf;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v = lt[mt][h];
+      v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+      v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+      const float o = __shfl_sync(0xffffffffu, v, src);
+      if (mt == my_mt && h == my_h) mine = o;
+    }
+  }
+  return mine;
+}
+
+// Issue one chain's copy of columns [t0, t0 + tile) of cluster cid: the
+// exact form's [16][4][tile] elements, the tensor form's staging; one
+// cp.async group.
+template <typename T, bool TENSOR>
+__device__ __forceinline__ void issue(unsigned char* buf, const T* planes, int cid, int c, int t0, int tile) {
+  if constexpr (TENSOR) {
+    stage_cluster<sizeof(T) == 2 ? kMxuBf16 : kMxuF32>(buf, planes, cid, c, t0, tile);
+    cp_async_commit();
+  } else {
+    issue_tile<T>(reinterpret_cast<T*>(buf), planes, cid, c, t0, tile);
+  }
+}
+
+template <bool PICK, bool COPY, bool MM, bool BF16, bool RECIP, bool TENSOR>
 __global__ void probe_kernel(const float* __restrict__ rays, const float* __restrict__ boxes,
                              const void* __restrict__ planes_raw, float* __restrict__ out, int k, int c,
                              int trips, int chains, int tile) {
+  static_assert(!TENSOR || MM, "the tensor form differs from the exact one only in the product stage");
   using T = typename std::conditional<BF16, __nv_bfloat16, float>::type;
+  constexpr int kLayout = BF16 ? kMxuBf16 : kMxuF32;
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockDim.x, tid = threadIdx.x;
   float* s_bent = reinterpret_cast<float*>(smem);  // [chains, k]
   float* s_ray = s_bent + chains * k;              // [10, b]
   float* red_v = s_ray + 10 * b;                   // [32]
   int* red_i = reinterpret_cast<int*>(red_v + 32);  // [32]
-  T* s_buf = reinterpret_cast<T*>(smem + 4 * head_floats(k, chains, b));  // [chains][16][4][tile]
-  const size_t buf_elems = static_cast<size_t>(kRows) * kGroups * tile;
+  // the chains' buffers (exact: [16][4][tile] elements; tensor: the staging), then the tensor form's zero row
+  unsigned char* s_buf = smem + 4 * head_floats(k, chains, b);
+  const size_t buf_bytes = buffer_bytes(tile, sizeof(T), TENSOR);
+  unsigned char* zero_row = s_buf + chains * buf_bytes;
   const T* planes = static_cast<const T*>(planes_raw);
 
   const long long row = static_cast<long long>(blockIdx.x) * b + tid;
@@ -266,9 +354,16 @@ __global__ void probe_kernel(const float* __restrict__ rays, const float* __rest
 #pragma unroll
     for (int r = 0; r < 10; ++r) f[r] = __bfloat162float(__float2bfloat16_rn(f[r]));
   }
+  // tensor form: this lane's A fragments (its warp's rays) and B addressing in a buffer of `tile` slots
+  TensorOps<kLayout> ops;
+  if constexpr (TENSOR) {
+    const float f10[10] = {f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8], f[9]};
+    ops.init(f10, tile);
+    if (tid < 4) reinterpret_cast<unsigned*>(zero_row)[tid] = 0u;
+  }
   if (MM && !COPY) {  // the buffers nothing fills read as zeros
     unsigned* words = reinterpret_cast<unsigned*>(s_buf);
-    for (size_t q = tid; q < chains * buf_elems * sizeof(T) / 4; q += b) words[q] = 0u;
+    for (size_t q = tid; q < chains * buf_bytes / 4; q += b) words[q] = 0u;
   }
   __syncthreads();
 
@@ -309,24 +404,25 @@ __global__ void probe_kernel(const float* __restrict__ rays, const float* __rest
                       : static_cast<int>((static_cast<long long>(i) * chains + p) % k);
       }
       if (COPY) {
-        for (int p = 0; p < chains; ++p) issue_tile<T>(s_buf + p * buf_elems, planes, cid[p], c, 0, tile);
+        for (int p = 0; p < chains; ++p) issue<T, TENSOR>(s_buf + p * buf_bytes, planes, cid[p], c, 0, tile);
       }
       for (int p = 0; p < chains; ++p) {
         const float best_in = best;
         float tc = kInf;
-        T* buf = s_buf + p * buf_elems;
+        unsigned char* buf = s_buf + p * buf_bytes;
         for (int t0 = 0; t0 < c; t0 += tile) {
           if (COPY) {
             if (t0 == 0) {
               cp_async_wait_pending(chains - 1 - p);  // groups of the later chains may still be in flight
             } else {
               __syncthreads();  // the previous tile is read
-              issue_tile<T>(buf, planes, cid[p], c, t0, tile);
+              issue<T, TENSOR>(buf, planes, cid[p], c, t0, tile);
               cp_async_wait<0>();
             }
             __syncthreads();
           }
-          if (MM) tc = fminf(tc, test_tile<T, RECIP>(f, buf, tile, best_in));
+          if constexpr (TENSOR) tc = fminf(tc, tensor_tile<kLayout, RECIP>(ops, buf, zero_row, tile, best_in));
+          else if (MM) tc = fminf(tc, test_tile<T, RECIP>(f, reinterpret_cast<const T*>(buf), tile, best_in));
         }
         if (MM && tc < best) best = tc;
       }
@@ -350,9 +446,10 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int F>
+template <int F, bool TENSOR>
 cudaError_t launch(const Args& a) {
-  auto kernel = probe_kernel<(F & 1) != 0, (F & 2) != 0, (F & 4) != 0, (F & 8) != 0, (F & 16) != 0>;
+  auto kernel =
+      probe_kernel<(F & 1) != 0, (F & 2) != 0, (F & 4) != 0, (F & 8) != 0, (F & 16) != 0, TENSOR>;
   if (a.smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(a.smem));
@@ -363,12 +460,37 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
+// The tensor form's kernel of flags F: its own where the product stage is
+// on (flags & 4), the CUDA-core one elsewhere (no product: the forms agree).
+template <int F>
+constexpr auto tensor_launcher() {
+  if constexpr ((F & 4) != 0) return &launch<F, true>;
+  else return &launch<F, false>;
+}
+
 using Launcher = cudaError_t (*)(const Args&);
 template <int... F>
-constexpr std::array<Launcher, sizeof...(F)> launchers(std::integer_sequence<int, F...>) {
-  return {&launch<F>...};
+constexpr std::array<Launcher, sizeof...(F)> exact_launchers(std::integer_sequence<int, F...>) {
+  return {&launch<F, false>...};
 }
-constexpr auto kLaunchers = launchers(std::make_integer_sequence<int, 32>{});
+template <int... F>
+constexpr std::array<Launcher, sizeof...(F)> tensor_launchers(std::integer_sequence<int, F...>) {
+  return {tensor_launcher<F>()...};
+}
+constexpr auto kExactLaunchers = exact_launchers(std::make_integer_sequence<int, 32>{});
+constexpr auto kTensorLaunchers = tensor_launchers(std::make_integer_sequence<int, 32>{});
+
+int run(const float* rays, const float* boxes, const void* planes, float* out, long long n, int block, int k,
+        int c, int trips, int chains, int tile, int flags, bool tensor, void* stream) {
+  if (n <= 0 || block < 32 || block > 1024 || (block & 31) || n % block || n / block > 0x7fffffffLL || k <= 0 ||
+      c <= 0 || c % 8 || tile <= 0 || tile % 8 || c % tile || trips < 0 || chains < 1 || chains > kMaxChains ||
+      flags < 0 || flags > 31)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool t = tensor && (flags & 4);
+  Args a{rays, boxes, planes, out, static_cast<unsigned>(n / block), block, k, c, trips, chains, tile,
+         shared_bytes(k, chains, block, tile, (flags & 8) ? 2 : 4, t), static_cast<cudaStream_t>(stream)};
+  return static_cast<int>((t ? kTensorLaunchers : kExactLaunchers)[flags](a));
+}
 
 }  // namespace
 
@@ -379,19 +501,23 @@ extern "C" int owlpt_latency_probe_smem_limit(int device) {
   return limit;
 }
 
-extern "C" long long owlpt_latency_probe_shared_bytes(int k, int chains, int block, int tile, int elem_bytes) {
-  return static_cast<long long>(shared_bytes(k, chains, block, tile, elem_bytes));
+// tensor: the tensor form's bytes (its staging and zero row).
+extern "C" long long owlpt_latency_probe_shared_bytes(int k, int chains, int block, int tile, int elem_bytes,
+                                                      int tensor) {
+  return static_cast<long long>(shared_bytes(k, chains, block, tile, elem_bytes, tensor != 0));
 }
 
 // flags: 1 pick, 2 copy, 4 product, 8 bf16 planes, 16 approximate reciprocal.
+// The tensor form (the product on the tensor cores, K1b's staging).
 extern "C" int owlpt_latency_probe(const float* rays, const float* boxes, const void* planes, float* out,
                                    long long n, int block, int k, int c, int trips, int chains, int tile,
                                    int flags, void* stream) {
-  if (n <= 0 || block < 32 || block > 1024 || (block & 31) || n % block || n / block > 0x7fffffffLL || k <= 0 ||
-      c <= 0 || c % 8 || tile <= 0 || tile % 8 || c % tile || trips < 0 || chains < 1 || chains > kMaxChains ||
-      flags < 0 || flags > 31)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Args a{rays, boxes, planes, out, static_cast<unsigned>(n / block), block, k, c, trips, chains, tile,
-         shared_bytes(k, chains, block, tile, (flags & 8) ? 2 : 4), static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(kLaunchers[flags](a));
+  return run(rays, boxes, planes, out, n, block, k, c, trips, chains, tile, flags, true, stream);
+}
+
+// The exact form: the plain version's CUDA-core arithmetic (the yardstick).
+extern "C" int owlpt_latency_probe_exact(const float* rays, const float* boxes, const void* planes, float* out,
+                                         long long n, int block, int k, int c, int trips, int chains, int tile,
+                                         int flags, void* stream) {
+  return run(rays, boxes, planes, out, n, block, k, c, trips, chains, tile, flags, false, stream);
 }

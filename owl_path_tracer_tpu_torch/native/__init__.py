@@ -11,6 +11,8 @@ bound through ctypes with a plain C interface.
   break the comparison silently.
 * CUDA sources under ``csrc/`` compile with ``nvcc`` for ``sm_90a``
   (:func:`build_cuda_library`); that happens only where a kernel launches.
+  A library is rebuilt when a source or a header it includes
+  (``depends``, e.g. ``csrc/tensor_ops.cuh``) is newer than it.
 """
 from __future__ import annotations
 
@@ -51,13 +53,15 @@ class FlatBVH(NamedTuple):
     tri_order: np.ndarray  # [T] i32
 
 
-def _compile(cmd_head, sources, out: pathlib.Path, flags) -> str:
-    """Compile ``sources`` into ``out`` unless it is newer than every source.
+def _compile(cmd_head, sources, out: pathlib.Path, flags, depends=()) -> str:
+    """Compile ``sources`` into ``out`` unless it is newer than every source
+    and every file in ``depends`` (headers the sources include).
 
     Writes to a per-process temporary name and renames, so concurrent test
     workers never load a half-written library.  Returns the compiler log.
     """
-    if out.exists() and all(out.stat().st_mtime >= pathlib.Path(s).stat().st_mtime for s in sources):
+    inputs = [*sources, *depends]
+    if out.exists() and all(out.stat().st_mtime >= pathlib.Path(s).stat().st_mtime for s in inputs):
         return ""
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -161,33 +165,34 @@ def nvcc_path() -> str:
     return str(pathlib.Path(home) / "bin" / "nvcc")
 
 
-def bind_resources(lib, entry: str):
-    """Declare ``lib``'s ``<entry>_resources(k, c, block, int out[3])``, the
-    query every kernel source exports next to its entry."""
+def bind_resources(lib, entry: str, extra: int = 0):
+    """Declare ``lib``'s ``<entry>_resources(k, c, block, [extra ints,] int
+    out[3])``, the query every kernel source exports next to its entry."""
     fn = getattr(lib, f"{entry}_resources")
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * (3 + extra) + [ctypes.POINTER(ctypes.c_int)]
 
 
-def kernel_resources(lib, entry: str, k: int, c: int, block: int) -> dict:
+def kernel_resources(lib, entry: str, k: int, c: int, block: int, *extra: int) -> dict:
     """Registers per thread, dynamic shared bytes per block and resident
     blocks per SM of ``entry`` at K clusters of C slots and ``block`` rays
-    on the current CUDA device, as the kernel source counts and the CUDA
-    runtime reports them."""
+    (and the entry's ``extra`` arguments) on the current CUDA device, as the
+    kernel source counts and the CUDA runtime reports them."""
     out = (ctypes.c_int * 3)()
-    err = getattr(lib, f"{entry}_resources")(k, c, block, out)
+    err = getattr(lib, f"{entry}_resources")(k, c, block, *extra, out)
     if err != 0:
         raise RuntimeError(f"kernel {entry}: resource query failed: CUDA error {err}")
     return {"entry": entry, "registers": out[0], "shared_bytes": out[1], "blocks_per_sm": out[2]}
 
 
-def build_cuda_library(name: str, sources) -> tuple:
-    """nvcc ``sources`` (paths under csrc/) into ``build/lib{name}.so``.
+def build_cuda_library(name: str, sources, depends=()) -> tuple:
+    """nvcc ``sources`` (paths under csrc/) into ``build/lib{name}.so``,
+    again whenever a source or a header in ``depends`` is newer than it.
 
     Returns (path, seconds, compiler log); the log carries ``-Xptxas -v``'s
     register and shared-memory report when the library was (re)built.
     """
     out = BUILD_DIR / f"lib{name}.so"
     t0 = time.perf_counter()
-    log = _compile([nvcc_path()], [pathlib.Path(s) for s in sources], out, NVCC_FLAGS)
+    log = _compile([nvcc_path()], [pathlib.Path(s) for s in sources], out, NVCC_FLAGS, depends)
     return out, time.perf_counter() - t0, log

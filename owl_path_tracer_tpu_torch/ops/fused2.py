@@ -29,13 +29,19 @@ off every render path.  :func:`fused2_traverse_profile` (the profile entry)
 splits either body's time per block by clock64.  On the MXU layout the
 three modes take the feature products on the tensor cores (bf16 planes:
 bf16 products; f32 planes: 3xTF32, each operand split into two TF32
-terms), whose sums may differ from the plain version's by a few ulps of
-the summed magnitudes
+terms), and so does closest hit without attributes (K4) on f32 planes;
+their sums may differ from the plain version's by a few ulps of the summed
+magnitudes
 (:func:`mxu_slot_sums` gives the plain sums and their magnitudes,
 :func:`mxu_tensor_sums` the f32 tensor-core ones on the card);
-``exact=True`` runs closest hit on CUDA cores in the plain version's
-arithmetic instead (the in-call yardstick of the tensor form, off every
-render path).  :func:`fused2_traverse_packed` launches
+``exact=True`` runs closest hit (with or without attributes) on CUDA cores
+in the plain version's arithmetic instead (the in-call yardstick of the
+tensor form, off every render path).  A block keeps its frontier row
+``[K]`` in shared memory where the block's bytes fit under the device's
+opt-in limit and lose no block per SM by it, else in device memory
+(:func:`row_form`), so the kernels take
+any K the reference takes; what cannot launch at all raises a ValueError
+that names K, C, the block and the bytes.  :func:`fused2_traverse_packed` launches
 it for CUDA tensors and raises if it cannot; for CPU tensors it takes the
 plain version, :func:`fused2_traverse_packed_plain` (an exact per-ray walk
 over the clusters in entry order, same [N,32] output contract).  Rays a
@@ -99,6 +105,8 @@ PLAIN_CHUNK = 16384
 PLAIN_MXU_CHUNK = 2048
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "fused2_traverse.cu"
+# the tensor-core staging and products, shared with the latency probe
+TENSOR_OPS = CSRC.with_name("tensor_ops.cuh")
 
 MODES = ("closest", "any_hit", "mixed")
 # kernel entry points in the kernel library, by (layout, mode, with_attrs):
@@ -117,8 +125,10 @@ _ENTRY = {
     ("mxu_f32", "any_hit", False): "owlpt_fused2_mxu_occluded",
     ("mxu_f32", "mixed", True): "owlpt_fused2_mxu_sweep_mixed",
     ("mxu_f32", "closest", False): "owlpt_fused2_mxu_closest_hit_noattr",
-    # f32 closest hit on CUDA cores, bit-exact to the plain version (exact=True)
+    # f32 closest hit with and without attributes on CUDA cores, bit-exact
+    # to the plain version (exact=True)
     ("mxu_f32_exact", "closest", True): "owlpt_fused2_mxu_exact_closest_hit",
+    ("mxu_f32_exact", "closest", False): "owlpt_fused2_mxu_exact_closest_hit_noattr",
     ("mxu_bf16", "closest", True): "owlpt_fused2_mxu_bf16_closest_hit",
     ("mxu_bf16", "any_hit", False): "owlpt_fused2_mxu_bf16_occluded",
     ("mxu_bf16", "mixed", True): "owlpt_fused2_mxu_bf16_sweep_mixed",
@@ -145,6 +155,11 @@ PROFILE_COLS = ("setup", "pick", "stage", "test", "payload", "total", "steps")
 # per CTA, CTAs per block of rays, and whether the blocks are ordered (the
 # entry then takes scratch)
 SHAPE_ENTRY = "owlpt_fused2_slot_shape"
+# the device's opt-in shared memory per block
+LIMIT_ENTRY = "owlpt_fused2_smem_limit"
+# where a block keeps its frontier row [K] f32 (csrc shared_bytes): in shared
+# memory, or in a scratch in device memory
+ROW_FORMS = ("shared", "global")
 
 # launches of the CUDA kernel, by entry point (one per call that ran it)
 LAUNCHES = dict.fromkeys([*_ENTRY.values(), PROFILE_ENTRY], 0)
@@ -500,7 +515,8 @@ def _check_mode(mode: str, fb: Fused2BVH, with_attrs: bool = True):
 def _entry(fb: Fused2BVH, mode: str, with_attrs: bool, exact: bool = False, serial: bool = False) -> str:
     """Kernel entry point of a layout and mode (any-hit reads no attributes,
     mixed always does); ``exact`` picks the CUDA-core form of MXU closest
-    hit, ``serial`` the serial body of component closest hit or mixed."""
+    hit (with attributes, or without on f32 planes), ``serial`` the serial
+    body of component closest hit or mixed."""
     attrs = mode == "mixed" or (mode == "closest" and with_attrs)
     if serial:
         if fb.mxu or exact or (mode, attrs) not in (("closest", True), ("mixed", True)):
@@ -508,10 +524,11 @@ def _entry(fb: Fused2BVH, mode: str, with_attrs: bool, exact: bool = False, seri
                              f"component planes; got layout {fb.layout}, mode {mode!r}, with_attrs={with_attrs}")
         return _ENTRY[("component_serial", mode, attrs)]
     if exact:
-        if not fb.mxu or (mode, attrs) != ("closest", True):
-            raise ValueError("exact=True is the CUDA-core form of closest hit with attributes on MXU planes; "
-                             f"got layout {fb.layout}, mode {mode!r}, with_attrs={with_attrs}")
-        return _ENTRY[(f"{fb.layout}_exact", mode, attrs)]
+        key = (f"{fb.layout}_exact", mode, attrs)
+        if key not in _ENTRY:
+            raise ValueError("exact=True is the CUDA-core form of closest hit on MXU planes (without attributes: "
+                             f"f32 planes); got layout {fb.layout}, mode {mode!r}, with_attrs={with_attrs}")
+        return _ENTRY[key]
     return _ENTRY[(fb.layout, mode, attrs)]
 
 
@@ -690,42 +707,141 @@ def fused2_traverse_packed_plain(rays, fb: Fused2BVH, mode: str = "closest", wit
     return out
 
 
+# ── shared memory and the frontier row ────────────────────────────────────
+
+def _sized_entry(fb: Fused2BVH, mode: str, with_attrs: bool, exact: bool, serial: bool) -> str:
+    """The entry whose counts stand for a launch of ``fb``'s layout and
+    ``mode``; with ``serial`` the serial body's, in any mode (the profile
+    entry runs it in every mode)."""
+    return _ENTRY[("component_serial", "closest", True)] if serial else _entry(fb, mode, with_attrs, exact)
+
+
+def block_bytes(fb: Fused2BVH, mode: str, block: int, with_attrs: bool = True, exact: bool = False,
+                serial: bool = False, global_row: bool = False) -> int:
+    """Dynamic shared memory of one block (one CTA of the slot-parallel
+    body) of the entry that ``fb``'s layout and ``mode`` launch at ``fb``'s
+    K, with the frontier row in shared memory or (``global_row``) in device
+    memory, as the kernel library counts it (``<entry>_shared_bytes``)."""
+    name = _sized_entry(fb, mode, with_attrs, exact, serial)
+    if _cuda_lib is None:
+        build_kernels()
+    return getattr(_cuda_lib, f"{name}_shared_bytes")(fb.num_clusters, fb.cluster_size, block, int(global_row))
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(name: str, k: int, c: int, block: int, global_row: bool, index: int) -> int:
+    with torch.cuda.device(index):
+        return _kernel_resources(_cuda_lib, name, k, c, block, int(global_row))["blocks_per_sm"]
+
+
+def pick_row_form(what: str, k: int, c: int, block: int, nbytes: dict, limit: int, force: str | None = None,
+                  blocks: dict | None = None) -> str:
+    """Where a block of ``what`` keeps its frontier row at K clusters of C
+    slots: "shared" wherever its bytes with the row in shared memory
+    (``nbytes["shared"]``) fit under ``limit`` (the device's opt-in shared
+    memory per block) and, given ``blocks`` (the blocks per SM of each
+    form), the shared form keeps as many blocks per SM as the other; else
+    "global" (a scratch [N / block, K] f32 in device memory;
+    ``nbytes["global"]``).  ``force`` asks for one form (the card tests'
+    private path).  Raises ValueError naming K, C, the block, the bytes and
+    the limit where the form cannot launch, before any launch."""
+    if force is not None and force not in ROW_FORMS:
+        raise ValueError(f"row form {force!r}; expected one of {ROW_FORMS}")
+    forms = (force,) if force else ROW_FORMS
+    if force is None and blocks is not None and blocks["global"] > blocks["shared"]:
+        forms = ("global",)
+    for form in forms:
+        if nbytes[form] <= limit:
+            return form
+    raise ValueError(
+        f"fused2 {what} at K={k} clusters of C={c}, block {block}: {nbytes[form]} bytes of shared memory per block "
+        f"with the frontier row in {'shared' if form == 'shared' else 'device'} memory, above the device's limit "
+        f"of {limit} bytes")
+
+
+def row_form(fb: Fused2BVH, mode: str, block: int, device, with_attrs: bool = True, exact: bool = False,
+             serial: bool = False, force: str | None = None) -> str:
+    """:func:`pick_row_form` for the entry of ``fb``'s layout and ``mode``
+    at ``fb``'s K on the CUDA ``device``, from the kernel library's byte
+    counts of both forms and, where both fit, the blocks per SM the CUDA
+    runtime gives each (the f32 tensor-core entries, for one, need fewer
+    registers with the row in device memory and keep twice the blocks)."""
+    index = device if isinstance(device, int) else torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    limit = _smem_limit(index)
+    nbytes = {form: block_bytes(fb, mode, block, with_attrs, exact, serial, form == "global") for form in ROW_FORMS}
+    blocks = None
+    if force is None and nbytes["shared"] <= limit:
+        name = _sized_entry(fb, mode, with_attrs, exact, serial)
+        blocks = {form: _blocks_per_sm(name, fb.num_clusters, fb.cluster_size, block, form == "global", index)
+                  for form in ROW_FORMS}
+    what = f"{fb.layout} {mode}{' exact' if exact else ''}{' serial' if serial else ''}"
+    return pick_row_form(what, fb.num_clusters, fb.cluster_size, block, nbytes, limit, force, blocks)
+
+
+def smem_limit(device) -> int:
+    """The opt-in shared memory per block of a CUDA ``device``, in bytes."""
+    device = torch.device(device)
+    return _smem_limit(torch.cuda.current_device() if device.index is None else device.index)
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_limit(index: int) -> int:
+    if _cuda_lib is None:
+        build_kernels()
+    limit = getattr(_cuda_lib, LIMIT_ENTRY)(index)
+    if limit < 0:
+        raise RuntimeError(f"cannot read the shared-memory limit of cuda:{index}")
+    return limit
+
+
 def build_kernels() -> tuple:
     """Build (if needed) and load the kernel library -> (path, seconds, log)."""
     global _cuda_lib
-    path, seconds, log = build_cuda_library("owlpt_fused2", [CSRC])
+    path, seconds, log = build_cuda_library("owlpt_fused2", [CSRC], depends=[TENSOR_OPS])
     if _cuda_lib is None:
         lib = ctypes.CDLL(str(path))
         for name in _ENTRY.values():
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
-            scratch = [ctypes.c_void_p] * 3 if name in _SLOT_ENTRIES else []
-            fn.argtypes = [ctypes.c_void_p] * 5 + scratch + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-            bind_resources(lib, name)
+            # slot-parallel: order, bent0, entered ... global_row; serial body: rows
+            slot = name in _SLOT_ENTRIES
+            scratch = [ctypes.c_void_p] * (3 if slot else 1)
+            fn.argtypes = ([ctypes.c_void_p] * 5 + scratch + [ctypes.c_longlong] + [ctypes.c_int] * (7 if slot else 6)
+                           + [ctypes.c_void_p])
+            bind_resources(lib, name, extra=1)
+            fn = getattr(lib, f"{name}_shared_bytes")
+            fn.restype = ctypes.c_longlong
+            fn.argtypes = [ctypes.c_int] * 4
         fn = getattr(lib, SUMS_ENTRY)
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
         fn = getattr(lib, PROFILE_ENTRY)
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2
         fn = getattr(lib, SHAPE_ENTRY)
         fn.restype = None
         fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn = getattr(lib, LIMIT_ENTRY)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int]
         _cuda_lib = lib
     return path, seconds, log
 
 
 def kernel_resources(fb: Fused2BVH, mode: str = "closest", block: int = BLOCK_RAYS, with_attrs: bool = True,
-                     exact: bool = False, serial: bool = False) -> dict:
+                     exact: bool = False, serial: bool = False, row: str | None = None) -> dict:
     """Registers, shared bytes and blocks per SM (``native.kernel_resources``),
-    threads per CTA and CTAs per block of rays of the entry that ``fb``'s
-    layout and ``mode`` launch for blocks of ``block`` rays, on the current
-    CUDA device."""
+    threads per CTA, CTAs per block of rays and the frontier row's form
+    ("row") of the entry that ``fb``'s layout and ``mode`` launch for blocks
+    of ``block`` rays on the current CUDA device, in the form that launches
+    (:func:`row_form`; ``row`` asks for one)."""
     name = _entry(fb, mode, with_attrs, exact, serial)
     if _cuda_lib is None:
         build_kernels()
-    res = _kernel_resources(_cuda_lib, name, fb.num_clusters, fb.cluster_size, block)
-    res["threads"], res["ctas"] = block, 1
+    form = row_form(fb, mode, block, torch.cuda.current_device(), with_attrs, exact, serial, row)
+    res = _kernel_resources(_cuda_lib, name, fb.num_clusters, fb.cluster_size, block, int(form == "global"))
+    res["threads"], res["ctas"], res["row"] = block, 1, form
     if not fb.mxu and not serial:  # the slot-parallel body
         res["threads"], res["ctas"], _ = _slot_shape(fb.cluster_size, mode)
     return res
@@ -753,10 +869,12 @@ def _check_operand(name, x, shape, device, dtype=torch.float32):
 
 def _fused2_traverse_cuda(rays, fb: Fused2BVH, block: int, max_steps: int, mode: str = "closest",
                           fanout: int = FANOUT, with_attrs: bool = True, exact: bool = False, serial: bool = False,
-                          profile: bool = False):
+                          profile: bool = False, row: str | None = None):
     """Launch the kernel entry of ``fb``'s layout and ``mode`` on the current
     stream -> [N,32] (no sync); with ``profile`` the profile entry instead
-    (component layout) -> ([N,32], [N/block, PROFILE_COLS] int64)."""
+    (component layout) -> ([N,32], [N/block, PROFILE_COLS] int64).  The
+    frontier rows take :func:`row_form`'s form, or ``row``'s (checks of the
+    global form at small K)."""
     _check_mode(mode, fb, with_attrs)
     if profile:
         if fb.mxu or exact:
@@ -783,24 +901,36 @@ def _fused2_traverse_cuda(rays, fb: Fused2BVH, block: int, max_steps: int, mode:
         return (out, prof) if profile else out
     if _cuda_lib is None:
         build_kernels()
+    # before any launch: the form of the frontier rows, or a ValueError
+    glob = row_form(fb, mode, block, rays.device, with_attrs, exact, serial, row) == "global"
+    blocks = n // block
     args = (rays.data_ptr(), fb.boxes.data_ptr(), fb.planes.data_ptr(), fb.attrs.data_ptr(), out.data_ptr())
     if profile or name in _SLOT_ENTRIES:
         # the slot-parallel body's scratch where it orders the blocks: first
-        # frontiers bent0 [blocks, K] f32, then the order and the entered
-        # counts [blocks] int32 each, in one allocation; else null pointers
+        # frontiers bent0 [blocks, K] f32 (the global form's rows too), then
+        # the order and the entered counts [blocks] int32 each, in one
+        # allocation; the global form's rows alone where it does not order
+        # them (any-hit; the profile entry's serial body); else null pointers
         ptrs = (None, None, None)
         if not serial and _slot_shape(c, mode)[2]:
-            blocks = n // block
             scratch = torch.empty(blocks * (k + 2), dtype=torch.float32, device=rays.device)
             base = scratch.data_ptr()
             ptrs = (base + 4 * blocks * k, base, base + 4 * blocks * (k + 1))  # order, bent0, entered
+        elif glob:
+            scratch = torch.empty(blocks * k, dtype=torch.float32, device=rays.device)
+            ptrs = (None, scratch.data_ptr(), None)
         args += ptrs
+    else:  # the serial body: the global form's rows [blocks, K] f32, else a null pointer
+        scratch = torch.empty(blocks * k, dtype=torch.float32, device=rays.device) if glob else None
+        args += (None if scratch is None else scratch.data_ptr(),)
     args += (n, k, c, block, max_steps, REFRESH_CLUSTERS)
     with torch.cuda.device(rays.device):
         stream = torch.cuda.current_stream().cuda_stream
         if profile:
-            err = getattr(_cuda_lib, name)(*args, MODES.index(mode), int(with_attrs), int(serial), prof.data_ptr(),
-                                           stream)
+            err = getattr(_cuda_lib, name)(*args, MODES.index(mode), int(with_attrs), int(serial), int(glob),
+                                           prof.data_ptr(), stream)
+        elif name in _SLOT_ENTRIES:
+            err = getattr(_cuda_lib, name)(*args, fanout, int(glob), stream)
         else:
             err = getattr(_cuda_lib, name)(*args, fanout, stream)
     if err != 0:
@@ -851,8 +981,8 @@ def fused2_traverse_packed(rays, fb: Fused2BVH, block: int = BLOCK_RAYS, max_ste
     ``fanout`` (clusters retired per loop iteration, MXU layout only) does
     not change the answers; ``with_attrs=False`` is closest hit without
     attributes (K4); ``exact=True`` (MXU planes, closest hit with
-    attributes) launches the CUDA-core form of the kernel instead of the
-    tensor-core one; ``serial=True`` (component planes, closest hit with
+    attributes, or without on f32 planes) launches the CUDA-core form of
+    the kernel instead of the tensor-core one; ``serial=True`` (component planes, closest hit with
     attributes or mixed) launches the serial body (one thread per ray)
     instead of the slot-parallel one, with the same outputs."""
     rays = rays.detach()  # no kernel has a backward pass; the plain version gets none either

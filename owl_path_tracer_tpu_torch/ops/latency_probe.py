@@ -31,15 +31,26 @@ a buffer nothing fills), ``sched_mm_bf16``, ``sched_mm_recip``, ``sched_dma``,
 
 :func:`latency_probe` launches the CUDA kernel (``csrc/latency_probe.cu``)
 for CUDA tensors and raises if it cannot; for CPU tensors it takes
-:func:`latency_probe_plain`.  Differences from the reference, on purpose:
+:func:`latency_probe_plain`.  The kernel has two forms of the copy and
+product stages: the tensor form (the default, entry ENTRY, what
+``tools/latency_probe.py`` times) copies and multiplies what the fused2
+traversal's tensor-core form (K1b) does -- plane rows 0-9 of bf16 planes or
+the 19 non-zero f32 feature rows, products on the tensor cores (f32 as
+3xTF32) -- so its sums round otherwise than the plain version's and its best
+t may differ from it within the sums' rounding bound; ``exact=True`` (entry
+EXACT_ENTRY) runs the CUDA-core form, the plain version's arithmetic bit for
+bit, the tensor form's yardstick.  Variants without a product stage run the
+same kernel in both.  The planes are the MXU feature layout's: the tensor
+form reads only its non-zero rows.  Differences from the reference, on
+purpose:
 
   * ``sched_mm*`` read a buffer that nothing fills (the reference reads
     scratch memory it never writes, zeros in interpret mode); here the
     buffer is zero-filled before the loop, so those variants never hit;
   * the kernel copies a cluster in column tiles of ``tile`` slots
-    (:func:`tile_cols`) where P whole [16,4C] buffers do not fit in one
-    block's shared memory; every chain still copies and tests the whole
-    cluster each iteration;
+    (:func:`tile_cols`) where P whole buffers do not fit in one block's
+    shared memory; every chain still copies and tests the whole cluster
+    each iteration;
   * the plain version divides exactly where ``*_recip`` asks for the
     approximate reciprocal (the kernel's ``rcp.approx``).
 The reference's ``"pipe"`` copy mode is reached by no variant and is not
@@ -56,10 +67,12 @@ import torch
 
 from ..native import build_cuda_library
 from . import math as m
-from .fused2 import _check_operand
+from .fused2 import TENSOR_OPS, _check_operand
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "latency_probe.cu"
+# the tensor form (products on the tensor cores) and the exact CUDA-core form
 ENTRY = "owlpt_latency_probe"
+EXACT_ENTRY = "owlpt_latency_probe_exact"
 REPLACES = "tools/tpu_probe6.py:68"
 
 # run_variant's defaults (tools/tpu_probe6.py:48)
@@ -73,15 +86,16 @@ TILE_ALIGN = 8  # tile widths are multiples of 8 slots (16-byte copies of bf16 a
 # rays per plain-version pass (bounds its [n,4C] products)
 PLAIN_CHUNK = 8192
 
-# launches of the CUDA kernel (one per call that ran it)
-LAUNCHES = {ENTRY: 0}
+# launches of the CUDA kernel by entry (one per call that ran it)
+LAUNCHES = {ENTRY: 0, EXACT_ENTRY: 0}
 
 _cuda_lib = None
 
 
 def reset_counts():
-    """Set the launch count to 0."""
-    LAUNCHES[ENTRY] = 0
+    """Set the launch counts to 0."""
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,29 +153,43 @@ def trips(v: Variant, iters: int) -> int:
 # ── tiling ────────────────────────────────────────────────────────────────
 
 
-def shared_bytes(k: int, chains: int, block: int, tile: int, bf16: bool) -> int:
+def _tensor_buffer_bytes(bf16: bool, tile: int) -> int:
+    """One buffer of the tensor form's staging (csrc tensor_ops.cuh
+    tensor_buffer_bytes): bf16 [10][8 tile' + 16] bytes, f32 [19][row words]
+    floats, tile' = tile rounded up to whole 8-slot n-tiles."""
+    cols = (tile + 7) & ~7
+    if bf16:
+        return 10 * (8 * cols + 16)
+    return 19 * (cols + ((8 - cols) & 31)) * 4
+
+
+def shared_bytes(k: int, chains: int, block: int, tile: int, bf16: bool, tensor: bool = False) -> int:
     """Dynamic shared memory of one block (``shared_bytes`` in the kernel
     source): the chains' rows [P,K], the block's rays [10,B] and 64
     reduction words as float32 (padded to 16 bytes), then P buffers of
-    [16,4,tile] plane elements."""
+    ``tile`` slots per column group: the exact form's [16,4,tile] plane
+    elements, or with ``tensor`` the tensor form's staging (K1b's ring
+    buffer, :func:`_tensor_buffer_bytes`) and a 16-byte zero row."""
     head = (chains * k + 10 * block + 64 + 3) & ~3
+    if tensor:
+        return 4 * head + chains * _tensor_buffer_bytes(bf16, tile) + 16
     return 4 * head + chains * FEATURES * GROUPS * tile * (2 if bf16 else 4)
 
 
-def tile_cols(c: int, k: int, chains: int, block: int, bf16: bool, limit: int) -> int:
+def tile_cols(c: int, k: int, chains: int, block: int, bf16: bool, limit: int, tensor: bool = False) -> int:
     """Slots per copied tile: the whole cluster (C) when the P buffers fit
     in ``limit`` bytes of shared memory, else C halved while it fits no
     more and stays a multiple of TILE_ALIGN.  Raises where even the smallest
-    tile per chain does not fit."""
+    tile per chain does not fit.  ``tensor``: the tensor form's buffers."""
     if c % TILE_ALIGN:
         raise ValueError(f"cluster size C={c} must be a multiple of {TILE_ALIGN}")
     tile = c
-    while shared_bytes(k, chains, block, tile, bf16) > limit and tile % (2 * TILE_ALIGN) == 0:
+    while shared_bytes(k, chains, block, tile, bf16, tensor) > limit and tile % (2 * TILE_ALIGN) == 0:
         tile //= 2
-    if shared_bytes(k, chains, block, tile, bf16) > limit:
+    if shared_bytes(k, chains, block, tile, bf16, tensor) > limit:
         raise ValueError(
-            f"{chains} chain(s) at K={k}, B={block}: {shared_bytes(k, chains, block, tile, bf16)} bytes of shared "
-            f"memory even with tiles of {tile} slots, above the device's {limit}")
+            f"{chains} chain(s) at K={k}, B={block}: {shared_bytes(k, chains, block, tile, bf16, tensor)} bytes of "
+            f"shared memory even with tiles of {tile} slots, above the device's {limit}")
     return tile
 
 
@@ -203,6 +231,33 @@ def front_rows(rays, boxes):
     return torch.where(need, t_enter, torch.inf).amin(dim=1)
 
 
+def _chain_clusters(rays, boxes, v: Variant, n_trips: int):
+    """The clusters the loop tests on [g,B,8] rays (whole blocks), in its
+    order: per iteration and chain, [g] cluster ids (the picks from each
+    chain's own copy of the front rows, or ``(i*P + p) % K``)."""
+    g, k = rays.shape[0], boxes.shape[1]
+    if v.pick:
+        front = front_rows(rays, boxes)
+        bent = [front.clone() for _ in range(v.chains)]
+        col = torch.arange(k, device=rays.device)
+    for i in range(n_trips):
+        for p in range(v.chains):
+            if v.pick:
+                yield _pick(bent[p], col, k)
+            else:
+                yield torch.full((g,), (i * v.chains + p) % k, dtype=torch.int64, device=rays.device)
+
+
+def tested_clusters(rays, boxes, variant_name: str, iters: int, block: int):
+    """[N,8] rays, [8,K] boxes -> [N/B, trips * P] int64: each block's
+    tested cluster ids in the loop's order (what :func:`latency_probe_plain`
+    multiplies; the product reads zeros instead without the copy stage)."""
+    v = variant(variant_name)
+    g = rays.shape[0] // block
+    ids = list(_chain_clusters(rays.view(g, block, 8), boxes, v, trips(v, iters)))
+    return torch.stack(ids, 1) if ids else torch.zeros((g, 0), dtype=torch.int64, device=rays.device)
+
+
 def _pick(bent, col, k: int):
     """[G,K] rows -> [G] lowest id of each row's minimum (k-1 where none
     equals it), then retire it in place."""
@@ -233,24 +288,13 @@ def _chain_best(feat, pl, best):
 def _probe_blocks(rays, boxes, planes, v: Variant, n_trips: int):
     """The probe on [g,B,8] rays (whole blocks) -> [g,B] best t."""
     g = rays.shape[0]
-    k = boxes.shape[1]
-    dev = rays.device
     best = rays[..., 6].clone()
     if not v.mm:  # picks and copies alone leave best t = t_max
         return best
-    front = front_rows(rays, boxes)
-    bent = [front.clone() for _ in range(v.chains)]
     feat = probe_features(rays.reshape(-1, 8), v.bf16).view(g, -1, FEATURES)
-    col = torch.arange(k, device=dev)
-    zeros = torch.zeros((g, FEATURES, planes.shape[2]), device=dev)
-    for i in range(n_trips):
-        for p in range(v.chains):
-            if v.pick:
-                cid = _pick(bent[p], col, k)
-            else:
-                cid = torch.full((g,), (i * v.chains + p) % k, dtype=torch.int64, device=dev)
-            pl = planes[cid].float() if v.copy else zeros
-            best = _chain_best(feat, pl, best)
+    zeros = torch.zeros((g, FEATURES, planes.shape[2]), device=rays.device)
+    for cid in _chain_clusters(rays, boxes, v, n_trips):
+        best = _chain_best(feat, planes[cid].float() if v.copy else zeros, best)
     return best
 
 
@@ -290,16 +334,17 @@ def _check_shapes(rays, boxes, planes, v: Variant, block: int):
 def build_kernels() -> tuple:
     """Build (if needed) and load the kernel library -> (path, seconds, log)."""
     global _cuda_lib
-    path, seconds, log = build_cuda_library("owlpt_latency_probe", [CSRC])
+    path, seconds, log = build_cuda_library("owlpt_latency_probe", [CSRC], depends=[TENSOR_OPS])
     if _cuda_lib is None:
         lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, ENTRY)
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        for name in LAUNCHES:
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         lib.owlpt_latency_probe_smem_limit.restype = ctypes.c_int
         lib.owlpt_latency_probe_smem_limit.argtypes = [ctypes.c_int]
         lib.owlpt_latency_probe_shared_bytes.restype = ctypes.c_longlong
-        lib.owlpt_latency_probe_shared_bytes.argtypes = [ctypes.c_int] * 5
+        lib.owlpt_latency_probe_shared_bytes.argtypes = [ctypes.c_int] * 6
         _cuda_lib = lib
     return path, seconds, log
 
@@ -320,14 +365,21 @@ def _smem_limit(index: int) -> int:
     return limit
 
 
-def kernel_tile(rays, boxes, planes, variant_name: str, block: int) -> int:
+def _tensor(v: Variant, exact: bool) -> bool:
+    """Does the launch run the tensor form's own stages (a product stage, not ``exact``)?"""
+    return v.mm and not exact
+
+
+def kernel_tile(rays, boxes, planes, variant_name: str, block: int, exact: bool = False) -> int:
     """The kernel's tile width for these operands on their CUDA device."""
     v = variant(variant_name)
-    return tile_cols(planes.shape[2] // GROUPS, boxes.shape[1], v.chains, block, v.bf16, smem_limit(rays.device))
+    return tile_cols(planes.shape[2] // GROUPS, boxes.shape[1], v.chains, block, v.bf16, smem_limit(rays.device),
+                     _tensor(v, exact))
 
 
-def _latency_probe_cuda(rays, boxes, planes, v: Variant, iters: int, block: int):
-    """Launch the kernel on the current stream -> [N/B,B,16] (no sync)."""
+def _latency_probe_cuda(rays, boxes, planes, v: Variant, iters: int, block: int, exact: bool = False):
+    """Launch the kernel (the tensor form, or with ``exact`` the CUDA-core
+    one) on the current stream -> [N/B,B,16] (no sync)."""
     if rays.device.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError(f"the latency probe kernel needs CUDA tensors on a CUDA device; got {rays.device}")
     _check_shapes(rays, boxes, planes, v, block)
@@ -335,23 +387,25 @@ def _latency_probe_cuda(rays, boxes, planes, v: Variant, iters: int, block: int)
     _check_operand("rays", rays, (n, 8), rays.device)
     _check_operand("boxes", boxes, (8, k), rays.device)
     _check_operand("planes", planes, tuple(planes.shape), rays.device, planes.dtype)
-    tile = tile_cols(c, k, v.chains, block, v.bf16, smem_limit(rays.device))
+    tile = tile_cols(c, k, v.chains, block, v.bf16, smem_limit(rays.device), _tensor(v, exact))
     out = torch.empty((n // block, block, OUT_COLS), dtype=torch.float32, device=rays.device)
+    name = EXACT_ENTRY if exact else ENTRY
     with torch.cuda.device(rays.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(_cuda_lib, ENTRY)(rays.data_ptr(), boxes.data_ptr(), planes.data_ptr(), out.data_ptr(), n,
-                                        block, k, c, trips(v, iters), v.chains, tile, v.flags, stream)
+        err = getattr(_cuda_lib, name)(rays.data_ptr(), boxes.data_ptr(), planes.data_ptr(), out.data_ptr(), n,
+                                       block, k, c, trips(v, iters), v.chains, tile, v.flags, stream)
     if err != 0:
-        raise RuntimeError(f"latency probe kernel {ENTRY} ({v.name}) launch failed: CUDA error {err}")
-    LAUNCHES[ENTRY] += 1
+        raise RuntimeError(f"latency probe kernel {name} ({v.name}) launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
     return out
 
 
-def latency_probe(rays, boxes, planes, variant_name: str, iters: int, block: int):
+def latency_probe(rays, boxes, planes, variant_name: str, iters: int, block: int, exact: bool = False):
     """[N,8] rays, [8,K] boxes, [K,16,4C] planes (bf16 for the bf16
-    variants) -> [N/B,B,16]: the kernel for CUDA tensors (copies in tiles of
-    :func:`kernel_tile` slots; the results do not depend on them), the plain
-    version for CPU tensors."""
+    variants) -> [N/B,B,16]: the kernel for CUDA tensors (the tensor form,
+    or with ``exact`` the CUDA-core form; copies in tiles of
+    :func:`kernel_tile` slots, on which the results do not depend), the
+    plain version for CPU tensors (``exact`` changes nothing there)."""
     if rays.device.type == "cpu":
         return latency_probe_plain(rays, boxes, planes, variant_name, iters, block)
-    return _latency_probe_cuda(rays, boxes, planes, variant(variant_name), iters, block)
+    return _latency_probe_cuda(rays, boxes, planes, variant(variant_name), iters, block, exact)

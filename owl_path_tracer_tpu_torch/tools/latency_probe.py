@@ -1,11 +1,12 @@
 """Retirement-loop latency decomposition (counterpart of ``tools/tpu_probe6.py``).
 
 Times the latency-probe kernel (``ops/latency_probe.py``, kernel
-``csrc/latency_probe.cu``) at several loop trip counts for each variant and
-prints one JSON line per variant: the time at each ``--iters`` value and the
-slope per block and loop iteration, which splits one iteration of the
-traversal loop into pick, copy, product and loop control (see the variants
-in ``ops/latency_probe.py``).
+``csrc/latency_probe.cu``) in its tensor form -- the copy and product
+stages that the fused2 traversal's tensor-core form (K1b) runs -- at
+several loop trip counts for each variant and prints one JSON line per
+variant: the time at each ``--iters`` value and the slope per block and loop
+iteration, which splits one iteration of the traversal loop into pick, copy,
+product and loop control (see the variants in ``ops/latency_probe.py``).
 
     python -m owl_path_tracer_tpu_torch.tools.latency_probe [--sub 7] [--c 512] [--n 131072] [--b 256]
         [--kind bounce] [--variants nop_loop,...] [--iters 0,8,16] [--device cuda]

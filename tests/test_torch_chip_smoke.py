@@ -17,6 +17,7 @@ import torch
 
 import chip_smoke
 from owl_path_tracer_tpu_torch.ops import fused2
+from owl_path_tracer_tpu_torch.ops import latency_probe as lp
 from owl_path_tracer_tpu_torch.ops import math as m
 
 torch.set_num_threads(2)
@@ -201,7 +202,10 @@ def test_flag_flip_beyond_rounding_bound_fails(soup):
 def test_tf32_bound_counts_three_tf32_products_per_f32_product():
     """The f32 tensor-core rows' second bound: the same slots with three TF32
     products each at the TF32 rate, against the window chain at fp32 and the
-    bytes; never above the fp32-peak bound."""
+    bytes; never above the fp32-peak bound.  Each TF32 product is the one
+    k=8 step per column group that the kernel issues (12 mma.sync m16n8k8
+    per 16 rays and 8 slots: 192 FLOP per ray and slot), not the reference's
+    16-row product."""
     fb, (o, d, tmax) = chip_smoke.soup("cpu", plane_dtype=torch.float32)
     rays = fused2.pack_rays(*fused2._pad_rays(o, d, tmax, 128)[:3])
     want = fused2.fused2_traverse_packed_plain(rays, fb)
@@ -209,7 +213,8 @@ def test_tf32_bound_counts_three_tf32_products_per_f32_product():
     (fp32_ms, _), need = chip_smoke.bound(rays, want, fb, closest)
     (tf32_ms, by), need_tf32 = chip_smoke.bound(rays, want, fb, closest, tf32=True)
     slots = fb.cluster_size * float(chip_smoke.needed_clusters(rays, want, fb, closest).sum())
-    ops = max(3 * chip_smoke.MXU_FLOP * slots / chip_smoke.TF32_FLOPS,
+    assert chip_smoke.TF32_FLOP == 12 * 2 * 16 * 8 * 8 // (16 * 8) == 192
+    ops = max(chip_smoke.TF32_FLOP * slots / chip_smoke.TF32_FLOPS,
               chip_smoke.CHAIN_OPS * slots / chip_smoke.FP32_FLOPS) * 1e3
     assert need_tf32 == need and tf32_ms <= fp32_ms
     assert tf32_ms == ops if by == "operations" else tf32_ms > ops
@@ -271,3 +276,161 @@ def test_differing_columns_compares_bits():
     assert chip_smoke.differing_columns(a, b) == {3: 2, 30: 1}
     a[:, 8] = b[:, 8] = float("nan")
     assert 8 not in chip_smoke.differing_columns(a, b)
+
+
+# ── K4's loop t/u/v on the tensor cores (compare_near_tie without a blob) ──
+
+
+@pytest.fixture(scope="module")
+def k4_soup():
+    fb, (o, d, tmax) = chip_smoke.soup("cpu", plane_dtype=torch.float32)
+    rays = fused2.pack_rays(*fused2._pad_rays(o, d, tmax, 128)[:3])
+    want = fused2.fused2_traverse_packed_plain(rays, fb, with_attrs=False)
+    hit = torch.nonzero(want[:, 4] > 0).squeeze(1)
+    bnd = chip_smoke.loop_tuv_errors(rays[hit], fb, want[hit, 7].long(), want[hit, 8].long())
+    return fb, rays, want, hit, bnd
+
+
+def test_loop_tuv_within_rounding_bound_pass(k4_soup):
+    """K4's tensor form: t/u/v moved by half of each quotient's rounding
+    bound pass, also where that is beyond rtol 5e-6."""
+    fb, rays, want, hit, bnd = k4_soup
+    got = want.clone()
+    got[hit, 0:3] += 0.5 * bnd
+    beyond = ~torch.isclose(got[hit, 0:3], want[hit, 0:3], rtol=5e-6, atol=1e-6).all(1)
+    assert int(beyond.sum()) > 0
+    chip_smoke.compare_near_tie(got, want, rays, fb, "in-bound tuv", blob=False, tensor=True)
+
+
+@pytest.mark.parametrize("col", [0, 1, 2], ids=["t", "u", "v"])
+def test_loop_tuv_beyond_rounding_bound_fails(k4_soup, col):
+    fb, rays, want, hit, bnd = k4_soup
+    got = want.clone()
+    got[hit, col] += 2 * bnd[:, col] + 1e-5 * got[hit, col].abs() + 1e-6
+    with pytest.raises(chip_smoke.SmokeFailure, match="beyond the sums' rounding"):
+        chip_smoke.compare_near_tie(got, want, rays, fb, "planted tuv", blob=False, tensor=True)
+
+
+def test_loop_tuv_rule_only_for_the_tensor_form(k4_soup):
+    """Without ``tensor`` (K4's exact form) t/u/v stay at rtol 5e-6."""
+    fb, rays, want, hit, bnd = k4_soup
+    got = want.clone()
+    got[hit, 0] *= 1 + 1e-4
+    with pytest.raises(AssertionError):
+        chip_smoke.compare_near_tie(got, want, rays, fb, "planted tuv", blob=False)
+
+
+# ── K6's tensor form (compare_probe_tensor) and its bound ─────────────────
+
+
+def _probe_f64(feat, pl, best):
+    """The probe's chain with its feature sums taken in float64 and rounded
+    once (another summation than the plain version's left-to-right float32
+    sums, inside their rounding bound): a stand-in for the tensor cores."""
+    c = pl.shape[2] // lp.GROUPS
+    acc = (feat.double()[:, :, :, None] * pl.double()[:, None]).sum(2).float()
+    det, ua, vb, tcd = acc.split(c, dim=-1)
+    sgn = torch.where(det < 0.0, -1.0, 1.0)
+    dd, ua, vb, tcd = det * sgn, ua * sgn, vb * sgn, tcd * sgn
+    ok = ((dd >= 1e-12) & (ua >= 0.0) & (vb >= 0.0) & (ua + vb <= dd) & (tcd > dd * m.T_MIN)
+          & (tcd < dd * best[..., None]))
+    t = torch.where(ok, tcd / torch.where(dd < 1e-12, 1.0, dd), torch.inf).amin(-1)
+    return torch.where(t < best, t, best)
+
+
+@pytest.fixture(scope="module", params=["pick_dma_mm", "pick_dma_mm_bf16", "interleave2"])
+def probe_case(request):
+    name = request.param
+    v = lp.variant(name)
+    fb, (o, d, tmax) = chip_smoke.soup("cpu", plane_dtype=torch.bfloat16 if v.bf16 else torch.float32)
+    rays = fused2.pack_rays(o[:256], d[:256], tmax[:256])
+    want = lp.latency_probe_plain(rays, fb.boxes, fb.planes, name, 8, 128)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(lp, "_chain_best", _probe_f64)
+        other = lp.latency_probe_plain(rays, fb.boxes, fb.planes, name, 8, 128)
+    return name, fb, rays, want, other
+
+
+def test_probe_rule_passes_another_summation(probe_case):
+    """The probe's best t from sums taken in another order (float64, rounded
+    once) passes; on f32 planes it differs from the plain version's on some
+    rays (bf16 planes' exact products of few bits sum alike here)."""
+    name, fb, rays, want, other = probe_case
+    err, differ = chip_smoke.compare_probe_tensor(other, want, rays, fb.boxes, fb.planes, name, 8, 128, "f64 sums")
+    assert differ == int((other[..., 0] != want[..., 0]).sum()) and err < 1e-4
+    assert differ > 0 or lp.variant(name).bf16
+    assert chip_smoke.compare_probe_tensor(want.clone(), want, rays, fb.boxes, fb.planes, name, 8, 128,
+                                           "same") == (0.0, 0)
+
+
+def test_probe_rule_passes_a_planted_in_bound_difference(probe_case):
+    """One ulp up or down on every hit lies within the bound."""
+    name, fb, rays, want, _ = probe_case
+    got = want.clone()
+    hit = got[..., 0] < rays[:, 6].view(got.shape[:2])
+    assert int(hit.sum()) > 0
+    got[..., 0][hit] = torch.nextafter(got[..., 0][hit], torch.tensor(torch.inf))
+    chip_smoke.compare_probe_tensor(got, want, rays, fb.boxes, fb.planes, name, 8, 128, "one ulp")
+
+
+@pytest.mark.parametrize("fault", ["farther", "nearer", "miss_hits", "hit_misses", "column"])
+def test_probe_rule_fails_planted_out_of_bound_faults(probe_case, fault):
+    """A best t 1e-3 farther or nearer than a hit's, a hit for a ray that
+    meets nothing, a miss for a ray that surely hits, or a non-zero column
+    1-15 fail."""
+    name, fb, rays, want, _ = probe_case
+    got = want.clone()
+    t = got[..., 0]
+    hit = t < rays[:, 6].view(got.shape[:2])
+    if fault == "farther":
+        t[hit] *= 1 + 1e-3
+    elif fault == "nearer":
+        t[hit] *= 1 - 1e-3
+    elif fault == "miss_hits":
+        t[~hit] = 1.0
+    elif fault == "hit_misses":
+        t[hit] = rays[:, 6].view(got.shape[:2])[hit]
+    else:
+        got[..., 3] = 1.0
+    with pytest.raises(chip_smoke.SmokeFailure, match="beyond the sums' rounding|columns 1-15"):
+        chip_smoke.compare_probe_tensor(got, want, rays, fb.boxes, fb.planes, name, 8, 128, f"planted {fault}")
+
+
+def test_probe_rule_holds_variants_without_a_product_of_planes_equal():
+    """sched_mm multiplies zeros (no copy): any difference fails."""
+    fb, (o, d, tmax) = chip_smoke.soup("cpu", plane_dtype=torch.float32)
+    rays = fused2.pack_rays(o[:256], d[:256], tmax[:256])
+    want = lp.latency_probe_plain(rays, fb.boxes, fb.planes, "sched_mm", 8, 128)
+    got = want.clone()
+    got[0, 0, 0] = 1.0
+    with pytest.raises(chip_smoke.SmokeFailure, match="without a product of planes"):
+        chip_smoke.compare_probe_tensor(got, want, rays, fb.boxes, fb.planes, "sched_mm", 8, 128, "planted")
+
+
+@pytest.mark.parametrize("name", ["pick_dma_mm", "pick_dma_mm_bf16", "sched_mm", "sched_dma", "interleave4"])
+def test_probe_bound_of_the_tensor_form(name):
+    """The tensor form's bound: the slab tests at fp32, then per chain
+    iteration the larger of the product at the tensor rate (bf16 MXU_FLOP
+    per slot at 989 TFLOP/s; f32 three TF32 products of one k=8 step per
+    column group, TF32_FLOP, at 495) and the 28-operation window at the fp32
+    peak, against the bytes of the staged rows; the exact form's bound
+    (products of the live rows at fp32) is never below it.  On an H100 the
+    window paces both plane types: 28 operations at 67 TFLOP/s take longer
+    than 128 FLOP at 989 or 192 at 495.  Without a product both agree."""
+    v = lp.variant(name)
+    n, k, c = 131072, 768, 512
+    rays, boxes = torch.zeros((n, 8)), torch.zeros((8, k))
+    planes = torch.zeros((k, 16, 4 * c), dtype=torch.bfloat16 if v.bf16 else torch.float32)
+    tensor = chip_smoke.probe_bound(rays, boxes, planes, name, 16, 256, tensor=True)
+    exact = chip_smoke.probe_bound(rays, boxes, planes, name, 16, 256)
+    chain_iters = n * lp.trips(v, 16) * v.chains
+    slab = n * chip_smoke.SLAB_OPS * k / chip_smoke.FP32_FLOPS
+    if not v.mm:
+        assert tensor == exact
+        return
+    window = chip_smoke.CHAIN_OPS / chip_smoke.FP32_FLOPS
+    product = (chip_smoke.MXU_FLOP / chip_smoke.BF16_FLOPS if v.bf16
+               else chip_smoke.TF32_FLOP / chip_smoke.TF32_FLOPS)
+    assert window > product  # the window paces both
+    assert tensor == (pytest.approx((slab + chain_iters * c * max(window, product)) * 1e3, rel=1e-12), "operations")
+    assert exact[0] > tensor[0]

@@ -3,9 +3,14 @@ any-hit, mixed) on the component layout (K1-K3; its slot-parallel body
 against the serial body bit for bit in every column, and the profile
 entry's cycles and outputs) and the MXU feature layout
 with f32 and bf16 planes (K1b; on bf16 the tensor-core form and the exact
-CUDA-core form of closest hit), and without attributes (K4), the fused
-kernel (K5, also above the cluster count one block's shared memory once
-held) and the latency probe (K6), against their plain versions, and frames
+CUDA-core form of closest hit), and without attributes (K4; on f32 MXU
+planes its tensor-core form and its exact form), every fused2 entry above
+its old cluster limit and with its frontier rows forced into device
+memory (bit-equal to the rows in shared memory; at C=512 above the old
+limit, shared by 4 CTAs), the fused kernel (K5,
+also above the cluster count one block's shared memory once held) and the
+latency probe (K6, its exact form bit-equal and its tensor form within
+the sums' rounding), against their plain versions, and frames
 (wavefront without and with NEE, stopped and resumed from a checkpoint, and
 the scan renderer on the fused kernel) rendered on the card against the same
 frames on the CPU or uninterrupted, the wavefront film rendered twice, and
@@ -37,6 +42,7 @@ import pytest
 import torch
 
 import chip_smoke
+import test_torch_frontier_row as frontier_row
 from owl_path_tracer_tpu_torch.models.scene import RenderSettings, compile_scene
 from owl_path_tracer_tpu_torch.ops import cluster as tcl
 from owl_path_tracer_tpu_torch.ops import fused as tfu
@@ -289,6 +295,101 @@ def test_slot_body_launch_shape(cuda_device, c, ctas, any_hit_ctas):
     for mode in tf2.MODES:
         want = any_hit_ctas if mode == "any_hit" else ctas
         assert tf2._slot_shape(c, mode) == (512, want, mode != "any_hit")
+        assert frontier_row.slot_ctas(c, mode) == want  # the byte count's copy of the shape
+
+
+# every fused2 entry by layout: (mode, with_attrs, exact, serial, profile)
+ROW_ENTRIES = {
+    "component": [("closest", True, False, False, False), ("any_hit", False, False, False, False),
+                  ("mixed", True, False, False, False), ("closest", False, False, False, False),
+                  ("closest", True, False, True, False), ("mixed", True, False, True, False),
+                  ("closest", True, False, False, True), ("closest", True, False, True, True)],
+    "mxu_f32": [("closest", True, False, False, False), ("any_hit", False, False, False, False),
+                ("mixed", True, False, False, False), ("closest", False, False, False, False),
+                ("closest", True, True, False, False), ("closest", False, True, False, False)],
+    "mxu_bf16": [("closest", True, False, False, False), ("any_hit", False, False, False, False),
+                 ("mixed", True, False, False, False), ("closest", True, True, False, False)],
+}
+
+
+@pytest.mark.parametrize("c", [8, 60, 64, 512, 1024, 2560])
+@pytest.mark.parametrize("block", [128, 256])
+@pytest.mark.parametrize("layout", list(ROW_ENTRIES))
+def test_global_row_equals_shared_row(component_soups, cuda_device, layout, block, c):
+    """Every fused2 entry with its blocks' frontier rows forced into device
+    memory (the global form, through the private launch path; three
+    launches) gives the shared form's outputs bit for bit in every column,
+    at C where a slot-parallel block is a thread block cluster of 1 to 4
+    CTAs that share one row in device memory (C 512, 1024, 2560); each
+    form's resources report the library's count of its bytes, which is the
+    Python count of tests/test_torch_frontier_row.py; where neither form
+    fits (the MXU tensor-core ring at C=2560) the wrapper raises a
+    ValueError naming K and the limit before any launch."""
+    soups, builds = component_soups
+    mesh, o, d, tmax, shadow, dist = soups["random"]
+    key = (layout, c)
+    if key not in builds:
+        builds[key] = tf2.build_fused2(*mesh[:2], c, *mesh[2:], mxu=layout != "component", device="cpu",
+                                       plane_dtype=torch.bfloat16 if layout == "mxu_bf16" else torch.float32)
+    fb = builds[key].to(cuda_device)
+    limit = tf2.smem_limit(cuda_device)
+    for mode, attrs, exact, serial, profile in ROW_ENTRIES[layout]:
+        args = [torch.as_tensor(x, device=cuda_device) for x in (o, d, dist if mode == "mixed" else tmax)]
+        o_p, d_p, t_p, n = tf2._pad_rays(*args, block)
+        sh = torch.cat([torch.as_tensor(shadow, device=cuda_device), torch.zeros(o_p.shape[0] - n, dtype=torch.bool,
+                                                                                 device=cuda_device)])
+        rays = tf2.pack_rays(o_p, d_p, t_p, sh if mode == "mixed" else None)
+        outs = {}
+        for form in tf2.ROW_FORMS:
+            nbytes = tf2.block_bytes(fb, mode, block, attrs, exact, serial, form == "global")
+            assert nbytes == frontier_row.block_bytes(fb.layout, mode, fb.num_clusters, c, block, exact, serial,
+                                                      form == "global")
+            run = lambda: tf2._fused2_traverse_cuda(rays, fb, block, tf2.MAX_STEPS, mode, with_attrs=attrs,  # noqa
+                                                    exact=exact, serial=serial, profile=profile, row=form)
+            if nbytes > limit:
+                with pytest.raises(ValueError, match=f"K={fb.num_clusters} .*{nbytes} bytes .*limit of {limit}"):
+                    run()
+                continue
+            got = [run() for _ in range(3 if form == "global" else 1)]
+            outs[form] = [x[0] for x in got] if profile else got
+            if not profile:
+                res = tf2.kernel_resources(fb, mode, block, attrs, exact, serial, row=form)
+                assert res["shared_bytes"] == nbytes and res["row"] == form
+        torch.cuda.synchronize()
+        if layout == "component" or c <= 1024:
+            assert set(outs) == set(tf2.ROW_FORMS), (mode, attrs, exact, serial)
+        for form, got in outs.items():
+            for other in got:
+                assert chip_smoke.differing_columns(next(iter(outs.values()))[0], other) == {}, \
+                    (form, mode, attrs, exact, serial, profile)
+
+
+def test_every_entry_above_the_old_cluster_limit(cuda_device):
+    """Every fused2 entry renders a scene whose K is above its old shared-row
+    limit (chip_smoke.py phase 4e: 480,000 random triangles in clusters of
+    C=8, K about 81,000, 2048 rays in bundles of 256), and the outputs meet
+    the plain version by the entry's usual rule; the serial yardsticks and
+    the profile entry equal the slot-parallel body bit for bit."""
+    results = {}
+    chip_smoke.above_old_limit(cuda_device, results, 256)
+    limits = results["limit"]["old_limits"]
+    assert len(limits) == 16 and all(results["limit"]["k"] > old for old in limits.values())
+
+
+def test_four_ctas_share_one_row_above_the_old_limit(cuda_device):
+    """K1, K3 and K4 at C=512 (a block of rays is a thread block cluster of
+    4 CTAs sharing one frontier row in device memory) at K about 81,000,
+    above their old limit of 49,052 (chip_smoke.py phase 4e: the limit soup's
+    clusters widened by pad slots): on the bundles of three seeds, each of
+    three launches equals the serial body at C=512 and the C=8 entry (one
+    CTA, held to the plain version) bit for bit in every column."""
+    results = {"limit": {}}
+    mesh, _ = chip_smoke.limit_soup_arrays(256)
+    comp = tf2.build_fused2(*mesh[:2], chip_smoke.LIMIT_C, *mesh[2:], mxu=False, device=cuda_device)
+    assert comp.num_clusters > 49052
+    chip_smoke.shared_rows(comp, results, 256)
+    wide = results["limit"]["wide"]
+    assert wide["ctas"] == 4 and wide["launches"] == 3 * 3 * len(chip_smoke.LIMIT_SEEDS)
 
 
 @pytest.mark.parametrize("serial", [False, True], ids=["slot_parallel", "serial"])
@@ -593,18 +694,53 @@ def _any_hit_and_mixed(dragon_waves, accel, block, tensor_flags=False):
 
 @pytest.mark.parametrize("layout", ["component", "f32"])
 def test_no_attrs_kernel_matches_plain(soup, mxu_soups, cuda_device, layout):
-    """K4: loop t/u/v and the in-plane tri id, a zero blob."""
+    """K4: loop t/u/v and the in-plane tri id, a zero blob; on f32 MXU
+    planes its exact CUDA-core form (the tensor form's yardstick, the
+    plain version's arithmetic), counted under its own entry."""
     fb = (soup[0] if layout == "component" else mxu_soups[layout]).to(cuda_device)
     _, o, d, tmax = soup
     args = [torch.as_tensor(x[:300], device=cuda_device) for x in (o, d, tmax)]
     rays = tf2.pack_rays(*tf2._pad_rays(*args, 128)[:3])
-    got = tf2.fused2_traverse_packed(rays, fb, block=128, with_attrs=False)
+    exact = layout == "f32"
+    name = tf2._entry(fb, "closest", False, exact=exact)
+    launches = tf2.LAUNCHES[name]
+    got = tf2.fused2_traverse_packed(rays, fb, block=128, with_attrs=False, exact=exact)
+    assert tf2.LAUNCHES[name] == launches + 1
     want = tf2.fused2_traverse_packed_plain(rays, fb, with_attrs=False)
     torch.cuda.synchronize()
     assert_kernel_output_matches(got, want)
     assert (got[:, 16:32] == 0).all()
     with pytest.raises(ValueError, match="with_attrs"):
         tf2.fused2_traverse_packed(rays, mxu_soups["bf16"].to(cuda_device), block=128, with_attrs=False)
+
+
+@pytest.mark.parametrize("block", [128, 256])
+def test_no_attrs_tensor_kernel_matches_plain(soup, mxu_soups, cuda_device, block):
+    """K4 on f32 MXU planes on the tensor cores (3xTF32): winners under the
+    near-tie rule with the sums' rounding kind, the loop t/u/v within the
+    sums' rounding of the plain version's, a zero blob; fanout 1 and 2
+    identical; the rows where it agrees with its exact form carry the exact
+    form's tri, winner cluster and slot."""
+    fb = mxu_soups["f32"].to(cuda_device)
+    _, o, d, tmax = soup
+    args = [torch.as_tensor(x, device=cuda_device) for x in (o, d, tmax)]
+    rays = tf2.pack_rays(*tf2._pad_rays(*args, block)[:3])
+    name = "owlpt_fused2_mxu_closest_hit_noattr"
+    launches = tf2.LAUNCHES[name]
+    got = {fo: tf2.fused2_traverse_packed(rays, fb, block=block, with_attrs=False, fanout=fo) for fo in (1, 2)}
+    assert tf2.LAUNCHES[name] == launches + 2
+    exact = tf2.fused2_traverse_packed(rays, fb, block=block, with_attrs=False, exact=True)
+    want = tf2.fused2_traverse_packed_plain(rays, fb, with_attrs=False)
+    torch.cuda.synchronize()
+    keep = [c for c in range(32) if c != 6]
+    assert torch.equal(got[1][:, keep], got[2][:, keep])
+    got = got[2]
+    assert (got[:, 16:32] == 0).all() and (got[:, 5] == 1).all()
+    chip_smoke.compare_near_tie(got, want, rays, fb, "K4 f32 tensor soup", blob=False, tensor=True)
+    same = got[:, 3] == exact[:, 3]
+    assert same.float().mean() > 0.99
+    for col in (4, 7, 8):
+        assert torch.equal(got[same, col], exact[same, col])
 
 
 @pytest.mark.parametrize("kind", ["fused2", "fused2-bf16"])
@@ -789,23 +925,23 @@ def test_fused_scan_frame_on_card_matches_cpu(cuda_device, use_nee):
 @pytest.mark.parametrize("block", [128, 256])
 @pytest.mark.parametrize("name", [*tlp.VARIANTS, "interleave2", "interleave4"])
 def test_latency_probe_matches_plain(soup, mxu_soups, cuda_device, name, block, monkeypatch):
-    """K6 on the soup's MXU clusters (C=64): column 0 bit-equal to the plain
-    version (rtol 1e-6 for the approximate reciprocal), columns 1-15 zero;
-    copies in tiles of 8 slots (a device with just the shared memory for
-    them) change nothing."""
+    """K6's exact form (exact=True, the CUDA-core yardstick) on the soup's
+    MXU clusters (C=64): column 0 bit-equal to the plain version (rtol 1e-6
+    for the approximate reciprocal), columns 1-15 zero; copies in tiles of 8
+    slots (a device with just the shared memory for them) change nothing."""
     _, o, d, tmax = soup
     v = tlp.variant(name)
     fb = mxu_soups["bf16" if v.bf16 else "f32"].to(cuda_device)
     rays = tf2.pack_rays(*(torch.as_tensor(x[:256], device=cuda_device) for x in (o, d, tmax)))
     small = tlp.shared_bytes(fb.boxes.shape[1], v.chains, block, tlp.TILE_ALIGN, v.bf16)
     for it in (0, 3, 8):
-        launches = tlp.LAUNCHES[tlp.ENTRY]
-        got = tlp.latency_probe(rays, fb.boxes, fb.planes, name, it, block)
+        launches = tlp.LAUNCHES[tlp.EXACT_ENTRY]
+        got = tlp.latency_probe(rays, fb.boxes, fb.planes, name, it, block, exact=True)
         with monkeypatch.context() as mp:
             mp.setattr(tlp, "smem_limit", lambda device: small)
-            assert tlp.kernel_tile(rays, fb.boxes, fb.planes, name, block) == tlp.TILE_ALIGN
-            tiled = tlp.latency_probe(rays, fb.boxes, fb.planes, name, it, block)
-        assert tlp.LAUNCHES[tlp.ENTRY] == launches + 2
+            assert tlp.kernel_tile(rays, fb.boxes, fb.planes, name, block, exact=True) == tlp.TILE_ALIGN
+            tiled = tlp.latency_probe(rays, fb.boxes, fb.planes, name, it, block, exact=True)
+        assert tlp.LAUNCHES[tlp.EXACT_ENTRY] == launches + 2
         want = tlp.latency_probe_plain(rays, fb.boxes, fb.planes, name, it, block)
         torch.cuda.synchronize()
         assert (got[..., 1:] == 0).all() and torch.equal(tiled, got)
@@ -817,16 +953,54 @@ def test_latency_probe_matches_plain(soup, mxu_soups, cuda_device, name, block, 
             assert (got[..., 0] < rays[:, 6].view(got.shape[:2])).any()
 
 
+@pytest.mark.parametrize("block", [128, 256])
+@pytest.mark.parametrize("name", [*tlp.VARIANTS, "interleave2", "interleave4"])
+def test_latency_probe_tensor_form_matches_plain(soup, mxu_soups, cuda_device, name, block, monkeypatch):
+    """K6's tensor form (the default; the product on the tensor cores as K1b
+    runs it) on the soup's MXU clusters (C=64): columns 1-15 zero, column 0
+    within the sums' rounding of the plain version's
+    (chip_smoke.compare_probe_tensor), equal where the product reads no
+    planes; copies in tiles of 8 slots give the same bits."""
+    _, o, d, tmax = soup
+    v = tlp.variant(name)
+    fb = mxu_soups["bf16" if v.bf16 else "f32"].to(cuda_device)
+    rays = tf2.pack_rays(*(torch.as_tensor(x[:256], device=cuda_device) for x in (o, d, tmax)))
+    small = tlp.shared_bytes(fb.boxes.shape[1], v.chains, block, tlp.TILE_ALIGN, v.bf16, v.mm)
+    for it in (0, 3, 8):
+        launches = tlp.LAUNCHES[tlp.ENTRY]
+        got = tlp.latency_probe(rays, fb.boxes, fb.planes, name, it, block)
+        with monkeypatch.context() as mp:
+            mp.setattr(tlp, "smem_limit", lambda device: small)
+            assert tlp.kernel_tile(rays, fb.boxes, fb.planes, name, block) == tlp.TILE_ALIGN
+            tiled = tlp.latency_probe(rays, fb.boxes, fb.planes, name, it, block)
+        assert tlp.LAUNCHES[tlp.ENTRY] == launches + 2
+        want = tlp.latency_probe_plain(rays, fb.boxes, fb.planes, name, it, block)
+        torch.cuda.synchronize()
+        assert torch.equal(tiled, got)
+        chip_smoke.compare_probe_tensor(got, want, rays, fb.boxes, fb.planes, name, it, block,
+                                        f"{name} iters {it}")
+        if v.pick and v.mm and it == 8:
+            assert (got[..., 0] < rays[:, 6].view(got.shape[:2])).any()
+
+
 def test_latency_probe_shared_memory(cuda_device):
-    """The wrapper's count of a block's bytes is the kernel source's, and
-    interleave4 on f32 planes at C=512 gets tiles that fit."""
+    """The wrapper's count of a block's bytes is the kernel source's, for
+    the exact form's whole planes and the tensor form's staging (K1b's ring
+    buffers: bf16 10 rows of 4C, f32 the 19 non-zero rows, and a zero row);
+    interleave4 on f32 planes at C=512 gets tiles of 128 slots in the exact
+    form and whole clusters in the tensor form."""
     tlp.build_kernels()
-    for args in ((768, 1, 256, 512, False), (768, 4, 256, 128, False), (300, 2, 128, 64, True)):
+    for args in ((768, 1, 256, 512, False), (768, 4, 256, 128, False), (300, 2, 128, 64, True),
+                 (768, 4, 256, 512, False), (768, 16, 256, 64, True), (300, 2, 128, 8, False)):
         k, p, b, tile, bf16 = args
-        assert tlp.shared_bytes(*args) == tlp._cuda_lib.owlpt_latency_probe_shared_bytes(k, p, b, tile,
-                                                                                        2 if bf16 else 4)
+        for tensor in (False, True):
+            assert tlp.shared_bytes(*args, tensor) == tlp._cuda_lib.owlpt_latency_probe_shared_bytes(
+                k, p, b, tile, 2 if bf16 else 4, int(tensor))
+    assert tlp.shared_bytes(768, 1, 256, 512, True, True) - tlp.shared_bytes(768, 1, 256, 512, True) == \
+        10 * (8 * 512 + 16) + 16 - 16 * 4 * 512 * 2
     limit = tlp.smem_limit(cuda_device)
     assert limit >= 227 * 1024 and tlp.tile_cols(512, 768, 4, 256, False, limit) == 128
+    assert tlp.tile_cols(512, 768, 4, 256, False, limit, tensor=True) == 512
 
 
 def test_resume_on_card_gives_the_uninterrupted_frame(cuda_device, tmp_path):

@@ -237,6 +237,26 @@ def test_no_attrs_mxu_matches_jax(soup):
     assert ok.all()  # every winner passes the window at its own slot
 
 
+def test_no_attrs_exact_entry_on_the_cpu_is_the_plain_version(soup):
+    """exact=True without attributes on f32 MXU planes names K4's CUDA-core
+    yardstick (the tensor form's, off every render path); on the CPU it is
+    the plain version, which test_no_attrs_mxu_matches_jax holds to JAX.
+    bf16 planes and the other modes have no such entry."""
+    accels, o, d, tmax, *_ = soup
+    tfb = accels["f32"][1]
+    assert tf2._entry(tfb, "closest", False, exact=True) == "owlpt_fused2_mxu_exact_closest_hit_noattr"
+    assert tf2._entry(tfb, "closest", False) == "owlpt_fused2_mxu_closest_hit_noattr"
+    rays = tf2.pack_rays(torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(tmax))
+    got = tf2.fused2_traverse_packed(rays, tfb, with_attrs=False, exact=True)
+    assert torch.equal(got, tf2.fused2_traverse_packed_plain(rays, tfb, with_attrs=False))
+    with pytest.raises(ValueError, match="exact=True"):
+        tf2.fused2_traverse_packed(rays, accels["component"][1], with_attrs=False, exact=True)
+    with pytest.raises(ValueError, match="exact=True"):
+        tf2.fused2_traverse_packed(rays, tfb, mode="any_hit", exact=True)
+    with pytest.raises(ValueError, match="with_attrs"):
+        tf2.fused2_traverse_packed(rays, accels["bf16"][1], with_attrs=False, exact=True)
+
+
 def test_no_attrs_bf16_raises(soup):
     accels, o, d, tmax, *_ = soup
     _, tfb = accels["bf16"]

@@ -171,6 +171,58 @@ def test_tile_sizing():
         lp.tile_cols(60, k, 1, b, False, H100_SMEM)
 
 
+def test_tensor_form_tile_sizing():
+    """The tensor form's buffers are K1b's staging (bf16 10 rows of 8C + 16
+    bytes, f32 19 rows of C' words) and a 16-byte zero row, far smaller than
+    the exact form's [16,4,tile]: four chains of whole C=512 clusters fit."""
+    k, b = 768, 256
+    head = 4 * ((k + 10 * b + 64 + 3) & ~3)
+    assert lp.shared_bytes(k, 1, b, 512, True, tensor=True) == head + 10 * (8 * 512 + 16) + 16
+    assert lp.shared_bytes(k, 1, b, 512, False, tensor=True) == head + 19 * (512 + 8) * 4 + 16
+    head2 = 4 * ((2 * k + 10 * b + 64 + 3) & ~3)
+    assert lp.shared_bytes(k, 2, b, 64, False, tensor=True) == head2 + 2 * 19 * (64 + 8) * 4 + 16
+    assert [lp.tile_cols(512, k, p, b, False, H100_SMEM, tensor=True) for p in (1, 2, 4, 16)] == [512, 512, 512, 128]
+    assert [lp.tile_cols(512, k, p, b, True, H100_SMEM, tensor=True) for p in (1, 4, 16)] == [512, 512, 128]
+    for p in (1, 4, 16):
+        for bf16 in (False, True):
+            tile = lp.tile_cols(512, k, p, b, bf16, H100_SMEM, tensor=True)
+            assert lp.shared_bytes(k, p, b, tile, bf16, tensor=True) <= H100_SMEM
+
+
+@pytest.mark.parametrize("name", ["pick_dma_mm", "sched_dma_mm", "interleave2", "pick_only"])
+def test_tested_clusters_are_the_plain_versions(reference, name):
+    """tested_clusters lists each block's clusters in the loop's order, the
+    ones the plain version multiplies: a plain run on planes that are zero
+    except in those clusters gives the same best t as on the full planes."""
+    (rays, boxes, planes_j), _ = reference[(name, 8)]
+    rays_t = torch.as_tensor(rays.reshape(-1, 8))
+    boxes_t = torch.as_tensor(boxes)
+    planes_t = torch.as_tensor(np.asarray(planes_j, np.float32))
+    v = lp.variant(name)
+    cids = lp.tested_clusters(rays_t, boxes_t, name, 8, B)
+    assert cids.shape == (N // B, lp.trips(v, 8) * v.chains)
+    if not v.pick:
+        assert (cids == (torch.arange(cids.shape[1]) % boxes_t.shape[1])).all()
+    want = lp.latency_probe_plain(rays_t, boxes_t, planes_t, name, 8, B)
+    for g in range(0, N // B, 4):  # a block at a time: zero every other cluster
+        only = torch.zeros_like(planes_t)
+        only[cids[g]] = planes_t[cids[g]]
+        block = slice(g * B, (g + 1) * B)
+        got = lp.latency_probe_plain(rays_t[block], boxes_t, only, name, 8, B)
+        assert torch.equal(got[0], want[g])
+
+
+def test_exact_form_on_the_cpu_is_the_plain_version(reference):
+    """exact=True names the CUDA-core form on the card; on the CPU both
+    forms are the plain version."""
+    (rays, boxes, planes_j), _ = reference[("pick_dma_mm", 4)]
+    args = (torch.as_tensor(rays.reshape(-1, 8)), torch.as_tensor(boxes), torch.as_tensor(np.asarray(planes_j)))
+    want = lp.latency_probe_plain(*args, "pick_dma_mm", 4, B)
+    for exact in (False, True):
+        assert torch.equal(lp.latency_probe(*args, "pick_dma_mm", 4, B, exact=exact), want)
+    assert set(lp.LAUNCHES) == {lp.ENTRY, lp.EXACT_ENTRY}
+
+
 def test_cuda_request_raises_instead_of_falling_back(monkeypatch):
     """A non-CPU request goes to the kernel path, which raises without a
     CUDA device; the plain version is never called for it."""

@@ -47,15 +47,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_native_sources_lie_inside_the_port(monkeypatch):
-    """Every source the port hands to g++ or nvcc is a file of the port's
-    own package: nothing is compiled from the JAX package."""
+    """Every source the port hands to g++ or nvcc, and every header a build
+    depends on, is a file of the port's own package: nothing is compiled
+    from the JAX package."""
     seen = []
 
     class Stop(Exception):
         pass
 
-    def record(cmd_head, sources, out, flags):
-        seen.extend(pathlib.Path(s).resolve() for s in sources)
+    def record(cmd_head, sources, out, flags, depends=()):
+        seen.extend(pathlib.Path(s).resolve() for s in [*sources, *depends])
         raise Stop
 
     monkeypatch.setattr(native, "_compile", record)
@@ -69,7 +70,7 @@ def test_native_sources_lie_inside_the_port(monkeypatch):
     with pytest.raises(Stop):
         tlp.build_kernels()  # nvcc: the latency probe kernel
     port = pathlib.Path(native.PKG_DIR).resolve()
-    assert len(seen) >= 4 and tlp.CSRC.resolve() in seen
+    assert len(seen) >= 4 and tlp.CSRC.resolve() in seen and tf2.TENSOR_OPS.resolve() in seen
     for src in seen:
         assert port in src.parents and src.is_file(), src
 
