@@ -212,6 +212,16 @@ per-ray-stack bvh accelerator and the strided film:
      (8 pixels per lane), held to the queue film by tests/test_wavefront.py's
      rule (rtol 1e-5, atol 1e-6, equal rays), timed in turns queue,
      strided, strided, queue; then once each on fused2-bf16 (golden rule).
+The benchmark entry and the communication model:
+  6k. python -m owl_path_tracer_tpu_torch.tools.bench in a child process,
+     twice: at --spp (the trend line, then the headline at phase 6's
+     configuration) and with --quick; exit code 0, the device line, the
+     trend line and the headline last, every key present and value > 0,
+     each metric equal to the label of its config, the device line's card
+     equal to this run's nvidia-smi line, and the headline's live rays
+     equal to phase 6c's fused2-bf16 frame's (bench_lines); then
+     tools/comm_model.py with --t1 the headline's seconds, every
+     implied_efficiency_* in (0, 1].
 The second-to-last lines are the kernels JSON (the component rows K1-K4
 give the slot-parallel entries, with bound_no_fma_ms, the ceiling of a
 kernel built with --fmad=false, and serial_ms, the serial body's time from
@@ -357,6 +367,10 @@ GRAD_RTOL, GRAD_ATOL_OF_MAX = 1e-4, 1e-6
 # phase 6h's two-rank frame (the dragon, cut from 1024x1024 so that two
 # spawned ranks on one card build and render it in well under a minute)
 TWO_RANK_SIZE = 256
+# phase 6k: the bench entry's child processes (each builds its scenes and
+# renders every config twice, a warm-up and the timed frame)
+BENCH_TIMEOUT = 600
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline")
 
 
 class SmokeFailure(Exception):
@@ -1431,7 +1445,7 @@ def phase_5c(dev, block, dragon):
 
 
 def main_path(what, scene, settings, accel, lanes, block, fused_nee=False):
-    """One timed frame with the counts reset just before it -> (launches by entry, Mrays/s)."""
+    """One timed frame with the counts reset just before it -> (launches by entry, live rays)."""
     import torch
 
     from owl_path_tracer_tpu_torch.ops import fused2
@@ -1451,7 +1465,7 @@ def main_path(what, scene, settings, accel, lanes, block, fused_nee=False):
     print(f"  {what} {settings.width}x{settings.height} spp {settings.max_samples} depth {DEPTH}: {rays} rays "
           f"in {seconds:.3f} s = {rays / seconds / 1e6:.3f} Mrays/s; launches {launches}, unresolved rays "
           f"{fused2.UNRESOLVED_RAYS}, image mean {img.mean().item():.6f}", flush=True)
-    return launches
+    return launches, rays
 
 
 def film_determinism(scene, settings, lanes, block):
@@ -3138,6 +3152,91 @@ def phase_6j(scene, settings, comp_accel, lanes, block, smi):
     print(f"  on fused2-bf16: queue {q[2]:.3f} s ({q[1]} rays), strided {s[2]:.3f} s ({s[1]} rays)", flush=True)
 
 
+def bench_lines(stdout, metrics, smi, rays=None):
+    """Phase 6k's reading of tools/bench.py's standard output: its last lines
+    are the device line (``smi``, and each config's label, live rays and
+    seconds), then one line per metric of ``metrics`` in that order (the
+    trend line where one is expected, the headline LAST), each with every key
+    of BENCH_KEYS, unit Mrays/s, value and vs_baseline > 0, and the metric
+    expected; with ``rays`` the headline's live rays must equal them ->
+    (device line, metric lines)."""
+    lines = stdout.strip().splitlines()
+    check(len(lines) > len(metrics), f"bench printed {len(lines)} lines, expected at least {len(metrics) + 1}")
+    try:
+        info, *recs = (json.loads(line) for line in lines[-len(metrics) - 1:])
+    except json.JSONDecodeError as e:
+        raise SmokeFailure(f"bench's last {len(metrics) + 1} lines are not JSON: {e}") from e
+    check(isinstance(info, dict) and info.get("device") == smi, f"bench's device line {info!r}, expected [{smi}]")
+    configs = info.get("configs")
+    check(isinstance(configs, list) and len(configs) == len(metrics), f"bench's configs {configs!r}")
+    for rec, want, cfg in zip(recs, metrics, configs):
+        check(isinstance(rec, dict), f"bench line {rec!r} is not an object")
+        missing = [k for k in BENCH_KEYS if k not in rec]
+        check(not missing, f"bench line {rec} lacks {missing}")
+        check(rec["metric"] == want, f"bench metric {rec['metric']!r}, expected {want!r}")
+        check(rec["unit"] == "Mrays/s", f"bench unit {rec['unit']!r}")
+        for key in ("value", "vs_baseline"):
+            check(isinstance(rec[key], (int, float)) and rec[key] > 0, f"bench {key} {rec[key]!r} in {want!r}")
+        check(want.endswith(f"{cfg.get('metric')})") and cfg.get("rays", 0) > 0 and cfg.get("seconds", 0) > 0,
+              f"bench config {cfg!r} for {want!r}")
+    if rays is not None:
+        check(configs[-1]["rays"] == rays, f"bench's headline traced {configs[-1]['rays']} rays, phase 6c {rays}")
+    return info, recs
+
+
+def phase_6k(dragon, n_tris, spp, rays_6c, smi):
+    """tools/bench.py in child processes, at --spp ``spp`` (trend and
+    headline) and --quick, read by bench_lines (the headline's rays equal
+    to phase 6c's fused2-bf16 frame, ``rays_6c``), then tools/comm_model.py
+    with --t1 the headline's seconds."""
+    import copy
+
+    import torch
+
+    from owl_path_tracer_tpu_torch.models.scene import compile_scene
+    from owl_path_tracer_tpu_torch.tools import bench, comm_model
+
+    torch.cuda.empty_cache()  # the children render on this card too
+
+    def run_bench(argv):
+        start = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "owl_path_tracer_tpu_torch.tools.bench", *argv], cwd=ROOT,
+                              capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+        check(proc.returncode == 0, f"bench {' '.join(argv)} exited {proc.returncode}: {proc.stderr[-3000:]}")
+        return proc.stdout, time.perf_counter() - start
+
+    argv = ["--spp", str(spp)]
+    args = bench.parse_args(argv)
+    check((args.size, args.depth, args.lanes, args.fused2_block, args.dragon_sub) == (SIZE, DEPTH, LANES, BLOCK,
+                                                                                       DRAGON_SUB),
+          "bench's defaults are not phase 6's configuration")
+    out, wall = run_bench(argv)
+    # the trend's dragon (subdivision 6, the shared "dragon"), written by the bench's child
+    n6 = compile_scene(ROOT / "assets", "dragon", (512, 512), device="cpu").num_tris
+    targs = copy.copy(args)
+    targs.intersector = "fused2"
+    metrics = [f"trend Mrays/s (frozen: {bench.label(targs, 'dragon', n6, 512, 4, args.depth)})",
+               f"fwd Mrays/s ({bench.label(args, dragon, n_tris, args.size, spp, args.depth)})"]
+    info, (trend, head) = bench_lines(out, metrics, smi, rays=rays_6c)
+    (t_cfg, h_cfg) = info["configs"]
+    print(f"  bench {' '.join(argv)} ({wall:.1f} s in its process): trend {trend['value']} Mrays/s "
+          f"({t_cfg['rays']} rays in {t_cfg['seconds']:.3f} s), headline {head['value']} Mrays/s ({h_cfg['rays']} "
+          f"rays in {h_cfg['seconds']:.3f} s, equal to phase 6c's), vs_baseline {head['vs_baseline']}; [{smi}]",
+          flush=True)
+    quick = bench.parse_args(["--quick"])
+    out, wall = run_bench(["--quick"])
+    info, (q,) = bench_lines(out, [f"fwd Mrays/s ({bench.label(quick, 'dragon', n6, 256, 2, quick.depth)})"], smi)
+    print(f"  bench --quick ({wall:.1f} s in its process): {q['value']} Mrays/s ({info['configs'][0]['rays']} rays "
+          f"in {info['configs'][0]['seconds']:.3f} s); [{smi}]", flush=True)
+    rows = comm_model.main(["--t1", repr(h_cfg["seconds"])])["model"]
+    check(len(rows) == len(comm_model.DEVICES), f"comm_model printed {len(rows)} rows")
+    effs = {f"{k} @{row['devices']}": row[k] for row in rows for k in row if k.startswith("implied_efficiency_")}
+    bad = {k: v for k, v in effs.items() if not 0.0 < v <= 1.0}
+    check(len(effs) == 2 * len(rows) and not bad, f"comm_model efficiencies outside (0, 1]: {bad or effs}")
+    print(f"  comm_model --t1 {h_cfg['seconds']:.3f}: implied efficiency {min(effs.values())}-{max(effs.values())} "
+          f"at {comm_model.DEVICES[0]}-{comm_model.DEVICES[-1]} cards", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--spp", type=int, default=8, help="main-path samples per pixel (64: headline)")
@@ -3434,14 +3533,15 @@ def main():
 
     # 6c ── the headline main path and the NEE path on the MXU layouts
     t0 = time.perf_counter()
-    mxu = {}
+    mxu, mxu_rays = {}, {}
     for kind in ("fused2-bf16", "fused2"):
-        mxu[kind] = main_path(f"{dragon} {kind}", scene, settings, make_accel(scene, kind), lanes, block)
+        mxu[kind], mxu_rays[kind] = main_path(f"{dragon} {kind}", scene, settings, make_accel(scene, kind), lanes,
+                                              block)
         nee_mxu = make_accel(nee_scene, kind)
         for fused_nee in (False, True):
             form = "deferred" if fused_nee else "separate"
-            mxu[f"{kind} {form}"] = main_path(f"{NEE_SCENE} NEE {form} {kind}", nee_scene, nset, nee_mxu, lanes,
-                                              block, fused_nee)
+            mxu[f"{kind} {form}"], _ = main_path(f"{NEE_SCENE} NEE {form} {kind}", nee_scene, nset, nee_mxu,
+                                                 lanes, block, fused_nee)
     film_differ = film_determinism(scene, settings, lanes, block)
     check(not any(film_differ.values()), f"the wavefront film is not deterministic: {film_differ}")
     phase("6c main paths on fused2-bf16 and fused2, film determinism", t0)
@@ -3519,6 +3619,11 @@ def main():
     t0 = time.perf_counter()
     phase_6j(scene, settings, accel, lanes, block, smi)
     phase("6j the strided film", t0)
+
+    # 6k ── the benchmark entry and the communication model
+    t0 = time.perf_counter()
+    phase_6k(dragon, scene.num_tris, args.spp, mxu_rays["fused2-bf16"], smi)
+    phase("6k the bench entry and the comm model", t0)
 
     check("jax" not in sys.modules and "owl_path_tracer_tpu" not in sys.modules,
           "the JAX package was imported")

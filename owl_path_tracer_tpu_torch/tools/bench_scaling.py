@@ -44,11 +44,6 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def _rank(mesh, args):
     """One rank: a warm-up render, then the timed one -> (seconds, work, image mean, stats)."""
     scene = compile_scene(pc.ASSETS, args.scene, (args.size, args.size), device=mesh.device)
@@ -65,10 +60,10 @@ def _rank(mesh, args):
             return img, args.size * args.size * args.spp, None  # paths: a lower bound on rays
         shard.render_image_sharded(scene, settings, mesh=mesh, spp=1, accel=accel)
     render()  # warm-up
-    _sync(mesh.device)
+    pc.sync(mesh.device)
     t0 = time.perf_counter()
     img, work, stats = render()
-    _sync(mesh.device)
+    pc.sync(mesh.device)
     return time.perf_counter() - t0, work, float(img.mean()), stats
 
 

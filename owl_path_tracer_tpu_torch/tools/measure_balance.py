@@ -75,8 +75,7 @@ def main(argv=None) -> list:
     args = parse_args(argv)
     device = resolve_device(args.device)
     ranks = args.ranks or (torch.cuda.device_count() if device.type == "cuda" else 8)
-    # assets/generate.py's ensure_dragon: sub <= 6 is the shared "dragon" scene
-    scene_name = pc.generate(f"print(generate.ensure_dragon({args.sub}))").splitlines()[-1]
+    scene_name = pc.generated_dragon(args.sub)
     recs = shard.spawn_ranks(_rank, ranks, device=str(device), backend=args.backend, args=(args, scene_name))[0]
     for rec in recs:
         print(json.dumps(rec), flush=True)

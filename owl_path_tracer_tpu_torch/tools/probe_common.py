@@ -42,6 +42,19 @@ def ensure_dragon(sub: int) -> str:
         "print(name)\n")
 
 
+def generated_dragon(sub: int) -> str:
+    """``assets/generate.py``'s own ``ensure_dragon``, as ``bench.py`` calls it
+    (sub <= 6 is the shared ``dragon`` scene, larger subs ``dragon{sub}``)
+    -> the scene name."""
+    return generate(f"print(generate.ensure_dragon({sub}))").splitlines()[-1]
+
+
+def sync(device):
+    """Wait for the card's queued work on a CUDA device (nothing on the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def ensure_texture(rel: str):
     """Write the stand-in texture ``assets/<rel>`` (generate.py's checkerboard) unless present."""
     generate(f"tex = generate.HERE / {rel!r}\ntex.exists() or generate.gen_cube_texture(tex)\n")

@@ -11,6 +11,7 @@ rounding bound, and fails one beyond it or onto a slot whose window fails by
 more.
 """
 import dataclasses
+import json
 
 import pytest
 import torch
@@ -434,3 +435,117 @@ def test_probe_bound_of_the_tensor_form(name):
     assert window > product  # the window paces both
     assert tensor == (pytest.approx((slab + chain_iters * c * max(window, product)) * 1e3, rel=1e-12), "operations")
     assert exact[0] > tensor[0]
+
+
+# ── phase 6k: the reading of tools/bench.py's standard output ──────────────
+
+SMI = "NVIDIA H100 80GB HBM3, 700.00 W"
+HEAD_RAYS = 31_457_280
+
+
+@pytest.fixture
+def bench_out(monkeypatch, capsys):
+    """A well-formed ``bench --spp 8`` output (device line, trend line,
+    headline), made by the bench's own main with run_config replaced, and
+    the metrics phase 6k expects of it."""
+    import copy
+
+    from owl_path_tracer_tpu_torch.tools import bench
+
+    n_tris = {"dragon": 81924, "dragon7": 327684}
+
+    def run_config(args, scene_name, size, spp, depth, nee=False):
+        rays = HEAD_RAYS if scene_name == "dragon7" else 4_000_000
+        return 6.5, bench.label(args, scene_name, n_tris[scene_name], size, spp, depth, nee), rays, 1.25
+
+    monkeypatch.setattr(bench, "run_config", run_config)
+    monkeypatch.setattr(bench.pc, "generated_dragon", lambda sub: "dragon" if sub <= 6 else f"dragon{sub}")
+    monkeypatch.setattr(bench.pc, "device_name", lambda device: SMI)
+    print("a progress line before the records")
+    bench.main(["--device", "cpu", "--spp", "8"])
+    args = bench.parse_args(["--spp", "8"])
+    targs = copy.copy(args)
+    targs.intersector = "fused2"
+    metrics = [f"trend Mrays/s (frozen: {bench.label(targs, 'dragon', 81924, 512, 4, 4)})",
+               f"fwd Mrays/s ({bench.label(args, 'dragon7', 327684, 1024, 8, 4)})"]
+    return capsys.readouterr().out, metrics
+
+
+def _relines(out, edit):
+    lines = out.strip().splitlines()
+    return "\n".join(edit(lines)) + "\n"
+
+
+def test_bench_lines_pass_a_well_formed_pair(bench_out):
+    out, metrics = bench_out
+    info, (trend, head) = chip_smoke.bench_lines(out, metrics, SMI, rays=HEAD_RAYS)
+    assert info["configs"][-1]["rays"] == HEAD_RAYS and head["metric"] == metrics[-1]
+    assert trend["value"] == head["value"] == 6.5
+    # the headline alone (--quick's shape)
+    chip_smoke.bench_lines(_relines(out, lambda ls: [ls[0], json.dumps({"device": SMI, "configs": [
+        json.loads(ls[-3])["configs"][1]]}), ls[-1]]), metrics[1:], SMI)
+
+
+@pytest.mark.parametrize("edit", [
+    lambda ls: ls[:-2] + [ls[-1], ls[-2]],  # headline before the trend line
+    lambda ls: ls + ['{"metric": "after", "value": 1, "unit": "Mrays/s", "vs_baseline": 1}'],
+    lambda ls: ls + ["done"],
+    lambda ls: ls[:-1],  # no headline
+], ids=["swapped", "json_after", "text_after", "missing"])
+def test_bench_lines_fail_when_the_headline_is_not_last(bench_out, edit):
+    out, metrics = bench_out
+    with pytest.raises(chip_smoke.SmokeFailure):
+        chip_smoke.bench_lines(_relines(out, edit), metrics, SMI, rays=HEAD_RAYS)
+
+
+@pytest.mark.parametrize("line", [-1, -2], ids=["headline", "trend"])
+@pytest.mark.parametrize("key", chip_smoke.BENCH_KEYS)
+def test_bench_lines_fail_a_missing_key(bench_out, key, line):
+    out, metrics = bench_out
+
+    def drop(ls):
+        rec = json.loads(ls[line])
+        del rec[key]
+        ls[line] = json.dumps(rec)
+        return ls
+
+    with pytest.raises(chip_smoke.SmokeFailure, match="lacks"):
+        chip_smoke.bench_lines(_relines(out, drop), metrics, SMI, rays=HEAD_RAYS)
+
+
+@pytest.mark.parametrize("value", [0, 0.0, -1.5, "6.5", None])
+def test_bench_lines_fail_a_value_not_above_zero(bench_out, value):
+    out, metrics = bench_out
+
+    def set_value(ls):
+        ls[-1] = json.dumps(dict(json.loads(ls[-1]), value=value))
+        return ls
+
+    with pytest.raises(chip_smoke.SmokeFailure, match="value"):
+        chip_smoke.bench_lines(_relines(out, set_value), metrics, SMI, rays=HEAD_RAYS)
+
+
+@pytest.mark.parametrize("delta", [-1, 1, -HEAD_RAYS // 2])
+def test_bench_lines_fail_rays_unlike_phase_6c(bench_out, delta):
+    out, metrics = bench_out
+    with pytest.raises(chip_smoke.SmokeFailure, match="phase 6c"):
+        chip_smoke.bench_lines(out, metrics, SMI, rays=HEAD_RAYS + delta)
+
+
+def test_bench_lines_fail_another_card_or_config(bench_out):
+    out, metrics = bench_out
+    with pytest.raises(chip_smoke.SmokeFailure, match="device line"):
+        chip_smoke.bench_lines(out, metrics, "NVIDIA H100 80GB HBM3, 500.00 W", rays=HEAD_RAYS)
+    other = [metrics[0], metrics[1].replace("spp=8", "spp=64")]
+    with pytest.raises(chip_smoke.SmokeFailure, match="expected"):
+        chip_smoke.bench_lines(out, other, SMI, rays=HEAD_RAYS)
+
+
+def test_bench_defaults_are_phase_6s_configuration():
+    from owl_path_tracer_tpu_torch.tools import bench
+
+    args = bench.parse_args(["--spp", "8"])
+    assert (args.size, args.depth, args.lanes, args.fused2_block, args.dragon_sub) == (
+        chip_smoke.SIZE, chip_smoke.DEPTH, chip_smoke.LANES, chip_smoke.BLOCK, chip_smoke.DRAGON_SUB)
+    assert (args.intersector, args.renderer, args.no_sort, args.iters_per_launch) == (
+        "fused2-bf16", "wavefront", False, 32)

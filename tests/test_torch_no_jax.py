@@ -39,10 +39,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 44  # every sub-package and module was walked
-    # the gradient path's modules, and the last slice's, among them
+    assert int(proc.stdout.strip()) >= 46  # every sub-package and module was walked
+    # the gradient path's modules, and the later slices', among them
     for name in ("render.diff", "render.metrics", "ops.bvh", "ops.traverse", "ops.debug", "parallel",
-                 "parallel.shard", "tools.render_gallery", "tools.measure_balance", "tools.bench_scaling"):
+                 "parallel.shard", "tools.render_gallery", "tools.measure_balance", "tools.bench_scaling",
+                 "tools.bench", "tools.comm_model"):
         assert f"owl_path_tracer_tpu_torch.{name}" in proc.stderr.split()
 
 
