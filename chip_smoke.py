@@ -78,26 +78,33 @@ no-attributes closest hit (K4) follow:
      phase 6's frame rendered twice on fused2 and on the component layout,
      the films compared bit for bit.
 The fused kernel (K5, make_accel("fused"), clusters of C=128) under the scan
-renderer (render/film.py) and the CLI:
-  3d. K5 vs its plain version on the soup (C=64): blocks 128 and 256, per-ray
-     and scalar t_max with padding rays, columns 0-6 identical; max_steps=1
-     through fused_closest_hit leaves rows unresolved and the wrapper's
-     answers equal the CPU wrapper's;
+renderer (render/film.py) and the CLI, in both block-wide steps
+(fused.STEPS: "slots", the slot-parallel step and the default, and
+"serial", the step before it, kept as the yardstick):
+  3d. K5 vs its plain version on the soup (C=64): both steps at blocks 128
+     and 256, per-ray and scalar t_max with padding rays, columns 0-6
+     identical; both steps at max_steps 0, 1 and 3, and with a block in
+     which no ray is active, identical to the plain version and to each
+     other; max_steps=1 through fused_closest_hit leaves rows unresolved and
+     the wrapper's answers equal the CPU wrapper's;
   4d. K5 vs plain at the main path's shapes: dragon sub 7 on
      make_accel("fused"), the 65536-ray primary wave of add_samples' first
      pixel chunk and the bounce wave trace_bounce makes of it, then the same
-     for the chunk through the image centre; CUDA events; then dragon sub 8
-     (~1.3M triangles, K above the 9,088 clusters K5 took while its block
-     held the boxes in shared memory): the centre chunk's bounce wave, the
-     kernel on all 65536 rays, the plain version on every 8th block;
-     registers, shared memory and blocks per SM of K5 at both K and for
-     both list-scan kinds; on both centre bounce waves both scan kinds
-     (serial, and group skips with warp rescans) equal to the plain version,
-     split per block by the profile entry's clock64 (set-up scan, pick and
-     stage, slot loop, list updates and rescans), with rescans and boxes
-     slab-tested per ray and per block, and timed in turns with the serial
-     scan; the group-skip set-up scan's box count equal to the plain list
-     scan's (fused.nearest_lists);
+     for the chunk through the image centre; then dragon sub 8 (~1.3M
+     triangles, K above the 9,088 clusters K5 took while its block held the
+     boxes in shared memory): the centre chunk's bounce wave, the kernel on
+     all 65536 rays, the plain version on every 8th block; on every wave
+     both steps equal to the plain version and to each other, timed in
+     turns (serial, slots, slots, serial; 3 calls a turn, CUDA events), each
+     beside the bound, and split per block by the profile entry's clock64
+     (set-up, pick and stage, slot tests, list updates and rescans) for the
+     slowest and the mean block, with the clusters each ray tested; threads,
+     CTAs, registers, shared memory and blocks per SM of both steps and
+     both list-scan kinds at both K; on both centre bounce waves both scan
+     kinds (serial, and group skips with warp rescans) equal to the plain
+     version, with rescans and boxes slab-tested per ray and per block, and
+     timed in turns with the serial scan; the group-skip set-up scan's box
+     count equal to the plain list scan's (fused.nearest_lists);
   4e. the fused2 kernels above their old cluster limit (the frontier row
      [K] of a block no longer fits in shared memory beside the rest, so it
      lies in device memory): 480,000 random triangles in clusters of C=8
@@ -124,11 +131,14 @@ renderer (render/film.py) and the CLI:
   6d. the scan main path (bench.py's scan branch): dragon sub 7 on
      make_accel("fused"), 1024x1024, depth 4, auto sky, new_film +
      add_samples with 65536-pixel chunks; then render_image_wavefront on the
-     same accelerator at 131072 lanes; counts reset just before each;
+     same accelerator at 131072 lanes; counts reset just before each; then
+     the scan frame again through the yardstick step, which must trace the
+     same rays and give the same image;
   6e. the CLI in process (utils/cli.main): the car scene of
      assets/settings.json at its 1080x1440 and depth 16, --intersector fused
      --no-sweep, spp cut to 2, with its textured Ground, into
-     chiprun_out/smoke_cli/.
+     chiprun_out/smoke_cli/; then again through the yardstick step, which
+     must trace the same rays and write the same PNG.
 The retirement-loop latency probe (K6, ops/latency_probe.py, run by
 tools/latency_probe.py) and the production path (tools/render_production.py)
 with the wavefront's drained checkpoints:
@@ -1527,8 +1537,14 @@ def fused_bound(rays, want, fb):
     return ((t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")), float(need.float().mean())
 
 
+def other_step(step):
+    from owl_path_tracer_tpu_torch.ops import fused as tfu
+
+    return next(x for x in tfu.STEPS if x != step)
+
+
 def phase_3d(dev, results):
-    """K5 vs its plain version on the soup."""
+    """K5 vs its plain version on the soup, both steps."""
     import torch
 
     from owl_path_tracer_tpu_torch.ops import fused as tfu
@@ -1536,39 +1552,66 @@ def phase_3d(dev, results):
     fb, (o, d, tmax) = fused_soup(dev)
     n = o.shape[0]
     errs = []
-    for block in (128, 256):
+
+    def padded(block):
         pad = (-n) % block
-        o_p = torch.cat([o, torch.zeros((pad, 3), device=dev)])
-        d_p = torch.cat([d, torch.tensor([0.0, 0.0, 1.0], device=dev).expand(pad, 3)])
-        for t_name, t in (("per-ray", torch.cat([tmax, torch.full((pad,), 1e-3, device=dev)])),
-                          ("scalar", 1e10)):
-            got = tfu.fused_traverse(o_p, d_p, t, fb, block)
+        return (torch.cat([o, torch.zeros((pad, 3), device=dev)]),
+                torch.cat([d, torch.tensor([0.0, 0.0, 1.0], device=dev).expand(pad, 3)]),
+                torch.cat([tmax, torch.full((pad,), 1e-3, device=dev)]))
+
+    for block in (128, 256):
+        o_p, d_p, t_ray = padded(block)
+        for t_name, t in (("per-ray", t_ray), ("scalar", 1e10)):
             want = tfu.fused_traverse_plain(o_p, d_p, t, fb, block)
-            what = f"K5 soup block {block} {t_name} t_max"
-            check(torch.equal(got[:, :7], want[:, :7]), f"{what}: columns 0-6 differ from the plain version")
-            check(bool((got[:, 7] == 0).all()) and bool((got[:, 5] == 1).all()), f"{what}: col 7 or resolved")
-            errs.append(float((got[:, :3] - want[:, :3]).abs().max()))
-            if t_name == "per-ray":
-                check(bool((got[n:, 4] == 0).all()), f"{what}: a padding ray hit")
-            steps = got[:, 6].reshape(-1, block)[:, 0]
-            print(f"  {what}: {int(got[:n, 4].sum())}/{n} hits, columns 0-6 identical, clusters/block "
-                  f"{steps.tolist()}")
+            for step in tfu.STEPS:
+                got = tfu.fused_traverse(o_p, d_p, t, fb, block, step=step)
+                what = f"K5 ({step} step) soup block {block} {t_name} t_max"
+                check(torch.equal(got[:, :7], want[:, :7]), f"{what}: columns 0-6 differ from the plain version")
+                check(bool((got[:, 7] == 0).all()) and bool((got[:, 5] == 1).all()), f"{what}: col 7 or resolved")
+                errs.append(float((got[:, :3] - want[:, :3]).abs().max()))
+                if t_name == "per-ray":
+                    check(bool((got[n:, 4] == 0).all()), f"{what}: a padding ray hit")
+                steps = got[:, 6].reshape(-1, block)[:, 0]
+                print(f"  {what}: {int(got[:n, 4].sum())}/{n} hits, columns 0-6 identical, clusters/block "
+                      f"{steps.tolist()}")
+        # cut short: unresolved rows and the steps column
+        for max_steps in (0, 1, 3):
+            want = tfu.fused_traverse_plain(o_p, d_p, t_ray, fb, block, max_steps)
+            got = {step: tfu.fused_traverse(o_p, d_p, t_ray, fb, block, max_steps, step=step) for step in tfu.STEPS}
+            for step, out in got.items():
+                check(torch.equal(out[:, :7], want[:, :7]) and torch.equal(out, got[other_step(step)]),
+                      f"K5 ({step} step) soup block {block} max_steps {max_steps}: differs from the plain version "
+                      "or the other step")
+            check(max_steps == 3 or bool((want[:, 5] == 0).any()), f"K5 max_steps {max_steps}: all resolved")
+        print(f"  K5 both steps, soup block {block}, max_steps 0 / 1 / 3: columns 0-6 identical to the plain "
+              "version, all columns to each other")
     results["k5_err"] = max(errs)
+    # a block in which no ray is active, between two live blocks
+    o_p, d_p, t_ray = padded(128)
+    o_i, d_i, t_i = o_p[:384].clone(), d_p[:384].clone(), t_ray[:384].clone()
+    o_i[128:256] = torch.tensor([0.0, 0.0, 100.0], device=dev)
+    d_i[128:256] = torch.tensor([0.0, 0.0, 1.0], device=dev)
+    want = tfu.fused_traverse_plain(o_i, d_i, t_i, fb, 128)
+    for step in tfu.STEPS:
+        got = tfu.fused_traverse(o_i, d_i, t_i, fb, 128, step=step)
+        check(torch.equal(got[:, :7], want[:, :7]) and bool((got[128:256, 6] == 0).all())
+              and bool((got[128:256, 4] == 0).all()), f"K5 ({step} step): the block with no active ray differs")
+    print("  K5 both steps: a block with no active ray retires nothing, columns 0-6 identical to the plain version")
     # both list-scan kinds, and the group box entered with no member entered
     cg, co, cd = corner_groups(dev)
-    pad = (-n) % 128
-    o_p = torch.cat([o, torch.zeros((pad, 3), device=dev)])
-    d_p = torch.cat([d, torch.tensor([0.0, 0.0, 1.0], device=dev).expand(pad, 3)])
+    o_p, d_p, _ = padded(128)
     want = tfu.fused_traverse_plain(o_p, d_p, 1e10, fb, 128)
     want_c = tfu.fused_traverse_plain(co, cd, 1e10, cg)
     for scan in tfu.SCANS:
-        check(torch.equal(tfu.fused_traverse(o_p, d_p, 1e10, fb, 128, scan=scan)[:, :7], want[:, :7]),
-              f"K5 ({scan} scan) soup: columns 0-6 differ from the plain version")
-        got = tfu.fused_traverse(co, cd, 1e10, cg, scan=scan)
-        check(torch.equal(got[:, :7], want_c[:, :7]) and bool((got[:, 0] == 4.0).all()),
-              f"K5 ({scan} scan): the corner-groups case differs from the plain version")
-    print(f"  K5 scan kinds {list(tfu.SCANS)}: soup columns 0-6 identical; rays through a group box that meet "
-          "none of its members hit the cluster behind (t = 4), as the plain version")
+        for step in tfu.STEPS:
+            check(torch.equal(tfu.fused_traverse(o_p, d_p, 1e10, fb, 128, scan=scan, step=step)[:, :7],
+                              want[:, :7]), f"K5 ({scan} scan, {step} step) soup: columns 0-6 differ from the plain "
+                                            "version")
+            got = tfu.fused_traverse(co, cd, 1e10, cg, scan=scan, step=step)
+            check(torch.equal(got[:, :7], want_c[:, :7]) and bool((got[:, 0] == 4.0).all()),
+                  f"K5 ({scan} scan, {step} step): the corner-groups case differs from the plain version")
+    print(f"  K5 scan kinds {list(tfu.SCANS)} x steps {list(tfu.STEPS)}: soup columns 0-6 identical; rays "
+          "through a group box that meet none of its members hit the cluster behind (t = 4), as the plain version")
     raw = tfu.fused_traverse(torch.cat([o, o[:84]]), torch.cat([d, d[:84]]), 1e10, fb, 128, 1)
     check(bool((raw[:, 5] == 0).any()), "K5 max_steps=1 left no ray unresolved")
     unresolved = tfu.UNRESOLVED_RAYS
@@ -1623,21 +1666,68 @@ def scan_waves(scene, settings, accel, chunk_names=("first chunk", "centre chunk
 def k5_resources(accel, what):
     from owl_path_tracer_tpu_torch.ops import fused as tfu
 
-    for scan in tfu.SCANS:
-        res = tfu.kernel_resources(accel, tfu.BLOCK_RAYS, scan)
-        print(f"  K5 ({scan} scan) on {what} (K={accel.num_clusters} C={accel.cluster_size}, block "
-              f"{tfu.BLOCK_RAYS}): {res['registers']} registers, {res['shared_bytes']} bytes of shared memory, "
-              f"{res['blocks_per_sm']} blocks per SM", flush=True)
+    for step in tfu.STEPS:
+        for scan in tfu.SCANS:
+            res = tfu.kernel_resources(accel, tfu.BLOCK_RAYS, scan, step)
+            print(f"  K5 ({step} step, {scan} scan) on {what} (K={accel.num_clusters} C={accel.cluster_size}, "
+                  f"block {tfu.BLOCK_RAYS}): {res['threads']} threads x {res['ctas']} CTA per block of rays, "
+                  f"{res['registers']} registers, {res['shared_bytes']} bytes of shared memory, "
+                  f"{res['blocks_per_sm']} blocks per SM", flush=True)
+
+
+def k5_steps(wo, wd, accel, what, want, sub=None, mhz=None):
+    """Both K5 steps on one wave: columns 0-6 of each equal to the plain
+    version's ``want`` (on the rays ``sub``, every ray if None) and every
+    column equal to the other step's; both timed in turns (serial, slots,
+    slots, serial; 3 calls a turn); for each the profile entry's clock64
+    split of the slowest and the mean block, its launch rank and weight,
+    and the clusters each ray tested -> ({step: ms}, {step: clusters tested
+    per ray, mean}, the default step's output)."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.ops import fused as tfu
+    from owl_path_tracer_tpu_torch.ops import math as m
+
+    idx = torch.arange(wo.shape[0], device=wo.device) if sub is None else sub
+    got = {step: tfu.fused_traverse(wo, wd, m.T_MAX, accel, step=step) for step in tfu.STEPS}
+    for step, out in got.items():
+        check(torch.equal(out[idx, :7], want[:, :7]), f"K5 ({step} step) {what}: columns 0-6 differ from the plain "
+                                                       "version")
+        check(torch.equal(out, got[other_step(step)]), f"K5 {what}: the two steps' outputs differ")
+    tested = {}
+    for step in tfu.STEPS:
+        out, prof, counts = tfu.fused_traverse_profile(wo, wd, m.T_MAX, accel, step=step)
+        check(torch.equal(out[:, :7], got[step][:, :7]), f"K5 profile entry ({step} step) {what}: columns differ")
+        prof = prof.double()
+        slow = int(torch.argmax(prof[:, 4]))
+        shares = ", ".join(f"{name} {100 * float(prof[slow, i] / prof[slow, 4]):.1f}% "
+                           f"(mean {100 * float((prof[:, i] / prof[:, 4]).mean()):.1f}%)"
+                           for i, name in enumerate(tfu.PROFILE_COLS[:4]))
+        clock = f" = {float(prof[slow, 4]) / (mhz * 1e3):.3f} ms at {mhz:.0f} MHz" if mhz else ""
+        per_block = counts[:, 2].view(-1, tfu.BLOCK_RAYS).sum(1)
+        tested[step] = float(counts[:, 2].double().mean())
+        print(f"  K5 ({step} step) {what}: slowest block {int(prof[slow, 4])} cycles{clock}, {int(prof[slow, 5])} "
+              f"steps, launch rank {int(prof[slow, 6])}, weight {int(prof[slow, 7])}: {shares}; mean block "
+              f"{float(prof[:, 4].mean()):.0f} cycles, {float(prof[:, 5].mean()):.2f} steps; clusters tested per "
+              f"ray mean {tested[step]:.3f} max {int(counts[:, 2].max())}, per block mean "
+              f"{float(per_block.double().mean()):.1f} max {int(per_block.max())} (slowest block "
+              f"{int(per_block[slow])})", flush=True)
+    ms = dict(zip(("serial", "slots"), in_turns(lambda: tfu.fused_traverse(wo, wd, m.T_MAX, accel, step="serial"),
+                                                lambda: tfu.fused_traverse(wo, wd, m.T_MAX, accel, step="slots"))))
+    print(f"  K5 {what}: slots step {ms['slots']:.4f} ms, serial step {ms['serial']:.4f} ms (in turns serial, "
+          f"slots, slots, serial, 3 calls a turn; {ms['serial'] / ms['slots']:.2f}x)", flush=True)
+    return ms, tested, got[tfu.STEP]
 
 
 def k5_split(wo, wd, accel, what, sub=None, mhz=None):
-    """K5's time per block on one wave, for both scan kinds: columns 0-6 of
-    each kind equal to the plain version's (on the rays ``sub``, every
-    ray if None), the profile entry's clock64 split (set-up scan, pick and
-    stage, slot loop, list updates and rescans) of the slowest block and the
-    mean over blocks, rescans and boxes slab-tested per ray and per block,
-    and the kernel's time, the default kind in turns with the serial scan
-    (serial, default, default, serial) -> {scan: ms}."""
+    """K5's time per block on one wave, for both scan kinds under the
+    default step: columns 0-6 of each kind equal to the plain version's (on
+    the rays ``sub``, every ray if None), the profile entry's clock64 split
+    (set-up scan, pick and stage, slot loop, list updates and rescans) of
+    the slowest block and the mean over blocks, rescans and boxes
+    slab-tested per ray and per block, and the kernel's time, the default
+    kind in turns with the serial scan (serial, default, default, serial)
+    -> {scan: ms}."""
     import torch
 
     from owl_path_tracer_tpu_torch.ops import fused as tfu
@@ -1679,14 +1769,17 @@ def k5_split(wo, wd, accel, what, sub=None, mhz=None):
 
 def phase_4d(scene, settings, results, mhz):
     """K5 vs plain at the scan main path's shapes -> the fused accelerator.
-    The kernels line takes the centre chunk's bounce wave, the heaviest,
-    where both scan kinds are also split by the profile entry and timed in
-    turns with the serial scan; a group-skip set-up scan (max_steps=0)
-    slab-tests exactly the boxes the plain list scan counts.  Then the
-    1.3M-triangle dragon (subdivision 8, K above the 9,088 clusters one
-    block's shared memory held before the box rows moved to device memory):
-    its centre chunk's bounce wave, the kernel on all 65,536 rays, the plain
-    version on every 8th block of them, split and timed the same way."""
+    On every wave both steps are held to the plain version and to each
+    other, timed in turns and split by the profile entry (k5_steps); the
+    kernels line takes the centre chunk's bounce wave, the heaviest, where
+    both scan kinds are also split and timed in turns with the serial scan;
+    a group-skip set-up scan (max_steps=0) slab-tests exactly the boxes the
+    plain list scan counts.  Then the 1.3M-triangle dragon (subdivision 8,
+    K above the 9,088 clusters one block's shared memory held before the
+    box rows moved to device memory): its centre chunk's bounce wave, the
+    kernel on all 65,536 rays, the plain version on every 8th block, both
+    steps the same way.  The default step must be the faster one on both
+    centre bounce waves."""
     import torch
 
     from owl_path_tracer_tpu_torch.models.scene import compile_scene
@@ -1699,36 +1792,46 @@ def phase_4d(scene, settings, results, mhz):
     accel = film.make_accel(scene, "fused")
     torch.cuda.synchronize()
     print(f"  fused accel: K={accel.num_clusters} C={accel.cluster_size} ({accel.groups.shape[1]} group boxes of "
-          f"{tfu.GROUP_SIZE}), built in {time.perf_counter() - t0:.2f} s; default scan {tfu.SCAN}", flush=True)
+          f"{tfu.GROUP_SIZE}), built in {time.perf_counter() - t0:.2f} s; default scan {tfu.SCAN}, default step "
+          f"{tfu.STEP}", flush=True)
     k5_resources(accel, "dragon7")
-    for name, (wo, wd) in scan_waves(scene, settings, accel).items():
-        got = tfu.fused_traverse(wo, wd, m.T_MAX, accel)
-        want = tfu.fused_traverse_plain(wo, wd, m.T_MAX, accel)
-        check(torch.equal(got[:, :7], want[:, :7]), f"K5 {name} wave: columns 0-6 differ from the plain version")
-        results["k5_err"] = max(results["k5_err"], float((got[:, :3] - want[:, :3]).abs().max()))
-        k_ms = cuda_ms(lambda: tfu.fused_traverse(wo, wd, m.T_MAX, accel))
+
+    def wave(what, wo, wd, fb, want, sub=None):
+        ms, tested, got = k5_steps(wo, wd, fb, what, want, sub, mhz)
         # max_steps=0: the block set-up and each ray's first box scan only
-        s_ms = cuda_ms(lambda: tfu.fused_traverse(wo, wd, m.T_MAX, accel, tfu.BLOCK_RAYS, 0))
-        p_ms = cuda_ms(lambda: tfu.fused_traverse_plain(wo, wd, m.T_MAX, accel), reps=1)
-        bnd, need = fused_bound(tfu.pack_rays(wo, wd, m.T_MAX), want, accel)
+        s_ms = cuda_ms(lambda: tfu.fused_traverse(wo, wd, m.T_MAX, fb, tfu.BLOCK_RAYS, 0))
+        # the bound counts each ray's needed clusters from the kernel's own t
+        # (equal to the plain version's where it was compared)
+        bnd, need = fused_bound(tfu.pack_rays(wo, wd, m.T_MAX), got, fb)
         steps = got[:, 6].reshape(-1, tfu.BLOCK_RAYS)[:, 0]
-        results[f"k5 {name}"] = {"ms": k_ms, "plain_ms": p_ms, "bound": bnd}
-        print(f"  K5 {name} wave ({wo.shape[0]} rays, block {tfu.BLOCK_RAYS}): {int(got[:, 4].sum())} hits, "
-              f"{int((got[:, 5] == 0).sum())} unresolved, columns 0-6 identical (t/u/v error 0), "
-              f"clusters retired/block mean {float(steps.mean()):.2f} max {int(steps.max())}, clusters needed/ray "
-              f"mean {need:.3f}, kernel {k_ms:.3f} ms (set-up and first box scan {s_ms:.3f}), plain {p_ms:.3f} ms, "
-              f"bound {bnd[0]:.4f} ms ({bnd[1]}, {100 * bnd[0] / k_ms:.2f}% reached)",
-              flush=True)
+        shares = ", ".join(f"{step} {100 * bnd[0] / ms[step]:.2f}%" for step in tfu.STEPS)
+        print(f"  K5 {what} ({wo.shape[0]} rays, block {tfu.BLOCK_RAYS}): {int(got[:, 4].sum())} hits, "
+              f"{int((got[:, 5] == 0).sum())} unresolved, clusters retired/block mean {float(steps.mean()):.2f} max "
+              f"{int(steps.max())}, clusters needed/ray mean {need:.3f}, tested/ray {tested[tfu.STEP]:.3f}; "
+              f"{tfu.STEP} step {ms[tfu.STEP]:.4f} ms (set-up, max_steps 0: {s_ms:.4f}), "
+              f"{other_step(tfu.STEP)} step {ms[other_step(tfu.STEP)]:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}; "
+              f"reached: {shares})", flush=True)
+        return {"ms": ms[tfu.STEP], "ms_steps": ms, "setup_ms": s_ms, "bound": bnd, "tested": tested, "need": need}
+
+    for name, (wo, wd) in scan_waves(scene, settings, accel).items():
+        want = tfu.fused_traverse_plain(wo, wd, m.T_MAX, accel)
+        p_ms = cuda_ms(lambda: tfu.fused_traverse_plain(wo, wd, m.T_MAX, accel), reps=1)
+        r = wave(f"dragon7 {name} wave", wo, wd, accel, want)
+        got = tfu.fused_traverse(wo, wd, m.T_MAX, accel)
+        results["k5_err"] = max(results["k5_err"], float((got[:, :3] - want[:, :3]).abs().max()))
+        results[f"k5 {name}"] = dict(r, plain_ms=p_ms)
+        print(f"  K5 dragon7 {name} wave: plain version {p_ms:.3f} ms", flush=True)
         if name == "centre chunk bounce":
             results["k5_scans dragon7"] = k5_split(wo, wd, accel, f"dragon7 {name} wave", mhz=mhz)
             # the set-up scan with group skips tests exactly the plain list scan's boxes
             n = 4096
-            _, _, counts = tfu.fused_traverse_profile(wo[:n], wd[:n], m.T_MAX, accel, max_steps=0)
-            _, _, tests = tfu.nearest_lists(wo[:n], wd[:n], m.T_MAX, accel, groups=True)
-            check(torch.equal(counts[:, 1].long(), tests), "K5 group-skip set-up scan: boxes tested differ from "
-                                                           "the plain list scan's")
-            print(f"  K5 group-skip set-up scan on {n} rays: boxes slab-tested per ray equal to the plain list "
-                  f"scan's (mean {float(tests.double().mean()):.1f} of {accel.num_clusters} + "
+            for step in tfu.STEPS:
+                _, _, counts = tfu.fused_traverse_profile(wo[:n], wd[:n], m.T_MAX, accel, max_steps=0, step=step)
+                _, _, tests = tfu.nearest_lists(wo[:n], wd[:n], m.T_MAX, accel, groups=True)
+                check(torch.equal(counts[:, 1].long(), tests), f"K5 group-skip set-up scan ({step} step): boxes "
+                                                               "tested differ from the plain list scan's")
+            print(f"  K5 group-skip set-up scan on {n} rays, both steps: boxes slab-tested per ray equal to the "
+                  f"plain list scan's (mean {float(tests.double().mean()):.1f} of {accel.num_clusters} + "
                   f"{accel.groups.shape[1]} group boxes)", flush=True)
 
     t0 = time.perf_counter()
@@ -1742,20 +1845,17 @@ def phase_4d(scene, settings, results, mhz):
     check(k > 9088, f"dragon8 has K={k} clusters, not above the old limit of 9,088")
     k5_resources(big_accel, "dragon8")
     wo, wd = scan_waves(big, settings, big_accel, ("centre chunk",))["centre chunk bounce"]
-    got = tfu.fused_traverse(wo, wd, m.T_MAX, big_accel)
     b = tfu.BLOCK_RAYS
     sub = torch.arange(wo.shape[0], device=wo.device).view(-1, b)[::8].reshape(-1)  # every 8th block
+    want = tfu.fused_traverse_plain(wo[sub], wd[sub], m.T_MAX, big_accel)
+    results["k5 dragon8"] = wave("dragon8 centre chunk bounce wave", wo, wd, big_accel, want, sub)
+    print(f"  K5 dragon8: columns 0-6 identical to the plain version on {sub.numel()} rays (every 8th block)",
+          flush=True)
     results["k5_scans dragon8"] = k5_split(wo, wd, big_accel, "dragon8 centre chunk bounce wave", sub, mhz)
-    k_ms = cuda_ms(lambda: tfu.fused_traverse(wo, wd, m.T_MAX, big_accel))
-    # the bound of the whole wave counts each ray's needed clusters from the
-    # kernel's own t, equal to the plain version's on the blocks compared
-    bnd, need = fused_bound(tfu.pack_rays(wo, wd, m.T_MAX), got, big_accel)
-    steps = got[:, 6].reshape(-1, b)[:, 0]
-    print(f"  K5 dragon8 centre chunk bounce wave ({wo.shape[0]} rays): {int(got[:, 4].sum())} hits, "
-          f"{int((got[:, 5] == 0).sum())} unresolved, columns 0-6 identical to the plain version on {sub.numel()} "
-          f"rays (every 8th block), clusters retired/block mean {float(steps.mean()):.2f} max {int(steps.max())}, "
-          f"clusters needed/ray mean {need:.3f}, kernel {k_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, "
-          f"{100 * bnd[0] / k_ms:.2f}% reached)", flush=True)
+    for key in ("k5 centre chunk bounce", "k5 dragon8"):
+        ms = results[key]["ms_steps"]
+        check(ms[tfu.STEP] < ms[other_step(tfu.STEP)], f"{key}: the default step {tfu.STEP} is not the faster "
+                                                       f"one in turns ({ms})")
     return accel, big, (wo, wd)
 
 
@@ -2090,7 +2190,10 @@ def phase_5d(dev):
 
 
 def phase_6d(scene, settings, accel, lanes):
-    """The scan main path, then the wavefront, on the fused accelerator -> K5 launches of the scan frame."""
+    """The scan main path, then the wavefront, on the fused accelerator,
+    then the scan frame through the other step (the yardstick), which must
+    trace the same rays and give the same image -> K5 launches of the scan
+    frame by entry."""
     import torch
 
     from owl_path_tracer_tpu_torch.ops import fused as tfu
@@ -2103,19 +2206,21 @@ def phase_6d(scene, settings, accel, lanes):
     start = time.perf_counter()
     fl = film.add_samples(scene, settings, film.new_film(settings, device=scene.vertices.device),
                           settings.max_samples, pixel_chunk=SCAN_CHUNK, accel=accel)
-    img = film.finalize(fl)
+    img = fl_img = film.finalize(fl)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
-    launches, unresolved = tfu.LAUNCHES[tfu.ENTRY], tfu.UNRESOLVED_RAYS
+    launches, unresolved = dict(tfu.LAUNCHES), tfu.UNRESOLVED_RAYS
     chunks = -(-settings.width * settings.height // SCAN_CHUNK)
     expect = chunks * settings.max_samples * settings.max_path_depth
-    check(launches == expect, f"scan frame launched K5 {launches} times, expected {expect}")
+    entry = tfu.STEP_ENTRIES[tfu.STEP]
+    check(launches == {**{name: 0 for name in launches}, entry: expect},
+          f"scan frame launched K5 {launches}, expected {expect} of {entry}")
     check(bool(torch.isfinite(img).all()) and img.shape == (settings.height, settings.width, 3), "scan frame image")
     check(0.0 < img.mean().item() < 10.0, f"scan frame: implausible image mean {img.mean().item()}")
     print(f"  scan, fused {settings.width}x{settings.height} spp {settings.max_samples} depth "
           f"{settings.max_path_depth}: {fl.rays_traced} rays in {seconds:.3f} s = "
-          f"{fl.rays_traced / seconds / 1e6:.3f} Mrays/s; K5 launches {launches} ({chunks} chunks x spp x depth), "
-          f"unresolved rays {unresolved}, image mean {img.mean().item():.6f}", flush=True)
+          f"{fl.rays_traced / seconds / 1e6:.3f} Mrays/s; K5 launches {launches[entry]} of {entry} ({chunks} chunks "
+          f"x spp x depth), unresolved rays {unresolved}, image mean {img.mean().item():.6f}", flush=True)
     torch.cuda.synchronize()
     tfu.reset_counts()
     start = time.perf_counter()
@@ -2124,17 +2229,40 @@ def phase_6d(scene, settings, accel, lanes):
                                                  fused2_sort=True)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
-    check(tfu.LAUNCHES[tfu.ENTRY] > 0, "the wavefront on fused launched no K5")
+    check(tfu.LAUNCHES[entry] > 0, "the wavefront on fused launched no K5")
     check(bool(torch.isfinite(img).all()) and 0.0 < img.mean().item() < 10.0, "wavefront on fused: image")
     print(f"  wavefront, fused, {lanes} lanes: {rays} rays in {seconds:.3f} s = {rays / seconds / 1e6:.3f} Mrays/s; "
-          f"K5 launches {tfu.LAUNCHES[tfu.ENTRY]}, unresolved rays {tfu.UNRESOLVED_RAYS}, image mean "
+          f"K5 launches {tfu.LAUNCHES[entry]}, unresolved rays {tfu.UNRESOLVED_RAYS}, image mean "
           f"{img.mean().item():.6f}", flush=True)
+    # the scan frame through the yardstick step: the same rays, the same image
+    default = tfu.STEP
+    tfu.STEP = other_step(default)
+    try:
+        start = time.perf_counter()
+        yard = film.add_samples(scene, settings, film.new_film(settings, device=scene.vertices.device),
+                                settings.max_samples, pixel_chunk=SCAN_CHUNK, accel=accel)
+        yard_img = film.finalize(yard)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+    finally:
+        tfu.STEP = default
+    check(yard.rays_traced == fl.rays_traced, f"scan frame: {fl.rays_traced} rays with the {default} step, "
+                                              f"{yard.rays_traced} with the {other_step(default)} step")
+    differ = int((yard_img != fl_img).sum())
+    check(differ == 0, f"scan frame: {differ} film values differ between the two steps")
+    print(f"  scan frame through the {other_step(default)} step (the yardstick): {yard.rays_traced} rays in "
+          f"{seconds:.3f} s = {yard.rays_traced / seconds / 1e6:.3f} Mrays/s, the same rays and image as the "
+          f"{default} step", flush=True)
     return launches
 
 
 def phase_6e():
-    """The CLI in process on assets/settings.json's scene -> K5 launches."""
+    """The CLI in process on assets/settings.json's scene, then again
+    through the other step (the yardstick), which must trace the same rays
+    and write the same PNG -> K5 launches of the first run by entry."""
     import json
+
+    import numpy as np
 
     from owl_path_tracer_tpu_torch.models.scene import compile_scene
     from owl_path_tracer_tpu_torch.ops import fused as tfu
@@ -2149,22 +2277,50 @@ def phase_6e():
           "the car scene the CLI loads has no texture")
     check(cfg["scene"] == scene, f"settings.json renders {cfg['scene']!r}, not {scene!r}")
     out = ROOT / "chiprun_out" / "smoke_cli"
-    tfu.reset_counts()
-    start = time.perf_counter()
-    paths = cli.main(["--assets", str(ROOT / "assets"), "--out", str(out), "--intersector", "fused", "--no-sweep",
-                      "--spp", str(CLI_SPP)])
-    seconds = time.perf_counter() - start
+    # the rays each run traces: the films the CLI's render_image accumulates
+    rays = []
+    add_samples = film.add_samples
+
+    def counted(*a, **k):
+        fl = add_samples(*a, **k)
+        rays.append(fl.rays_traced)
+        return fl
+
+    def render(out_dir):
+        rays.clear()
+        start = time.perf_counter()
+        paths = cli.main(["--assets", str(ROOT / "assets"), "--out", str(out_dir), "--intersector", "fused",
+                          "--no-sweep", "--spp", str(CLI_SPP)])
+        return paths, time.perf_counter() - start, sum(rays)
+
+    default = tfu.STEP
+    film.add_samples = counted
+    try:
+        tfu.reset_counts()
+        paths, seconds, n_rays = render(out)
+        launches = dict(tfu.LAUNCHES)
+        tfu.STEP = other_step(default)
+        yard_paths, yard_seconds, yard_rays = render(out / f"{other_step(default)}_step")
+    finally:
+        film.add_samples = add_samples
+        tfu.STEP = default
     width, height = cfg["buffer_size"]
     check([p.name for p in paths] == [f"{scene}.png"], f"CLI wrote {paths}")
     img = read_png(paths[0])
     check(img.shape == (height, width, 4), f"CLI PNG is {img.shape[1]}x{img.shape[0]}, expected {width}x{height}")
     check(img[..., :3].mean() > 0, "CLI PNG is black")
-    launches = tfu.LAUNCHES[tfu.ENTRY]
-    check(launches > 0, "the CLI launched no K5")
+    entry = tfu.STEP_ENTRIES[default]
+    check(launches[entry] > 0 and sum(launches.values()) == launches[entry], f"the CLI launched K5 {launches}")
     print(f"  CLI {scene} {width}x{height} depth {cfg['max_path_depth']} spp {CLI_SPP} (settings.json: "
           f"{cfg['max_samples']}, cut for time), textured Ground, --intersector fused: {paths[0].name} "
-          f"{img.shape[1]}x{img.shape[0]}, mean {img[..., :3].mean():.3f}/255, {seconds:.3f} s, K5 launches "
-          f"{launches}, unresolved rays {tfu.UNRESOLVED_RAYS}", flush=True)
+          f"{img.shape[1]}x{img.shape[0]}, mean {img[..., :3].mean():.3f}/255, {n_rays} rays, {seconds:.3f} s, "
+          f"K5 launches {launches[entry]} of {entry}, unresolved rays {tfu.UNRESOLVED_RAYS}", flush=True)
+    check(n_rays > 0 and yard_rays == n_rays, f"CLI: {n_rays} rays with the {default} step, {yard_rays} with the "
+                                              f"{other_step(default)} step")
+    check(np.array_equal(read_png(yard_paths[0]), img), "CLI: the two steps' PNGs differ")
+    print(f"  CLI through the {other_step(default)} step (the yardstick): {yard_rays} rays, {yard_seconds:.3f} s, "
+          "the same rays and PNG", flush=True)
+    return launches
 
 
 def probe_bound(rays, boxes, planes, name, iters, block, tensor=False):
@@ -3577,7 +3733,7 @@ def main():
 
     # 6e ── the CLI
     t0 = time.perf_counter()
-    phase_6e()
+    cli_launches = phase_6e()
     phase("6e CLI", t0)
 
     # 3f ── K6 vs plain, small
@@ -3708,9 +3864,16 @@ def main():
     kernels.append(entry("fused2_mxu_exact_closest_hit_noattr",
                          mxu["fused2"].get("owlpt_fused2_mxu_exact_closest_hit_noattr", 0), r["exact"]["err"],
                          r["exact"]["ms"], r["plain_ms"], r["bound"]))
-    k5 = results["k5 centre chunk bounce"]
-    kernels.append(dict(entry("fused_traverse", k5_launches, results["k5_err"], k5["ms"], k5["plain_ms"],
-                              k5["bound"]), source=FUSED_SOURCE, replaces=FUSED_REPLACES))
+    # K5 in both steps: the slots step and the serial step (the yardstick,
+    # timed in turns with it); launches are the scan main path's (phase 6d),
+    # the CLI's beside them (6e); the dragon8 wave's times and bound too
+    k5, k5_big = results["k5 centre chunk bounce"], results["k5 dragon8"]
+    for step, name in (("slots", "fused_traverse"), ("serial", "fused_traverse_serial_step")):
+        row = dict(entry(name, k5_launches[tfu.STEP_ENTRIES[step]], results["k5_err"], k5["ms_steps"][step],
+                         k5["plain_ms"], k5["bound"]), source=FUSED_SOURCE, replaces=FUSED_REPLACES)
+        row["cli_launches"] = cli_launches[tfu.STEP_ENTRIES[step]]
+        row["dragon8_ms"], row["dragon8_bound_ms"] = k5_big["ms_steps"][step], k5_big["bound"][0]
+        kernels.append(row)
     # K6 runs on no render path: its launches are the probe run's (phase 4f),
     # the tensor form's; the exact form is its yardstick, timed in turns
     k6 = results["k6"]

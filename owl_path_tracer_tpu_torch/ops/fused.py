@@ -24,6 +24,16 @@ as the yardstick it is timed against.  Both build the same lists, so the
 outputs do not depend on the scan (:func:`nearest_lists` is the plain
 version of a scan).
 
+The block-wide step comes in two kinds (STEPS), which give the same outputs.
+The default, "slots" (entry ENTRY), starts the blocks heaviest first, by a
+pre-pass that weighs each block by the group boxes its rays enter
+(:func:`block_weights` and :func:`block_order` are its plain versions),
+stages each picked cluster by one bulk copy, splits the tests of the rays
+that enter it over the lanes of a warp, one lane per slot, and shares each
+rescan over the warp, one member box per lane.  "serial" (SERIAL_ENTRY) is
+the kernel before that, one thread testing its ray's slots in turn, kept as
+the yardstick that the default is timed against; no render path calls it.
+
 :func:`fused_traverse` launches the CUDA kernel (``csrc/fused_traverse.cu``)
 for CUDA tensors and raises if it cannot; for CPU tensors it takes
 :func:`fused_traverse_plain`, the same block algorithm in PyTorch, all blocks
@@ -57,17 +67,29 @@ GROUP_SIZE = 32
 # outputs; "serial" is the form before group boxes and warp rescans
 SCANS = {"serial": 0, "warp_groups": 1}
 SCAN = "warp_groups"
-# profile columns per block (fused_traverse_profile): clock64 cycles of the
-# set-up scan, pick and staging, the slot loop, the list updates and
-# rescans, the whole block, and its retirement steps
-PROFILE_COLS = ("setup", "pick_stage", "slot_loop", "rescans", "total", "steps")
+# the kernel's block-wide steps (csrc/fused_traverse.cu Step): both give the
+# same outputs; "serial" is the step before the slot-parallel one
+STEPS = {"serial": 0, "slots": 1}
+STEP = "slots"
+# profile columns per block (fused_traverse_profile), rows by block of rays:
+# clock64 cycles of the set-up scan, pick and staging, the slot tests, the
+# list updates and rescans, the whole block, its retirement steps, its
+# launch rank and its weight (the slots step's pre-pass, block_weights; -1
+# in the serial step)
+PROFILE_COLS = ("setup", "pick_stage", "slot_loop", "rescans", "total", "steps", "rank", "weight")
+# count columns per ray (fused_traverse_profile): its rescans, the boxes it
+# slab-tested, and the clusters whose slots it tested (it entered the
+# block's pick nearer than its best hit)
+COUNT_COLS = ("rescans", "boxes", "clusters")
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "fused_traverse.cu"
 ENTRY = "owlpt_fused_traverse"
+SERIAL_ENTRY = "owlpt_fused_traverse_serial_step"
+STEP_ENTRIES = {"serial": SERIAL_ENTRY, "slots": ENTRY}
 PROFILE_ENTRY = "owlpt_fused_traverse_profile"
 
-# launches of the CUDA kernel (one per call that ran it)
-LAUNCHES = {ENTRY: 0}
+# launches of the CUDA kernel by entry (one per call that ran it)
+LAUNCHES = {ENTRY: 0, SERIAL_ENTRY: 0}
 # rays answered by the exact cluster query because their block ran out of steps
 UNRESOLVED_RAYS = 0
 
@@ -75,9 +97,10 @@ _cuda_lib = None
 
 
 def reset_counts():
-    """Set the launch count and the unresolved-ray count to 0."""
+    """Set the launch counts and the unresolved-ray count to 0."""
     global UNRESOLVED_RAYS
-    LAUNCHES[ENTRY] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
     UNRESOLVED_RAYS = 0
 
 
@@ -237,44 +260,88 @@ def nearest_lists(ray_o, ray_d, t_max, fb: FusedBVH, retired=None, groups: bool 
     return e, i, tests
 
 
+def block_weights(ray_o, ray_d, t_max, fb: FusedBVH, block: int = BLOCK_RAYS):
+    """Plain version of the slots step's block weights: per block of
+    ``block`` rays the number of distinct group boxes (:func:`group_boxes`)
+    that its rays enter within their t_max -> [N / block] int64."""
+    n = ray_o.shape[0]
+    if n % block:
+        raise ValueError(f"N={n} is not a multiple of the block {block}")
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=ray_o.device).expand(n)
+    gent = _cluster_entries(ray_o, ray_d, _boxes_as_clusters(fb.groups), m.T_MIN, t_max)
+    return torch.isfinite(gent).view(n // block, block, -1).any(1).sum(1)
+
+
+def block_order(weights):
+    """Plain version of the slots step's block order: the blocks by weight,
+    heaviest first, equal weights in block order -> order [G] int64, where
+    order[rank] is the block launched at that rank."""
+    return torch.sort(torch.as_tensor(weights), descending=True, stable=True).indices
+
+
+def _step_kind(step: str | None) -> str:
+    """``step``, or the default STEP for None; raises for an unknown kind."""
+    step = STEP if step is None else step
+    if step not in STEPS:
+        raise ValueError(f"unknown step kind {step!r}; expected one of {tuple(STEPS)}")
+    return step
+
+
 def build_kernels() -> tuple:
     """Build (if needed) and load the kernel library -> (path, seconds, log)."""
     global _cuda_lib
     path, seconds, log = build_cuda_library("owlpt_fused", [CSRC])
     if _cuda_lib is None:
         lib = ctypes.CDLL(str(path))
-        head = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 6
-        for name, tail in ((ENTRY, []), (PROFILE_ENTRY, [ctypes.c_void_p] * 2)):
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        scratch = [ptr] * 2  # weight, order (the slots step)
+        shape = [i64] + [i32] * 6  # n, k, c, gsize, block, max_steps, scan
+        for name, args in ((ENTRY, [ptr] * 5 + scratch + shape + [ptr]),
+                           (SERIAL_ENTRY, [ptr] * 5 + shape + [ptr]),
+                           (PROFILE_ENTRY, [ptr] * 5 + scratch + shape + [i32] + [ptr] * 3)):
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
-            fn.argtypes = head + tail + [ctypes.c_void_p]
+            fn.argtypes = args
         fn = getattr(lib, f"{ENTRY}_resources")
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        fn.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
         _cuda_lib = lib
     return path, seconds, log
 
 
-def kernel_resources(fb: FusedBVH, block: int = BLOCK_RAYS, scan: str = SCAN) -> dict:
-    """Registers, shared bytes and blocks per SM of the kernel's ``scan``
-    kind at ``fb``'s K and C, on the current CUDA device."""
+def kernel_resources(fb: FusedBVH, block: int = BLOCK_RAYS, scan: str = SCAN, step: str | None = None) -> dict:
+    """Threads and CTAs per block of rays, registers, shared bytes and
+    blocks per SM of the kernel's ``scan`` kind and ``step`` (the slots
+    step: its traversal kernel, not the pre-pass) at ``fb``'s K and C, on
+    the current CUDA device."""
+    step = _step_kind(step)
+    if scan not in SCANS:
+        raise ValueError(f"unknown scan kind {scan!r}; expected one of {tuple(SCANS)}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("the fused kernel's resources need a CUDA device")
     if _cuda_lib is None:
         build_kernels()
     out = (ctypes.c_int * 3)()
-    err = getattr(_cuda_lib, f"{ENTRY}_resources")(fb.num_clusters, fb.cluster_size, block, SCANS[scan], out)
+    err = getattr(_cuda_lib, f"{ENTRY}_resources")(fb.num_clusters, fb.cluster_size, block, SCANS[scan],
+                                                   STEPS[step], out)
+    name = STEP_ENTRIES[step]
     if err != 0:
-        raise RuntimeError(f"kernel {ENTRY} ({scan}): resource query failed: CUDA error {err}")
-    return {"entry": ENTRY, "scan": scan, "registers": out[0], "shared_bytes": out[1], "blocks_per_sm": out[2]}
+        raise RuntimeError(f"kernel {name} ({scan}): resource query failed: CUDA error {err}")
+    return {"entry": name, "scan": scan, "threads": block, "ctas": 1, "registers": out[0],
+            "shared_bytes": out[1], "blocks_per_sm": out[2]}
 
 
-def _fused_traverse_cuda(rays, fb: FusedBVH, block: int, max_steps: int, scan: str = SCAN, profile: bool = False):
-    """Launch the kernel (``profile``: its diagnostic entry, which also
-    returns the per-block profile and per-ray counts) on the current stream
-    -> [N,8] (no sync)."""
+def _fused_traverse_cuda(rays, fb: FusedBVH, block: int, max_steps: int, scan: str = SCAN,
+                         step: str | None = None, profile: bool = False):
+    """Launch the kernel of ``step`` (``profile``: the diagnostic entry,
+    which also returns the per-block profile and per-ray counts) on the
+    current stream -> [N,8] (no sync)."""
+    step = _step_kind(step)
     if rays.device.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError(f"the fused kernel needs CUDA tensors on a CUDA device; got {rays.device}")
     if scan not in SCANS:
         raise ValueError(f"unknown scan kind {scan!r}; expected one of {tuple(SCANS)}")
+    name = STEP_ENTRIES[step]
     n = rays.shape[0]
     k, c = fb.num_clusters, fb.cluster_size
     if block % 32 or not 32 <= block <= 1024 or n % block:
@@ -285,50 +352,58 @@ def _fused_traverse_cuda(rays, fb: FusedBVH, block: int, max_steps: int, scan: s
     _check_operand("planes", fb.planes, (k, 16, c), rays.device)
     out = torch.empty((n, OUT_COLS), dtype=torch.float32, device=rays.device)
     stats = (torch.empty((n // block, len(PROFILE_COLS)), dtype=torch.int64, device=rays.device),
-             torch.empty((n, 2), dtype=torch.int32, device=rays.device)) if profile else ()
+             torch.empty((n, len(COUNT_COLS)), dtype=torch.int32, device=rays.device)) if profile else ()
     if n == 0:
         return (out, *stats) if profile else out
     if _cuda_lib is None:
         build_kernels()
+    # the slots step's scratch: the blocks' weights and their launch order
+    weight = torch.empty(n // block, dtype=torch.int32, device=rays.device)
+    order = torch.empty(n // block, dtype=torch.int32, device=rays.device)
     with torch.cuda.device(rays.device):
         stream = torch.cuda.current_stream().cuda_stream
-        args = (rays.data_ptr(), fb.boxes.data_ptr(), fb.groups.data_ptr(), fb.planes.data_ptr(), out.data_ptr(),
-                n, k, c, GROUP_SIZE, block, max_steps, SCANS[scan])
+        head = (rays.data_ptr(), fb.boxes.data_ptr(), fb.groups.data_ptr(), fb.planes.data_ptr(), out.data_ptr())
+        scratch = (weight.data_ptr(), order.data_ptr())
+        shape = (n, k, c, GROUP_SIZE, block, max_steps, SCANS[scan])
         if profile:
-            err = getattr(_cuda_lib, PROFILE_ENTRY)(*args, stats[0].data_ptr(), stats[1].data_ptr(), stream)
+            err = getattr(_cuda_lib, PROFILE_ENTRY)(*head, *scratch, *shape, STEPS[step], stats[0].data_ptr(),
+                                                    stats[1].data_ptr(), stream)
+        elif name == ENTRY:
+            err = getattr(_cuda_lib, ENTRY)(*head, *scratch, *shape, stream)
         else:
-            err = getattr(_cuda_lib, ENTRY)(*args, stream)
+            err = getattr(_cuda_lib, SERIAL_ENTRY)(*head, *shape, stream)
     if err != 0:
-        raise RuntimeError(f"fused kernel {PROFILE_ENTRY if profile else ENTRY} launch failed: CUDA error {err}")
+        raise RuntimeError(f"fused kernel {PROFILE_ENTRY if profile else name} launch failed: CUDA error {err}")
     if profile:
         return (out, *stats)
-    LAUNCHES[ENTRY] += 1
+    LAUNCHES[name] += 1
     return out
 
 
 def fused_traverse(ray_o, ray_d, t_max, fb: FusedBVH, block: int = BLOCK_RAYS,
-                   max_steps: int = MAX_STEPS, scan: str = SCAN):
+                   max_steps: int = MAX_STEPS, scan: str = SCAN, step: str | None = None):
     """Raw sweep: [N] rays (``t_max`` scalar or [N]) -> [N,8] (t, u, v, tri,
-    hit, resolved, steps, 0): the kernel (its list scan ``scan``, SCANS) for
-    CUDA tensors, the plain version for CPU tensors.  N must be a multiple
-    of ``block``."""
+    hit, resolved, steps, 0): the kernel (its list scan ``scan``, SCANS; its
+    block-wide ``step``, STEPS, default STEP) for CUDA tensors, the plain
+    version for CPU tensors.  N must be a multiple of ``block``."""
     if ray_o.device.type == "cpu":
+        _step_kind(step)
         if scan not in SCANS:
             raise ValueError(f"unknown scan kind {scan!r}; expected one of {tuple(SCANS)}")
         return fused_traverse_plain(ray_o, ray_d, t_max, fb, block, max_steps)
-    return _fused_traverse_cuda(pack_rays(ray_o, ray_d, t_max), fb, block, max_steps, scan)
+    return _fused_traverse_cuda(pack_rays(ray_o, ray_d, t_max), fb, block, max_steps, scan, step)
 
 
 def fused_traverse_profile(ray_o, ray_d, t_max, fb: FusedBVH, block: int = BLOCK_RAYS,
-                           max_steps: int = MAX_STEPS, scan: str = SCAN):
+                           max_steps: int = MAX_STEPS, scan: str = SCAN, step: str | None = None):
     """The kernel's diagnostic entry (CUDA tensors only, no render path):
     the sweep with clock64 phase times -> (out [N,8] as fused_traverse,
-    profile [N/block, PROFILE_COLS] int64 cycles and steps per block, counts
-    [N,2] int32: each ray's rescans and boxes slab-tested).  Not counted in
-    LAUNCHES."""
+    profile [N/block, PROFILE_COLS] int64 cycles, steps, launch rank and
+    weight per block, counts [N, COUNT_COLS] int32: each ray's rescans,
+    boxes slab-tested and clusters tested).  Not counted in LAUNCHES."""
     if ray_o.device.type != "cuda":
         raise RuntimeError(f"the fused kernel's profile needs CUDA tensors; got {ray_o.device}")
-    return _fused_traverse_cuda(pack_rays(ray_o, ray_d, t_max), fb, block, max_steps, scan, profile=True)
+    return _fused_traverse_cuda(pack_rays(ray_o, ray_d, t_max), fb, block, max_steps, scan, step, profile=True)
 
 
 def fused_closest_hit(ray_o, ray_d, fb: FusedBVH, t_min: float = m.T_MIN, t_max=m.T_MAX,

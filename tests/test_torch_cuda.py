@@ -7,8 +7,9 @@ CUDA-core form of closest hit), and without attributes (K4; on f32 MXU
 planes its tensor-core form and its exact form), every fused2 entry above
 its old cluster limit and with its frontier rows forced into device
 memory (bit-equal to the rows in shared memory; at C=512 above the old
-limit, shared by 4 CTAs), the fused kernel (K5,
-also above the cluster count one block's shared memory once held) and the
+limit, shared by 4 CTAs), the fused kernel (K5, in both block-wide steps,
+each also against the other, also above the cluster count one block's
+shared memory once held, with the slots step's heavy-first order) and the
 latency probe (K6, its exact form bit-equal and its tensor form within
 the sums' rounding), against their plain versions, and frames
 (wavefront without and with NEE, stopped and resumed from a checkpoint, and
@@ -769,43 +770,130 @@ def fused_soup():
     return tfu.build_fused(tcl.build_clusters(verts, idx, 64, device="cpu"))
 
 
+def _fused_soup_rays(soup, device, block, scalar):
+    """The soup's first 300 rays padded to whole blocks as fused_closest_hit
+    pads them (t_max T_MIN per ray, or the scalar)."""
+    _, o, d, tmax = soup
+    o, d, tmax = (torch.as_tensor(x[:300], device=device) for x in (o, d, tmax))
+    pad = (-300) % block
+    o = torch.cat([o, torch.zeros((pad, 3), device=device)])
+    d = torch.cat([d, torch.tensor([0.0, 0.0, 1.0], device=device).expand(pad, 3)])
+    t = 1e10 if scalar else torch.cat([tmax, torch.full((pad,), 1e-3, device=device)])
+    return o, d, t
+
+
 @pytest.mark.parametrize("scalar", [False, True], ids=["per_ray_tmax", "scalar_tmax"])
 @pytest.mark.parametrize("block", [128, 256])
-def test_fused_kernel_matches_plain(soup, fused_soup, cuda_device, block, scalar):
-    """K5: columns 0-6 bit-equal to the plain version (same entries, picks
-    and retirements; Moller-Trumbore in one op order without FMAs), with the
-    wrapper's padding rays (t_max T_MIN per ray, or the scalar)."""
-    _, o, d, tmax = soup
+@pytest.mark.parametrize("step", list(tfu.STEPS))
+def test_fused_kernel_matches_plain(soup, fused_soup, cuda_device, block, scalar, step):
+    """K5, both steps: columns 0-6 bit-equal to the plain version (same
+    entries, picks and retirements; Moller-Trumbore in one op order without
+    FMAs) and to the other step, with the wrapper's padding rays; each
+    launch is counted under its step's entry."""
     fb = fused_soup.to(cuda_device)
-    o, d, tmax = (torch.as_tensor(x[:300], device=cuda_device) for x in (o, d, tmax))
-    pad = (-300) % block
-    o = torch.cat([o, torch.zeros((pad, 3), device=cuda_device)])
-    d = torch.cat([d, torch.tensor([0.0, 0.0, 1.0], device=cuda_device).expand(pad, 3)])
-    t = 1e10 if scalar else torch.cat([tmax, torch.full((pad,), 1e-3, device=cuda_device)])
-    launches = tfu.LAUNCHES[tfu.ENTRY]
-    got = tfu.fused_traverse(o, d, t, fb, block)
-    assert tfu.LAUNCHES[tfu.ENTRY] == launches + 1
+    o, d, t = _fused_soup_rays(soup, cuda_device, block, scalar)
+    launches = dict(tfu.LAUNCHES)
+    got = tfu.fused_traverse(o, d, t, fb, block, step=step)
+    entry = tfu.STEP_ENTRIES[step]
+    assert tfu.LAUNCHES == {**launches, entry: launches[entry] + 1}
     want = tfu.fused_traverse_plain(o, d, t, fb, block)
+    other = tfu.fused_traverse(o, d, t, fb, block, step=next(s for s in tfu.STEPS if s != step))
     torch.cuda.synchronize()
-    assert torch.equal(got[:, :7], want[:, :7]) and (got[:, 7] == 0).all()
+    assert torch.equal(got[:, :7], want[:, :7]) and (got[:, 7] == 0).all() and torch.equal(got, other)
     assert (got[:, 5] == 1).all() and 0 < int(got[:300, 4].sum()) < 300
 
 
-def test_fused_overflow_matches_cpu(soup, fused_soup, cuda_device):
+@pytest.mark.parametrize("max_steps", [0, 1, 3])
+@pytest.mark.parametrize("step", list(tfu.STEPS))
+def test_fused_steps_cut_short_match_plain(soup, fused_soup, cuda_device, max_steps, step):
+    """Both steps at max_steps 0, 1 and 3 (rows left unresolved, steps
+    capped): columns 0-6 bit-equal to the plain version and to the other
+    step, at blocks 128 and 256 with per-ray t_max."""
+    fb = fused_soup.to(cuda_device)
+    for block in (128, 256):
+        o, d, t = _fused_soup_rays(soup, cuda_device, block, False)
+        got = tfu.fused_traverse(o, d, t, fb, block, max_steps, step=step)
+        want = tfu.fused_traverse_plain(o, d, t, fb, block, max_steps)
+        other = tfu.fused_traverse(o, d, t, fb, block, max_steps, step=next(s for s in tfu.STEPS if s != step))
+        torch.cuda.synchronize()
+        assert torch.equal(got[:, :7], want[:, :7]) and torch.equal(got, other)
+        assert (got[:, 6] <= max_steps).all()
+        if max_steps < 3:
+            assert (got[:, 5] == 0).any()
+
+
+@pytest.mark.parametrize("step", list(tfu.STEPS))
+def test_fused_block_with_no_active_ray(soup, fused_soup, cuda_device, step):
+    """A block whose rays enter no box (every ray from far above, straight
+    up) between two live blocks: it retires nothing (steps 0, every row
+    resolved, no hit) while the others run, and both steps equal the plain
+    version."""
+    fb = fused_soup.to(cuda_device)
+    o, d, t = _fused_soup_rays(soup, cuda_device, 128, False)
+    o, d, t = o[:256].clone(), d[:256].clone(), t[:256].clone()
+    o[128:256] = torch.tensor([0.0, 0.0, 100.0], device=cuda_device)
+    d[128:256] = torch.tensor([0.0, 0.0, 1.0], device=cuda_device)
+    o, d, t = torch.cat([o, o[:128]]), torch.cat([d, d[:128]]), torch.cat([t, t[:128]])
+    got = tfu.fused_traverse(o, d, t, fb, 128, step=step)
+    want = tfu.fused_traverse_plain(o, d, t, fb, 128)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, :7], want[:, :7])
+    idle = got[128:256]
+    assert (idle[:, 6] == 0).all() and (idle[:, 5] == 1).all() and (idle[:, 4] == 0).all()
+    assert (got[:128, 6] > 0).all() and (got[256:, 6] > 0).all()
+
+
+def test_fused_heavy_blocks_first(soup, cuda_device):
+    """The slots step's pre-pass and order, on the soup's triangles in
+    clusters of C=8 (16 group boxes) with t_max growing block by block:
+    the profile's weight per block
+    equals block_weights, its launch ranks are a permutation of the blocks
+    in block_order's order (heaviest first, ties in block order), and the
+    outputs equal the plain version's; the serial step launches in block
+    order with weight -1."""
+    r = np.random.default_rng(0)
+    tri = r.uniform(-4, 4, (3000, 1, 3)) + r.normal(0, 0.4, (3000, 3, 3))
+    verts = tri.reshape(-1, 3).astype(np.float32)
+    fb = tfu.build_fused(tcl.build_clusters(verts, np.arange(9000, dtype=np.int32).reshape(3000, 3), 8,
+                                            device=cuda_device))
+    assert fb.groups.shape[1] > 8
+    _, o, d, _ = soup
+    n = o.shape[0] // 32 * 32
+    o, d = (torch.as_tensor(x[:n], device=cuda_device) for x in (o, d))
+    # t_max grows block by block, so the blocks enter more and more group boxes
+    tmax = torch.linspace(0.25, 6.0, n // 32, device=cuda_device).repeat_interleave(32)
+    out, prof, _ = tfu.fused_traverse_profile(o, d, tmax, fb, 32, step="slots")
+    assert torch.equal(out[:, :7], tfu.fused_traverse_plain(o, d, tmax, fb, 32)[:, :7])
+    weights = tfu.block_weights(o, d, tmax, fb, 32)
+    rank, weight = prof[:, 6], prof[:, 7]
+    assert torch.equal(weight, weights) and weights.unique().numel() > 2
+    order = tfu.block_order(weights)
+    assert torch.equal(torch.sort(rank).values, torch.arange(n // 32, device=cuda_device))
+    assert torch.equal(order[rank], torch.arange(n // 32, device=cuda_device))
+    _, prof, _ = tfu.fused_traverse_profile(o, d, tmax, fb, 32, step="serial")
+    assert torch.equal(prof[:, 6], torch.arange(n // 32, device=cuda_device)) and (prof[:, 7] == -1).all()
+
+
+@pytest.mark.parametrize("step", list(tfu.STEPS))
+def test_fused_overflow_matches_cpu(soup, fused_soup, cuda_device, monkeypatch, step):
     """max_steps=3 leaves rows unresolved; the wrapper answers them with the
-    exact cluster query, equal to the CPU wrapper's answers."""
+    exact cluster query, equal to the CPU wrapper's answers (the card's
+    sweep through ``step``, the default taken from fused.STEP)."""
+    monkeypatch.setattr(tfu, "STEP", step)
     _, o, d, tmax = soup
     args = [torch.as_tensor(x) for x in (o, d, tmax)]
     cuda = [x.to(cuda_device) for x in args]
+    launches = tfu.LAUNCHES[tfu.STEP_ENTRIES[step]]
     raw = tfu.fused_traverse(*[x[:384] for x in cuda], fused_soup.to(cuda_device), 128, 3)
-    assert (raw[:, 5] == 0).any()
+    assert (raw[:, 5] == 0).any() and tfu.LAUNCHES[tfu.STEP_ENTRIES[step]] == launches + 1
     got = tfu.fused_closest_hit(cuda[0], cuda[1], fused_soup.to(cuda_device), t_max=cuda[2], max_steps=3)
     want = tfu.fused_closest_hit(args[0], args[1], fused_soup, t_max=args[2], max_steps=3)
     assert torch.equal(got.tri.cpu(), want.tri) and torch.equal(got.t.cpu(), want.t)
     assert torch.equal(got.uv.cpu(), want.uv)
 
 
-def test_fused_kernel_above_old_cluster_limit(cuda_device):
+@pytest.mark.parametrize("step", list(tfu.STEPS))
+def test_fused_kernel_above_old_cluster_limit(cuda_device, step):
     """K5 reads the box rows from device memory and keeps one retired bit per
     cluster: 80,000 random triangles in clusters of C=8 give K above the
     9,280 clusters that one block's shared memory held at C=8 when the boxes
@@ -821,7 +909,7 @@ def test_fused_kernel_above_old_cluster_limit(cuda_device):
     o = torch.as_tensor(r.uniform(-25, 25, (n, 3)).astype(np.float32), device=cuda_device)
     d = torch.nn.functional.normalize(torch.as_tensor(r.normal(size=(n, 3)).astype(np.float32), device=cuda_device),
                                       dim=-1)
-    got = tfu.fused_traverse(o, d, 1e10, fb)
+    got = tfu.fused_traverse(o, d, 1e10, fb, step=step)
     want = tfu.fused_traverse_plain(o, d, 1e10, fb)
     torch.cuda.synchronize()
     assert torch.equal(got[:, :7], want[:, :7])  # resolved (col 5) and steps (col 6) too
@@ -857,38 +945,40 @@ def rescan_scene():
 RESCAN_STEPS = 1024
 
 
+@pytest.mark.parametrize("step", list(tfu.STEPS))
 @pytest.mark.parametrize("scan", list(tfu.SCANS))
-def test_fused_scan_kinds_match_plain_with_rescans(rescan_scene, scan):
-    """K5 with both list-scan kinds: columns 0-6 (steps and resolved too)
-    bit-equal to the plain version where rays rescan several times; the
-    profile entry gives the same outputs and steps, the same rescans as the
-    serial scan, and (group skips) slab-tests fewer boxes."""
+def test_fused_scan_kinds_match_plain_with_rescans(rescan_scene, scan, step):
+    """K5 with both list-scan kinds and both steps: columns 0-6 (steps and
+    resolved too) bit-equal to the plain version where rays rescan several
+    times; the profile entry gives the same outputs and steps, the same
+    rescans as the serial scan, and (group skips) slab-tests fewer boxes."""
     fb, o, d, want = rescan_scene
     assert fb.num_clusters > 9500
-    got = tfu.fused_traverse(o, d, 1e10, fb, max_steps=RESCAN_STEPS, scan=scan)
+    got = tfu.fused_traverse(o, d, 1e10, fb, max_steps=RESCAN_STEPS, scan=scan, step=step)
     assert torch.equal(got[:, :7], want[:, :7])
     assert 0 < int(got[:, 4].sum()) and (got[:, 5] == 1).all()
-    out, prof, counts = tfu.fused_traverse_profile(o, d, 1e10, fb, max_steps=RESCAN_STEPS, scan=scan)
+    out, prof, counts = tfu.fused_traverse_profile(o, d, 1e10, fb, max_steps=RESCAN_STEPS, scan=scan, step=step)
     assert torch.equal(out[:, :7], got[:, :7])
     assert float(counts[:, 0].float().mean()) > 2.0, "several rescans per ray"
     assert (prof[:, 4] > 0).all() and torch.equal(prof[:, 5].float(), got.view(-1, tfu.BLOCK_RAYS, 8)[:, 0, 6])
-    serial = tfu.fused_traverse_profile(o, d, 1e10, fb, max_steps=RESCAN_STEPS, scan="serial")[2]
+    serial = tfu.fused_traverse_profile(o, d, 1e10, fb, max_steps=RESCAN_STEPS, scan="serial", step=step)[2]
     assert torch.equal(counts[:, 0], serial[:, 0])
     if scan == "warp_groups":
         assert int(counts[:, 1].sum()) < int(serial[:, 1].sum())
 
 
+@pytest.mark.parametrize("step", list(tfu.STEPS))
 @pytest.mark.parametrize("scan", list(tfu.SCANS))
-def test_fused_group_entered_with_no_member_entered(cuda_device, scan):
+def test_fused_group_entered_with_no_member_entered(cuda_device, scan, step):
     """chip_smoke.corner_groups: every ray enters group 0's box and none of
-    its members; both scan kinds give the plain version's columns 0-6 (a
-    hit on cluster 32 at t = 4), and the group-skip set-up scan tests the
-    plain list scan's boxes."""
+    its members; both scan kinds and both steps give the plain version's
+    columns 0-6 (a hit on cluster 32 at t = 4), and the group-skip set-up
+    scan tests the plain list scan's boxes."""
     fb, o, d = chip_smoke.corner_groups(cuda_device)
-    got = tfu.fused_traverse(o, d, 1e10, fb, scan=scan)
+    got = tfu.fused_traverse(o, d, 1e10, fb, scan=scan, step=step)
     want = tfu.fused_traverse_plain(o, d, 1e10, fb)
     assert torch.equal(got[:, :7], want[:, :7]) and (got[:, 0] == 4.0).all() and (got[:, 3] == 32).all()
-    _, _, counts = tfu.fused_traverse_profile(o, d, 1e10, fb, max_steps=0, scan=scan)
+    _, _, counts = tfu.fused_traverse_profile(o, d, 1e10, fb, max_steps=0, scan=scan, step=step)
     if scan == "warp_groups":
         assert torch.equal(counts[:, 1].long(), tfu.nearest_lists(o, d, 1e10, fb, groups=True)[2])
 
