@@ -1,0 +1,15 @@
+"""fused2 (K1b) traversal's share of its roofline in the checked pass, in %:
+the bound of the work that pass's rays need (``benchmark/bound.py``, from
+the reference's rays and closest hits) over the device time of the
+library's traversal kernels that ran in that pass."""
+import re
+
+from benchmark.bound import share
+
+PATTERN = re.compile(r"fused2_kernel|frontier_kernel|slot_kernel|order_blocks|tf32_sums_kernel")
+WAVE = re.compile(r"fused2_kernel")  # one launch per wave of rays
+OUT_FLOATS = 4 + 16  # t, u, v, triangle and the attribute payload
+
+
+def read(r):
+    return share(r, PATTERN, WAVE, OUT_FLOATS, r.traffic.get("lanes"))
