@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from ..ops import math as m
+from ..render.metrics import host_copy
 from ..utils.parser import CameraDesc
 from ..utils.tensors import TensorBundle
 
@@ -52,7 +53,7 @@ def primary_rays(camera: CameraData, pixel_xy, jitter, fb_size) -> tuple:
 
     pixel_xy: [..., 2] integer pixel coords (y=0 is the bottom image row);
     jitter: [..., 2] uniforms."""
-    fb = torch.tensor(fb_size, dtype=torch.float32, device=jitter.device)
+    fb = host_copy("owlpt.sync.camera", fb_size, dtype=torch.float32, device=jitter.device)
     screen = (pixel_xy.to(torch.float32) + jitter) / fb
     d = (
         camera.llc

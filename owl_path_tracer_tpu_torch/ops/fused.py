@@ -51,10 +51,11 @@ import types
 import torch
 
 from ..native import build_cuda_library
+from ..render.metrics import span
 from ..utils.tensors import TensorBundle
 from . import math as m
 from .cluster import ClusterBVH, _cluster_entries, cluster_closest_hit
-from .fused2 import _check_operand, pack_rays
+from .fused2 import _check_operand, _t_max_rows, pack_rays
 from .intersect import HitRecord, mt_components
 
 BLOCK_RAYS = 128
@@ -430,14 +431,16 @@ def fused_closest_hit(ray_o, ray_d, fb: FusedBVH, t_min: float = m.T_MIN, t_max=
     t = out[:, 0].clone()
     tri = torch.where(out[:, 4] > 0.0, out[:, 3].to(torch.int64), -1)
     uv = out[:, 1:3].clone()
-    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(n)
-    rows = torch.nonzero(out[:, 5] <= 0.0).squeeze(1)
+    t_max = _t_max_rows(t_max, n, dev, "owlpt.sync.k5_t_max")
+    with span("owlpt.sync.resolved"):
+        rows = torch.nonzero(out[:, 5] <= 0.0).squeeze(1)
     if rows.numel():
         UNRESOLVED_RAYS += rows.numel()
-        rec = cluster_closest_hit(ray_o[rows], ray_d[rows], fb.cluster, t_min=t_min, t_max=t_max[rows])
-        t[rows] = rec.t
-        tri[rows] = rec.tri
-        uv[rows] = rec.uv
+        with span("owlpt.unresolved"):
+            rec = cluster_closest_hit(ray_o[rows], ray_d[rows], fb.cluster, t_min=t_min, t_max=t_max[rows])
+            t[rows] = rec.t
+            tri[rows] = rec.tri
+            uv[rows] = rec.uv
     t = torch.where(tri >= 0, t, t_max)
     return HitRecord(t=t, tri=tri, uv=uv)
 

@@ -61,6 +61,7 @@ import torch
 
 from ..native import bind_resources, build_cuda_library
 from ..native import kernel_resources as _kernel_resources
+from ..render.metrics import host_copy, span
 from ..utils.tensors import TensorBundle
 from . import math as m
 from .cluster import (
@@ -316,6 +317,14 @@ def _detached(*xs):
     return tuple(x.detach() if torch.is_tensor(x) else x for x in xs)
 
 
+def _t_max_rows(t_max, n: int, device, site: str):
+    """``t_max`` (a number, or a tensor [] or [N]) as [n] float32 on
+    ``device``; a number is copied from the host, under the range ``site``."""
+    if torch.is_tensor(t_max):
+        return torch.as_tensor(t_max, dtype=torch.float32, device=device).expand(n)
+    return host_copy(site, t_max, dtype=torch.float32, device=device).expand(n)
+
+
 def pack_rays(ray_o, ray_d, t_max, shadow=None):
     """[N,8] kernel ray layout: o(3) d(3) tmax flag.  The flag column marks
     the shadow (any-hit) lanes of a mixed sweep; 0 otherwise.  Detached, as
@@ -324,7 +333,7 @@ def pack_rays(ray_o, ray_d, t_max, shadow=None):
     :func:`fused2_closest_hit_diff`'s refit)."""
     ray_o, ray_d, t_max, shadow = _detached(ray_o, ray_d, t_max, shadow)
     n = ray_o.shape[0]
-    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=ray_o.device).expand(n)
+    t_max = _t_max_rows(t_max, n, ray_o.device, "owlpt.sync.pack_rays")
     if shadow is None:
         flag = torch.zeros((n, 1), dtype=torch.float32, device=ray_o.device)
     else:
@@ -336,7 +345,7 @@ def _pad_rays(ray_o, ray_d, t_max, block: int):
     """Pad to a whole number of blocks; pad rays get t_max = T_MIN (no hits)."""
     n = ray_o.shape[0]
     dev = ray_o.device
-    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(n)
+    t_max = _t_max_rows(t_max, n, dev, "owlpt.sync.pad_rays")
     pad = (-n) % block
     if not pad:
         return ray_o, ray_d, t_max, n
@@ -453,8 +462,10 @@ def _meta_boxes(boxes, k: int, meta: int):
 def auto_sort_mode(scene) -> str:
     """Sort mode for ``sort=True``: "cid2" for enclosed scenes (triangle
     area over AABB surface area > 0.6, e.g. cornell-box), else "morton"."""
-    v = scene.vertices.cpu().numpy()
-    tri = scene.tri_idx.cpu().numpy()
+    with span("owlpt.sync.scene"):
+        v = scene.vertices.cpu().numpy()
+    with span("owlpt.sync.scene"):
+        tri = scene.tri_idx.cpu().numpy()
     p0 = v[tri[:, 0]]
     e1 = v[tri[:, 1]] - p0
     e2 = v[tri[:, 2]] - p0
@@ -1021,13 +1032,15 @@ def _sweep(ray_o, ray_d, t_max, fb: Fused2BVH, sort, block: int, max_steps: int,
     if not sort_mode:
         return fused2_traverse_packed(rays, fb, block=block, max_steps=max_steps, mode=mode,
                                       fanout=fanout, with_attrs=with_attrs)[:n0]
-    keys = wave_sort_keys(ray_o_p, ray_d_p, t_max_p, fb, mode=sort_mode)
-    if shadow is not None:
-        keys = keys | (shadow.to(torch.int64) << SHADOW_CLASS_BIT)
-    perm = torch.sort(keys, stable=True).indices
-    out = fused2_traverse_packed(rays[perm], fb, block=block, max_steps=max_steps, mode=mode,
+    with span("owlpt.sort"):
+        keys = wave_sort_keys(ray_o_p, ray_d_p, t_max_p, fb, mode=sort_mode)
+        if shadow is not None:
+            keys = keys | (shadow.to(torch.int64) << SHADOW_CLASS_BIT)
+        perm = torch.sort(keys, stable=True).indices
+        rays, unsort = rays[perm], _inverse_perm(perm)
+    out = fused2_traverse_packed(rays, fb, block=block, max_steps=max_steps, mode=mode,
                                  fanout=fanout, with_attrs=with_attrs)
-    return out[_inverse_perm(perm)][:n0]
+    return out[unsort][:n0]
 
 
 def _hits_from_output(out, ray_o, ray_d, fb: Fused2BVH, t_min, t_max):
@@ -1045,15 +1058,17 @@ def _hits_from_output(out, ray_o, ray_d, fb: Fused2BVH, t_min, t_max):
     tri = torch.where(hit, out[:, 3].to(torch.int64), -1)
     uv = out[:, 1:3].clone()
     blob = out[:, 16:32].clone()
-    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=out.device).expand(out.shape[0])
-    rows = torch.nonzero(out[:, 5] <= 0.0).squeeze(1)
+    t_max = _t_max_rows(t_max, out.shape[0], out.device, "owlpt.sync.hit_t_max")
+    with span("owlpt.sync.resolved"):
+        rows = torch.nonzero(out[:, 5] <= 0.0).squeeze(1)
     if rows.numel():
         UNRESOLVED_RAYS += rows.numel()
-        rec = cluster_closest_hit(ray_o[rows], ray_d[rows], fb.cluster, t_min=t_min, t_max=t_max[rows])
-        t[rows] = rec.t
-        tri[rows] = rec.tri
-        uv[rows] = rec.uv
-        blob[rows] = torch.where(rec.hit[:, None], fb.attr_table[rec.tri.clamp(min=0)][:, :16], 0.0)
+        with span("owlpt.unresolved"):
+            rec = cluster_closest_hit(ray_o[rows], ray_d[rows], fb.cluster, t_min=t_min, t_max=t_max[rows])
+            t[rows] = rec.t
+            tri[rows] = rec.tri
+            uv[rows] = rec.uv
+            blob[rows] = torch.where(rec.hit[:, None], fb.attr_table[rec.tri.clamp(min=0)][:, :16], 0.0)
     t = torch.where(tri >= 0, t, t_max)
     return HitRecord(t=t, tri=tri, uv=uv), blob
 
@@ -1084,11 +1099,13 @@ def fused2_occluded(ray_o, ray_d, fb: Fused2BVH, t_min: float = m.T_MIN, t_max=m
     ray_o, ray_d, t_max = _detached(ray_o, ray_d, t_max)
     out = _sweep(ray_o, ray_d, t_max, fb, sort, block, max_steps, "any_hit", fanout)
     occ = out[:, 4] > 0.0
-    rows = torch.nonzero(out[:, 5] <= 0.0).squeeze(1)
+    with span("owlpt.sync.resolved"):
+        rows = torch.nonzero(out[:, 5] <= 0.0).squeeze(1)
     if rows.numel():
         UNRESOLVED_RAYS += rows.numel()
-        t_max = torch.as_tensor(t_max, dtype=torch.float32, device=out.device).expand(out.shape[0])
-        occ[rows] = cluster_occluded(ray_o[rows], ray_d[rows], fb.cluster, t_min, t_max[rows])
+        with span("owlpt.unresolved"):
+            t_max = torch.as_tensor(t_max, dtype=torch.float32, device=out.device).expand(out.shape[0])
+            occ[rows] = cluster_occluded(ray_o[rows], ray_d[rows], fb.cluster, t_min, t_max[rows])
     return occ
 
 

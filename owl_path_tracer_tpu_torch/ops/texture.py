@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from ..render.metrics import host_copy
 from . import math as m
 
 
@@ -48,7 +49,7 @@ def sky_gradient(d):
     """The ``environment_auto`` sky: white to (0.5, 0.7, 1.0) with height."""
     t = 0.5 * (d[..., 1] + 1.0)
     white = torch.ones(d.shape[:-1] + (3,), dtype=d.dtype, device=d.device)
-    blue = torch.tensor([0.5, 0.7, 1.0], dtype=d.dtype, device=d.device).expand(white.shape)
+    blue = host_copy("owlpt.sync.sky", [0.5, 0.7, 1.0], dtype=d.dtype, device=d.device).expand(white.shape)
     return m.lerp(white, blue, t[..., None])
 
 

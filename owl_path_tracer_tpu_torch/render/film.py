@@ -31,6 +31,7 @@ from ..ops.fused import build_fused
 from ..ops.fused2 import auto_sort_mode, build_fused2_scene
 from ..ops.traverse import device_bvh
 from . import integrator
+from .metrics import span
 
 
 @dataclasses.dataclass
@@ -104,7 +105,8 @@ def make_accel(scene: Scene, kind: str = "cluster", cluster_size: int | None = N
 
 
 def scene_has_textures(scene: Scene) -> bool:
-    return bool((scene.mat_tex >= 0).any())
+    with span("owlpt.sync.scene"):
+        return bool((scene.mat_tex >= 0).any())
 
 
 def scene_lights(scene: Scene, settings: RenderSettings):
@@ -125,26 +127,29 @@ def add_samples(scene: Scene, settings: RenderSettings, film: Film, num_samples:
     chunk with copies of the last pixel, as in the JAX package (whose padded
     lanes count in ``rays_traced`` too).  ``fused2_block`` is the fused2
     kernel's rays per block."""
-    enable_textures = scene_has_textures(scene)
-    intersect_fn, occlude_fn = integrator.make_intersectors(scene, accel, fused2_block=fused2_block)
-    lights, env_light = scene_lights(scene, settings)
-    dev = film.acc.device
-    px = _pixel_grid(film.width, film.height, dev)
-    total = px.shape[0]
-    acc, state = film.acc.clone(), film.rng.clone()
-    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    with span("owlpt.frame"):
+        enable_textures = scene_has_textures(scene)
+        intersect_fn, occlude_fn = integrator.make_intersectors(scene, accel, fused2_block=fused2_block)
+        lights, env_light = scene_lights(scene, settings)
+        dev = film.acc.device
+        px = _pixel_grid(film.width, film.height, dev)
+        total = px.shape[0]
+        acc, state = film.acc.clone(), film.rng.clone()
+        rays = torch.zeros((), dtype=torch.int64, device=dev)
     for lo in range(0, total, pixel_chunk):
         hi = min(lo + pixel_chunk, total)
         idx = torch.arange(lo, lo + pixel_chunk, device=dev).clamp(max=total - 1)
         s, r, n_rays = integrator.sample_sum(scene, settings, px[idx], state[idx], num_samples, intersect_fn,
                                              enable_textures, lights=lights, occlude_fn=occlude_fn,
                                              env_light=env_light)
-        with torch.profiler.record_function("owlpt.film"):
+        with span("owlpt.film"):
             acc[lo:hi] += s[: hi - lo]
             state[lo:hi] = r[: hi - lo]
         rays = rays + n_rays
+    with span("owlpt.sync.rays"):
+        rays = int(rays)
     return Film(acc=acc, rng=state, spp_done=film.spp_done + num_samples, width=film.width,
-                height=film.height, rays_traced=film.rays_traced + int(rays))
+                height=film.height, rays_traced=film.rays_traced + rays)
 
 
 def finalize(film: Film) -> torch.Tensor:

@@ -48,6 +48,7 @@ from ..ops.fused2 import (
 from ..ops.intersect import HitRecord, any_hit_brute, closest_hit_brute
 from ..ops.traverse import DeviceBVH, bvh_occluded, make_bvh_intersector
 from ..utils.tensors import TensorBundle
+from .metrics import host_copy, span
 
 
 @dataclasses.dataclass
@@ -121,7 +122,7 @@ def _fetch_surface_blob(scene: Scene, hit, blob, ray_o, ray_d, enable_textures: 
     sh_n = w * blob[:, 0:3] + u * blob[:, 3:6] + v * blob[:, 6:9]
     len2 = m.dot(sh_n, sh_n)
     unit = sh_n / torch.sqrt(torch.clamp(len2, min=1e-20))[..., None]
-    up = torch.tensor([0.0, 0.0, 1.0], device=unit.device).expand(unit.shape)
+    up = host_copy("owlpt.sync.normal", [0.0, 0.0, 1.0], device=unit.device).expand(unit.shape)
     sh_n = torch.where((len2 > 1e-12)[..., None], unit, up)
 
     mat_id = blob[:, 15].to(torch.int64)
@@ -145,7 +146,7 @@ def _recording(scene: Scene, *tensors) -> bool:
 def _intersect(intersect_fn, ray_o, ray_d):
     """Intersector result -> (HitRecord, attribute blob or None), under the
     profiler range ``owlpt.intersect``."""
-    with torch.profiler.record_function("owlpt.intersect"):
+    with span("owlpt.intersect"):
         res = intersect_fn(ray_o, ray_d)
     if isinstance(res, HitRecord):
         return res, None
@@ -185,7 +186,7 @@ def trace_bounce(scene: Scene, settings: RenderSettings, state: PathState,
     """One wavefront bounce for every lane: the closest-hit query, then the
     shading under the profiler range ``owlpt.shade``."""
     hit, blob = _intersect(intersect_fn, state.ray_o, state.ray_d)
-    with torch.profiler.record_function("owlpt.shade"):
+    with span("owlpt.shade"):
         return _shade_bounce(scene, settings, state, hit, blob, enable_textures)
 
 
@@ -265,7 +266,7 @@ def trace_bounce_nee(scene: Scene, settings: RenderSettings, lights, state: Path
         hit, blob = precomputed
     else:
         hit, blob = _intersect(intersect_fn, state.ray_o, state.ray_d)
-    with torch.profiler.record_function("owlpt.shade"):
+    with span("owlpt.shade"):
         return _shade_bounce_nee(scene, settings, lights, state, hit, blob, occlude_fn, enable_textures,
                                  allow_nee, env_light, deferred)
 
@@ -320,7 +321,7 @@ def _shade_bounce_nee(scene: Scene, settings: RenderSettings, lights, state: Pat
             pend_on = can_light & (pend_c != 0.0).any(dim=-1)
             pending = (pos, ls.direction, ls.distance - m.T_MIN, pend_c, pend_on)
         else:
-            with torch.profiler.record_function("owlpt.occlude"):
+            with span("owlpt.occlude"):
                 occluded = occlude_fn(pos, ls.direction, ls.distance - m.T_MIN)
             contrib = torch.where((can_light & ~occluded)[..., None], contrib, 0.0)
             result = result + state.throughput * torch.nan_to_num(contrib, nan=0.0, posinf=0.0)
@@ -333,7 +334,7 @@ def _shade_bounce_nee(scene: Scene, settings: RenderSettings, lights, state: Pat
         we_local = m.to_local(t_b, b_b, sh_n, es.direction)
         f_e, pdf_b_e = disney.eval_all(mat, local_wo, we_local)
         can_env = alive & (es.pdf > 0.0) & allow_nee
-        with torch.profiler.record_function("owlpt.occlude"):
+        with span("owlpt.occlude"):
             env_occluded = occlude_fn(pos, es.direction, torch.full(pos.shape[:1], m.T_MAX, device=pos.device))
         w_e = lights_mod.power_heuristic(1.0, es.pdf, 1.0, pdf_b_e)
         contrib_e = f_e * es.radiance * (
@@ -467,8 +468,9 @@ def make_intersectors(scene: Scene, accel, tri_chunk: int = 512, fused2_block: i
 
 def trace_paths(scene: Scene, settings: RenderSettings, ray_o, ray_d, rng_state, intersect_fn: Callable,
                 enable_textures: bool, lights=None, occlude_fn: Callable | None = None, env_light=None):
-    """Trace a wavefront for ``settings.max_path_depth`` bounces -> (radiance
-    [N,3], advanced rng [N], live rays traced as a 0-dim int64 tensor)."""
+    """Trace a wavefront for ``settings.max_path_depth`` bounces, each under
+    the range ``owlpt.step`` -> (radiance [N,3], advanced rng [N], live rays
+    traced as a 0-dim int64 tensor)."""
     n = ray_o.shape[0]
     dev = ray_o.device
     st = PathState(
@@ -481,14 +483,15 @@ def trace_paths(scene: Scene, settings: RenderSettings, ray_o, ray_d, rng_state,
     use_nee = settings.use_nee and occlude_fn is not None and (lights is not None or env_light is not None)
     rays = torch.zeros((), dtype=torch.int64, device=dev)
     for k in range(settings.max_path_depth):
-        rays = rays + st.alive.sum()
-        if use_nee:
-            # the last bounce samples no light: a depth-D render integrates
-            # transport orders 1..D, as the BSDF-only estimator does
-            st = trace_bounce_nee(scene, settings, lights, st, intersect_fn, occlude_fn, enable_textures,
-                                  allow_nee=k < settings.max_path_depth - 1, env_light=env_light)
-        else:
-            st = trace_bounce(scene, settings, st, intersect_fn, enable_textures)
+        with span("owlpt.step"):
+            rays = rays + st.alive.sum()
+            if use_nee:
+                # the last bounce samples no light: a depth-D render integrates
+                # transport orders 1..D, as the BSDF-only estimator does
+                st = trace_bounce_nee(scene, settings, lights, st, intersect_fn, occlude_fn, enable_textures,
+                                      allow_nee=k < settings.max_path_depth - 1, env_light=env_light)
+            else:
+                st = trace_bounce(scene, settings, st, intersect_fn, enable_textures)
     return st.result, st.rng, rays
 
 
@@ -511,7 +514,7 @@ def sample_sum(scene: Scene, settings: RenderSettings, pixel_xy, rng_state, num_
         o, d = primary_rays(scene.camera, pixel_xy, torch.stack([j0, j1], -1), (settings.width, settings.height))
         radiance, st, r = trace_paths(scene, settings, o, d, st, intersect_fn, enable_textures,
                                       lights=lights, occlude_fn=occlude_fn, env_light=env_light)
-        with torch.profiler.record_function("owlpt.film"):
+        with span("owlpt.film"):
             acc = acc + radiance
         rays = rays + r
     return acc, st, rays

@@ -1,29 +1,92 @@
 """Observability (counterpart of ``owl_path_tracer_tpu/render/metrics.py``):
-live rays per bounce, gradient norms, profiler traces and a rays/s meter.
+live rays per bounce, gradient norms, profiler traces, and the registry of
+the program's spans.
 
-``profile_trace`` records with ``torch.profiler``; the renderers mark their
-work with ``record_function`` ranges, which show in its traces and in
-``key_averages()``: ``owlpt.intersect`` (each closest-hit query),
-``owlpt.shade`` (the rest of a bounce), ``owlpt.occlude`` (NEE shadow tests,
-inside ``owlpt.shade``) and ``owlpt.film`` (accumulating samples in the scan
-loop).
+The renderers mark their work with ``torch.profiler.record_function``
+ranges, each opened through :func:`span` and named in :data:`SPANS`.  They
+show in ``profile_trace``'s traces and ``key_averages()``, and anything that
+wraps ``record_function`` (the benchmark's host clock) times them; while
+nothing records ranges a span is a no-op.  A range is opened per frame, per
+step, per launch or per host sync, never per lane or per op:
+
+  * ``owlpt.frame``: a frame's set-up (sort mode, textures, lights, pool or
+    film copies);
+  * ``owlpt.step``: one bounce of one wave, the parent of that bounce's other
+    ranges;
+  * ``owlpt.intersect``, ``owlpt.sort``, ``owlpt.unresolved``: the
+    closest-hit query, its coherence sort, its exact fallback;
+  * ``owlpt.shade``, ``owlpt.occlude``: shading, NEE shadow tests;
+  * ``owlpt.bank``, ``owlpt.regen``, ``owlpt.film``: banking finished paths,
+    regenerating idle lanes, accumulating the scan's samples;
+  * ``owlpt.sync.<site>``: each read that blocks the host on the card, one
+    site name per place in the code: ``status``, ``resolved``, ``rays``,
+    ``scene``, and the copies of host constants ``pool``, ``camera``,
+    ``sky``, ``normal``, ``pad_rays``, ``pack_rays``, ``hit_t_max``,
+    ``k5_t_max``.
+
+A count of ranges per frame is a counter: steps, syncs by site.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import json
-import time
-from typing import Callable, Optional
+from typing import TYPE_CHECKING, Callable, Optional
 
 import numpy as np
 import torch
 
-from ..models.camera import primary_rays
-from ..models.scene import RenderSettings, Scene
-from ..ops import disney
-from ..ops import rng as rng_mod
-from . import integrator
+if TYPE_CHECKING:
+    from ..models.scene import RenderSettings, Scene
+
+SPANS = (
+    "owlpt.frame",  # a frame's set-up: wavefront sort mode, textures, lights, pool; scan intersectors, film copies
+    "owlpt.step",  # one bounce of one wave: a wavefront_step, or one depth of the scan's trace_paths
+    "owlpt.intersect",  # one closest-hit query: pad, pack, sort, traversal, unsort, fallback
+    "owlpt.sort",  # fused2's coherence sort of a sweep: keys, torch.sort, gather, inverse permutation
+    "owlpt.unresolved",  # the exact cluster query for the rows a sweep left unresolved (only when there are some)
+    "owlpt.shade",  # shading of a bounce, its BSDF sample and Russian roulette
+    "owlpt.occlude",  # NEE shadow tests, inside owlpt.shade
+    "owlpt.bank",  # banking a wavefront step's finished paths into the film
+    "owlpt.regen",  # new work ids, spawned primary rays and the selects of the next pool state
+    "owlpt.film",  # accumulating the scan loop's samples
+    "owlpt.sync.status",  # the wavefront's status read after each launch
+    "owlpt.sync.resolved",  # the nonzero of a sweep's resolved column (fused2 closest hit and any-hit, K5)
+    "owlpt.sync.rays",  # a frame's ray count read to the host
+    "owlpt.sync.scene",  # the frame's scene reads: the sort mode's mesh read-back, the texture test
+    "owlpt.sync.pool",  # the wavefront pool's constants (new_pool), four copies from the host
+    "owlpt.sync.camera",  # primary_rays' framebuffer size, copied from the host
+    "owlpt.sync.sky",  # the auto sky's colour (sky_gradient), copied from the host
+    "owlpt.sync.normal",  # the fallback shading normal of the payload path (_fetch_surface_blob)
+    "owlpt.sync.pad_rays",  # fused2 _pad_rays' scalar t_max, copied from the host
+    "owlpt.sync.pack_rays",  # pack_rays' scalar t_max (the fused kernel's sweep), copied from the host
+    "owlpt.sync.hit_t_max",  # fused2 _hits_from_output's scalar t_max, copied from the host
+    "owlpt.sync.k5_t_max",  # fused_closest_hit's scalar t_max, copied from the host
+)
+
+
+# ``record_function``'s own enter: a wrap of it (the benchmark's host clock) records ranges
+_ENTER = torch.autograd.profiler.record_function.__enter__
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The ``record_function`` range ``name``, one of :data:`SPANS`, while
+    something records ranges: a profiler, or a wrap of ``record_function``'s
+    enter.  Else a no-op: a range's enter and exit are two operator calls,
+    about 11 us of host time on the card's host, which no one reads then."""
+    rf = torch.autograd.profiler.record_function
+    if rf.__enter__ is _ENTER and not torch.autograd._profiler_enabled():
+        return _OFF
+    return rf(name)
+
+
+def host_copy(site: str, data, **kw):
+    """``torch.tensor(data, **kw)`` under the range ``site`` (an
+    ``owlpt.sync.*`` name): on a card, a copy from pageable host memory,
+    which waits for the stream."""
+    with span(site):
+        return torch.tensor(data, **kw)
 
 
 @dataclasses.dataclass
@@ -47,6 +110,12 @@ class WaveStats:
 def wavefront_stats(scene: Scene, settings: RenderSettings, pixel_xy, intersect_fn: Callable,
                     enable_textures: bool = False) -> WaveStats:
     """Trace one sample wave of ``pixel_xy`` [N,2] and report per-bounce occupancy."""
+    # imported here: the ops modules import this one for ``span``
+    from ..models.camera import primary_rays
+    from ..ops import disney
+    from ..ops import rng as rng_mod
+    from . import integrator
+
     n = pixel_xy.shape[0]
     dev = pixel_xy.device
     j0, st = rng_mod.next_f32(rng_mod.seed(pixel_xy[..., 0], pixel_xy[..., 1]))
@@ -91,17 +160,3 @@ def profile_trace(log_dir: Optional[str] = None):
                                 on_trace_ready=torch.profiler.tensorboard_trace_handler(str(log_dir))) as prof:
         yield prof
 
-
-class Throughput:
-    """Wall-clock rays/s meter for render loops."""
-
-    def __init__(self):
-        self.t0 = time.perf_counter()
-        self.rays = 0
-
-    def add(self, rays: int):
-        self.rays += int(rays)
-
-    @property
-    def mrays_per_s(self) -> float:
-        return self.rays / max(time.perf_counter() - self.t0, 1e-9) / 1e6

@@ -72,6 +72,7 @@ from ..ops.intersect import HitRecord
 from ..utils.tensors import TensorBundle
 from . import integrator
 from .film import scene_has_textures, scene_lights
+from .metrics import host_copy, span
 
 # ray origin of parked (dead) lanes: far outside every scene AABB, so their
 # traversal blocks retire at the scene gate
@@ -143,8 +144,10 @@ def wavefront_step(scene: Scene, settings: RenderSettings, st: PoolState, inters
                    occlude_fn=None, env_light=None, mixed_fn=None, work_map=None,
                    local_spp: int | None = None) -> PoolState:
     """One bounce for every lane, banking of finished paths (in place into
-    ``st.acc``) and regeneration of idle lanes.  With ``mixed_fn`` and area
-    lights only, NEE takes the deferred form.
+    ``st.acc``) and regeneration of idle lanes, under the range
+    ``owlpt.step`` (banking under ``owlpt.bank``, regeneration under
+    ``owlpt.regen``).  With ``mixed_fn`` and area lights only, NEE takes the
+    deferred form.
 
     The film's layout picks the work assignment: a [W*H,3] film hands idle
     lanes the next ids of the pool's queue (up to ``total_work``); a
@@ -154,123 +157,128 @@ def wavefront_step(scene: Scene, settings: RenderSettings, st: PoolState, inters
     draws (under the sharded "sample" split; in the JAX package it sizes the
     window film, which the port does not have).  Neither goes with the
     strided film: ValueError."""
-    strided = st.acc.dim() == 3
-    if strided and (work_map is not None or local_spp is not None):
+    if st.acc.dim() == 3 and (work_map is not None or local_spp is not None):
         raise ValueError("the strided film is incompatible with work_map/local_spp (the sharded 'sample' "
                          "split): use the queue film there")
-    ray_o_t = torch.where(st.alive[:, None], st.ray_o, PARK)
-    lanes = st.pixel.shape[0]
-    use_nee = settings.use_nee and occlude_fn is not None and (
-        lights is not None or env_light is not None)
-    use_fused_nee = use_nee and mixed_fn is not None and lights is not None and env_light is None
-    precomputed = None
-    result = st.result
-    if use_fused_nee:
-        # one mixed sweep of 2L rays: this step's bounce rays, then the
-        # pending shadow rays (parked where none is pending)
-        sh_on = st.sh_active
-        up = torch.tensor([0.0, 0.0, 1.0], device=sh_on.device).expand(lanes, 3)
-        comb_o = torch.cat([ray_o_t, torch.where(sh_on[:, None], st.sh_o, PARK)])
-        comb_d = torch.cat([st.ray_d, torch.where(sh_on[:, None], st.sh_d, up)])
-        comb_t = torch.cat([torch.full((lanes,), m.T_MAX, device=sh_on.device),
-                            torch.where(sh_on, st.sh_dist, m.T_MIN)])
-        comb_sh = torch.cat([torch.zeros_like(sh_on), torch.ones_like(sh_on)])
-        rec, blob, occ = mixed_fn(comb_o, comb_d, comb_t, comb_sh)
-        precomputed = (HitRecord(t=rec.t[:lanes], tri=rec.tri[:lanes], uv=rec.uv[:lanes]), blob[:lanes])
-        # the pending contributions land before this bounce accumulates
-        result = result + torch.where((sh_on & ~occ[lanes:])[:, None], st.sh_contrib, 0.0)
-    ps = integrator.PathState(
-        ray_o=ray_o_t, ray_d=st.ray_d, result=result, throughput=st.throughput,
-        rng=st.rng, alive=st.alive, prev_lobe=st.prev_lobe, depth=st.depth,
-        prev_pdf=st.prev_pdf,
-    )
-    rays = st.rays + ps.alive.sum()  # path rays only; shadow rays are not counted
-    pend = None
-    if use_nee:
-        # regeneration has no last bounce: a vertex at the depth limit samples no light
-        allow_nee = ps.depth < settings.max_path_depth - 1
-        ps = integrator.trace_bounce_nee(
-            scene, settings, lights, ps, intersect_fn, occlude_fn, enable_textures,
-            allow_nee=allow_nee, env_light=None if use_fused_nee else env_light,
-            deferred=use_fused_nee, precomputed=precomputed,
-        )
+    with span("owlpt.step"):
+        strided = st.acc.dim() == 3
+        ray_o_t = torch.where(st.alive[:, None], st.ray_o, PARK)
+        lanes = st.pixel.shape[0]
+        use_nee = settings.use_nee and occlude_fn is not None and (
+            lights is not None or env_light is not None)
+        use_fused_nee = use_nee and mixed_fn is not None and lights is not None and env_light is None
+        precomputed = None
+        result = st.result
         if use_fused_nee:
-            ps, pend = ps
-    else:
-        ps = integrator.trace_bounce(scene, settings, ps, intersect_fn, enable_textures)
-    exhausted = ps.alive & (ps.depth >= settings.max_path_depth)
-    path_done = st.alive & (~ps.alive | exhausted)
-    if use_fused_nee:
-        # a path that ends with a fresh pending shadow ray is a zombie: it
-        # banks next step, once that ray is resolved; last step's zombies
-        # (resolved above) bank now
-        path_done = (path_done & ~pend[4]) | (~st.alive & st.sh_active)
-    # non-zombie dead lanes respawn (sh_active is all False outside deferred NEE)
-    idle = path_done | (~st.alive & ~st.sh_active)
-
-    contrib = torch.where(path_done[:, None], ps.result, 0.0)
-    if strided:
-        # bank into each lane's own pixel slots (one-hot add, no scatter)
-        p_slots = st.acc.shape[0]
-        slice_items = p_slots * settings.max_samples
-        lane_idx = torch.arange(lanes, device=st.acc.device)
-        lane_first_pixel = (st.work_counter + lane_idx * slice_items) // settings.max_samples
-        onehot = torch.arange(p_slots, device=st.acc.device)[:, None] == (st.pixel - lane_first_pixel)[None, :]
-        acc = st.acc.add_(torch.where(onehot[:, None, :], contrib.T[None], 0.0))
-        # regenerate: each lane walks its own slice
-        new_ids = st.work_counter + lane_idx * slice_items + st.work_local
-        can_spawn = idle & (st.work_local < slice_items)
-        work_local = st.work_local + can_spawn.to(torch.int64)
-        work_counter = st.work_counter
-    else:
-        acc = _bank(st.acc, st.pixel, contrib)
-        # regenerate idle lanes on fresh work items of the queue
-        order = torch.cumsum(idle.to(torch.int64), 0) - 1
-        new_ids = st.work_counter + order
-        can_spawn = idle & (new_ids < total_work)
-        handed_out = torch.minimum(idle.sum(), torch.clamp(total_work - st.work_counter, min=0))
-        work_counter = st.work_counter + handed_out
-        work_local = st.work_local
-    mapped_ids = torch.clamp(new_ids, min=0)
-    if work_map is not None:
-        mapped_ids = work_map(mapped_ids)
-    pixel_s, o_s, d_s, rng_s = _spawn(scene, settings, mapped_ids, sample_base)
-
-    def sel(new, old):
-        mask = can_spawn[:, None] if old.dim() > 1 else can_spawn
-        return torch.where(mask, new, old)
-
-    shadow = dict(sh_o=st.sh_o, sh_d=st.sh_d, sh_dist=st.sh_dist, sh_contrib=st.sh_contrib,
-                  sh_active=st.sh_active)
-    if use_fused_nee:
-        pend_o, pend_d, pend_dist, pend_c, pend_on = pend
-
-        def keep(new, old):
-            return torch.where(pend_on[:, None] if old.dim() > 1 else pend_on, new, old)
-
-        shadow = dict(
-            sh_o=sel(0.0, keep(pend_o, st.sh_o)), sh_d=sel(0.0, keep(pend_d, st.sh_d)),
-            sh_dist=sel(0.0, keep(pend_dist, st.sh_dist)),
-            sh_contrib=sel(0.0, keep(pend_c, st.sh_contrib)), sh_active=pend_on & ~can_spawn,
+            # one mixed sweep of 2L rays: this step's bounce rays, then the
+            # pending shadow rays (parked where none is pending)
+            sh_on = st.sh_active
+            up = torch.tensor([0.0, 0.0, 1.0], device=sh_on.device).expand(lanes, 3)
+            comb_o = torch.cat([ray_o_t, torch.where(sh_on[:, None], st.sh_o, PARK)])
+            comb_d = torch.cat([st.ray_d, torch.where(sh_on[:, None], st.sh_d, up)])
+            comb_t = torch.cat([torch.full((lanes,), m.T_MAX, device=sh_on.device),
+                                torch.where(sh_on, st.sh_dist, m.T_MIN)])
+            comb_sh = torch.cat([torch.zeros_like(sh_on), torch.ones_like(sh_on)])
+            rec, blob, occ = mixed_fn(comb_o, comb_d, comb_t, comb_sh)
+            precomputed = (HitRecord(t=rec.t[:lanes], tri=rec.tri[:lanes], uv=rec.uv[:lanes]), blob[:lanes])
+            # the pending contributions land before this bounce accumulates
+            result = result + torch.where((sh_on & ~occ[lanes:])[:, None], st.sh_contrib, 0.0)
+        ps = integrator.PathState(
+            ray_o=ray_o_t, ray_d=st.ray_d, result=result, throughput=st.throughput,
+            rng=st.rng, alive=st.alive, prev_lobe=st.prev_lobe, depth=st.depth,
+            prev_pdf=st.prev_pdf,
         )
-    return PoolState(
-        pixel=sel(pixel_s, st.pixel),
-        ray_o=sel(o_s, ps.ray_o),
-        ray_d=sel(d_s, ps.ray_d),
-        throughput=sel(1.0, ps.throughput),
-        result=sel(0.0, ps.result),
-        rng=sel(rng_s, ps.rng),
-        alive=can_spawn | (ps.alive & ~path_done),
-        prev_lobe=sel(disney.LOBE_NONE, ps.prev_lobe),
-        depth=sel(0, ps.depth),
-        prev_pdf=sel(0.0, ps.prev_pdf),
-        work_counter=work_counter,
-        acc=acc,
-        rays=rays,
-        work_local=work_local,
-        **shadow,
-    )
+        rays = st.rays + ps.alive.sum()  # path rays only; shadow rays are not counted
+        pend = None
+        if use_nee:
+            # regeneration has no last bounce: a vertex at the depth limit samples no light
+            allow_nee = ps.depth < settings.max_path_depth - 1
+            ps = integrator.trace_bounce_nee(
+                scene, settings, lights, ps, intersect_fn, occlude_fn, enable_textures,
+                allow_nee=allow_nee, env_light=None if use_fused_nee else env_light,
+                deferred=use_fused_nee, precomputed=precomputed,
+            )
+            if use_fused_nee:
+                ps, pend = ps
+        else:
+            ps = integrator.trace_bounce(scene, settings, ps, intersect_fn, enable_textures)
+        exhausted = ps.alive & (ps.depth >= settings.max_path_depth)
+        path_done = st.alive & (~ps.alive | exhausted)
+        if use_fused_nee:
+            # a path that ends with a fresh pending shadow ray is a zombie: it
+            # banks next step, once that ray is resolved; last step's zombies
+            # (resolved above) bank now
+            path_done = (path_done & ~pend[4]) | (~st.alive & st.sh_active)
+        # non-zombie dead lanes respawn (sh_active is all False outside deferred NEE)
+        idle = path_done | (~st.alive & ~st.sh_active)
 
+        contrib = torch.where(path_done[:, None], ps.result, 0.0)
+        with span("owlpt.bank"):
+            if strided:
+                # bank into each lane's own pixel slots (one-hot add, no scatter)
+                p_slots = st.acc.shape[0]
+                slice_items = p_slots * settings.max_samples
+                lane_idx = torch.arange(lanes, device=st.acc.device)
+                lane_first_pixel = (st.work_counter + lane_idx * slice_items) // settings.max_samples
+                slot = (st.pixel - lane_first_pixel)[None, :]
+                onehot = torch.arange(p_slots, device=st.acc.device)[:, None] == slot
+                acc = st.acc.add_(torch.where(onehot[:, None, :], contrib.T[None], 0.0))
+            else:
+                acc = _bank(st.acc, st.pixel, contrib)
+        with span("owlpt.regen"):
+            if strided:
+                # each lane walks its own slice
+                new_ids = st.work_counter + lane_idx * slice_items + st.work_local
+                can_spawn = idle & (st.work_local < slice_items)
+                work_local = st.work_local + can_spawn.to(torch.int64)
+                work_counter = st.work_counter
+            else:
+                # idle lanes take fresh work items of the queue
+                order = torch.cumsum(idle.to(torch.int64), 0) - 1
+                new_ids = st.work_counter + order
+                can_spawn = idle & (new_ids < total_work)
+                handed_out = torch.minimum(idle.sum(), torch.clamp(total_work - st.work_counter, min=0))
+                work_counter = st.work_counter + handed_out
+                work_local = st.work_local
+            mapped_ids = torch.clamp(new_ids, min=0)
+            if work_map is not None:
+                mapped_ids = work_map(mapped_ids)
+            pixel_s, o_s, d_s, rng_s = _spawn(scene, settings, mapped_ids, sample_base)
+
+            def sel(new, old):
+                mask = can_spawn[:, None] if old.dim() > 1 else can_spawn
+                return torch.where(mask, new, old)
+
+            shadow = dict(sh_o=st.sh_o, sh_d=st.sh_d, sh_dist=st.sh_dist, sh_contrib=st.sh_contrib,
+                          sh_active=st.sh_active)
+            if use_fused_nee:
+                pend_o, pend_d, pend_dist, pend_c, pend_on = pend
+
+                def keep(new, old):
+                    return torch.where(pend_on[:, None] if old.dim() > 1 else pend_on, new, old)
+
+                shadow = dict(
+                    sh_o=sel(0.0, keep(pend_o, st.sh_o)), sh_d=sel(0.0, keep(pend_d, st.sh_d)),
+                    sh_dist=sel(0.0, keep(pend_dist, st.sh_dist)),
+                    sh_contrib=sel(0.0, keep(pend_c, st.sh_contrib)), sh_active=pend_on & ~can_spawn,
+                )
+            return PoolState(
+                pixel=sel(pixel_s, st.pixel),
+                ray_o=sel(o_s, ps.ray_o),
+                ray_d=sel(d_s, ps.ray_d),
+                throughput=sel(1.0, ps.throughput),
+                result=sel(0.0, ps.result),
+                rng=sel(rng_s, ps.rng),
+                alive=can_spawn | (ps.alive & ~path_done),
+                prev_lobe=sel(disney.LOBE_NONE, ps.prev_lobe),
+                depth=sel(0, ps.depth),
+                prev_pdf=sel(0.0, ps.prev_pdf),
+                work_counter=work_counter,
+                acc=acc,
+                rays=rays,
+                work_local=work_local,
+                **shadow,
+            )
 
 def _run_chunk(scene: Scene, settings: RenderSettings, st: PoolState, accel,
                enable_textures: bool, work_hi: int, iters: int, fused2_block=None,
@@ -326,16 +334,17 @@ def render_image_wavefront(scene: Scene, settings: RenderSettings, accel=None, l
     queue film otherwise, as in the JAX package; checkpoints need the queue
     film (ValueError).
     """
-    enable_textures = scene_has_textures(scene)
-    if fused2_sort is True:
-        fused2_sort = auto_sort_mode(scene)
-    total_work = settings.width * settings.height * settings.max_samples
-    lights, env_light = scene_lights(scene, settings)
-    spp = settings.max_samples
-    strided_pixels = None
-    if strided and total_work % lanes == 0 and (total_work // lanes) % spp == 0:
-        strided_pixels = total_work // lanes // spp
-    st = new_pool(settings, lanes, strided_pixels=strided_pixels, device=scene.vertices.device)
+    with span("owlpt.frame"):
+        enable_textures = scene_has_textures(scene)
+        if fused2_sort is True:
+            fused2_sort = auto_sort_mode(scene)
+        total_work = settings.width * settings.height * settings.max_samples
+        lights, env_light = scene_lights(scene, settings)
+        spp = settings.max_samples
+        strided_pixels = None
+        if strided and total_work % lanes == 0 and (total_work // lanes) % spp == 0:
+            strided_pixels = total_work // lanes // spp
+        st = new_pool(settings, lanes, strided_pixels=strided_pixels, device=scene.vertices.device)
     est_steps = (total_work + lanes - 1) // lanes + settings.max_path_depth + 3
     chunk = functools.partial(
         _run_chunk, scene, settings, accel=accel, enable_textures=enable_textures,
@@ -357,7 +366,8 @@ def render_image_wavefront(scene: Scene, settings: RenderSettings, accel=None, l
     last_ck = time.monotonic()
     for _ in range(max_launches):
         st, status = chunk(st, work_hi=total_work)
-        work_done, busy = status.tolist()
+        with span("owlpt.sync.status"):
+            work_done, busy = status.tolist()
         if work_done and not busy:
             break
         if checkpoint_path is not None and time.monotonic() - last_ck > checkpoint_every_s:
@@ -375,7 +385,9 @@ def render_image_wavefront(scene: Scene, settings: RenderSettings, accel=None, l
     if acc.dim() == 3:  # [P,3,L] -> [L*P,3]: lane l holds pixels l*P .. l*P + P - 1
         acc = acc.permute(2, 0, 1).reshape(-1, 3)
     img = acc.reshape(settings.height, settings.width, 3) / settings.max_samples
-    return img.flip(0), int(st.rays)
+    with span("owlpt.sync.rays"):
+        rays = int(st.rays)
+    return img.flip(0), rays
 
 
 def _digest(*tensors) -> str:
@@ -450,10 +462,11 @@ def new_pool(settings: RenderSettings, lanes: int, work_lo: int = 0, strided_pix
     ``work_lo``.  ``strided_pixels=P`` makes the strided film: lane l owns
     the P * spp work items from ``work_lo + l * P * spp``, acc [P,3,lanes]."""
     z = lambda *shape, dtype=torch.float32: torch.zeros(shape, dtype=dtype, device=device)  # noqa: E731
+    const = functools.partial(host_copy, "owlpt.sync.pool", device=device)
     return PoolState(
         pixel=z(lanes, dtype=torch.int64),
         ray_o=z(lanes, 3),
-        ray_d=torch.tensor([0.0, 0.0, 1.0], device=device).repeat(lanes, 1),
+        ray_d=const([0.0, 0.0, 1.0]).repeat(lanes, 1),
         throughput=torch.ones((lanes, 3), device=device),
         result=z(lanes, 3),
         rng=z(lanes, dtype=torch.int64),
@@ -461,12 +474,12 @@ def new_pool(settings: RenderSettings, lanes: int, work_lo: int = 0, strided_pix
         prev_lobe=torch.full((lanes,), disney.LOBE_NONE, dtype=torch.int64, device=device),
         depth=z(lanes, dtype=torch.int64),
         prev_pdf=z(lanes),
-        work_counter=torch.tensor(work_lo, dtype=torch.int64, device=device),
+        work_counter=const(work_lo, dtype=torch.int64),
         acc=z(strided_pixels, 3, lanes) if strided_pixels else z(settings.width * settings.height, 3),
-        rays=torch.tensor(0, dtype=torch.int64, device=device),
+        rays=const(0, dtype=torch.int64),
         work_local=z(lanes, dtype=torch.int64),
         sh_o=z(lanes, 3),
-        sh_d=torch.tensor([0.0, 0.0, 1.0], device=device).repeat(lanes, 1),
+        sh_d=const([0.0, 0.0, 1.0]).repeat(lanes, 1),
         sh_dist=z(lanes),
         sh_contrib=z(lanes, 3),
         sh_active=z(lanes, dtype=torch.bool),

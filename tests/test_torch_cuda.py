@@ -19,7 +19,9 @@ the gradient path (material and camera gradients through K1b on f32 and
 bf16 planes against the CPU's plain version, by chip_smoke.py's phase-5g
 rule; the brute sweep against the cluster query), the per-ray-stack BVH on
 the card against the CPU, the sharded wavefront at world size 1 over NCCL
-against the unsharded one, and the debug layer's checks on CUDA tensors.
+against the unsharded one, the debug layer's checks on CUDA tensors, and
+a frame of each benchmark cell's path with every synchronising call inside
+an ``owlpt.sync.*`` range.
 
 Imports nothing of JAX (the card's machine has none).  Every test is marked
 ``cuda`` and skips where there is no CUDA device.  On the card:
@@ -36,6 +38,7 @@ chip_smoke.py's near-tie rule with the sums' rounding kind
 (``compare_near_tie(..., tensor=True)``); the exact form to the plain
 version's winners on every row.
 """
+import contextlib
 import pathlib
 
 import numpy as np
@@ -1262,3 +1265,62 @@ def test_checked_gather_raises_in_debug_on_the_card(cuda_device):
     finally:
         debug.set_debug(False)
     assert debug.checked_gather(table, torch.tensor([3, 12], device=cuda_device)).tolist() == [3.0, 9.0]
+
+
+@contextlib.contextmanager
+def _syncs_only_in_sync_spans():
+    """Every synchronising CUDA call raises, except inside an
+    ``owlpt.sync.*`` range: a wrap of ``record_function`` (as the benchmark's
+    host clock wraps it) lifts the mode on such a range's enter and sets it
+    again on its exit."""
+    cls = torch.profiler.record_function
+    enter, exit_ = cls.__enter__, cls.__exit__
+
+    def lift(rf):
+        out = enter(rf)
+        if rf.name.startswith("owlpt.sync."):
+            torch.cuda.set_sync_debug_mode(0)
+        return out
+
+    def restore(rf, *exc):
+        if rf.name.startswith("owlpt.sync."):
+            torch.cuda.set_sync_debug_mode("error")
+        return exit_(rf, *exc)
+
+    torch.cuda.synchronize()
+    cls.__enter__, cls.__exit__ = lift, restore
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        cls.__enter__, cls.__exit__ = enter, exit_
+
+
+@pytest.mark.parametrize("kind", ["wavefront", "scan"])
+def test_every_sync_of_a_cell_path_is_in_a_sync_span(cuda_device, tmp_path, kind):
+    """A frame of each benchmark cell's path (the dragon at subdivision 5,
+    128x96; the wavefront on fused2 f32 planes, sorted; the scan on the fused
+    kernel) finishes with every synchronising call raising outside the
+    ``owlpt.sync.*`` ranges, so ``host.syncs_per_pass`` counts every sync
+    of both paths.  The frame renders once first (kernel builds and caches)."""
+    from benchmark import drive, scenes
+    from benchmark.conftest import tiny_cell
+
+    cell = tiny_cell(f"dragon7.{kind}", subdivision=5, width=128, height=96, lanes=4096, pixel_chunk=4096)
+    cell.traffic = dict(cell.traffic, cluster_size=drive.load_cell(cell.name).traffic["cluster_size"])
+    prog = drive.Program(cell, scenes.materialize(cell.config, tmp_path), 0, "cuda")
+    tr = cell.traffic
+
+    def frame():
+        if kind == "wavefront":
+            return render_image_wavefront(prog.scene, prog.settings, prog.accel, lanes=tr["lanes"],
+                                          fused2_block=tr["block"], fused2_sort=tr["sort"], sample_base=3)
+        f = tfilm.add_samples(prog.scene, prog.settings, prog.film_state, 1, pixel_chunk=tr["pixel_chunk"],
+                              accel=prog.accel)
+        return tfilm.finalize(f), f.rays_traced
+
+    want, rays_want = frame()
+    with _syncs_only_in_sync_spans():
+        img, rays = frame()
+    assert rays == rays_want > 0 and torch.equal(img, want)

@@ -1,7 +1,7 @@
 """The port's observability (``render/metrics.py``) against the JAX package's
 (tests/test_metrics.py): live rays per bounce exactly JAX's, gradient norms
-within 1e-6, a ``torch.profiler`` trace holding the renderers' ranges, and
-the rays/s meter."""
+within 1e-6, and a ``torch.profiler`` trace holding the renderers' ranges
+(the registry of ranges: tests/test_torch_spans.py)."""
 import dataclasses
 import json
 
@@ -96,10 +96,3 @@ def test_nee_shadow_tests_are_profiled(tmp_path):
     with tmetrics.profile_trace(str(tmp_path)) as prof:
         tdiff.render_with_materials(ts, ts.materials, s, tpx(pixels()[:64]), 1, None)
     assert "owlpt.occlude" in {e.key for e in prof.key_averages()}
-
-
-def test_throughput_counts():
-    meter = tmetrics.Throughput()
-    meter.add(1_000_000)
-    meter.add(np.int64(500_000))
-    assert meter.rays == 1_500_000 and meter.mrays_per_s > 0
