@@ -124,7 +124,9 @@ renderer (render/film.py) and the CLI, in both block-wide steps
      and blocks per SM of both forms and the form that ships
      (``--row-timing ROUNDS`` runs only the timing of the form that ships,
      on the package beside the script, and prints it as JSON: copied into
-     another checkout, it times that checkout's kernels);
+     another checkout, it times that checkout's kernels;
+     ``--shade-timing ROUNDS`` runs only the shading kernel against its
+     plain version on the cells' second bounce waves, printed as JSON);
   5d. scan-renderer frame parity on make_accel("fused"): cornell-box 64x64,
      spp 4, depth 4, card vs CPU, without and with NEE (fused_occluded), and
      the textured cube (the texture lookup of the shade-blob fetch);
@@ -422,6 +424,24 @@ def launch_times(fn, reps: int, batch: int = 10):
     warm-up: the host's time between launches hides behind the card's, so
     this is the kernel's time and not the wrapper's."""
     return [t / batch for t in cuda_times(lambda: [fn() for _ in range(batch)], reps)]
+
+
+def profiled_device_ms(fn, calls: int, name=None):
+    """Device milliseconds per call of ``fn``: the summed time of its kernels
+    (those whose name holds ``name``, or all) in a CUDA-only profiler trace
+    of ``calls`` calls after one warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if name is None or name in e.key]
+    check(events, f"no kernel named {name!r} in the profile")
+    return sum(e.self_device_time_total for e in events) / calls / 1e3
 
 
 def cuda_ms(fn, reps: int = 3):
@@ -2164,6 +2184,78 @@ def row_timing(rounds):
         for kind, t in times.items()}}}), flush=True)
 
 
+def shade_timing(rounds):
+    """``--shade-timing``: the shading kernel (ops/shade.py) against its plain
+    version (render/integrator.py _shade_bounce) on the cells' second bounce
+    waves of the dragon (sub 7, 1024x1024, auto sky): 131,072 lanes of the
+    centre rows with fused2's attribute blob (the wavefront's surface) and
+    65,536 with the shade-blob gather on the fused kernel (the scan's).  Both
+    held equal bit for bit.  Per call, ``rounds`` rounds: the device time of
+    the kernel and of the plain version's ~970 kernels (CUDA-only profiler,
+    20 and 3 calls a round), and the wall time of each (CUDA events around
+    10 kernel calls back to back and around one plain call, in turns), which
+    holds the host's dispatch: the kernel's wrapper takes longer on the host
+    than the kernel on the card.  The byte bound counts what the kernel
+    reads and writes for these lanes at 3.35 TB/s.  Printed as one JSON
+    line."""
+    import torch
+
+    from owl_path_tracer_tpu_torch.models.camera import primary_rays
+    from owl_path_tracer_tpu_torch.models.scene import RenderSettings, compile_scene
+    from owl_path_tracer_tpu_torch.ops import rng as rng_mod
+    from owl_path_tracer_tpu_torch.ops import shade
+    from owl_path_tracer_tpu_torch.render import film, integrator
+    from owl_path_tracer_tpu_torch.tools.probe_common import ensure_dragon
+
+    smi = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "--id=0"])
+    print(smi, flush=True)
+    dev = torch.device("cuda", 0)
+    settings = RenderSettings(width=SIZE, height=SIZE, max_samples=1, max_path_depth=DEPTH, environment_auto=True)
+    scene = compile_scene(ROOT / "assets", ensure_dragon(DRAGON_SUB), (SIZE, SIZE), device=dev)
+    grid = film._pixel_grid(SIZE, SIZE, dev)
+    rows = {}
+    for kind, lanes in (("fused2", LANES), ("fused", SCAN_CHUNK)):
+        isect, _ = integrator.make_intersectors(scene, film.make_accel(scene, kind))
+        lo = (SIZE * SIZE - lanes) // 2
+        j0, st = rng_mod.next_f32(rng_mod.seed(grid[lo : lo + lanes, 0], grid[lo : lo + lanes, 1]))
+        j1, st = rng_mod.next_f32(st)
+        o, d = primary_rays(scene.camera, grid[lo : lo + lanes], torch.stack([j0, j1], -1), (SIZE, SIZE))
+        state = integrator.PathState(
+            ray_o=o, ray_d=d, result=torch.zeros_like(o), throughput=torch.ones_like(o), rng=st,
+            alive=torch.ones(lanes, dtype=torch.bool, device=dev),
+            prev_lobe=torch.full((lanes,), -1, dtype=torch.int64, device=dev),
+            depth=torch.zeros(lanes, dtype=torch.int64, device=dev), prev_pdf=torch.zeros(lanes, device=dev))
+        state = integrator.trace_bounce(scene, settings, state, isect, False)
+        res = isect(state.ray_o, state.ray_d)
+        hit, blob = res if isinstance(res, tuple) else (res, None)
+        got = shade.shade_bounce(scene, settings, state, hit, blob, False)
+        want = integrator._shade_bounce(scene, settings, state, hit, blob, False)
+        for k, v in got.items():
+            check(torch.equal(v, getattr(want, k)), f"shade kernel {kind}: {k} differs from the plain version")
+        kernel_fn = lambda: shade.shade_bounce(scene, settings, state, hit, blob, False)  # noqa: E731
+        plain_fn = lambda: integrator._shade_bounce(scene, settings, state, hit, blob, False)  # noqa: E731
+        times = {"kernel": [], "plain": [], "kernel_wall": [], "plain_wall": []}
+        for _ in range(rounds):
+            times["kernel"].append(profiled_device_ms(kernel_fn, 20, "shade_kernel"))
+            times["plain"].append(profiled_device_ms(plain_fn, 3))
+            a, b = in_turns(lambda: [kernel_fn() for _ in range(10)], plain_fn)
+            times["kernel_wall"].append(a / 10)
+            times["plain_wall"].append(b)
+        ms = {k: statistics.median(v) for k, v in times.items()}
+        # per lane: state (48 + 24 + 1 B), tri (8) in and the state (73 B) out;
+        # a live lane that hit also reads uv (8) and its surface: t and blob
+        # columns 0-8 and 15 (44 B), or the gathered positions and normals
+        # (72 B) and tri_mat (4 B)
+        live_hit = int((state.alive & (hit.tri >= 0)).sum())
+        nbytes = lanes * (81 + 73) + live_hit * (8 + (44 if blob is not None else 76))
+        bound_ms = nbytes / 3.35e12 * 1e3
+        rows[f"{'blob' if blob is not None else 'gather'} {lanes}"] = {
+            "kernel_ms": ms["kernel"], "plain_device_ms": ms["plain"], "kernel_wall_ms": ms["kernel_wall"],
+            "plain_wall_ms": ms["plain_wall"], "bound_ms": bound_ms, "roofline_pct": 100.0 * bound_ms / ms["kernel"],
+            "bytes": nbytes, "live_hit_lanes": live_hit}
+    print(json.dumps({"shade_timing": {"device": smi, "rounds": rounds, "waves": rows}}), flush=True)
+
+
 def phase_5d(dev):
     """Scan-renderer frames on make_accel("fused"), card vs CPU: cornell-box
     without and with NEE, and the textured cube."""
@@ -3398,6 +3490,8 @@ def main():
     ap.add_argument("--spp", type=int, default=8, help="main-path samples per pixel (64: headline)")
     ap.add_argument("--row-timing", type=int, default=0, metavar="ROUNDS",
                     help="only time phase 4e's dragon8 entries, ROUNDS rounds, and print them as JSON")
+    ap.add_argument("--shade-timing", type=int, default=0, metavar="ROUNDS",
+                    help="only time the shading kernel against its plain version, ROUNDS rounds, as JSON")
     args = ap.parse_args()
 
     if not (ROOT / "owl_path_tracer_tpu_torch" / "csrc").is_dir():
@@ -3411,6 +3505,9 @@ def main():
     if args.row_timing:
         row_timing(args.row_timing)
         return
+    if args.shade_timing:
+        shade_timing(args.shade_timing)
+        return
     from owl_path_tracer_tpu_torch.models.lights import build_light_table, sample_lights
     from owl_path_tracer_tpu_torch.models.scene import RenderSettings, compile_scene
     from owl_path_tracer_tpu_torch.native import nvcc_path
@@ -3418,6 +3515,7 @@ def main():
     from owl_path_tracer_tpu_torch.ops import fused2
     from owl_path_tracer_tpu_torch.ops import latency_probe as tlp
     from owl_path_tracer_tpu_torch.ops import math as m
+    from owl_path_tracer_tpu_torch.ops import shade
     from owl_path_tracer_tpu_torch.ops.fused2 import pack_rays
     from owl_path_tracer_tpu_torch.render import integrator, wavefront
     from owl_path_tracer_tpu_torch.render.film import make_accel
@@ -3443,7 +3541,7 @@ def main():
     # 2 ── build: one nvcc per kernel source, started together
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
-        builds = list(pool.map(lambda mod: mod.build_kernels(), (fused2, tfu, tlp)))
+        builds = list(pool.map(lambda mod: mod.build_kernels(), (fused2, tfu, tlp, shade)))
     for path, seconds, log in builds:
         for line in log.splitlines():
             if any(w in line for w in ("registers", "smem", "spill", "Compiling entry")):

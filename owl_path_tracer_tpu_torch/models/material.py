@@ -34,6 +34,11 @@ class Materials(TensorBundle):
     def count(self) -> int:
         return self.base_color.shape[0]
 
+    def rows(self) -> torch.Tensor:
+        """[M,17] table: base_color, then the scalar fields in order."""
+        return torch.cat([self.base_color] + [getattr(self, f.name)[:, None] for f in dataclasses.fields(self)
+                                              if f.name != "base_color"], dim=1)
+
 
 def _from_rows(base: np.ndarray, cols: dict, device) -> Materials:
     as_t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)  # noqa: E731

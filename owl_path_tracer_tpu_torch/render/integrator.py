@@ -38,6 +38,7 @@ from ..models.scene import RenderSettings, Scene
 from ..ops import disney
 from ..ops import math as m
 from ..ops import rng as rng_mod
+from ..ops import shade
 from ..ops import texture as tex
 from ..ops.cluster import ClusterBVH, cluster_closest_hit, cluster_occluded
 from ..ops.fused import FusedBVH, fused_occluded, make_fused_intersector
@@ -65,9 +66,10 @@ class PathState(TensorBundle):
 
 
 def _environment_radiance(scene: Scene, settings: RenderSettings, ray_d):
-    if settings.environment_use and scene.env_map.shape[0] > 1:
+    kind = shade.environment_kind(scene, settings)
+    if kind == shade.ENV_MAP:
         env = tex.sample_environment(scene.env_map, ray_d)
-    elif settings.environment_auto:
+    elif kind == shade.ENV_AUTO:
         env = tex.sky_gradient(ray_d)
     else:
         color = torch.tensor(settings.environment_color, dtype=torch.float32, device=ray_d.device)
@@ -77,11 +79,7 @@ def _environment_radiance(scene: Scene, settings: RenderSettings, ray_d):
 
 def _material_blob(scene: Scene):
     """[M,17] material table: base_color then the scalar fields in order."""
-    mt = scene.materials
-    cols = [mt.base_color] + [
-        getattr(mt, f.name)[:, None] for f in dataclasses.fields(mt) if f.name != "base_color"
-    ]
-    return torch.cat(cols, dim=1)
+    return scene.materials.rows()
 
 
 def _material_lookup(scene: Scene, mat_id):
@@ -184,10 +182,21 @@ def _fetch_surface(scene: Scene, hit, enable_textures: bool):
 def trace_bounce(scene: Scene, settings: RenderSettings, state: PathState,
                  intersect_fn: Callable, enable_textures: bool) -> PathState:
     """One wavefront bounce for every lane: the closest-hit query, then the
-    shading under the profiler range ``owlpt.shade``."""
+    shading under the profiler range ``owlpt.shade``.
+
+    The shading runs in one kernel (``ops/shade.py``) for CUDA tensors, and
+    as the plain version ``_shade_bounce`` for CPU tensors and while autograd
+    records a gradient through the bounce: the kernel has no backward."""
     hit, blob = _intersect(intersect_fn, state.ray_o, state.ray_d)
     with span("owlpt.shade"):
-        return _shade_bounce(scene, settings, state, hit, blob, enable_textures)
+        if state.ray_o.device.type == "cpu":
+            return _shade_bounce(scene, settings, state, hit, blob, enable_textures)
+        grads = (state.ray_o, state.ray_d, state.result, state.throughput, hit.t, hit.uv)
+        if _recording(scene, *grads, *(() if blob is None else (blob,))):
+            shade.LAUNCHES[shade.PLAIN_CUDA] += 1
+            return _shade_bounce(scene, settings, state, hit, blob, enable_textures)
+        return PathState(**shade.shade_bounce(scene, settings, state, hit, blob, enable_textures),
+                         prev_pdf=state.prev_pdf)
 
 
 def _shade_bounce(scene: Scene, settings: RenderSettings, state: PathState, hit, blob,

@@ -19,9 +19,12 @@ the gradient path (material and camera gradients through K1b on f32 and
 bf16 planes against the CPU's plain version, by chip_smoke.py's phase-5g
 rule; the brute sweep against the cluster query), the per-ray-stack BVH on
 the card against the CPU, the sharded wavefront at world size 1 over NCCL
-against the unsharded one, the debug layer's checks on CUDA tensors, and
+against the unsharded one, the debug layer's checks on CUDA tensors,
 a frame of each benchmark cell's path with every synchronising call inside
-an ``owlpt.sync.*`` range.
+an ``owlpt.sync.*`` range and every bounce step shaded in one launch of the
+shading kernel, and that kernel against the plain ``_shade_bounce`` on
+random bounces (every lobe and case; the lane's fate, depth, LCG state and
+lobe exact, the rest to rtol 1e-5 / atol 1e-6).
 
 Imports nothing of JAX (the card's machine has none).  Every test is marked
 ``cuda`` and skips where there is no CUDA device.  On the card:
@@ -38,6 +41,7 @@ chip_smoke.py's near-tie rule with the sums' rounding kind
 (``compare_near_tie(..., tensor=True)``); the exact form to the plain
 version's winners on every row.
 """
+import collections
 import contextlib
 import pathlib
 
@@ -47,11 +51,13 @@ import torch
 
 import chip_smoke
 import test_torch_frontier_row as frontier_row
+from test_torch_shade import random_bounce
 from owl_path_tracer_tpu_torch.models.scene import RenderSettings, compile_scene
 from owl_path_tracer_tpu_torch.ops import cluster as tcl
 from owl_path_tracer_tpu_torch.ops import fused as tfu
 from owl_path_tracer_tpu_torch.ops import fused2 as tf2
 from owl_path_tracer_tpu_torch.ops import latency_probe as tlp
+from owl_path_tracer_tpu_torch.ops import shade
 from owl_path_tracer_tpu_torch.render import film as tfilm
 from owl_path_tracer_tpu_torch.render import integrator, wavefront
 from owl_path_tracer_tpu_torch.render.film import make_accel
@@ -1272,12 +1278,14 @@ def _syncs_only_in_sync_spans():
     """Every synchronising CUDA call raises, except inside an
     ``owlpt.sync.*`` range: a wrap of ``record_function`` (as the benchmark's
     host clock wraps it) lifts the mode on such a range's enter and sets it
-    again on its exit."""
+    again on its exit.  Yields a Counter of the ranges entered, by name."""
     cls = torch.profiler.record_function
     enter, exit_ = cls.__enter__, cls.__exit__
+    entered = collections.Counter()
 
     def lift(rf):
         out = enter(rf)
+        entered[rf.name] += 1
         if rf.name.startswith("owlpt.sync."):
             torch.cuda.set_sync_debug_mode(0)
         return out
@@ -1291,19 +1299,17 @@ def _syncs_only_in_sync_spans():
     cls.__enter__, cls.__exit__ = lift, restore
     torch.cuda.set_sync_debug_mode("error")
     try:
-        yield
+        yield entered
     finally:
         torch.cuda.set_sync_debug_mode(0)
         cls.__enter__, cls.__exit__ = enter, exit_
 
 
-@pytest.mark.parametrize("kind", ["wavefront", "scan"])
-def test_every_sync_of_a_cell_path_is_in_a_sync_span(cuda_device, tmp_path, kind):
-    """A frame of each benchmark cell's path (the dragon at subdivision 5,
-    128x96; the wavefront on fused2 f32 planes, sorted; the scan on the fused
-    kernel) finishes with every synchronising call raising outside the
-    ``owlpt.sync.*`` ranges, so ``host.syncs_per_pass`` counts every sync
-    of both paths.  The frame renders once first (kernel builds and caches)."""
+def _cell_frame(kind, tmp_path):
+    """A frame of the benchmark cell ``dragon7.<kind>``'s path at a small
+    size (the dragon at subdivision 5, 128x96; the wavefront on fused2 f32
+    planes, sorted, 4,096 lanes; the scan on the fused kernel in chunks of
+    4,096 pixels) -> a function that renders it -> (image, rays)."""
     from benchmark import drive, scenes
     from benchmark.conftest import tiny_cell
 
@@ -1320,7 +1326,67 @@ def test_every_sync_of_a_cell_path_is_in_a_sync_span(cuda_device, tmp_path, kind
                               accel=prog.accel)
         return tfilm.finalize(f), f.rays_traced
 
+    return frame
+
+
+@pytest.mark.parametrize("kind", ["wavefront", "scan"])
+def test_every_sync_of_a_cell_path_is_in_a_sync_span(cuda_device, tmp_path, kind):
+    """A frame of each benchmark cell's path (``_cell_frame``) finishes with
+    every synchronising call raising outside the ``owlpt.sync.*`` ranges, so
+    ``host.syncs_per_pass`` counts every sync of both paths.  The frame
+    renders once first (kernel builds and caches)."""
+    frame = _cell_frame(kind, tmp_path)
     want, rays_want = frame()
     with _syncs_only_in_sync_spans():
         img, rays = frame()
     assert rays == rays_want > 0 and torch.equal(img, want)
+
+
+@pytest.mark.parametrize("kind", ["wavefront", "scan"])
+def test_cell_paths_shade_every_step_in_the_kernel(cuda_device, tmp_path, kind):
+    """A frame of each benchmark cell's path (``_cell_frame``: the wavefront
+    takes fused2's attribute blob, the scan the shade-blob gather) shades
+    every bounce step in one launch of the shading kernel and never in the
+    plain version, with every synchronising call outside the
+    ``owlpt.sync.*`` ranges raising."""
+    frame = _cell_frame(kind, tmp_path)
+    frame()
+    shade.reset_counts()
+    with _syncs_only_in_sync_spans() as entered:
+        frame()
+    assert entered["owlpt.step"] > 0
+    assert shade.LAUNCHES == {shade.ENTRY: entered["owlpt.step"], shade.PLAIN_CUDA: 0}
+    assert entered["owlpt.sync.sky"] == entered["owlpt.sync.normal"] == 0
+
+
+_SHADE_INT = ("alive", "depth", "rng", "prev_lobe")
+_SHADE_FLOAT = ("result", "ray_o", "throughput", "ray_d")
+
+
+@pytest.mark.parametrize("textures", [False, True], ids=["plain", "textured"])
+@pytest.mark.parametrize("surface", ["blob", "gather"])
+@pytest.mark.parametrize("parity", [True, False], ids=["parity", "corrected"])
+@pytest.mark.parametrize("env", ["auto", "map", "color"])
+def test_shade_kernel_matches_plain(cuda_device, env, parity, surface, textures):
+    """The shading kernel against the plain ``_shade_bounce`` from the same
+    random bounce (tests/test_torch_shade.py ``random_bounce``: every lobe,
+    glass's transmit, TIR and Fresnel reflect, the forced BTDF, sheen,
+    emission, misses, dead lanes, the retry of a non-finite f, Russian
+    roulette), on the card: the lane's fate, depth, LCG state and lobe equal
+    on every lane, radiance, origin, throughput and direction to rtol 1e-5 /
+    atol 1e-6.  Prints the share of lanes whose every output is bit-equal."""
+    scene, settings, state, hit, blob = random_bounce(cuda_device, n=16384, seed=11, env=env, parity=parity)
+    blob = blob if surface == "blob" else None
+    launches = shade.LAUNCHES[shade.ENTRY]
+    got = shade.shade_bounce(scene, settings, state, hit, blob, textures)
+    assert shade.LAUNCHES[shade.ENTRY] == launches + 1
+    want = integrator._shade_bounce(scene, settings, state, hit, blob, textures)
+    torch.cuda.synchronize()
+    for k in _SHADE_INT:
+        assert torch.equal(got[k], getattr(want, k)), f"{k}: {(got[k] != getattr(want, k)).sum()} lanes differ"
+    for k in _SHADE_FLOAT:
+        torch.testing.assert_close(got[k], getattr(want, k), rtol=1e-5, atol=1e-6, equal_nan=True, msg=k)
+    same = torch.stack([(got[k] == getattr(want, k)).view(len(got[k]), -1).all(-1) for k in (*_SHADE_INT,
+                                                                                            *_SHADE_FLOAT)])
+    print(f"shade kernel {env} {'parity' if parity else 'corrected'} {surface} textures={textures}: "
+          f"{same.all(0).float().mean().item():.6f} of lanes bit-equal")

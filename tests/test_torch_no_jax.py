@@ -12,6 +12,7 @@ from owl_path_tracer_tpu_torch import native
 from owl_path_tracer_tpu_torch.ops import fused as tfu
 from owl_path_tracer_tpu_torch.ops import fused2 as tf2
 from owl_path_tracer_tpu_torch.ops import latency_probe as tlp
+from owl_path_tracer_tpu_torch.ops import shade
 
 torch.set_num_threads(2)
 
@@ -70,8 +71,10 @@ def test_native_sources_lie_inside_the_port(monkeypatch):
         tfu.build_kernels()  # nvcc: the fused traversal kernel
     with pytest.raises(Stop):
         tlp.build_kernels()  # nvcc: the latency probe kernel
+    with pytest.raises(Stop):
+        shade.build_kernels()  # nvcc: the shading kernel
     port = pathlib.Path(native.PKG_DIR).resolve()
-    assert len(seen) >= 4 and tlp.CSRC.resolve() in seen and tf2.TENSOR_OPS.resolve() in seen
+    assert len(seen) >= 5 and tlp.CSRC.resolve() in seen and shade.CSRC.resolve() in seen and tf2.TENSOR_OPS.resolve() in seen
     for src in seen:
         assert port in src.parents and src.is_file(), src
 
