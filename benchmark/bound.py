@@ -29,21 +29,23 @@ def roofline(needed: int, cluster_size: int, launches: int, rays_per_launch: int
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def share(readings, pattern, wave, out_floats: int, rays_per_launch: int):
+def share(readings, pattern, wave, out_floats: int, rays_per_launch: int, needed: str = "needed"):
     """A traversal kernel's share of its roofline in the checked pass, in %:
-    the bound of the work the pass's rays need over the device time of the
-    kernels whose names match ``pattern`` and that ran inside that pass (one
-    wave's rays are read once per kernel matching ``wave``); None where the
-    run traced no such kernel."""
+    the bound of the work the pass's rays need (the clusters counted under
+    the key ``needed`` of ``readings.work``, the path rays' by default) over
+    the device time of the kernels whose names match ``pattern`` and that
+    ran inside that pass (one wave's rays are read once per kernel matching
+    ``wave``); None where the run traced no such kernel or its reference
+    counted no such work."""
     r = readings
-    if r.trace is None or r.work is None or not rays_per_launch:
+    if r.trace is None or r.work is None or needed not in r.work or not rays_per_launch:
         return None
     lo, hi = r.trace.passes[r.work["pass_index"]]
     ks = [(name, s, e) for _, name, s, e in r.trace.kernels(lo, hi) if pattern.search(name)]
     launches = sum(1 for name, _, _ in ks if wave.search(name))
     if not launches:
         return None
-    bound_s, by = roofline(r.work["needed"], r.work["cluster_size"], launches, rays_per_launch,
+    bound_s, by = roofline(r.work[needed], r.work["cluster_size"], launches, rays_per_launch,
                            r.work["clusters"], r.work["tris"], out_floats)
     device_s = sum(e - s for _, s, e in ks) / 1e9
     print(f"benchmark: roofline of {launches} waves: bound {bound_s:.6f} s by {by}, device {device_s:.6f} s",

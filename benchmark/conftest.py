@@ -3,6 +3,7 @@ cells of ``BENCHMARK.json`` cut to a size the CPU runs in seconds."""
 from __future__ import annotations
 
 import copy
+import json
 import time
 
 import pytest
@@ -11,6 +12,23 @@ from benchmark import drive
 
 # the program's CPU path at this size renders a pass in a few seconds
 TINY = dict(subdivision=2, width=32, height=24, cluster_size=64, lanes=256, pixel_chunk=256)
+
+# upstream's Cornell box mesh, pinned by its hash
+CORNELL_OBJ = "assets/cornell-box.obj.scene"
+CORNELL_SHA256 = "94a9c659e6a5df9a13e70f9d76c609cfa32df7b88566dcfdfe3d3eeebc40ee33"
+
+
+def cornell_config(width: int = TINY["width"], height: int = TINY["height"]) -> dict:
+    """A configuration with a ``"file"`` scene: upstream's Cornell box, its
+    camera and materials from ``assets/cornell-box.json``, depth 8, NEE off
+    and no environment light."""
+    assets = json.loads((drive.ROOT / "assets" / "cornell-box.json").read_text())
+    return {"name": "cornell",
+            "scene": {"name": "cornell", "generator": "file", "obj": CORNELL_OBJ, "obj_sha256": CORNELL_SHA256,
+                      "camera": assets["camera"], "materials": assets["materials"]},
+            "render": {"width": width, "height": height, "max_path_depth": 8, "environment_use": False,
+                       "environment_auto": False, "environment_color": [0.0, 0.0, 0.0], "environment_intensity": 0.0,
+                       "use_nee": False}}
 
 
 def tiny_cell(name: str, **over) -> drive.Cell:

@@ -16,7 +16,6 @@ import json
 import time
 
 from . import check, drive, scenes
-from .reference import render as reference
 
 
 def reference_bf16(cell: drive.Cell, seed: int, device: str) -> dict:
@@ -24,11 +23,12 @@ def reference_bf16(cell: drive.Cell, seed: int, device: str) -> dict:
     import torch
 
     tr = cell.traffic
+    ref = drive.reference(cell.config, cell.here)
     scene_dir = scenes.materialize(cell.config)
     got = {}
     for dtype in (torch.float32, torch.bfloat16):
-        ref_scene = reference.load_scene(cell.config, scene_dir, tr["cluster_size"], device, plane_dtype=dtype)
-        img, rays, _ = reference.render_pass(ref_scene, seed, *reference.MODES[tr["renderer"]])
+        ref_scene = ref.load_scene(cell.config, scene_dir, tr["cluster_size"], device, plane_dtype=dtype)
+        img, rays, *_ = ref.render_pass(ref_scene, seed, *ref.MODES[tr["renderer"]])
         got[dtype] = (img.cpu().numpy(), rays)
     (lo, lo_rays), (ref, ref_rays) = got[torch.bfloat16], got[torch.float32]
     return check.compare(lo, ref, lo_rays, ref_rays)

@@ -3,11 +3,19 @@ against the plain reference, and the metrics read by name.
 
 Everything that belongs to a configuration, a traffic mix or a metric is in
 a file of its own, found by the name ``BENCHMARK.json`` gives:
-``configs/<config>.json`` (the scene and its render settings),
-``traffic/<traffic>.json`` (the renderer, its accelerator and the pass),
-``limits/<cell>.json`` (the limit of each number compared) and
-``metrics/<metric>.py`` (a ``read(readings)`` that returns the metric, or
-None where its run has nothing to read).
+``configs/<config>.json`` (the scene, see ``scenes.py``, its render settings
+and, under ``"reference"``, the module of ``reference/`` that renders its
+passes again, ``render`` where it names none), ``traffic/<traffic>.json``
+(the renderer, its accelerator, the pass and, under ``"options"``, further
+keyword arguments of the renderer's entry point), ``limits/<cell>.json``
+(the limit of each number compared) and ``metrics/<metric>.py`` (a
+``read(readings)`` that returns the metric, or None where its run has
+nothing to read).
+
+A reference module has ``load_scene``, ``MODES`` (renderer -> the
+arguments of ``render_pass`` after the scene and the sample base) and
+``render_pass`` -> (image, live rays, clusters needed[, further work]): the
+dict of further work counts joins ``Readings.work`` of a traced run.
 
 The window is a closed loop: a pass starts when the previous pass's image
 is on the host.  Pass k renders with sample base ``seed + k`` (its spp per
@@ -35,7 +43,7 @@ import time
 import numpy as np
 
 from . import check, scenes, traces
-from .reference import render as reference
+from .reference import rng
 
 HERE = pathlib.Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -54,6 +62,7 @@ class Cell:
     limits: dict
     end_to_end: list  # metric entries of BENCHMARK.json that this cell reports
     per_layer: list
+    here: pathlib.Path = HERE  # the benchmark's folder, which holds the cell's files
 
 
 def load_cell(name: str, here: pathlib.Path = HERE) -> Cell:
@@ -71,7 +80,7 @@ def load_cell(name: str, here: pathlib.Path = HERE) -> Cell:
     return Cell(name=name, chips=int(c["chips"]), config=load_json(here / "configs" / f"{c['config']}.json"),
                 traffic=load_json(here / "traffic" / f"{c['traffic']}.json"),
                 limits=load_json(here / "limits" / f"{name}.json"),
-                end_to_end=mine(bench["end_to_end"]), per_layer=mine(bench["per_layer"]))
+                end_to_end=mine(bench["end_to_end"]), per_layer=mine(bench["per_layer"]), here=here)
 
 
 def reader(metric: str, here: pathlib.Path = HERE):
@@ -80,6 +89,21 @@ def reader(metric: str, here: pathlib.Path = HERE):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def reference(config: dict, here: pathlib.Path = HERE):
+    """The plain reference module the configuration names: ``reference/<name>.py``
+    under ``here``, ``render`` by default.  It runs inside the package
+    ``benchmark.reference``, so its relative imports find the shared
+    ``render``, ``shading``, ``traversal`` and ``rng``."""
+    name = config.get("reference", "render")
+    qualified = f"{__package__}.reference.{name}"
+    if here == HERE:
+        return importlib.import_module(qualified)
+    spec = importlib.util.spec_from_file_location(qualified, here / "reference" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 @dataclasses.dataclass
@@ -135,6 +159,7 @@ class Program:
         self.sync()
         self.spans["make_accel"] = time.perf_counter() - t
         self.rays_before = 0
+        self.options = tr.get("options", {})
         if tr["renderer"] == "scan":
             self.film_state = film.new_film(self.settings, device=device)
 
@@ -161,15 +186,15 @@ class Program:
         if tr["renderer"] == "wavefront":
             img, rays = self.wavefront.render_image_wavefront(
                 self.scene, self.settings, self.accel, lanes=tr["lanes"], fused2_block=tr["block"],
-                fused2_sort=tr["sort"], sample_base=self.sample_base(k))
+                fused2_sort=tr["sort"], sample_base=self.sample_base(k), **self.options)
             img = img.cpu().numpy()
         else:
             w, h = self.settings.width, self.settings.height
             lin = self.torch.arange(w * h, device=self.device)
-            base = self.torch.full_like(lin, self.sample_base(k) & reference.rng.MASK32)
-            state = dataclasses.replace(self.film_state, rng=reference.rng.seed(lin, base))
+            base = self.torch.full_like(lin, self.sample_base(k) & rng.MASK32)
+            state = dataclasses.replace(self.film_state, rng=rng.seed(lin, base))
             self.film_state = self.film.add_samples(self.scene, self.settings, state, self.spp,
-                                                    pixel_chunk=tr["pixel_chunk"], accel=self.accel)
+                                                    pixel_chunk=tr["pixel_chunk"], accel=self.accel, **self.options)
             img = self.film.finalize(self.film_state).cpu().numpy()
             rays = self.film_state.rays_traced - self.rays_before
             self.rays_before = self.film_state.rays_traced
@@ -307,6 +332,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str, t_start
     torch.backends.cudnn.allow_tf32 = False
     tr = cell.traffic
     on_card = torch.device(device).type == "cuda"
+    ref = reference(cell.config, cell.here)
     scene_dir = scenes.materialize(cell.config)
     prog = Program(cell, scene_dir, seed, device, accel_kind)
     prog.warm_up()
@@ -328,8 +354,9 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str, t_start
         torch.cuda.empty_cache()
     host = host_record(device, win)
     t_ref = time.perf_counter()
-    ref_scene = reference.load_scene(cell.config, scene_dir, tr["cluster_size"], device)
-    ref_img, ref_rays, need = reference.render_pass(ref_scene, base, *reference.MODES[tr["renderer"]])
+    ref_scene = ref.load_scene(cell.config, scene_dir, tr["cluster_size"], device)
+    ref_img, ref_rays, need, *more = ref.render_pass(ref_scene, base, *ref.MODES[tr["renderer"]])
+    extra, = more or [{}]  # the reference's further work counts
     numbers = check.compare(got, ref_img.cpu().numpy(), win.pass_rays[k], ref_rays)
     correct, checks = check.judge(numbers, cell.limits)
     print(f"benchmark: pass {k} of {len(win.pass_s)} checked against the reference in "
@@ -340,11 +367,12 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str, t_start
                         spans=spans, traffic=tr, trace=traced, host=win.host)
     if traced is not None:
         readings.work = dict(pass_index=rel, needed=need, rays=ref_rays, tris=int(ref_scene.tri_p.shape[0]),
-                             clusters=int(ref_scene.clusters.cmin.shape[0]), cluster_size=tr["cluster_size"])
+                             clusters=int(ref_scene.clusters.cmin.shape[0]), cluster_size=tr["cluster_size"],
+                             **extra)
     wanted = cell.per_layer if trace else cell.end_to_end
     metrics = {}
     for m in wanted:
-        value = reader(m["name"])(readings)
+        value = reader(m["name"], cell.here)(readings)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     dev = device_record(device, memory_peak)

@@ -1,13 +1,17 @@
 """Scene files of the benchmark's configurations, made from numpy alone.
 
-Frozen copies of the stand-in mesh generator (the displaced icosphere that
-stands in for the Stanford dragon), so that no run executes
-``assets/generate.py`` or imports the JAX package it uses.  ``materialize``
-writes a configuration's scene as the program reads it (``<scene>.json`` and
-``<scene>.obj.scene``) into a cache directory inside the checkout, once, and
-beside it ``reference.npz``: the flattened triangle soup the plain
-reference renders, parsed back from the very text the OBJ file holds, so
-both sides see the same float32 values.
+A configuration's ``scene`` block names where its mesh comes from
+(``generator``): ``"file"``, an OBJ file of the repository (``obj``, a path
+from the repository's root) pinned by its ``sha256`` (``obj_sha256``), or a
+frozen copy of a stand-in mesh generator (``"dragon"``: the displaced
+icosphere that stands in for the Stanford dragon), so that no run executes
+``assets/generate.py`` or imports the JAX package it uses.  The camera and
+the materials are in the block itself.  ``materialize`` writes the scene as
+the program reads it (``<scene>.json`` and ``<scene>.obj.scene``) into a
+cache directory inside the checkout, once, and beside it ``reference.npz``:
+the flattened triangle soup the plain reference renders, parsed back from
+the very bytes the OBJ file holds (``read_obj``), so both sides see the same
+float32 values.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import pathlib
 import numpy as np
 
 HERE = pathlib.Path(__file__).resolve().parent
+ROOT = HERE.parent
 CACHE = HERE / ".cache" / "scenes"
 
 
@@ -113,10 +118,54 @@ def obj_text(meshes) -> str:
     return "".join(out)
 
 
-def as_written(a: np.ndarray, decimals: int) -> np.ndarray:
-    """float32 values as a reader of the ``%.<decimals>f`` text gets them."""
-    text = np.char.mod(f"%.{decimals}f", a.astype(np.float64))
-    return text.astype(np.float64).astype(np.float32)
+def read_obj(data: bytes, materials) -> tuple:
+    """The triangle soup the program's scene compiler makes of an OBJ file's
+    bytes and the configuration's materials, per triangle: vertices [T,3,3]
+    and shading normals [T,3,3] float32, material id [T] int32.
+
+    Read as the compiler reads it: an ``o`` or ``g`` line starts an object,
+    which is kept iff a material has its name (that material's index is its
+    id); a polygon is a fan from its first corner; a value is parsed as
+    float64 and rounded to float32; and within its object a vertex takes the
+    normal of the first face corner that uses it.  Every corner has a vertex
+    and a normal index, counted from 1 (``f a//b`` or ``f a/b/c``).
+    """
+    names = [m["name"] for m in materials]
+    verts, norms, corners, objects = [], [], [], []  # objects: (name, first corner, end)
+    name, start = "default", 0
+    for line in data.decode().splitlines():
+        if line.startswith("v "):
+            verts.append(line.split()[1:4])
+        elif line.startswith("vn "):
+            norms.append(line.split()[1:4])
+        elif line.startswith(("o ", "g ")):
+            objects.append((name, start, len(corners)))
+            name, start = line[2:].strip(), len(corners)
+        elif line.startswith("f "):
+            c = line.split()[1:]
+            for k in range(1, len(c) - 1):
+                corners += (c[0], c[k], c[k + 1])
+    objects.append((name, start, len(corners)))
+    fields = " ".join(corners).replace("//", "/0/").replace(" ", "/").split("/")
+    if len(fields) != 3 * len(corners):
+        raise ValueError("OBJ: every face corner needs a vertex and a normal index (f a//b or f a/b/c)")
+    idx = np.asarray(fields, np.int64).reshape(-1, 3)[:, [0, 2]] - 1
+    if len(idx) and idx.min() < 0:
+        raise ValueError("OBJ: face indices are counted from 1")
+    verts = np.asarray(verts, np.float64).astype(np.float32).reshape(-1, 3)
+    norms = np.asarray(norms, np.float64).astype(np.float32).reshape(-1, 3)
+    p, n, mat = [], [], []
+    for name, lo, hi in objects:
+        if lo == hi or name not in names:
+            continue
+        v, vn = idx[lo:hi, 0], idx[lo:hi, 1]
+        _, first, inverse = np.unique(v, return_index=True, return_inverse=True)
+        p.append(verts[v])
+        n.append(norms[vn[first][inverse]])
+        mat.append(np.full((hi - lo) // 3, names.index(name), np.int32))
+    if not mat:
+        raise ValueError(f"OBJ: no object is named as a material ({names})")
+    return np.concatenate(p).reshape(-1, 3, 3), np.concatenate(n).reshape(-1, 3, 3), np.concatenate(mat)
 
 
 # ── a configuration's scene on disk ───────────────────────────────────────
@@ -127,34 +176,35 @@ def scene_key(config: dict) -> str:
     return f"{config['name']}-{hashlib.sha256(blob).hexdigest()[:12]}"
 
 
-def _flatten(meshes, materials):
-    """The triangle soup the program's scene compiler makes of these files,
-    per triangle: vertices [T,3,3], normals [T,3,3], material id [T]."""
-    names = [m["name"] for m in materials]
-    p, n, mat = [], [], []
-    for name, (v, idx, nv) in meshes:
-        if name not in names:
-            continue
-        vw, nw = as_written(v, 6), as_written(nv, 4)
-        p.append(vw[idx])
-        n.append(nw[idx])
-        mat.append(np.full(len(idx), names.index(name), np.int32))
-    return np.concatenate(p), np.concatenate(n), np.concatenate(mat)
+def pinned_obj(scene: dict) -> bytes:
+    """A ``"file"`` scene's OBJ bytes, checked against the hash the
+    configuration pins."""
+    path = (ROOT / scene["obj"]).resolve()
+    if ROOT not in path.parents:
+        raise ValueError(f"scene file {scene['obj']!r} lies outside the repository")
+    data = path.read_bytes()
+    got = hashlib.sha256(data).hexdigest()
+    if got != scene["obj_sha256"]:
+        raise ValueError(f"scene file {scene['obj']}: sha256 {got}, the configuration pins {scene['obj_sha256']}")
+    return data
 
 
 def materialize(config: dict, cache: pathlib.Path = CACHE) -> pathlib.Path:
-    """Write the configuration's scene files once -> their directory."""
+    """Write the configuration's scene files once -> their directory (a
+    ``"file"`` scene's hash is checked in every call)."""
+    sc = config["scene"]
+    data = pinned_obj(sc) if sc["generator"] == "file" else None
     out = cache / scene_key(config)
     done = out / "done"
     if done.exists():
         return out
     out.mkdir(parents=True, exist_ok=True)
-    sc = config["scene"]
-    meshes = GENERATORS[sc["generator"]](sc)
+    if data is None:
+        data = obj_text(GENERATORS[sc["generator"]](sc)).encode()
     name = sc["name"]
     (out / f"{name}.json").write_text(json.dumps({"camera": sc["camera"], "materials": sc["materials"]}, indent=1))
-    _replace_write(out / f"{name}.obj.scene", obj_text(meshes).encode())
-    tri_p, tri_n, tri_mat = _flatten(meshes, sc["materials"])
+    _replace_write(out / f"{name}.obj.scene", data)
+    tri_p, tri_n, tri_mat = read_obj(data, sc["materials"])
     with open(out / "reference.npz.tmp", "wb") as f:
         np.savez(f, tri_p=tri_p, tri_n=tri_n, tri_mat=tri_mat)
     os.replace(out / "reference.npz.tmp", out / "reference.npz")

@@ -1,8 +1,12 @@
-"""The harness on the CPU: files found by name, the result line, the window
+"""The harness on the CPU: files found by name (a configuration's scene,
+renderer options and reference among them), the result line, the window
 and tail arithmetic, the trace readings and the roofline count."""
 from __future__ import annotations
 
+import hashlib
 import json
+import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -13,7 +17,7 @@ import pytest
 import torch
 
 from benchmark import bound, drive, traces
-from benchmark.conftest import run_tiny, tiny_cell
+from benchmark.conftest import TINY, cornell_config, run_tiny, tiny_cell
 from benchmark.reference.traversal import build_clusters, closest_hit
 
 ROOT = drive.ROOT
@@ -29,11 +33,17 @@ def test_every_cell_has_its_files(cell):
         assert callable(drive.reader(m["name"]))
 
 
-def test_a_new_config_traffic_and_metric_are_found_by_name(tmp_path):
-    """Adding files (and their entries) is enough: no file there is edited."""
+def _bench_copy(tmp_path):
+    """A copy of the benchmark's folder under ``tmp_path`` -> (the folder,
+    ``BENCHMARK.json`` parsed, to be written beside it)."""
     here = tmp_path / "benchmark"
     shutil.copytree(drive.HERE, here, ignore=shutil.ignore_patterns(".cache", "__pycache__"))
-    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    return here, json.loads((ROOT / "BENCHMARK.json").read_text())
+
+
+def test_a_new_config_traffic_and_metric_are_found_by_name(tmp_path):
+    """Adding files (and their entries) is enough: no file there is edited."""
+    here, bench = _bench_copy(tmp_path)
     (here / "configs" / "dragon5.json").write_text(
         json.dumps(dict(json.loads((here / "configs" / "dragon7.json").read_text()), name="dragon5")))
     (here / "traffic" / "preview.json").write_text(json.dumps(dict(drive.load_cell("dragon7.wavefront").traffic)))
@@ -51,6 +61,158 @@ def test_a_new_config_traffic_and_metric_are_found_by_name(tmp_path):
                               traffic=cell.traffic)
     assert drive.reader("passes.count", here)(readings) == 4
     assert drive.load_cell("dragon7.scan", here).per_layer == drive.load_cell("dragon7.scan").per_layer
+
+
+def test_a_configuration_brings_its_scene_options_and_reference_as_new_files(tmp_path, monkeypatch):
+    """A cell whose scene is a file pinned by its hash, whose traffic passes
+    the renderer an option and whose configuration names a reference module
+    of its own: new files alone, run by the harness as it is, and correct."""
+    from owl_path_tracer_tpu_torch.render import wavefront
+
+    here, bench = _bench_copy(tmp_path)
+    (here / "configs" / "cornell.json").write_text(json.dumps(dict(cornell_config(), reference="cornell_ref")))
+    (here / "traffic" / "nee-deferred.json").write_text(json.dumps(dict(
+        renderer="wavefront", accel="fused2", cluster_size=TINY["cluster_size"], lanes=TINY["lanes"], block=256,
+        sort=True, spp_per_pass=1, trace_passes=3, options={"fused_nee": True})))
+    (here / "limits" / "cornell.nee-deferred.json").write_text(json.dumps(drive.load_cell("dragon7.wavefront").limits))
+    (here / "reference" / "cornell_ref.py").write_text("from .render import MODES, load_scene, render_pass\n")
+    bench["workloads"].append({"name": "cornell.nee-deferred", "config": "cornell", "traffic": "nee-deferred",
+                               "chips": 1, "why": "test"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    loaded, calls = [], []
+    monkeypatch.setattr(drive, "reference", lambda config, where, inner=drive.reference: loaded.append(
+        inner(config, where)) or loaded[-1])
+    inner_render = wavefront.render_image_wavefront
+    monkeypatch.setattr(wavefront, "render_image_wavefront", lambda *a, **k: calls.append(k) or inner_render(*a, **k))
+
+    cell = drive.load_cell("cornell.nee-deferred", here)
+    res = drive.run(cell, 5, 0.0, False, "cpu", time.perf_counter())
+    assert res["correct"], res["checks"]
+    assert {"mrays_per_s", "setup_s"} <= set(res["metrics"]) and res["metrics"]["mrays_per_s"]["value"] > 0
+    assert [pathlib.Path(m.__file__) for m in loaded] == [here / "reference" / "cornell_ref.py"]
+    assert len(calls) == 2 and all(k["fused_nee"] is True for k in calls)  # the warm-up and the window's pass
+
+
+# each entry point's keyword arguments as the harness passed them before traffic options
+TODAYS_CALL = {"dragon7.wavefront": {"lanes", "fused2_block", "fused2_sort", "sample_base"},
+               "dragon7.scan": {"pixel_chunk", "accel"}}
+
+
+@pytest.mark.parametrize("name, options", [("dragon7.wavefront", None), ("dragon7.wavefront", {"fused_nee": True}),
+                                           ("dragon7.scan", None), ("dragon7.scan", {"fused2_block": 128})])
+def test_traffic_options_reach_the_entry_point(monkeypatch, name, options):
+    from owl_path_tracer_tpu_torch.render import film, wavefront
+
+    calls = []
+
+    def record(f):
+        return lambda *a, **k: calls.append((len(a), k)) or f(*a, **k)
+
+    monkeypatch.setattr(wavefront, "render_image_wavefront", record(wavefront.render_image_wavefront))
+    monkeypatch.setattr(film, "add_samples", record(film.add_samples))
+    cell = tiny_cell(name)
+    if options is not None:
+        cell.traffic = dict(cell.traffic, options=options)
+    assert run_tiny(cell)["correct"]
+    positional = 3 if name == "dragon7.wavefront" else 4
+    assert len(calls) == 2
+    for n, k in calls:
+        assert n == positional and set(k) == TODAYS_CALL[name] | set(options or {})
+        assert all(k[key] == v for key, v in (options or {}).items())
+
+
+@pytest.mark.parametrize("name", ["dragon7.wavefront", "dragon7.scan"])
+def test_an_unknown_option_fails_the_run(name):
+    cell = tiny_cell(name)
+    cell.traffic = dict(cell.traffic, options={"no_such_option": 1})
+    with pytest.raises(TypeError, match="no_such_option"):
+        run_tiny(cell)
+
+
+FURTHER_WORK = """from . import render
+from .render import MODES, load_scene  # noqa: F401
+
+
+def render_pass(*args):
+    img, rays, need = render.render_pass(*args)
+    return img, rays, need, {KEY: 3 * need + 1}
+"""
+
+SHADOW_METRIC = """import re
+
+from benchmark.bound import share
+
+KERNELS = re.compile(r"slot_kernel|fused_kernel")
+
+
+def read(r):
+    return share(r, KERNELS, KERNELS, 4, r.traffic.get("pixel_chunk"), needed="shadow_needed")
+"""
+
+
+@pytest.mark.parametrize("key", ["shadow_needed", "needed"])
+def test_a_references_further_work_reaches_the_readings_and_the_roofline(tmp_path, monkeypatch, key):
+    """A fourth element of ``render_pass`` joins ``Readings.work`` beside
+    today's keys, which it may not replace, and ``bound.share`` counts the
+    key it is given (a traced run, its device trace made up here)."""
+    here, _ = _bench_copy(tmp_path)
+    (here / "reference" / "shadowed.py").write_text(FURTHER_WORK.replace("KEY", repr(key)))
+    (here / "metrics" / "shadow.roofline_pct.py").write_text(SHADOW_METRIC)
+    cell = tiny_cell("dragon7.scan")
+    cell.here, cell.config = here, dict(cell.config, reference="shadowed")
+    k5 = next(m for m in BENCH["per_layer"] if m["name"] == "k5.roofline_pct")
+    cell.per_layer = [k5, dict(k5, name="shadow.roofline_pct")]
+    ms = 1_000_000
+    fake = traces.Trace(device_ops=[("kernel", "slot_kernel(float const*)", 1 * ms, 3 * ms)], ranges=[],
+                        passes=[(0, 10 * ms)])
+
+    def traced_window(*a, inner=drive.window, **k):
+        win = inner(*a, **k)
+        win.trace, win.profiled = fake, (0, 1)
+        return win
+
+    seen = []
+    monkeypatch.setattr(drive, "window", traced_window)
+    monkeypatch.setattr(drive, "reader", lambda name, where, inner=drive.reader: (
+        lambda r: seen.append(r) or inner(name, where)(r)))
+    if key == "needed":
+        with pytest.raises(TypeError, match="needed"):
+            run_tiny(cell, trace=True)
+        return
+    res = run_tiny(cell, trace=True)
+    work = seen[0].work
+    assert set(work) == {"pass_index", "needed", "rays", "tris", "clusters", "cluster_size", "shadow_needed"}
+    assert work["shadow_needed"] == 3 * work["needed"] + 1 and work["needed"] > 0
+    got, base = (res["metrics"][m]["value"] for m in ("shadow.roofline_pct", "k5.roofline_pct"))
+    kernels = re.compile("slot_kernel|fused_kernel")
+    assert got == bound.share(seen[0], kernels, kernels, 4, TINY["pixel_chunk"], needed="shadow_needed")
+    # bound by operations at this size, so the share follows the count
+    assert got / base == pytest.approx(work["shadow_needed"] / work["needed"])
+    assert bound.share(seen[0], kernels, kernels, 4, TINY["pixel_chunk"], needed="no_such_work") is None
+
+
+# the checked pass's reference image (sha256 of its float32 bytes), its live
+# rays and the checks of ``run_tiny(tiny_cell(name))``, as the harness
+# judged them before the configuration's reference and options were files
+JUDGED_BEFORE = {
+    name: {"ref": "d8105a50f3c269091bce2341bd3d536ff24f93ce084c6b250a76c8276b84f415", "ref_rays": 1331,
+           "checks": {"mean_gap_pct": {"value": 0.0, "limit": 0.5}, "mismatch_pct": {"value": 0.0, "limit": 0.25},
+                      "rays_gap_pct": {"value": 0.0, "limit": 0.05}}}
+    for name in ("dragon7.wavefront", "dragon7.scan")}
+
+
+@pytest.mark.parametrize("name", sorted(JUDGED_BEFORE))
+def test_dragon7_cells_are_judged_as_before(monkeypatch, name):
+    seen = {}
+
+    def compare(img, ref, rays, ref_rays, inner=drive.check.compare):
+        seen.update(ref=hashlib.sha256(np.ascontiguousarray(ref, np.float32).tobytes()).hexdigest(),
+                    ref_rays=ref_rays)
+        return inner(img, ref, rays, ref_rays)
+
+    monkeypatch.setattr(drive.check, "compare", compare)
+    res = run_tiny(tiny_cell(name))
+    assert dict(seen, checks=res["checks"]) == JUDGED_BEFORE[name]
 
 
 @pytest.mark.parametrize("trace", [False, True])
