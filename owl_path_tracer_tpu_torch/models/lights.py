@@ -15,6 +15,7 @@ import torch
 
 from ..ops import math as m
 from ..ops import sampling as sm
+from ..render.metrics import span
 from ..utils.tensors import TensorBundle
 from .scene import Scene
 
@@ -39,26 +40,29 @@ class LightTable(TensorBundle):
 
 
 def build_light_table(scene: Scene) -> LightTable | None:
-    """The scene's emissive triangles, or None when it has none."""
-    ids = scene.emissive_tris.cpu().numpy()
-    ids = ids[ids >= 0]
-    if len(ids) == 0:
-        return None
-    tri = scene.tri_idx.cpu().numpy()[ids]
-    v = scene.vertices.cpu().numpy()
-    n = scene.normals.cpu().numpy()
-    p0, p1, p2 = v[tri[:, 0]], v[tri[:, 1]], v[tri[:, 2]]
-    area = 0.5 * np.linalg.norm(np.cross(p1 - p0, p2 - p0), axis=-1)
-    mat_id = scene.tri_mat.cpu().numpy()[ids]
-    emission = scene.materials.emission.detach().cpu().numpy()[mat_id]  # a constant of the table
-    as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=scene.vertices.device)  # noqa: E731
-    return LightTable(
-        p0=as_t(p0), p1=as_t(p1), p2=as_t(p2),
-        n0=as_t(n[tri[:, 0]]), n1=as_t(n[tri[:, 1]]), n2=as_t(n[tri[:, 2]]),
-        emission=as_t(emission.astype(np.float32)),
-        area=as_t(area.astype(np.float32)),
-        tri_id=as_t(ids.astype(np.int32)),
-    )
+    """The scene's emissive triangles, or None when it has none.  Built on
+    the host from the scene's arrays, under the range ``owlpt.sync.lights``
+    (on a card the reads and the table's copies wait for the stream)."""
+    with span("owlpt.sync.lights"):
+        ids = scene.emissive_tris.cpu().numpy()
+        ids = ids[ids >= 0]
+        if len(ids) == 0:
+            return None
+        tri = scene.tri_idx.cpu().numpy()[ids]
+        v = scene.vertices.cpu().numpy()
+        n = scene.normals.cpu().numpy()
+        p0, p1, p2 = v[tri[:, 0]], v[tri[:, 1]], v[tri[:, 2]]
+        area = 0.5 * np.linalg.norm(np.cross(p1 - p0, p2 - p0), axis=-1)
+        mat_id = scene.tri_mat.cpu().numpy()[ids]
+        emission = scene.materials.emission.detach().cpu().numpy()[mat_id]  # a constant of the table
+        as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=scene.vertices.device)  # noqa: E731
+        return LightTable(
+            p0=as_t(p0), p1=as_t(p1), p2=as_t(p2),
+            n0=as_t(n[tri[:, 0]]), n1=as_t(n[tri[:, 1]]), n2=as_t(n[tri[:, 2]]),
+            emission=as_t(emission.astype(np.float32)),
+            area=as_t(area.astype(np.float32)),
+            tri_id=as_t(ids.astype(np.int32)),
+        )
 
 
 def pdf_area_to_solid_angle(pdf_area, dist_sqr, cos_theta):

@@ -16,6 +16,7 @@ import dataclasses
 
 import torch
 
+from ..render.metrics import host_copy
 from . import math as m
 from . import rng as rng_mod
 from . import sampling as sm
@@ -132,7 +133,7 @@ def sample_gtr2_vndf(wo, ax, ay, u):
     n = n / torch.sqrt(m.dot(n, n))[..., None]
     len_sq = m.sqr(n[..., 0]) + m.sqr(n[..., 1])
     inv = 1.0 / torch.sqrt(torch.where(len_sq > 0.0, len_sq, 1.0))
-    x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=wo.dtype, device=wo.device).expand(n.shape)
+    x_axis = host_copy("owlpt.sync.x_axis", [1.0, 0.0, 0.0], dtype=wo.dtype, device=wo.device).expand(n.shape)
     t = torch.where(
         (len_sq > 0.0)[..., None],
         torch.stack([-n[..., 1] * inv, n[..., 0] * inv, torch.zeros_like(inv)], dim=-1),

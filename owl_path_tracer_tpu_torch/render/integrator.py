@@ -72,7 +72,8 @@ def _environment_radiance(scene: Scene, settings: RenderSettings, ray_d):
     elif kind == shade.ENV_AUTO:
         env = tex.sky_gradient(ray_d)
     else:
-        color = torch.tensor(settings.environment_color, dtype=torch.float32, device=ray_d.device)
+        color = host_copy("owlpt.sync.env_color", settings.environment_color, dtype=torch.float32,
+                          device=ray_d.device)
         env = color.expand(ray_d.shape[:-1] + (3,))
     return env * settings.environment_intensity
 
@@ -266,8 +267,9 @@ def trace_bounce_nee(scene: Scene, settings: RenderSettings, lights, state: Path
     sweep -- the same draws and contribution as the immediate form, banked one
     step later.  ``precomputed`` = (HitRecord, blob) of this step's rays when
     the caller has traced them already.  The shading runs under the
-    profiler range ``owlpt.shade``, its shadow tests under
-    ``owlpt.occlude`` inside it.
+    profiler range ``owlpt.shade``; inside it, the area-light sample and its
+    MIS weight under ``owlpt.nee`` and the shadow tests under
+    ``owlpt.occlude``.
     """
     if deferred and env_light is not None:
         raise ValueError("deferred NEE supports area lights only")
@@ -311,25 +313,27 @@ def _shade_bounce_nee(scene: Scene, settings: RenderSettings, lights, state: Pat
     t_b, b_b = m.onb(sh_n)
     local_wo = m.to_local(t_b, b_b, sh_n, -state.ray_d)
 
-    # next-event estimation, area lights
+    # next-event estimation, area lights: the sample and its MIS weight under
+    # the range ``owlpt.nee``, the immediate form's shadow test after it
     rng_state = state.rng
     pending = None
     if lights is not None:
-        u_l, states_l = rng_mod.next_f32_n(rng_state, 3)
-        rng_state = torch.where(alive, states_l[-1], rng_state)
-        ls = lights_mod.sample_lights(lights, pos, torch.stack([u_l[0], u_l[1], u_l[2]], -1))
-        wl_local = m.to_local(t_b, b_b, sh_n, ls.direction)
-        f_l, pdf_b_l = disney.eval_all(mat, local_wo, wl_local)
-        can_light = alive & (ls.pdf > 0.0) & (ls.emission > 0.0) & allow_nee
-        w_l = lights_mod.power_heuristic(1.0, ls.pdf, 1.0, pdf_b_l)
-        contrib = f_l * (torch.abs(m.cos_theta(wl_local)) * ls.emission * w_l
-                         / torch.where(ls.pdf > 0.0, ls.pdf, 1.0))[..., None]
-        if deferred:
-            pend_c = state.throughput * torch.nan_to_num(
-                torch.where(can_light[..., None], contrib, 0.0), nan=0.0, posinf=0.0)
-            pend_on = can_light & (pend_c != 0.0).any(dim=-1)
-            pending = (pos, ls.direction, ls.distance - m.T_MIN, pend_c, pend_on)
-        else:
+        with span("owlpt.nee"):
+            u_l, states_l = rng_mod.next_f32_n(rng_state, 3)
+            rng_state = torch.where(alive, states_l[-1], rng_state)
+            ls = lights_mod.sample_lights(lights, pos, torch.stack([u_l[0], u_l[1], u_l[2]], -1))
+            wl_local = m.to_local(t_b, b_b, sh_n, ls.direction)
+            f_l, pdf_b_l = disney.eval_all(mat, local_wo, wl_local)
+            can_light = alive & (ls.pdf > 0.0) & (ls.emission > 0.0) & allow_nee
+            w_l = lights_mod.power_heuristic(1.0, ls.pdf, 1.0, pdf_b_l)
+            contrib = f_l * (torch.abs(m.cos_theta(wl_local)) * ls.emission * w_l
+                             / torch.where(ls.pdf > 0.0, ls.pdf, 1.0))[..., None]
+            if deferred:
+                pend_c = state.throughput * torch.nan_to_num(
+                    torch.where(can_light[..., None], contrib, 0.0), nan=0.0, posinf=0.0)
+                pend_on = can_light & (pend_c != 0.0).any(dim=-1)
+                pending = (pos, ls.direction, ls.distance - m.T_MIN, pend_c, pend_on)
+        if not deferred:
             with span("owlpt.occlude"):
                 occluded = occlude_fn(pos, ls.direction, ls.distance - m.T_MIN)
             contrib = torch.where((can_light & ~occluded)[..., None], contrib, 0.0)

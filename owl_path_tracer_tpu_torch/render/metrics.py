@@ -15,14 +15,17 @@ step, per launch or per host sync, never per lane or per op:
     ranges;
   * ``owlpt.intersect``, ``owlpt.sort``, ``owlpt.unresolved``: the
     closest-hit query, its coherence sort, its exact fallback;
-  * ``owlpt.shade``, ``owlpt.occlude``: shading, NEE shadow tests;
+  * ``owlpt.mixed``: deferred NEE's mixed sweep of bounce and shadow rays
+    (its sort and fallback inside);
+  * ``owlpt.shade``, ``owlpt.nee``, ``owlpt.occlude``: shading, its area
+    light samples and MIS weights, NEE shadow tests;
   * ``owlpt.bank``, ``owlpt.regen``, ``owlpt.film``: banking finished paths,
     regenerating idle lanes, accumulating the scan's samples;
   * ``owlpt.sync.<site>``: each read that blocks the host on the card, one
     site name per place in the code: ``status``, ``resolved``, ``rays``,
-    ``scene``, and the copies of host constants ``pool``, ``camera``,
-    ``sky``, ``normal``, ``pad_rays``, ``pack_rays``, ``hit_t_max``,
-    ``k5_t_max``.
+    ``scene``, ``lights``, and the copies of host constants ``pool``,
+    ``camera``, ``sky``, ``normal``, ``pad_rays``, ``pack_rays``,
+    ``hit_t_max``, ``k5_t_max``, ``shadow_dir``, ``env_color``, ``x_axis``.
 
 A count of ranges per frame is a counter: steps, syncs by site.
 """
@@ -45,7 +48,9 @@ SPANS = (
     "owlpt.intersect",  # one closest-hit query: pad, pack, sort, traversal, unsort, fallback
     "owlpt.sort",  # fused2's coherence sort of a sweep: keys, torch.sort, gather, inverse permutation
     "owlpt.unresolved",  # the exact cluster query for the rows a sweep left unresolved (only when there are some)
+    "owlpt.mixed",  # deferred NEE's sweep: 2L rays joined, the mixed sweep, the split, pending contributions added
     "owlpt.shade",  # shading of a bounce, its BSDF sample and Russian roulette
+    "owlpt.nee",  # NEE's area-light sample, its BSDF value, MIS weight and contribution, inside owlpt.shade
     "owlpt.occlude",  # NEE shadow tests, inside owlpt.shade
     "owlpt.bank",  # banking a wavefront step's finished paths into the film
     "owlpt.regen",  # new work ids, spawned primary rays and the selects of the next pool state
@@ -62,6 +67,10 @@ SPANS = (
     "owlpt.sync.pack_rays",  # pack_rays' scalar t_max (the fused kernel's sweep), copied from the host
     "owlpt.sync.hit_t_max",  # fused2 _hits_from_output's scalar t_max, copied from the host
     "owlpt.sync.k5_t_max",  # fused_closest_hit's scalar t_max, copied from the host
+    "owlpt.sync.lights",  # a NEE frame's light table: the scene read back, the table copied to the device
+    "owlpt.sync.shadow_dir",  # deferred NEE's direction of parked shadow lanes, copied from the host
+    "owlpt.sync.env_color",  # the constant environment colour (_environment_radiance), copied from the host
+    "owlpt.sync.x_axis",  # the VNDF sampler's fallback tangent (corrected mode), copied from the host
 )
 
 

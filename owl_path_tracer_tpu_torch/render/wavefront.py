@@ -147,7 +147,7 @@ def wavefront_step(scene: Scene, settings: RenderSettings, st: PoolState, inters
     ``st.acc``) and regeneration of idle lanes, under the range
     ``owlpt.step`` (banking under ``owlpt.bank``, regeneration under
     ``owlpt.regen``).  With ``mixed_fn`` and area lights only, NEE takes the
-    deferred form.
+    deferred form, its sweep under ``owlpt.mixed``.
 
     The film's layout picks the work assignment: a [W*H,3] film hands idle
     lanes the next ids of the pool's queue (up to ``total_work``); a
@@ -170,19 +170,21 @@ def wavefront_step(scene: Scene, settings: RenderSettings, st: PoolState, inters
         precomputed = None
         result = st.result
         if use_fused_nee:
-            # one mixed sweep of 2L rays: this step's bounce rays, then the
-            # pending shadow rays (parked where none is pending)
-            sh_on = st.sh_active
-            up = torch.tensor([0.0, 0.0, 1.0], device=sh_on.device).expand(lanes, 3)
-            comb_o = torch.cat([ray_o_t, torch.where(sh_on[:, None], st.sh_o, PARK)])
-            comb_d = torch.cat([st.ray_d, torch.where(sh_on[:, None], st.sh_d, up)])
-            comb_t = torch.cat([torch.full((lanes,), m.T_MAX, device=sh_on.device),
-                                torch.where(sh_on, st.sh_dist, m.T_MIN)])
-            comb_sh = torch.cat([torch.zeros_like(sh_on), torch.ones_like(sh_on)])
-            rec, blob, occ = mixed_fn(comb_o, comb_d, comb_t, comb_sh)
-            precomputed = (HitRecord(t=rec.t[:lanes], tri=rec.tri[:lanes], uv=rec.uv[:lanes]), blob[:lanes])
-            # the pending contributions land before this bounce accumulates
-            result = result + torch.where((sh_on & ~occ[lanes:])[:, None], st.sh_contrib, 0.0)
+            # one mixed sweep of 2L rays, under the range ``owlpt.mixed``: this
+            # step's bounce rays, then the pending shadow rays (parked where
+            # none is pending)
+            with span("owlpt.mixed"):
+                sh_on = st.sh_active
+                up = host_copy("owlpt.sync.shadow_dir", [0.0, 0.0, 1.0], device=sh_on.device).expand(lanes, 3)
+                comb_o = torch.cat([ray_o_t, torch.where(sh_on[:, None], st.sh_o, PARK)])
+                comb_d = torch.cat([st.ray_d, torch.where(sh_on[:, None], st.sh_d, up)])
+                comb_t = torch.cat([torch.full((lanes,), m.T_MAX, device=sh_on.device),
+                                    torch.where(sh_on, st.sh_dist, m.T_MIN)])
+                comb_sh = torch.cat([torch.zeros_like(sh_on), torch.ones_like(sh_on)])
+                rec, blob, occ = mixed_fn(comb_o, comb_d, comb_t, comb_sh)
+                precomputed = (HitRecord(t=rec.t[:lanes], tri=rec.tri[:lanes], uv=rec.uv[:lanes]), blob[:lanes])
+                # the pending contributions land before this bounce accumulates
+                result = result + torch.where((sh_on & ~occ[lanes:])[:, None], st.sh_contrib, 0.0)
         ps = integrator.PathState(
             ray_o=ray_o_t, ray_d=st.ray_d, result=result, throughput=st.throughput,
             rng=st.rng, alive=st.alive, prev_lobe=st.prev_lobe, depth=st.depth,
