@@ -125,8 +125,8 @@ renderer (render/film.py) and the CLI, in both block-wide steps
      (``--row-timing ROUNDS`` runs only the timing of the form that ships,
      on the package beside the script, and prints it as JSON: copied into
      another checkout, it times that checkout's kernels;
-     ``--shade-timing ROUNDS`` runs only the shading kernel against its
-     plain version on the cells' second bounce waves, printed as JSON);
+     ``--shade-timing ROUNDS`` runs only the shading kernels against their
+     plain versions on the cells' second bounce waves, printed as JSON);
   5d. scan-renderer frame parity on make_accel("fused"): cornell-box 64x64,
      spp 4, depth 4, card vs CPU, without and with NEE (fused_occluded), and
      the textured cube (the texture lookup of the shade-blob fetch);
@@ -2184,6 +2184,25 @@ def row_timing(rounds):
         for kind, t in times.items()}}}), flush=True)
 
 
+def ptxas_resources(log: str) -> dict:
+    """Per kernel of an nvcc ``-Xptxas -v`` log (mangled name -> registers,
+    stack_bytes, spill_bytes: stores plus loads), each only as far as the
+    log gives it; {} for an empty log."""
+    out, name, props = {}, None, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            out[name] = {}
+        elif "Function properties for" in line:
+            props = line.split("Function properties for")[1].strip()
+        elif name and props == name and "bytes stack frame" in line:
+            n = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            out[name].update(stack_bytes=n[0], spill_bytes=n[1] + n[2])
+        elif name and "Used" in line and "registers" in line:
+            out[name]["registers"] = int(line.split("Used")[1].split()[0])
+    return out
+
+
 def shade_timing(rounds):
     """``--shade-timing``: the shading kernel (ops/shade.py) against its plain
     version (render/integrator.py _shade_bounce) on the cells' second bounce
@@ -2196,10 +2215,17 @@ def shade_timing(rounds):
     10 kernel calls back to back and around one plain call, in turns), which
     holds the host's dispatch: the kernel's wrapper takes longer on the host
     than the kernel on the card.  The byte bound counts what the kernel
-    reads and writes for these lanes at 3.35 TB/s.  Printed as one JSON
-    line."""
+    reads and writes for these lanes at 3.35 TB/s.  Then the same for the
+    deferred NEE shading kernel against ``_shade_bounce_nee(...,
+    deferred=True)`` (~2,700 kernels) on the cornell cell's second bounce
+    wave (the cornell box, 512x512, depth 8, its environment off), 131,072
+    centre lanes with fused2's blob, held equal bit for bit too.  Each row
+    carries its kernel's registers and stack and spill bytes per thread from
+    the build's ``-Xptxas -v`` log (None where the library was already
+    built and no log came).  Printed as one JSON line."""
     import torch
 
+    from owl_path_tracer_tpu_torch.models import lights as lights_mod
     from owl_path_tracer_tpu_torch.models.camera import primary_rays
     from owl_path_tracer_tpu_torch.models.scene import RenderSettings, compile_scene
     from owl_path_tracer_tpu_torch.ops import rng as rng_mod
@@ -2210,6 +2236,11 @@ def shade_timing(rounds):
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "--id=0"])
     print(smi, flush=True)
     dev = torch.device("cuda", 0)
+    resources = ptxas_resources(shade.build_kernels()[2])
+
+    def registers(kernel, blob):  # the row's kernel in the log, by its name and template argument
+        return next((v for k, v in resources.items() if f"{kernel}ILb{int(blob)}E" in k), {})
+
     settings = RenderSettings(width=SIZE, height=SIZE, max_samples=1, max_path_depth=DEPTH, environment_auto=True)
     scene = compile_scene(ROOT / "assets", ensure_dragon(DRAGON_SUB), (SIZE, SIZE), device=dev)
     grid = film._pixel_grid(SIZE, SIZE, dev)
@@ -2252,7 +2283,61 @@ def shade_timing(rounds):
         rows[f"{'blob' if blob is not None else 'gather'} {lanes}"] = {
             "kernel_ms": ms["kernel"], "plain_device_ms": ms["plain"], "kernel_wall_ms": ms["kernel_wall"],
             "plain_wall_ms": ms["plain_wall"], "bound_ms": bound_ms, "roofline_pct": 100.0 * bound_ms / ms["kernel"],
-            "bytes": nbytes, "live_hit_lanes": live_hit}
+            "bytes": nbytes, "live_hit_lanes": live_hit, **registers("shade_kernel", blob is not None)}
+
+    # the cornell cell's deferred NEE bounce: the second wave of 131,072 lanes
+    size, depth = 512, 8
+    settings = RenderSettings(width=size, height=size, max_samples=1, max_path_depth=depth, use_nee=True,
+                              environment_intensity=0.0)
+    scene = compile_scene(ROOT / "assets", NEE_SCENE, (size, size), env_map_path=None, device=dev)
+    lights = lights_mod.build_light_table(scene)
+    isect, _ = integrator.make_intersectors(scene, film.make_accel(scene, "fused2"), fused2_sort=True)
+    grid = film._pixel_grid(size, size, dev)
+    lo = (size * size - LANES) // 2
+    j0, st = rng_mod.next_f32(rng_mod.seed(grid[lo : lo + LANES, 0], grid[lo : lo + LANES, 1]))
+    j1, st = rng_mod.next_f32(st)
+    o, d = primary_rays(scene.camera, grid[lo : lo + LANES], torch.stack([j0, j1], -1), (size, size))
+    state = integrator.PathState(
+        ray_o=o, ray_d=d, result=torch.zeros_like(o), throughput=torch.ones_like(o), rng=st,
+        alive=torch.ones(LANES, dtype=torch.bool, device=dev),
+        prev_lobe=torch.full((LANES,), -1, dtype=torch.int64, device=dev),
+        depth=torch.zeros(LANES, dtype=torch.int64, device=dev), prev_pdf=torch.zeros(LANES, device=dev))
+    state, _ = integrator.trace_bounce_nee(scene, settings, lights, state, isect, None, False,
+                                           allow_nee=state.depth < depth - 1, deferred=True)
+    hit, blob = isect(state.ray_o, state.ray_d)
+    allow = state.depth < depth - 1
+    got, got_pend = shade.shade_bounce_nee(scene, settings, lights, state, hit, blob, False, allow)
+    want, want_pend = integrator._shade_bounce_nee(scene, settings, lights, state, hit, blob, None, False, allow,
+                                                   None, True)
+    on = want_pend[4]
+    check(torch.equal(got_pend[4], on), "shade NEE kernel: the pending flags differ from the plain version")
+    for k, v in got.items():
+        check(torch.equal(v, getattr(want, k)), f"shade NEE kernel: {k} differs from the plain version")
+    for name, g, w in zip(("origin", "direction", "distance", "contribution"), got_pend, want_pend):
+        check(torch.equal(g[on], w[on]), f"shade NEE kernel: the pending {name} differs from the plain version")
+    kernel_fn = lambda: shade.shade_bounce_nee(scene, settings, lights, state, hit, blob, False, allow)  # noqa: E731
+    plain_fn = lambda: integrator._shade_bounce_nee(  # noqa: E731
+        scene, settings, lights, state, hit, blob, None, False, allow, None, True)
+    times = {"kernel": [], "plain": [], "kernel_wall": [], "plain_wall": []}
+    for _ in range(rounds):
+        times["kernel"].append(profiled_device_ms(kernel_fn, 20, "shade_nee_kernel"))
+        times["plain"].append(profiled_device_ms(plain_fn, 3))
+        a, b = in_turns(lambda: [kernel_fn() for _ in range(10)], plain_fn)
+        times["kernel_wall"].append(a / 10)
+        times["plain_wall"].append(b)
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    # per lane: state (48 + 24 + 1 B), prev_pdf (4), allow_nee (1) and tri (8)
+    # in; the state (73 B), prev_pdf (4) and the pending ray (3 x 12 + 4 + 1
+    # B) out; a live lane that hit also reads uv (8), t and blob columns 0-8
+    # and 15 (44 B)
+    live_hit = int((state.alive & (hit.tri >= 0)).sum())
+    nbytes = LANES * (86 + 118) + live_hit * (8 + 44)
+    bound_ms = nbytes / 3.35e12 * 1e3
+    rows[f"nee blob {LANES}"] = {
+        "kernel_ms": ms["kernel"], "plain_device_ms": ms["plain"], "kernel_wall_ms": ms["kernel_wall"],
+        "plain_wall_ms": ms["plain_wall"], "bound_ms": bound_ms, "roofline_pct": 100.0 * bound_ms / ms["kernel"],
+        "bytes": nbytes, "live_hit_lanes": live_hit, "pending_lanes": int(on.sum()),
+        **registers("shade_nee_kernel", True)}
     print(json.dumps({"shade_timing": {"device": smi, "rounds": rounds, "waves": rows}}), flush=True)
 
 

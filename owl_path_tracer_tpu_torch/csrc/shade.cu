@@ -1,11 +1,12 @@
-// One non-NEE shading bounce per lane, for Hopper (sm_90a).
+// One shading bounce per lane, for Hopper (sm_90a): the plain bounce and the
+// deferred next-event-estimation bounce, each in one launch.
 //
 // Replaces no Pallas kernel: the JAX package leaves render/integrator.py
 // trace_bounce's shading to XLA, which fuses it into a few loops.  Eager
 // PyTorch ran the same bounce (render/integrator.py _shade_bounce, the plain
 // version the card tests hold this kernel to) as about 970 elementwise
 // launches over [N] and [N,3] tensors, and the host's dispatch of those
-// launches took most of every frame.  This kernel runs the whole bounce in
+// launches took most of every frame.  shade_kernel runs the whole bounce in
 // one launch, one thread per lane, in _shade_bounce's order:
 //   1. a miss: the environment (the nearest texel of the lat-long map, the
 //      auto sky or the constant colour) times the intensity times the
@@ -29,6 +30,17 @@
 // through.  The LCG runs in uint32 and is written back as the int64 values
 // the port carries.
 //
+// shade_nee_kernel is _shade_bounce_nee's deferred form with area lights and
+// no environment light (about 2,700 eager launches): the miss adds the
+// environment; an emissive hit adds its emission under the power heuristic
+// against the light sample's pdf (models/lights.py pdf_hit_light) and ends;
+// otherwise three draws pick a light triangle and a point of it
+// (sample_lights), ops/disney.py eval_all (every lobe) weighs it, and the
+// untested contribution with its shadow ray is written out as pending for
+// the next step's mixed sweep; then the BSDF sample as above, eval_all again
+// for the mixture pdf the next hit's MIS reads, and the compensated Russian
+// roulette on every lobe.  The two kernels share their __device__ helpers.
+//
 // Arithmetic.  Every operation follows the eager CUDA version operation for
 // operation, so the two agree bit for bit in practice: built with
 // --fmad=false and IEEE division and square root, the same libdevice
@@ -38,16 +50,22 @@
 // order: dot3 (torch.sum over 3 components, two lanes a row), cross3
 // (torch.linalg.cross, whose products nvcc contracts into an FMA) and
 // mul_inv (a division by a Python number, which PyTorch turns into a
-// multiplication by its float reciprocal).
+// multiplication by its float reciprocal).  A Python number over a tensor
+// is the tensor's reciprocal times the number (1 / x for the 1.0 used here).
 //
 // Bound.  About 180 bytes read and 80 written per lane (state, hit, blob or
 // gathered shade row, material row) and under 1,000 fp32 operations, so the
 // kernel is bound by memory traffic: 34 MB at 131,072 lanes, about 10 us at
-// 3.35 TB/s.  Every per-lane array is read and written once, by neighbouring
-// threads at neighbouring rows; the material table, the textures and the
-// environment map are read through the read-only cache.
+// 3.35 TB/s.  The NEE bounce reads the prev_pdf and allow_nee columns and the
+// light table besides and writes prev_pdf and the pending ray (41 bytes a
+// lane more out), with some 2,000 fp32 operations a lane: still bound by
+// memory traffic.  Every per-lane array is read and written once, by
+// neighbouring threads at neighbouring rows; the material table, the light
+// table, the textures and the environment map are read through the
+// read-only cache.
 
 #include <cuda_runtime.h>
+#include <cfloat>
 #include <cmath>
 #include <cstdint>
 
@@ -304,13 +322,9 @@ __device__ Lobe3 sample_specular_brdf(const Mat& m, V3 wo, float u0, float u1, b
   return out;
 }
 
-__device__ Lobe3 sample_clearcoat(const Mat& m, V3 wo, float u0, float u1, bool corrected) {
+// eval_clearcoat: f (grey) and pdf at the half vector wh; 0 without a clearcoat
+__device__ Lobe3 eval_clearcoat(const Mat& m, V3 wo, V3 wh, V3 wi, bool corrected) {
   const float alpha = clearcoat_alpha(m.clearcoat_gloss);
-  V3 wh = sample_gtr1_ndf(wo, alpha, u0, u1);
-  if (dot3(wh, wo) < 0.0f) wh = neg(wh);
-  wh = normalized(wh);
-  const V3 wi = reflect(wo, wh);
-  // eval_clearcoat
   const float d = d_gtr1(wh, alpha);
   const float f = 1.0f + (schlick(wi.z) - 1.0f) * f32(0.04);
   const float g = g1_smith(wo, 0.25f, 0.25f) * g1_smith(wi, 0.25f, 0.25f);
@@ -326,10 +340,33 @@ __device__ Lobe3 sample_clearcoat(const Mat& m, V3 wo, float u0, float u1, bool 
   out.wi = wi;
   out.f = active ? v3(val, val, val) : v3(0.0f, 0.0f, 0.0f);
   out.pdf = active ? pdf : 0.0f;
-  if (!same_hemisphere(wo, wi)) {
+  return out;
+}
+
+__device__ Lobe3 sample_clearcoat(const Mat& m, V3 wo, float u0, float u1, bool corrected) {
+  const float alpha = clearcoat_alpha(m.clearcoat_gloss);
+  V3 wh = sample_gtr1_ndf(wo, alpha, u0, u1);
+  if (dot3(wh, wo) < 0.0f) wh = neg(wh);
+  wh = normalized(wh);
+  Lobe3 out = eval_clearcoat(m, wo, wh, reflect(wo, wh), corrected);
+  if (!same_hemisphere(wo, out.wi)) {
     out.f = v3(0.0f, 0.0f, 0.0f);
     out.pdf = 0.0f;
   }
+  return out;
+}
+
+__device__ Lobe3 eval_diffuse(const Mat& m, V3 wo, V3 wi) {
+  const float f_o = schlick(wo.z);
+  const float f_i = schlick(wi.z);
+  const V3 lambert = scale(m.base, kInvPi);
+  const float fd = (1.0f - 0.5f * f_o) * (1.0f - 0.5f * f_i);
+  const float rr = m.roughness * (dot3(wo, wi) + 1.0f);
+  const float fr = rr * ((f_i + f_o) + (f_o * f_i) * (rr - 1.0f));
+  Lobe3 out;
+  out.wi = wi;
+  out.f = scale(lambert, fd + fr);
+  out.pdf = fabsf(wi.z) * kInvPi;
   return out;
 }
 
@@ -345,19 +382,7 @@ __device__ Lobe3 sample_diffuse(const Mat& m, V3 wo, float u0, float u1) {
   float px = r * cosf(phi), py = r * sinf(phi);
   if (dx == 0.0f && dy == 0.0f) px = py = 0.0f;
   const float z = sqrtf(clamp_min((1.0f - px * px) - py * py, 0.0f));
-  const V3 wi = v3(px, py, z);
-  // eval_diffuse
-  const float f_o = schlick(wo.z);
-  const float f_i = schlick(wi.z);
-  const V3 lambert = scale(m.base, kInvPi);
-  const float fd = (1.0f - 0.5f * f_o) * (1.0f - 0.5f * f_i);
-  const float rr = m.roughness * (dot3(wo, wi) + 1.0f);
-  const float fr = rr * ((f_i + f_o) + (f_o * f_i) * (rr - 1.0f));
-  Lobe3 out;
-  out.wi = wi;
-  out.f = scale(lambert, fd + fr);
-  out.pdf = fabsf(wi.z) * kInvPi;
-  return out;
+  return eval_diffuse(m, wo, v3(px, py, z));
 }
 
 __device__ float fresnel_dielectric(V3 i, V3 mfn, float eta_i, float eta_t) {
@@ -369,6 +394,31 @@ __device__ float fresnel_dielectric(V3 i, V3 mfn, float eta_i, float eta_t) {
   const float r = (0.5f * sqr((g - c) / (gpc == 0.0f ? 1.0f : gpc))) *
                   (1.0f + sqr(c * gpc - 1.0f) / (sq == 0.0f ? 1.0f : sq));
   return denom < 0.0f ? 1.0f : r;
+}
+
+// eval_specular_bsdf: the glass lobe's f and pdf at the half vector wh
+__device__ Lobe3 eval_glass(const Mat& m, V3 wo, V3 wh, V3 wi) {
+  const bool entering = wo.z > 0.0f;
+  const float eta_i = entering ? 1.0f : m.ior;
+  const float eta_t = entering ? m.ior : 1.0f;
+  const float eta = eta_i / eta_t;
+  const float r = fresnel_dielectric(wo, wh, eta_i, eta_t);
+  const float t = 1.0f - r;
+  const float cos_w = fabsf(wi.z);
+  const float cos_safe = cos_w == 0.0f ? 1.0f : cos_w;
+  const bool refl = same_hemisphere(wo, wi);
+  Lobe3 out;
+  out.wi = wi;
+  out.pdf = refl ? r / (r + t) : t / (r + t);
+  if (refl) {
+    out.f = scale(m.base, r / cos_safe);
+  } else {
+    const V3 root = v3(sqrtf(clamp_min(m.base.x, 0.0f)), sqrtf(clamp_min(m.base.y, 0.0f)),
+                       sqrtf(clamp_min(m.base.z, 0.0f)));
+    out.f = scale(root, (t / cos_safe) / sqr(eta));
+  }
+  if (cos_w == 0.0f) out.f = v3(0.0f, 0.0f, 0.0f);
+  return out;
 }
 
 // glass with its draw count: 4 transmit, 5 TIR (reflect), 6 Fresnel reflect
@@ -408,25 +458,7 @@ __device__ Lobe3 sample_glass(const Mat& m, V3 wo, const float* u, int* consumed
     wh_used = wh;
   }
   *consumed = !ok ? 5 : (choose_reflect ? 6 : 4);
-
-  // eval_specular_bsdf (the same eta_i, eta_t: relative_eta of wo)
-  const float r2 = fresnel_dielectric(wo, wh_used, eta_i, eta_t);
-  const float t2 = 1.0f - r2;
-  const float cos_w = fabsf(wi.z);
-  const float cos_safe = cos_w == 0.0f ? 1.0f : cos_w;
-  const bool refl = same_hemisphere(wo, wi);
-  Lobe3 out;
-  out.wi = wi;
-  out.pdf = refl ? r2 / (r2 + t2) : t2 / (r2 + t2);
-  if (refl) {
-    out.f = scale(m.base, r2 / cos_safe);
-  } else {
-    const V3 root = v3(sqrtf(clamp_min(m.base.x, 0.0f)), sqrtf(clamp_min(m.base.y, 0.0f)),
-                       sqrtf(clamp_min(m.base.z, 0.0f)));
-    out.f = scale(root, (t2 / cos_safe) / sqr(eta));
-  }
-  if (cos_w == 0.0f) out.f = v3(0.0f, 0.0f, 0.0f);
-  return out;
+  return eval_glass(m, wo, wh_used, wi);
 }
 
 __device__ V3 eval_sheen(const Mat& m, V3 wo, V3 wi) {
@@ -442,6 +474,19 @@ __device__ V3 eval_sheen(const Mat& m, V3 wo, V3 wi) {
   const float sw = schlick(dot3(wi, wh_n));
   const V3 lerp = add(v3(1.0f, 1.0f, 1.0f), scale(sub(tnt, v3(1.0f, 1.0f, 1.0f)), m.sheen_tint));
   return scale(scale(lerp, m.sheen), sw);
+}
+
+struct LobeP {
+  float metal, diff, cc, glass;
+};
+
+__device__ __forceinline__ LobeP lobe_probabilities(const Mat& m) {
+  const float dw = (1.0f - m.transmission) * (1.0f - m.metallic);
+  const float mw = m.metallic;
+  const float cw = 0.25f * m.clearcoat;
+  const float gw = (1.0f - m.metallic) * m.transmission;
+  const float factor = 1.0f / (((mw + gw) + dw) + cw);
+  return LobeP{mw * factor, dw * factor, cw * factor, gw * factor};
 }
 
 struct Sample {
@@ -461,13 +506,8 @@ __device__ Sample disney_sample(const Mat& m, V3 wo, uint32_t state, long long p
     states[k] = s;
     u[k] = to_unit(s);
   }
-  // lobe_probabilities
-  const float dw = (1.0f - m.transmission) * (1.0f - m.metallic);
-  const float mw = m.metallic;
-  const float cw = 0.25f * m.clearcoat;
-  const float gw = (1.0f - m.metallic) * m.transmission;
-  const float factor = 1.0f / (((mw + gw) + dw) + cw);
-  const float p_metal = mw * factor, p_diff = dw * factor, p_cc = cw * factor, p_glass = gw * factor;
+  const LobeP lp = lobe_probabilities(m);
+  const float p_metal = lp.metal, p_diff = lp.diff, p_cc = lp.cc, p_glass = lp.glass;
 
   const float p = u[0];
   const bool force_btdf = wo.z < 0.0f && prev_lobe == kGlass;
@@ -566,6 +606,18 @@ struct StateOut {
   bool* alive;
 };
 
+// where a bounce reads its surface: the fused2 attribute blob [N,16]
+// (normals, texcoords, material id as float) when `blob` is not null, else
+// shade_blob [T,24] and tri_mat [T]; the material table [M,17]; textures
+struct SurfaceArgs {
+  const float* blob;
+  const float* shade_blob;
+  const int* tri_mat;
+  const float* mat_table;
+  TexArgs tx;
+  bool textures;
+};
+
 __device__ __forceinline__ V3 load3(const float* p, long long i) { return v3(p[3 * i], p[3 * i + 1], p[3 * i + 2]); }
 __device__ __forceinline__ void store3(float* p, long long i, V3 v) {
   p[3 * i] = v.x;
@@ -573,15 +625,78 @@ __device__ __forceinline__ void store3(float* p, long long i, V3 v) {
   p[3 * i + 2] = v.z;
 }
 
-// kBlob: the surface comes from the fused2 attribute blob [N,16] (normals,
-// texcoords, material id as float); else from shade_blob [T,24] and tri_mat
+struct Surface {
+  V3 pos, n;  // position, unit shading normal
+  Mat m;
+};
+
+// render/integrator.py _fetch_surface_blob (kBlob) or _fetch_surface on a
+// live lane that hit triangle tri_hit
 template <bool kBlob>
-__global__ void __launch_bounds__(128) shade_kernel(StateIn in, StateOut out, const float* __restrict__ blob,
-                                                    const float* __restrict__ shade_blob,
-                                                    const int* __restrict__ tri_mat,
-                                                    const float* __restrict__ mat_table, TexArgs tx,
-                                                    bool textures, EnvArgs env, bool corrected,
-                                                    long long rr_start_depth, long long n) {
+__device__ __forceinline__ Surface fetch_surface(const SurfaceArgs& sa, const StateIn& in, long long i,
+                                                 long long tri_hit, V3 ray_o, V3 ray_d) {
+  const float hu = in.hit_uv[2 * i], hv = in.hit_uv[2 * i + 1];
+  const float w = (1.0f - hu) - hv;
+  Surface s;
+  long long mat_id;
+  float tcu = 0.0f, tcv = 0.0f;
+  if (kBlob) {
+    const float* b = sa.blob + i * kBlobCols;
+    const float t = in.hit_t[i];
+    s.pos = add(ray_o, scale(ray_d, t));
+    const V3 n = add(add(scale(v3(b[0], b[1], b[2]), w), scale(v3(b[3], b[4], b[5]), hu)),
+                     scale(v3(b[6], b[7], b[8]), hv));
+    const float len2 = dot3(n, n);
+    s.n = len2 > f32(1e-12) ? vdiv(n, sqrtf(clamp_min(len2, f32(1e-20)))) : v3(0.0f, 0.0f, 1.0f);
+    mat_id = static_cast<long long>(b[15]);
+    if (sa.textures) {
+      tcu = ((w * b[9]) + (hu * b[11])) + (hv * b[13]);
+      tcv = ((w * b[10]) + (hu * b[12])) + (hv * b[14]);
+    }
+  } else {
+    const float* b = sa.shade_blob + tri_hit * kShadeCols;
+    s.pos = add(add(scale(v3(__ldg(b), __ldg(b + 1), __ldg(b + 2)), w),
+                    scale(v3(__ldg(b + 3), __ldg(b + 4), __ldg(b + 5)), hu)),
+                scale(v3(__ldg(b + 6), __ldg(b + 7), __ldg(b + 8)), hv));
+    const V3 n = add(add(scale(v3(__ldg(b + 9), __ldg(b + 10), __ldg(b + 11)), w),
+                         scale(v3(__ldg(b + 12), __ldg(b + 13), __ldg(b + 14)), hu)),
+                     scale(v3(__ldg(b + 15), __ldg(b + 16), __ldg(b + 17)), hv));
+    s.n = vdiv(n, sqrtf(clamp_min(dot3(n, n), f32(1e-20))));
+    mat_id = __ldg(sa.tri_mat + tri_hit);
+    if (sa.textures) {
+      tcu = ((w * __ldg(b + 18)) + (hu * __ldg(b + 20))) + (hv * __ldg(b + 22));
+      tcv = ((w * __ldg(b + 19)) + (hu * __ldg(b + 21))) + (hv * __ldg(b + 23));
+    }
+  }
+  s.m = load_mat(sa.mat_table, mat_id);
+  if (sa.textures) s.m.base = tex_lookup(sa.tx, mat_id, tcu, tcv, s.m.base);
+  return s;
+}
+
+// the tangent frame (math.py onb) and its to_local / to_world
+struct Frame {
+  V3 t, b, n;
+};
+
+__device__ __forceinline__ Frame make_frame(V3 n) {
+  const V3 t_a = v3(n.z - n.y, n.x - n.z, n.y - n.x);
+  const V3 t_b = v3(n.z - n.y, n.x + n.z, -n.y - n.x);
+  const bool use_a = (n.x != n.y) || (n.x != n.z);
+  const V3 t = normalized(use_a ? t_a : t_b);
+  return Frame{t, cross3(n, t), n};
+}
+
+__device__ __forceinline__ V3 to_local(const Frame& f, V3 w) {
+  return normalized(v3(dot3(w, f.t), dot3(w, f.b), dot3(w, f.n)));
+}
+
+__device__ __forceinline__ V3 to_world(const Frame& f, V3 w) {
+  return normalized(add(add(scale(f.t, w.x), scale(f.b, w.y)), scale(f.n, w.z)));
+}
+
+template <bool kBlob>
+__global__ void __launch_bounds__(128) shade_kernel(StateIn in, StateOut out, SurfaceArgs sa, EnvArgs env,
+                                                    bool corrected, long long rr_start_depth, long long n) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
   V3 ray_o = load3(in.ray_o, i), ray_d = load3(in.ray_d, i);
@@ -597,42 +712,8 @@ __global__ void __launch_bounds__(128) shade_kernel(StateIn in, StateOut out, co
 
   if (alive) {
     // 2. the surface
-    const float hu = in.hit_uv[2 * i], hv = in.hit_uv[2 * i + 1];
-    const float w = (1.0f - hu) - hv;
-    V3 pos, sh_n;
-    long long mat_id;
-    float tcu = 0.0f, tcv = 0.0f;
-    if (kBlob) {
-      const float* b = blob + i * kBlobCols;
-      const float t = in.hit_t[i];
-      pos = add(ray_o, scale(ray_d, t));
-      const V3 n = add(add(scale(v3(b[0], b[1], b[2]), w), scale(v3(b[3], b[4], b[5]), hu)),
-                       scale(v3(b[6], b[7], b[8]), hv));
-      const float len2 = dot3(n, n);
-      sh_n = len2 > f32(1e-12) ? vdiv(n, sqrtf(clamp_min(len2, f32(1e-20)))) : v3(0.0f, 0.0f, 1.0f);
-      mat_id = static_cast<long long>(b[15]);
-      if (textures) {
-        tcu = ((w * b[9]) + (hu * b[11])) + (hv * b[13]);
-        tcv = ((w * b[10]) + (hu * b[12])) + (hv * b[14]);
-      }
-    } else {
-      const long long tri = tri_hit;  // >= 0 on a live lane
-      const float* b = shade_blob + tri * kShadeCols;
-      pos = add(add(scale(v3(__ldg(b), __ldg(b + 1), __ldg(b + 2)), w),
-                    scale(v3(__ldg(b + 3), __ldg(b + 4), __ldg(b + 5)), hu)),
-                scale(v3(__ldg(b + 6), __ldg(b + 7), __ldg(b + 8)), hv));
-      const V3 n = add(add(scale(v3(__ldg(b + 9), __ldg(b + 10), __ldg(b + 11)), w),
-                           scale(v3(__ldg(b + 12), __ldg(b + 13), __ldg(b + 14)), hu)),
-                       scale(v3(__ldg(b + 15), __ldg(b + 16), __ldg(b + 17)), hv));
-      sh_n = vdiv(n, sqrtf(clamp_min(dot3(n, n), f32(1e-20))));
-      mat_id = __ldg(tri_mat + tri);
-      if (textures) {
-        tcu = ((w * __ldg(b + 18)) + (hu * __ldg(b + 20))) + (hv * __ldg(b + 22));
-        tcv = ((w * __ldg(b + 19)) + (hu * __ldg(b + 21))) + (hv * __ldg(b + 23));
-      }
-    }
-    Mat m = load_mat(mat_table, mat_id);
-    if (textures) m.base = tex_lookup(tx, mat_id, tcu, tcv, m.base);
+    const Surface sf = fetch_surface<kBlob>(sa, in, i, tri_hit, ray_o, ray_d);
+    const Mat& m = sf.m;
 
     // 3. emissive -> monochrome radiance, terminate
     if (m.emission > 0.0f) {
@@ -640,19 +721,13 @@ __global__ void __launch_bounds__(128) shade_kernel(StateIn in, StateOut out, co
       alive = false;
     } else {
       // 4. local frame (math.py onb, to_local)
-      const V3 t_a = v3(sh_n.z - sh_n.y, sh_n.x - sh_n.z, sh_n.y - sh_n.x);
-      const V3 t_b = v3(sh_n.z - sh_n.y, sh_n.x + sh_n.z, -sh_n.y - sh_n.x);
-      const bool use_a = (sh_n.x != sh_n.y) || (sh_n.x != sh_n.z);
-      const V3 tb = normalized(use_a ? t_a : t_b);
-      const V3 bb = cross3(sh_n, tb);
-      const V3 mwo = neg(ray_d);
-      const V3 wo = normalized(v3(dot3(mwo, tb), dot3(mwo, bb), dot3(mwo, sh_n)));
+      const Frame fr = make_frame(sf.n);
+      const V3 wo = to_local(fr, neg(ray_d));
 
       // 5. the BSDF sample
       const Sample bs = disney_sample(m, wo, rng, prev_lobe, corrected);
       rng = bs.state;
-      const V3 wi_world =
-          normalized(add(add(scale(tb, bs.wi.x), scale(bb, bs.wi.y)), scale(sh_n, bs.wi.z)));
+      const V3 wi_world = to_world(fr, bs.wi);
 
       // 6. degenerate pdf -> kill; non-finite f -> retry
       alive = !(bs.pdf < f32(1e-5));
@@ -663,7 +738,7 @@ __global__ void __launch_bounds__(128) shade_kernel(StateIn in, StateOut out, co
       if (ok) {
         const float k = fabsf(bs.wi.z) / bs.pdf;
         thr = scale(mul(thr, bs.f), k);
-        ray_o = pos;
+        ray_o = sf.pos;
         ray_d = wi_world;
         prev_lobe = bs.lobe;
       }
@@ -686,6 +761,236 @@ __global__ void __launch_bounds__(128) shade_kernel(StateIn in, StateOut out, co
   out.alive[i] = alive;
   out.prev_lobe[i] = prev_lobe;
   out.depth[i] = depth;
+}
+
+// ── the deferred next-event-estimation bounce ───────────────────────────
+// ops/disney.py eval_all: every lobe at wi, each f weighted by its selection
+// probability, the mixture pdf; the parity forms of the metal and clearcoat
+// lobes whatever the sampler's mode; sheen on reflection only
+struct Eval {
+  V3 f;
+  float pdf;
+};
+
+__device__ Eval eval_all(const Mat& m, V3 wo, V3 wi) {
+  const V3 zero = v3(0.0f, 0.0f, 0.0f);
+  const LobeP p = lobe_probabilities(m);
+  const bool refl = same_hemisphere(wo, wi);
+
+  // the reflection half vector, oriented towards wo's hemisphere
+  V3 wh_r = add(wo, wi);
+  wh_r = vdiv(wh_r, sqrtf(clamp_min(dot3(wh_r, wh_r), f32(1e-20))));
+  if (dot3(wh_r, wo) < 0.0f) wh_r = neg(wh_r);
+
+  const Lobe3 d = eval_diffuse(m, wo, wi);
+  V3 f_m;
+  float pdf_m;
+  eval_specular_brdf(m, wo, wh_r, wi, false, &f_m, &pdf_m);
+  const Lobe3 c = eval_clearcoat(m, wo, wh_r, wi, false);
+  const bool both_up = refl && wo.z > 0.0f && wi.z > 0.0f;
+
+  // glass: the transmission half vector -(eta_i wo + eta_t wi)
+  const bool entering = wo.z > 0.0f;
+  const float eta_i = entering ? 1.0f : m.ior;
+  const float eta_t = entering ? m.ior : 1.0f;
+  V3 wh_t = neg(add(scale(wo, eta_i), scale(wi, eta_t)));
+  wh_t = vdiv(wh_t, sqrtf(clamp_min(dot3(wh_t, wh_t), f32(1e-20))));
+  const Lobe3 g = eval_glass(m, wo, refl ? wh_r : wh_t, wi);
+
+  const bool glass = p.glass > 0.0f;
+  Eval out;
+  out.f = add(add(add(scale(both_up ? d.f : zero, p.diff), scale(both_up ? f_m : zero, p.metal)),
+                  scale(both_up ? c.f : zero, p.cc)),
+              glass ? scale(g.f, p.glass) : zero);
+  out.pdf = ((p.diff * (both_up ? d.pdf : 0.0f) + p.metal * (both_up ? pdf_m : 0.0f)) +
+             p.cc * (both_up ? c.pdf : 0.0f)) +
+            p.glass * (glass ? g.pdf : 0.0f);
+  out.f = add(out.f, refl ? eval_sheen(m, wo, wi) : zero);
+  return out;
+}
+
+struct LightArgs {
+  const float *p0, *p1, *p2, *n0, *n1, *n2;  // [L,3]
+  const float *emission, *area;              // [L]
+  const int* tri_id;                         // [L]
+  long long count;
+};
+
+// models/lights.py pdf_area_to_solid_angle: 0 at grazing angles
+__device__ __forceinline__ float area_to_solid_angle(float pdf_area, float dist_sqr, float cos_t) {
+  const float a = fabsf(cos_t);
+  return a < f32(1e-4) ? 0.0f : (pdf_area * dist_sqr) / a;
+}
+
+// models/lights.py power_heuristic with one sample each: 0 where both pdfs are 0
+__device__ __forceinline__ float power_heuristic(float f, float g) {
+  const float denom = f * f + g * g;
+  return denom > 0.0f ? (f * f) / denom : 0.0f;
+}
+
+// models/lights.py pdf_hit_light: the solid-angle pdf NEE gives a hit of
+// triangle `tri` at distance t (0 where it is no light)
+__device__ float pdf_hit_light(const LightArgs& lt, long long tri, V3 ray_d, float t, V3 light_n) {
+  bool is_light = false;
+  float area = 0.0f;
+  for (long long k = 0; k < lt.count; ++k) {
+    const bool eq = static_cast<long long>(__ldg(lt.tri_id + k)) == tri;
+    is_light = is_light || eq;
+    area = area + (eq ? __ldg(lt.area + k) : 0.0f);
+  }
+  const float pdf_area = 1.0f / (static_cast<float>(lt.count) * clamp_min(is_light ? area : 1.0f, f32(1e-12)));
+  const float pdf = area_to_solid_angle(pdf_area, t * t, dot3(neg(ray_d), light_n));
+  return is_light ? pdf : 0.0f;
+}
+
+__device__ __forceinline__ V3 ldg3(const float* p, long long i) {
+  return v3(__ldg(p + 3 * i), __ldg(p + 3 * i + 1), __ldg(p + 3 * i + 2));
+}
+
+struct LightSample {
+  V3 dir;
+  float dist, pdf, emission;
+};
+
+// models/lights.py sample_lights: a uniform light pick, a uniform point of it
+__device__ LightSample sample_light(const LightArgs& lt, V3 target, float u0, float u1, float u2) {
+  long long li = static_cast<long long>(u0 * static_cast<float>(lt.count));
+  li = li < 0 ? 0 : (li > lt.count - 1 ? lt.count - 1 : li);
+  // sampling.py sample_uniform_triangle
+  const float su0 = sqrtf(u1);
+  const float b1 = 1.0f - su0, b2 = u2 * su0;
+  const float b0 = (1.0f - b1) - b2;
+  const V3 pos = add(add(scale(ldg3(lt.p0, li), b0), scale(ldg3(lt.p1, li), b1)), scale(ldg3(lt.p2, li), b2));
+  V3 nrm = add(add(scale(ldg3(lt.n0, li), b0), scale(ldg3(lt.n1, li), b1)), scale(ldg3(lt.n2, li), b2));
+  nrm = vdiv(nrm, sqrtf(clamp_min(dot3(nrm, nrm), f32(1e-20))));
+  const V3 d = sub(pos, target);
+  const float dist_sqr = dot3(d, d);
+  LightSample out;
+  out.dist = sqrtf(clamp_min(dist_sqr, f32(1e-20)));
+  out.dir = vdiv(d, out.dist);
+  const float pdf_area = 1.0f / (static_cast<float>(lt.count) * clamp_min(__ldg(lt.area + li), f32(1e-12)));
+  out.pdf = area_to_solid_angle(pdf_area, dist_sqr, dot3(neg(out.dir), nrm));
+  out.emission = __ldg(lt.emission + li);
+  return out;
+}
+
+// torch.nan_to_num(x, nan=0, posinf=0): -inf becomes the lowest float
+__device__ __forceinline__ float nan_to_num(float x) {
+  return isnan(x) ? 0.0f : (x == INFINITY ? 0.0f : (x == -INFINITY ? -FLT_MAX : x));
+}
+
+struct NeeOut {
+  StateOut st;
+  float* prev_pdf;
+  float *pend_o, *pend_d, *pend_dist, *pend_c;  // [N,3], [N,3], [N], [N,3]
+  bool* pend_on;
+};
+
+template <bool kBlob>
+__global__ void __launch_bounds__(128)
+    shade_nee_kernel(StateIn in, const float* __restrict__ prev_pdf_in, NeeOut out, SurfaceArgs sa, EnvArgs env,
+                     LightArgs lt, const bool* __restrict__ allow_nee, bool allow_all, bool corrected,
+                     long long rr_start_depth, long long n) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const V3 zero = v3(0.0f, 0.0f, 0.0f);
+  V3 ray_o = load3(in.ray_o, i), ray_d = load3(in.ray_d, i);
+  V3 result = load3(in.result, i), thr = load3(in.throughput, i);
+  uint32_t rng = static_cast<uint32_t>(in.rng[i]);
+  long long prev_lobe = in.prev_lobe[i], depth = in.depth[i];
+  float prev_pdf = prev_pdf_in[i];
+  const long long tri_hit = in.hit_tri[i];
+  bool alive = in.alive[i];
+
+  // 1. miss -> the environment, added (weight 1: no environment light)
+  result = add(result, alive && tri_hit < 0 ? mul(environment(env, ray_d), thr) : zero);
+  alive = alive && tri_hit >= 0;
+
+  V3 pend_o = zero, pend_d = zero, pend_c = mul(thr, zero);
+  float pend_dist = 0.0f;
+  bool pend_on = false;
+  V3 emitted = zero;
+  if (alive) {
+    // 2. the surface
+    const Surface sf = fetch_surface<kBlob>(sa, in, i, tri_hit, ray_o, ray_d);
+    const Mat& m = sf.m;
+
+    if (m.emission > 0.0f) {
+      // 3. emissive -> the emission, MIS-weighted against the light sample
+      const bool first = depth == 0 || prev_pdf <= 0.0f;
+      const float w_b =
+          first ? 1.0f : power_heuristic(prev_pdf, pdf_hit_light(lt, tri_hit, ray_d, in.hit_t[i], sf.n));
+      emitted = scale(thr, w_b * m.emission);
+      alive = false;
+    } else {
+      // 4. local frame
+      const Frame fr = make_frame(sf.n);
+      const V3 wo = to_local(fr, neg(ray_d));
+
+      // 5. the area-light sample, its MIS weight, the pending shadow ray
+      const uint32_t s1 = lcg(rng), s2 = lcg(s1), s3 = lcg(s2);
+      rng = s3;
+      const LightSample ls = sample_light(lt, sf.pos, to_unit(s1), to_unit(s2), to_unit(s3));
+      const V3 wl = to_local(fr, ls.dir);
+      const Eval el = eval_all(m, wo, wl);
+      const bool allow = allow_nee == nullptr ? allow_all : allow_nee[i];
+      const bool can_light = ls.pdf > 0.0f && ls.emission > 0.0f && allow;
+      const float w_l = power_heuristic(ls.pdf, el.pdf);
+      const float k_l = ((fabsf(wl.z) * ls.emission) * w_l) / (ls.pdf > 0.0f ? ls.pdf : 1.0f);
+      const V3 contrib = can_light ? scale(el.f, k_l) : zero;
+      pend_c = mul(thr, v3(nan_to_num(contrib.x), nan_to_num(contrib.y), nan_to_num(contrib.z)));
+      pend_on = can_light && (pend_c.x != 0.0f || pend_c.y != 0.0f || pend_c.z != 0.0f);
+      pend_o = sf.pos;
+      pend_d = ls.dir;
+      pend_dist = ls.dist - f32(1e-3);
+
+      // 6. the BSDF sample; its mixture pdf is kept for the next hit's MIS
+      const Sample bs = disney_sample(m, wo, rng, prev_lobe, corrected);
+      rng = bs.state;
+      const V3 wi_world = to_world(fr, bs.wi);
+      const Eval em = eval_all(m, wo, bs.wi);
+
+      // 7. degenerate pdf -> kill; non-finite f -> retry; the throughput
+      alive = !(bs.pdf < f32(1e-5));
+      const bool bad_f = !(isfinite(bs.f.x) && isfinite(bs.f.y) && isfinite(bs.f.z));
+      const bool ok = alive && !bad_f;
+      if (ok) {
+        thr = scale(mul(thr, bs.f), fabsf(bs.wi.z) / bs.pdf);
+        ray_o = sf.pos;
+        ray_d = wi_world;
+        prev_lobe = bs.lobe;
+        prev_pdf = em.pdf;
+      }
+
+      // 8. compensated Russian roulette (every lobe)
+      if (ok && depth > rr_start_depth) {
+        const float q = clampf(amax3(thr), f32(0.05), 1.0f);
+        const uint32_t s = lcg(rng);
+        rng = s;
+        if (to_unit(s) < q)
+          thr = vdiv(thr, q);
+        else
+          alive = false;
+      }
+      if (ok) depth = depth + 1;
+    }
+  }
+  result = add(result, emitted);
+
+  store3(out.st.ray_o, i, ray_o);
+  store3(out.st.ray_d, i, ray_d);
+  store3(out.st.result, i, result);
+  store3(out.st.throughput, i, thr);
+  out.st.rng[i] = static_cast<long long>(rng);
+  out.st.alive[i] = alive;
+  out.st.prev_lobe[i] = prev_lobe;
+  out.st.depth[i] = depth;
+  out.prev_pdf[i] = prev_pdf;
+  store3(out.pend_o, i, pend_o);
+  store3(out.pend_d, i, pend_d);
+  out.pend_dist[i] = pend_dist;
+  store3(out.pend_c, i, pend_c);
+  out.pend_on[i] = pend_on;
 }
 
 constexpr int kBlock = 128;
@@ -715,15 +1020,57 @@ extern "C" int owlpt_shade_bounce(const float* ray_o, const float* ray_d, const 
   if (env_kind < kEnvMap || env_kind > kEnvColor) return static_cast<int>(cudaErrorInvalidValue);
   const StateIn in{ray_o, ray_d, result, throughput, rng, prev_lobe, depth, alive, hit_t, hit_tri, hit_uv};
   const StateOut out{o_ray_o, o_ray_d, o_result, o_throughput, o_rng, o_prev_lobe, o_depth, o_alive};
-  const TexArgs tx{mat_tex, atlas, tex_hw, tex_h, tex_w};
+  const SurfaceArgs sa{blob, shade_blob, tri_mat, mat_table, TexArgs{mat_tex, atlas, tex_hw, tex_h, tex_w},
+                       textures != 0};
   const EnvArgs env{env_map, env_h, env_w, env_kind, env_r, env_g, env_b, intensity};
   const unsigned grid = static_cast<unsigned>((n + kBlock - 1) / kBlock);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (blob != nullptr)
-    shade_kernel<true><<<grid, kBlock, 0, st>>>(in, out, blob, shade_blob, tri_mat, mat_table, tx, textures != 0, env,
-                                                corrected != 0, rr_start_depth, n);
+    shade_kernel<true><<<grid, kBlock, 0, st>>>(in, out, sa, env, corrected != 0, rr_start_depth, n);
   else
-    shade_kernel<false><<<grid, kBlock, 0, st>>>(in, out, blob, shade_blob, tri_mat, mat_table, tx, textures != 0,
-                                                 env, corrected != 0, rr_start_depth, n);
+    shade_kernel<false><<<grid, kBlock, 0, st>>>(in, out, sa, env, corrected != 0, rr_start_depth, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One deferred next-event-estimation bounce of n lanes on `stream`
+// (render/integrator.py _shade_bounce_nee with deferred=True, area lights,
+// no environment light).  The arguments of owlpt_shade_bounce, with the
+// state's prev_pdf [N] f32 beside it; the light table [L] (p0, p1, p2, n0,
+// n1, n2 [L,3] f32, emission and area [L] f32, tri_id [L] int32);
+// allow_nee [N] bool, or null for `allow_all` on every lane.  Out: the
+// state with prev_pdf, then the pending shadow ray: origin [N,3], direction
+// [N,3], distance less T_MIN [N], contribution [N,3] and whether it is
+// pending [N] bool (zeros where no light was sampled).  Returns the
+// launch's CUDA error.
+extern "C" int owlpt_shade_bounce_nee(
+    const float* ray_o, const float* ray_d, const float* result, const float* throughput, const long long* rng,
+    const bool* alive, const long long* prev_lobe, const long long* depth, const float* prev_pdf,
+    const float* hit_t, const long long* hit_tri, const float* hit_uv, const float* blob, const float* shade_blob,
+    const int* tri_mat, const float* mat_table, int textures, const int* mat_tex, const float* atlas,
+    const float* tex_hw, int tex_h, int tex_w, int env_kind, const float* env_map, int env_h, int env_w,
+    float env_r, float env_g, float env_b, float intensity, const float* l_p0, const float* l_p1,
+    const float* l_p2, const float* l_n0, const float* l_n1, const float* l_n2, const float* l_emission,
+    const float* l_area, const int* l_tri_id, long long l_count, const bool* allow_nee, int allow_all,
+    int corrected, long long rr_start_depth, long long n, float* o_ray_o, float* o_ray_d, float* o_result,
+    float* o_throughput, long long* o_rng, bool* o_alive, long long* o_prev_lobe, long long* o_depth,
+    float* o_prev_pdf, float* o_pend_o, float* o_pend_d, float* o_pend_dist, float* o_pend_c, bool* o_pend_on,
+    void* stream) {
+  if (n <= 0) return 0;
+  if (env_kind < kEnvMap || env_kind > kEnvColor || l_count <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const StateIn in{ray_o, ray_d, result, throughput, rng, prev_lobe, depth, alive, hit_t, hit_tri, hit_uv};
+  const NeeOut out{StateOut{o_ray_o, o_ray_d, o_result, o_throughput, o_rng, o_prev_lobe, o_depth, o_alive},
+                   o_prev_pdf, o_pend_o, o_pend_d, o_pend_dist, o_pend_c, o_pend_on};
+  const SurfaceArgs sa{blob, shade_blob, tri_mat, mat_table, TexArgs{mat_tex, atlas, tex_hw, tex_h, tex_w},
+                       textures != 0};
+  const EnvArgs env{env_map, env_h, env_w, env_kind, env_r, env_g, env_b, intensity};
+  const LightArgs lt{l_p0, l_p1, l_p2, l_n0, l_n1, l_n2, l_emission, l_area, l_tri_id, l_count};
+  const unsigned grid = static_cast<unsigned>((n + kBlock - 1) / kBlock);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (blob != nullptr)
+    shade_nee_kernel<true><<<grid, kBlock, 0, st>>>(in, prev_pdf, out, sa, env, lt, allow_nee, allow_all != 0,
+                                                    corrected != 0, rr_start_depth, n);
+  else
+    shade_nee_kernel<false><<<grid, kBlock, 0, st>>>(in, prev_pdf, out, sa, env, lt, allow_nee, allow_all != 0,
+                                                     corrected != 0, rr_start_depth, n);
   return static_cast<int>(cudaGetLastError());
 }

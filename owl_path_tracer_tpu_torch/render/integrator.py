@@ -270,6 +270,12 @@ def trace_bounce_nee(scene: Scene, settings: RenderSettings, lights, state: Path
     profiler range ``owlpt.shade``; inside it, the area-light sample and its
     MIS weight under ``owlpt.nee`` and the shadow tests under
     ``owlpt.occlude``.
+
+    The deferred form with area lights runs in one kernel
+    (``ops/shade.py``, the whole bounce inside ``owlpt.nee``) for CUDA
+    tensors while autograd records nothing; every other case, the CPU and
+    the gradient path, the immediate form and the environment light, runs
+    the plain version ``_shade_bounce_nee``.
     """
     if deferred and env_light is not None:
         raise ValueError("deferred NEE supports area lights only")
@@ -278,6 +284,16 @@ def trace_bounce_nee(scene: Scene, settings: RenderSettings, lights, state: Path
     else:
         hit, blob = _intersect(intersect_fn, state.ray_o, state.ray_d)
     with span("owlpt.shade"):
+        if state.ray_o.device.type != "cpu":
+            grads = (state.ray_o, state.ray_d, state.result, state.throughput, state.prev_pdf, hit.t, hit.uv,
+                     *(() if blob is None else (blob,)),
+                     *(() if lights is None else (getattr(lights, f.name) for f in dataclasses.fields(lights))))
+            if deferred and lights is not None and not _recording(scene, *grads):
+                with span("owlpt.nee"):
+                    out, pending = shade.shade_bounce_nee(scene, settings, lights, state, hit, blob,
+                                                          enable_textures, allow_nee)
+                return PathState(**out), pending
+            shade.LAUNCHES[shade.PLAIN_CUDA_NEE] += 1
         return _shade_bounce_nee(scene, settings, lights, state, hit, blob, occlude_fn, enable_textures,
                                  allow_nee, env_light, deferred)
 

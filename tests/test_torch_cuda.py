@@ -24,7 +24,10 @@ a frame of each benchmark cell's path with every synchronising call inside
 an ``owlpt.sync.*`` range and every bounce step shaded in one launch of the
 shading kernel, and that kernel against the plain ``_shade_bounce`` on
 random bounces (every lobe and case; the lane's fate, depth, LCG state and
-lobe exact, the rest to rtol 1e-5 / atol 1e-6).
+lobe exact, the rest to rtol 1e-5 / atol 1e-6), and the deferred NEE
+shading kernel against the plain ``_shade_bounce_nee`` on random NEE
+bounces (the same rule, the pending shadow ray's flag exact and its
+geometry and contribution on the pending lanes).
 
 Imports nothing of JAX (the card's machine has none).  Every test is marked
 ``cuda`` and skips where there is no CUDA device.  On the card:
@@ -51,7 +54,7 @@ import torch
 
 import chip_smoke
 import test_torch_frontier_row as frontier_row
-from test_torch_shade import random_bounce
+from test_torch_shade import random_bounce, random_nee_bounce
 from owl_path_tracer_tpu_torch.models.scene import RenderSettings, compile_scene
 from owl_path_tracer_tpu_torch.ops import cluster as tcl
 from owl_path_tracer_tpu_torch.ops import fused as tfu
@@ -1305,23 +1308,28 @@ def _syncs_only_in_sync_spans():
         cls.__enter__, cls.__exit__ = enter, exit_
 
 
+_CELLS = {"wavefront": "dragon7.wavefront", "scan": "dragon7.scan", "nee-deferred": "cornell.nee-deferred"}
+
+
 def _cell_frame(kind, tmp_path):
-    """A frame of the benchmark cell ``dragon7.<kind>``'s path at a small
-    size (the dragon at subdivision 5, 128x96; the wavefront on fused2 f32
-    planes, sorted, 4,096 lanes; the scan on the fused kernel in chunks of
-    4,096 pixels) -> a function that renders it -> (image, rays)."""
+    """A frame of the benchmark cell ``_CELLS[kind]``'s path at a small size
+    (128x96; the dragon at subdivision 5; the wavefront on fused2 f32
+    planes, sorted, 4,096 lanes, the cornell box's with the cell's deferred
+    NEE; the scan on the fused kernel in chunks of 4,096 pixels) -> a
+    function that renders it -> (image, rays)."""
     from benchmark import drive, scenes
     from benchmark.conftest import tiny_cell
 
-    cell = tiny_cell(f"dragon7.{kind}", subdivision=5, width=128, height=96, lanes=4096, pixel_chunk=4096)
+    cell = tiny_cell(_CELLS[kind], subdivision=5, width=128, height=96, lanes=4096, pixel_chunk=4096)
     cell.traffic = dict(cell.traffic, cluster_size=drive.load_cell(cell.name).traffic["cluster_size"])
     prog = drive.Program(cell, scenes.materialize(cell.config, tmp_path), 0, "cuda")
     tr = cell.traffic
 
     def frame():
-        if kind == "wavefront":
+        if kind != "scan":
             return render_image_wavefront(prog.scene, prog.settings, prog.accel, lanes=tr["lanes"],
-                                          fused2_block=tr["block"], fused2_sort=tr["sort"], sample_base=3)
+                                          fused2_block=tr["block"], fused2_sort=tr["sort"], sample_base=3,
+                                          **tr.get("options", {}))
         f = tfilm.add_samples(prog.scene, prog.settings, prog.film_state, 1, pixel_chunk=tr["pixel_chunk"],
                               accel=prog.accel)
         return tfilm.finalize(f), f.rays_traced
@@ -1342,21 +1350,24 @@ def test_every_sync_of_a_cell_path_is_in_a_sync_span(cuda_device, tmp_path, kind
     assert rays == rays_want > 0 and torch.equal(img, want)
 
 
-@pytest.mark.parametrize("kind", ["wavefront", "scan"])
+@pytest.mark.parametrize("kind", ["wavefront", "scan", "nee-deferred"])
 def test_cell_paths_shade_every_step_in_the_kernel(cuda_device, tmp_path, kind):
     """A frame of each benchmark cell's path (``_cell_frame``: the wavefront
-    takes fused2's attribute blob, the scan the shade-blob gather) shades
-    every bounce step in one launch of the shading kernel and never in the
-    plain version, with every synchronising call outside the
-    ``owlpt.sync.*`` ranges raising."""
+    takes fused2's attribute blob, the scan the shade-blob gather, the
+    cornell cell's deferred NEE fused2's blob) shades every bounce step in
+    one launch of its shading kernel (the NEE kernel on the cornell cell's
+    path, the other elsewhere) and never in a plain version, with every
+    synchronising call outside the ``owlpt.sync.*`` ranges raising."""
     frame = _cell_frame(kind, tmp_path)
     frame()
     shade.reset_counts()
     with _syncs_only_in_sync_spans() as entered:
         frame()
-    assert entered["owlpt.step"] > 0
-    assert shade.LAUNCHES == {shade.ENTRY: entered["owlpt.step"], shade.PLAIN_CUDA: 0}
-    assert entered["owlpt.sync.sky"] == entered["owlpt.sync.normal"] == 0
+    steps, nee = entered["owlpt.step"], kind == "nee-deferred"
+    assert steps > 0
+    assert shade.LAUNCHES == {shade.ENTRY: 0 if nee else steps, shade.PLAIN_CUDA: 0,
+                              shade.ENTRY_NEE: steps if nee else 0, shade.PLAIN_CUDA_NEE: 0}
+    assert entered["owlpt.sync.sky"] == entered["owlpt.sync.normal"] == entered["owlpt.sync.env_color"] == 0
 
 
 _SHADE_INT = ("alive", "depth", "rng", "prev_lobe")
@@ -1390,3 +1401,55 @@ def test_shade_kernel_matches_plain(cuda_device, env, parity, surface, textures)
                                                                                             *_SHADE_FLOAT)])
     print(f"shade kernel {env} {'parity' if parity else 'corrected'} {surface} textures={textures}: "
           f"{same.all(0).float().mean().item():.6f} of lanes bit-equal")
+
+
+_NEE_FLOAT = (*_SHADE_FLOAT, "prev_pdf")
+_PENDING = ("origin", "direction", "distance", "contribution")
+
+
+@pytest.mark.parametrize("env", ["map", "color"])
+@pytest.mark.parametrize("textures", [False, True], ids=["plain", "textured"])
+@pytest.mark.parametrize("surface", ["blob", "gather"])
+@pytest.mark.parametrize("parity", [True, False], ids=["parity", "corrected"])
+def test_shade_nee_kernel_matches_plain(cuda_device, parity, surface, textures, env):
+    """The deferred NEE shading kernel against the plain
+    ``_shade_bounce_nee(..., deferred=True)`` from the same random NEE bounce
+    (tests/test_torch_shade.py ``random_nee_bounce``: hits on lights and on
+    emissive non-lights, depth 0 and prev_pdf 0 lanes, allow_nee off on some
+    lanes, grazing light samples of pdf 0, non-finite contributions, and
+    every case of ``random_bounce``), on the card: the lane's fate, depth,
+    LCG state, lobe and pending flag equal on every lane; radiance, origin,
+    throughput, direction and prev_pdf to rtol 1e-5 / atol 1e-6; the pending
+    ray's origin, direction, distance and contribution so on the pending
+    lanes.  With allow_nee False for every lane the state is the same and
+    nothing is pending.  Prints the share of lanes whose every output is
+    bit-equal."""
+    scene, settings, lights, state, hit, blob, allow = random_nee_bounce(cuda_device, n=16384, seed=12, env=env,
+                                                                        parity=parity)
+    blob = blob if surface == "blob" else None
+    launches = shade.LAUNCHES[shade.ENTRY_NEE]
+    got, got_pend = shade.shade_bounce_nee(scene, settings, lights, state, hit, blob, textures, allow)
+    assert shade.LAUNCHES[shade.ENTRY_NEE] == launches + 1
+    want, want_pend = integrator._shade_bounce_nee(scene, settings, lights, state, hit, blob, None, textures, allow,
+                                                   None, True)
+    torch.cuda.synchronize()
+    for k in _SHADE_INT:
+        assert torch.equal(got[k], getattr(want, k)), f"{k}: {(got[k] != getattr(want, k)).sum()} lanes differ"
+    for k in _NEE_FLOAT:
+        torch.testing.assert_close(got[k], getattr(want, k), rtol=1e-5, atol=1e-6, equal_nan=True, msg=k)
+    on = want_pend[4]
+    assert torch.equal(got_pend[4], on), f"pending: {(got_pend[4] != on).sum()} lanes differ"
+    assert on.any()
+    for name, g, w in zip(_PENDING, got_pend, want_pend):
+        torch.testing.assert_close(g[on], w[on], rtol=1e-5, atol=1e-6, equal_nan=True, msg=name)
+    same = torch.stack([(got[k] == getattr(want, k)).view(len(got[k]), -1).all(-1) for k in (*_SHADE_INT,
+                                                                                            *_NEE_FLOAT)]
+                       + [(g == w).view(len(g), -1).all(-1) | ~on for g, w in zip(got_pend, want_pend)])
+    print(f"shade NEE kernel {env} {'parity' if parity else 'corrected'} {surface} textures={textures}: "
+          f"{same.all(0).float().mean().item():.6f} of lanes bit-equal, {int(on.sum())} pending")
+
+    off, off_pend = shade.shade_bounce_nee(scene, settings, lights, state, hit, blob, textures, False)
+    for k in got:
+        assert torch.equal(off[k], got[k]), k
+    assert not off_pend[4].any()
+
