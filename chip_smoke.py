@@ -12,11 +12,11 @@ Phases (one line each, with times; any failure exits non-zero):
   2. build the kernels from csrc/ (nvcc, sm_90a; the three sources in
      parallel, csrc/tensor_ops.cuh included by two), with ptxas' registers
      per entry and the HMMA (tensor-core) instruction count of each MXU
-     instantiation in the SASS (cuobjdump): the tensor-core forms (K1b, and
-     K4 on f32 planes) hold some, the exact CUDA-core forms none; threads,
+     instantiation in the SASS (cuobjdump): each (K1b, and K4 on f32 planes)
+     must hold some; threads,
      CTAs per block of rays, registers, shared bytes (with the form of the
      frontier row that launches) and blocks per SM of each component entry
-     (the slot-parallel K1-K4 and the serial yardsticks) at dragon7's K and
+     (the slot-parallel K1-K4 and the serial bodies) at dragon7's K and
      C;
   3. kernel vs plain version on a small triangle soup, blocks 128 and 256,
      per-ray t_max, padding rays, and max_steps=1 (unresolved blocks);
@@ -56,13 +56,10 @@ no-attributes closest hit (K4) follow:
      max_steps=1 through the wrappers; bf16 + no attributes raises; the
      tensor-core entries (bf16 products; f32: 3xTF32; K4 on f32 planes too,
      its loop t/u/v within the sums' rounding) under compare_near_tie's
-     rounding kind and the exact CUDA-core closest hits (with and without
-     attributes) equal to the plain version;
+     rounding kind;
   4c. the same at the main path's shapes, CUDA events: the dragon primary and
      bounce waves on fused2-bf16 and fused2 (K1b closest, and K4 on the
-     bounce wave on fused2; the exact form and the tensor-core form timed in
-     turns, exact, tensor, tensor, exact, with the fp32-peak and TF32
-     bounds),
+     bounce wave on fused2, with the fp32-peak and TF32 bounds),
      the cornell shadow wave (any-hit) and 262144-ray mixed wave on
      fused2-bf16 and fused2; registers, shared memory, blocks per SM and
      HMMA count of each K1b entry at the dragon's K and C; on fused2 the
@@ -78,15 +75,13 @@ no-attributes closest hit (K4) follow:
      phase 6's frame rendered twice on fused2 and on the component layout,
      the films compared bit for bit.
 The fused kernel (K5, make_accel("fused"), clusters of C=128) under the scan
-renderer (render/film.py) and the CLI, in both block-wide steps
-(fused.STEPS: "slots", the slot-parallel step and the default, and
-"serial", the step before it, kept as the yardstick):
-  3d. K5 vs its plain version on the soup (C=64): both steps at blocks 128
-     and 256, per-ray and scalar t_max with padding rays, columns 0-6
-     identical; both steps at max_steps 0, 1 and 3, and with a block in
-     which no ray is active, identical to the plain version and to each
-     other; max_steps=1 through fused_closest_hit leaves rows unresolved and
-     the wrapper's answers equal the CPU wrapper's;
+renderer (render/film.py) and the CLI:
+  3d. K5 vs its plain version on the soup (C=64): blocks 128 and 256,
+     per-ray and scalar t_max with padding rays, columns 0-6 identical; at
+     max_steps 0, 1 and 3, with a block in which no ray is active, and on
+     rays through a group box that meet none of its members, identical to
+     the plain version; max_steps=1 through fused_closest_hit leaves rows
+     unresolved and the wrapper's answers equal the CPU wrapper's;
   4d. K5 vs plain at the main path's shapes: dragon sub 7 on
      make_accel("fused"), the 65536-ray primary wave of add_samples' first
      pixel chunk and the bounce wave trace_bounce makes of it, then the same
@@ -94,24 +89,21 @@ renderer (render/film.py) and the CLI, in both block-wide steps
      triangles, K above the 9,088 clusters K5 took while its block held the
      boxes in shared memory): the centre chunk's bounce wave, the kernel on
      all 65536 rays, the plain version on every 8th block; on every wave
-     both steps equal to the plain version and to each other, timed in
-     turns (serial, slots, slots, serial; 3 calls a turn, CUDA events), each
-     beside the bound, and split per block by the profile entry's clock64
-     (set-up, pick and stage, slot tests, list updates and rescans) for the
-     slowest and the mean block, with the clusters each ray tested; threads,
-     CTAs, registers, shared memory and blocks per SM of both steps and
-     both list-scan kinds at both K; on both centre bounce waves both scan
-     kinds (serial, and group skips with warp rescans) equal to the plain
-     version, with rescans and boxes slab-tested per ray and per block, and
-     timed in turns with the serial scan; the group-skip set-up scan's box
-     count equal to the plain list scan's (fused.nearest_lists);
+     K5 equal to the plain version, timed (3 calls after a warm-up, CUDA
+     events) beside the bound, and split per block by the profile entry's
+     clock64 (set-up, pick and stage, slot tests, list updates and rescans)
+     for the slowest and the mean block, with the clusters each ray tested
+     and the rescans and boxes slab-tested per ray and per block; threads,
+     CTAs, registers, shared memory and blocks per SM at both K; the
+     group-skip set-up scan's box count equal to the plain list scan's
+     (fused.nearest_lists);
   4e. the fused2 kernels above their old cluster limit (the frontier row
      [K] of a block no longer fits in shared memory beside the rest, so it
      lies in device memory): 480,000 random triangles in clusters of C=8
      (K about 81,000, above every entry's old limit, printed with it), 2048
      rays in bundles of one block each, through every fused2 entry (K1-K4,
-     the serial yardsticks, the profile entry, K1b's three modes on both
-     plane types, K4 on f32 planes, the exact forms) against the plain
+     the serial bodies, the profile entry, K1b's three modes on both
+     plane types, K4 on f32 planes) against the plain
      version by each entry's usual rule; then the same clusters widened to
      C=512 by pad slots, where a block of rays is a thread block cluster of
      4 CTAs that share one frontier row in device memory, K1, K3 and K4 on
@@ -133,14 +125,11 @@ renderer (render/film.py) and the CLI, in both block-wide steps
   6d. the scan main path (bench.py's scan branch): dragon sub 7 on
      make_accel("fused"), 1024x1024, depth 4, auto sky, new_film +
      add_samples with 65536-pixel chunks; then render_image_wavefront on the
-     same accelerator at 131072 lanes; counts reset just before each; then
-     the scan frame again through the yardstick step, which must trace the
-     same rays and give the same image;
+     same accelerator at 131072 lanes; counts reset just before each;
   6e. the CLI in process (utils/cli.main): the car scene of
      assets/settings.json at its 1080x1440 and depth 16, --intersector fused
      --no-sweep, spp cut to 2, with its textured Ground, into
-     chiprun_out/smoke_cli/; then again through the yardstick step, which
-     must trace the same rays and write the same PNG.
+     chiprun_out/smoke_cli/.
 The retirement-loop latency probe (K6, ops/latency_probe.py, run by
 tools/latency_probe.py) and the production path (tools/render_production.py)
 with the wavefront's drained checkpoints:
@@ -238,13 +227,11 @@ The second-to-last lines are the kernels JSON (the component rows K1-K4
 give the slot-parallel entries, with bound_no_fma_ms, the ceiling of a
 kernel built with --fmad=false, and serial_ms, the serial body's time from
 the same turns; fused2_serial_closest_hit and fused2_serial_sweep_mixed,
-the serial yardsticks, and fused2_profile, the profile entry, are off every
+the serial bodies, and fused2_profile, the profile entry, are off every
 render path; the K1b rows give the
 tensor-core entries, with sharded_launches, their launches on phase 6h's
 sharded paths, and on the bf16 closest-hit row sharded_launches_two_ranks;
-fused2_mxu_exact_closest_hit, fused2_mxu_bf16_exact_closest_hit and
-fused2_mxu_exact_closest_hit_noattr, off every render path, the exact forms'
-times from the same turns; the K1b closest-hit rows carry phase 4e's dragon8
+the K1b closest-hit rows carry phase 4e's dragon8
 times of both frontier-row forms; latency_probe is K6's tensor form, with
 its exact form's time and per-variant times in turns, latency_probe_exact
 the exact form) and the GPU's nvidia-smi line;
@@ -255,9 +242,9 @@ the slab test of each such cluster's box, fused_bound): component
 layout, 45 Moller-Trumbore fp32 operations over the H100's published
 67 TFLOP/s fp32 peak (700 W); MXU layout, the 2 x 16 x 4 = 128 FLOP of the
 feature products over the planes' dtype peak (bf16 dense tensor cores
-989 TFLOP/s, the peak of K1b's tensor-core form and the least the exact
-form's work needs; f32 67 TFLOP/s, the fp32 products' own rate: the tensor
-cores reach f32 only as three TF32 products, at 495 TFLOP/s), and the
+989 TFLOP/s, the peak of K1b's tensor-core form; f32 67 TFLOP/s, the fp32
+products' own rate: the tensor cores reach f32 only as three TF32
+products, at 495 TFLOP/s), and the
 28 fp32 operations of the winner chain over 67 TFLOP/s; and for both, the
 bytes (inputs read once at their width, output written once) over 3.35 TB/s.
 The rows of the f32 tensor-core entries also carry bound_tf32_ms and
@@ -462,7 +449,7 @@ def in_turns(a, b, reps: int = 3):
 def hmma_counts(lib):
     """HMMA (tensor-core) instructions per fused2_kernel instantiation (its
     shared-row form) in the SASS of ``lib`` (cuobjdump beside nvcc) ->
-    {(mode, layout, attrs, tensor): count}."""
+    {(mode, layout, attrs): count}."""
     import re
 
     from owl_path_tracer_tpu_torch.native import nvcc_path
@@ -471,9 +458,9 @@ def hmma_counts(lib):
     counts, key = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            # the fifth flag is the profile form (component layout only), the
-            # sixth the frontier row in device memory
-            found = re.search(r"fused2_kernelILi(\d)ELi(\d)ELb(\d)ELb(\d)ELb0ELb0E", line)
+            # the fourth flag is the profile form (component layout only), the
+            # fifth the frontier row in device memory
+            found = re.search(r"fused2_kernelILi(\d)ELi(\d)ELb(\d)ELb0ELb0E", line)
             key = tuple(int(x) for x in found.groups()) if found else None
             if key:
                 counts[key] = 0
@@ -992,7 +979,7 @@ def wrapper_reference(fb, rays, raw):
 
 def component_resources(k=768, c=512, block=BLOCK):
     """Phase 2: threads, registers, shared bytes and blocks per SM of each
-    component entry (the slot-parallel body, then the serial yardsticks) at
+    component entry (the slot-parallel body, then the serial bodies) at
     dragon7's K and C and the main path's block (phase 4 prints them again
     at each scene's own K)."""
     import torch
@@ -1185,9 +1172,8 @@ def component_wave(what, rays, fb, block, mode="closest", with_attrs=True, shado
 
 
 def phase_3c(dev, results):
-    """K1b (MXU f32 and bf16 planes, three modes; the tensor-core forms
-    under the sums' rounding rule, the exact CUDA-core forms equal to the
-    plain version) and K4 vs plain on the soup."""
+    """K1b (MXU f32 and bf16 planes, three modes, on the tensor cores, under
+    the sums' rounding rule) and K4 vs plain on the soup."""
     import numpy as np
     import torch
 
@@ -1228,11 +1214,6 @@ def phase_3c(dev, results):
                 flag_diffs += compare_flags(got_m[sh_p], want_m[sh_p], f"{what} mixed shadow lanes")
                 errs += [e, e_m]
                 ties += tie + tie_m
-                # the CUDA-core form: the plain version's arithmetic
-                got_x = fused2.fused2_traverse_packed(rays, fb, block=block, fanout=fo, exact=True)
-                e_x, tie_x = compare_near_tie(got_x, want, rays, fb, f"{what} exact")
-                check(tie_x == 0, f"{what}: the exact form differs from the plain version on {tie_x} rows")
-                errs.append(e_x)
                 outs[fo] = (got, got_a, got_m)
             check(all(same_outputs(a, b) for a, b in zip(outs[1], outs[2])),
                   f"K1b {name} block {block}: fanout 1 and 2 differ")
@@ -1241,8 +1222,7 @@ def phase_3c(dev, results):
                   f"{int(want_a[:300, 4].sum())}/300 occluded, {int(want_m[sh_p, 4].sum())}/{int(sh_p.sum())} "
                   f"shadow lanes occluded; fanout 1 == fanout 2 bit for bit")
         results[f"k1b_{name}_err"] = max(errs)
-        print(f"  K1b {name} soup: max |tuv err| {max(errs):.3g}, {ties} explained rows, {flag_diffs} flags differ"
-              f"; the exact {name} form equal to the plain version on every row")
+        print(f"  K1b {name} soup: max |tuv err| {max(errs):.3g}, {ties} explained rows, {flag_diffs} flags differ")
         # max_steps=1: rows left unresolved go to the exact query in every wrapper
         o_p, d_p, t_p, _ = fused2._pad_rays(o, d, tmax, 128)
         rays = pack_rays(o_p, d_p, t_p)
@@ -1272,8 +1252,7 @@ def phase_3c(dev, results):
         print(f"  K1b {name} max_steps=1: closest, any-hit and mixed wrappers equal the plain version "
               "with the exact query on unresolved rows")
     # K4: closest hit without attributes, component and MXU f32 planes (the
-    # tensor form under the sums' rounding rule, the exact CUDA-core form
-    # equal to the plain version)
+    # tensor form under the sums' rounding rule)
     errs = []
     fbs = {"component": comp, "MXU f32": fb32}
     for name, fb in fbs.items():
@@ -1286,10 +1265,6 @@ def phase_3c(dev, results):
                 e, _ = compare_near_tie(got, want, rays, fb, what, blob=False, tensor=True)
                 got1 = fused2.fused2_traverse_packed(rays, fb, block=block, with_attrs=False, fanout=1)
                 check(same_outputs(got1, got), f"{what}: fanout 1 and 2 differ")
-                got_x = fused2.fused2_traverse_packed(rays, fb, block=block, with_attrs=False, exact=True)
-                e_x, tie_x = compare_near_tie(got_x, want, rays, fb, f"{what} exact", blob=False)
-                check(tie_x == 0, f"{what}: the exact form differs from the plain version on {tie_x} rows")
-                errs.append(e_x)
             else:
                 e, _ = compare(got, want, allow_ties=False)
             errs.append(e)
@@ -1299,23 +1274,21 @@ def phase_3c(dev, results):
     except ValueError:
         pass
     results["k4_err"] = max(errs)
-    print(f"  K4 component and MXU f32 (tensor and exact forms), blocks 128/256: held to the plain version, max "
-          f"|tuv err| {max(errs):.3g}; the exact MXU form equal to it; bf16 + no attributes raises ValueError")
+    print(f"  K4 component and MXU f32, blocks 128/256: held to the plain version, max |tuv err| {max(errs):.3g}; "
+          "bf16 + no attributes raises ValueError")
 
 
 def time_kernel(what, rays, fb, block, mode="closest", with_attrs=True, shadow=None):
     """Kernel vs plain on one sorted wave: checks, CUDA-event times, bound ->
     dict.  On MXU planes the kernel is the tensor-core form, held to the
-    sums' rounding rule; for closest hit (with attributes, and K4 without)
-    the exact CUDA-core form is also held to the plain version and timed in
-    turns with it (key "exact")."""
+    sums' rounding rule."""
     import torch
 
     from owl_path_tracer_tpu_torch.ops import fused2
 
     tensor = fb.mxu
-    run = lambda fo=fused2.FANOUT, exact=False: fused2.fused2_traverse_packed(  # noqa: E731
-        rays, fb, block=block, mode=mode, fanout=fo, with_attrs=with_attrs, exact=exact)
+    run = lambda fo=fused2.FANOUT: fused2.fused2_traverse_packed(  # noqa: E731
+        rays, fb, block=block, mode=mode, fanout=fo, with_attrs=with_attrs)
     got = run()
     want = fused2.fused2_traverse_packed_plain(rays, fb, mode, with_attrs)
     if mode == "any_hit":
@@ -1333,17 +1306,7 @@ def time_kernel(what, rays, fb, block, mode="closest", with_attrs=True, shadow=N
     if fb.mxu:
         check(same_outputs(run(1), got), f"{what}: fanout 1 and 2 differ")
         print(f"  {what}: fanout 1 == fanout 2 bit for bit")
-    exact = None
-    if tensor and mode == "closest":
-        got_x = run(exact=True)
-        err_x, ties_x = compare_near_tie(got_x, want, rays, fb, f"{what}, exact form", blob=with_attrs)
-        x_ms, k_ms = in_turns(lambda: run(exact=True), run)
-        exact = {"err": err_x, "ms": x_ms}
-        print(f"  {what}: exact CUDA-core form {x_ms:.3f} ms, tensor-core form {k_ms:.3f} ms (in turns exact, "
-              f"tensor, tensor, exact; {x_ms / k_ms:.2f}x); the exact form differs from the plain version on "
-              f"{ties_x} rows (the tensor form on {ties})", flush=True)
-    else:
-        k_ms = cuda_ms(run)
+    k_ms = cuda_ms(run)
     p_ms = cuda_ms(lambda: fused2.fused2_traverse_packed_plain(rays, fb, mode, with_attrs))
     attrs = with_attrs and mode != "any_hit"
     bnd, need = bound(rays, want, fb, any_hit, with_attrs=attrs)
@@ -1359,7 +1322,7 @@ def time_kernel(what, rays, fb, block, mode="closest", with_attrs=True, shadow=N
           f"max err {err:.3g}, clusters/block mean {float(steps.mean()):.2f} max {int(steps.max())}, "
           f"clusters needed/ray mean {need:.3f}, kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
           f"bound {bnd[0]:.4f} ms ({bnd[1]}, {100 * bnd[0] / k_ms:.2f}% reached)", flush=True)
-    return {"err": err, "ms": k_ms, "plain_ms": p_ms, "bound": bnd, "bound_tf32": bnd_tf32, "exact": exact}
+    return {"err": err, "ms": k_ms, "plain_ms": p_ms, "bound": bnd, "bound_tf32": bnd_tf32}
 
 
 def tensor_sums_ratio(rays, want, fb, warps: int = 256):
@@ -1401,13 +1364,12 @@ def phase_4c(scene, mode, waves, nee_scene, nee_mode, nee_waves, block, results,
         layout_i = 2 if kind == "fused2-bf16" else 1
         print(f"  {kind}: K={accel.num_clusters} C={accel.cluster_size}, planes {tuple(accel.planes.shape)} "
               f"{accel.planes.dtype}", flush=True)
-        forms = [(m_name, m_name != "any_hit", exact) for m_name in fused2.MODES
-                 for exact in ([False, True] if m_name == "closest" else [False])]
-        if kind == "fused2":  # K4 on f32 planes, both forms
-            forms += [("closest", False, False), ("closest", False, True)]
-        for m_name, attrs, exact in forms:
-            res = fused2.kernel_resources(accel, m_name, block, with_attrs=attrs, exact=exact)
-            count = hmma[(fused2.MODES.index(m_name), layout_i, int(attrs), int(not exact))]
+        forms = [(m_name, m_name != "any_hit") for m_name in fused2.MODES]
+        if kind == "fused2":  # K4 on f32 planes
+            forms.append(("closest", False))
+        for m_name, attrs in forms:
+            res = fused2.kernel_resources(accel, m_name, block, with_attrs=attrs)
+            count = hmma[(fused2.MODES.index(m_name), layout_i, int(attrs))]
             print(f"  {res['entry']} at K={accel.num_clusters} C={accel.cluster_size} block {block}: "
                   f"{res['registers']} registers, {res['shared_bytes']} bytes of shared memory (frontier row in "
                   f"{res['row']} memory), {res['blocks_per_sm']} blocks per SM, {count} HMMA instructions in its "
@@ -1557,14 +1519,8 @@ def fused_bound(rays, want, fb):
     return ((t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")), float(need.float().mean())
 
 
-def other_step(step):
-    from owl_path_tracer_tpu_torch.ops import fused as tfu
-
-    return next(x for x in tfu.STEPS if x != step)
-
-
 def phase_3d(dev, results):
-    """K5 vs its plain version on the soup, both steps."""
+    """K5 vs its plain version on the soup."""
     import torch
 
     from owl_path_tracer_tpu_torch.ops import fused as tfu
@@ -1583,28 +1539,24 @@ def phase_3d(dev, results):
         o_p, d_p, t_ray = padded(block)
         for t_name, t in (("per-ray", t_ray), ("scalar", 1e10)):
             want = tfu.fused_traverse_plain(o_p, d_p, t, fb, block)
-            for step in tfu.STEPS:
-                got = tfu.fused_traverse(o_p, d_p, t, fb, block, step=step)
-                what = f"K5 ({step} step) soup block {block} {t_name} t_max"
-                check(torch.equal(got[:, :7], want[:, :7]), f"{what}: columns 0-6 differ from the plain version")
-                check(bool((got[:, 7] == 0).all()) and bool((got[:, 5] == 1).all()), f"{what}: col 7 or resolved")
-                errs.append(float((got[:, :3] - want[:, :3]).abs().max()))
-                if t_name == "per-ray":
-                    check(bool((got[n:, 4] == 0).all()), f"{what}: a padding ray hit")
-                steps = got[:, 6].reshape(-1, block)[:, 0]
-                print(f"  {what}: {int(got[:n, 4].sum())}/{n} hits, columns 0-6 identical, clusters/block "
-                      f"{steps.tolist()}")
+            got = tfu.fused_traverse(o_p, d_p, t, fb, block)
+            what = f"K5 soup block {block} {t_name} t_max"
+            check(torch.equal(got[:, :7], want[:, :7]), f"{what}: columns 0-6 differ from the plain version")
+            check(bool((got[:, 7] == 0).all()) and bool((got[:, 5] == 1).all()), f"{what}: col 7 or resolved")
+            errs.append(float((got[:, :3] - want[:, :3]).abs().max()))
+            if t_name == "per-ray":
+                check(bool((got[n:, 4] == 0).all()), f"{what}: a padding ray hit")
+            steps = got[:, 6].reshape(-1, block)[:, 0]
+            print(f"  {what}: {int(got[:n, 4].sum())}/{n} hits, columns 0-6 identical, clusters/block "
+                  f"{steps.tolist()}")
         # cut short: unresolved rows and the steps column
         for max_steps in (0, 1, 3):
             want = tfu.fused_traverse_plain(o_p, d_p, t_ray, fb, block, max_steps)
-            got = {step: tfu.fused_traverse(o_p, d_p, t_ray, fb, block, max_steps, step=step) for step in tfu.STEPS}
-            for step, out in got.items():
-                check(torch.equal(out[:, :7], want[:, :7]) and torch.equal(out, got[other_step(step)]),
-                      f"K5 ({step} step) soup block {block} max_steps {max_steps}: differs from the plain version "
-                      "or the other step")
+            got = tfu.fused_traverse(o_p, d_p, t_ray, fb, block, max_steps)
+            check(torch.equal(got[:, :7], want[:, :7]),
+                  f"K5 soup block {block} max_steps {max_steps}: differs from the plain version")
             check(max_steps == 3 or bool((want[:, 5] == 0).any()), f"K5 max_steps {max_steps}: all resolved")
-        print(f"  K5 both steps, soup block {block}, max_steps 0 / 1 / 3: columns 0-6 identical to the plain "
-              "version, all columns to each other")
+        print(f"  K5 soup block {block}, max_steps 0 / 1 / 3: columns 0-6 identical to the plain version")
     results["k5_err"] = max(errs)
     # a block in which no ray is active, between two live blocks
     o_p, d_p, t_ray = padded(128)
@@ -1612,26 +1564,18 @@ def phase_3d(dev, results):
     o_i[128:256] = torch.tensor([0.0, 0.0, 100.0], device=dev)
     d_i[128:256] = torch.tensor([0.0, 0.0, 1.0], device=dev)
     want = tfu.fused_traverse_plain(o_i, d_i, t_i, fb, 128)
-    for step in tfu.STEPS:
-        got = tfu.fused_traverse(o_i, d_i, t_i, fb, 128, step=step)
-        check(torch.equal(got[:, :7], want[:, :7]) and bool((got[128:256, 6] == 0).all())
-              and bool((got[128:256, 4] == 0).all()), f"K5 ({step} step): the block with no active ray differs")
-    print("  K5 both steps: a block with no active ray retires nothing, columns 0-6 identical to the plain version")
-    # both list-scan kinds, and the group box entered with no member entered
+    got = tfu.fused_traverse(o_i, d_i, t_i, fb, 128)
+    check(torch.equal(got[:, :7], want[:, :7]) and bool((got[128:256, 6] == 0).all())
+          and bool((got[128:256, 4] == 0).all()), "K5: the block with no active ray differs")
+    print("  K5: a block with no active ray retires nothing, columns 0-6 identical to the plain version")
+    # the group box entered with no member entered
     cg, co, cd = corner_groups(dev)
-    o_p, d_p, _ = padded(128)
-    want = tfu.fused_traverse_plain(o_p, d_p, 1e10, fb, 128)
     want_c = tfu.fused_traverse_plain(co, cd, 1e10, cg)
-    for scan in tfu.SCANS:
-        for step in tfu.STEPS:
-            check(torch.equal(tfu.fused_traverse(o_p, d_p, 1e10, fb, 128, scan=scan, step=step)[:, :7],
-                              want[:, :7]), f"K5 ({scan} scan, {step} step) soup: columns 0-6 differ from the plain "
-                                            "version")
-            got = tfu.fused_traverse(co, cd, 1e10, cg, scan=scan, step=step)
-            check(torch.equal(got[:, :7], want_c[:, :7]) and bool((got[:, 0] == 4.0).all()),
-                  f"K5 ({scan} scan, {step} step): the corner-groups case differs from the plain version")
-    print(f"  K5 scan kinds {list(tfu.SCANS)} x steps {list(tfu.STEPS)}: soup columns 0-6 identical; rays "
-          "through a group box that meet none of its members hit the cluster behind (t = 4), as the plain version")
+    got = tfu.fused_traverse(co, cd, 1e10, cg)
+    check(torch.equal(got[:, :7], want_c[:, :7]) and bool((got[:, 0] == 4.0).all()),
+          "K5: the corner-groups case differs from the plain version")
+    print("  K5: rays through a group box that meet none of its members hit the cluster behind (t = 4), as the "
+          "plain version")
     raw = tfu.fused_traverse(torch.cat([o, o[:84]]), torch.cat([d, d[:84]]), 1e10, fb, 128, 1)
     check(bool((raw[:, 5] == 0).any()), "K5 max_steps=1 left no ray unresolved")
     unresolved = tfu.UNRESOLVED_RAYS
@@ -1686,120 +1630,60 @@ def scan_waves(scene, settings, accel, chunk_names=("first chunk", "centre chunk
 def k5_resources(accel, what):
     from owl_path_tracer_tpu_torch.ops import fused as tfu
 
-    for step in tfu.STEPS:
-        for scan in tfu.SCANS:
-            res = tfu.kernel_resources(accel, tfu.BLOCK_RAYS, scan, step)
-            print(f"  K5 ({step} step, {scan} scan) on {what} (K={accel.num_clusters} C={accel.cluster_size}, "
-                  f"block {tfu.BLOCK_RAYS}): {res['threads']} threads x {res['ctas']} CTA per block of rays, "
-                  f"{res['registers']} registers, {res['shared_bytes']} bytes of shared memory, "
-                  f"{res['blocks_per_sm']} blocks per SM", flush=True)
+    res = tfu.kernel_resources(accel, tfu.BLOCK_RAYS)
+    print(f"  K5 on {what} (K={accel.num_clusters} C={accel.cluster_size}, block {tfu.BLOCK_RAYS}): "
+          f"{res['threads']} threads x {res['ctas']} CTA per block of rays, {res['registers']} registers, "
+          f"{res['shared_bytes']} bytes of shared memory, {res['blocks_per_sm']} blocks per SM", flush=True)
 
 
-def k5_steps(wo, wd, accel, what, want, sub=None, mhz=None):
-    """Both K5 steps on one wave: columns 0-6 of each equal to the plain
-    version's ``want`` (on the rays ``sub``, every ray if None) and every
-    column equal to the other step's; both timed in turns (serial, slots,
-    slots, serial; 3 calls a turn); for each the profile entry's clock64
-    split of the slowest and the mean block, its launch rank and weight,
-    and the clusters each ray tested -> ({step: ms}, {step: clusters tested
-    per ray, mean}, the default step's output)."""
+def k5_wave(wo, wd, accel, what, want, sub=None, mhz=None):
+    """K5 on one wave: columns 0-6 equal to the plain version's ``want`` (on
+    the rays ``sub``, every ray if None); the profile entry's clock64 split
+    of the slowest and the mean block, its launch rank and weight, the
+    clusters each ray tested, and the rescans and boxes slab-tested per ray
+    and per block; its time (3 calls after a warm-up, CUDA events) -> (ms,
+    clusters tested per ray (mean), the output)."""
     import torch
 
     from owl_path_tracer_tpu_torch.ops import fused as tfu
     from owl_path_tracer_tpu_torch.ops import math as m
 
     idx = torch.arange(wo.shape[0], device=wo.device) if sub is None else sub
-    got = {step: tfu.fused_traverse(wo, wd, m.T_MAX, accel, step=step) for step in tfu.STEPS}
-    for step, out in got.items():
-        check(torch.equal(out[idx, :7], want[:, :7]), f"K5 ({step} step) {what}: columns 0-6 differ from the plain "
-                                                       "version")
-        check(torch.equal(out, got[other_step(step)]), f"K5 {what}: the two steps' outputs differ")
-    tested = {}
-    for step in tfu.STEPS:
-        out, prof, counts = tfu.fused_traverse_profile(wo, wd, m.T_MAX, accel, step=step)
-        check(torch.equal(out[:, :7], got[step][:, :7]), f"K5 profile entry ({step} step) {what}: columns differ")
-        prof = prof.double()
-        slow = int(torch.argmax(prof[:, 4]))
-        shares = ", ".join(f"{name} {100 * float(prof[slow, i] / prof[slow, 4]):.1f}% "
-                           f"(mean {100 * float((prof[:, i] / prof[:, 4]).mean()):.1f}%)"
-                           for i, name in enumerate(tfu.PROFILE_COLS[:4]))
-        clock = f" = {float(prof[slow, 4]) / (mhz * 1e3):.3f} ms at {mhz:.0f} MHz" if mhz else ""
-        per_block = counts[:, 2].view(-1, tfu.BLOCK_RAYS).sum(1)
-        tested[step] = float(counts[:, 2].double().mean())
-        print(f"  K5 ({step} step) {what}: slowest block {int(prof[slow, 4])} cycles{clock}, {int(prof[slow, 5])} "
-              f"steps, launch rank {int(prof[slow, 6])}, weight {int(prof[slow, 7])}: {shares}; mean block "
-              f"{float(prof[:, 4].mean()):.0f} cycles, {float(prof[:, 5].mean()):.2f} steps; clusters tested per "
-              f"ray mean {tested[step]:.3f} max {int(counts[:, 2].max())}, per block mean "
-              f"{float(per_block.double().mean()):.1f} max {int(per_block.max())} (slowest block "
-              f"{int(per_block[slow])})", flush=True)
-    ms = dict(zip(("serial", "slots"), in_turns(lambda: tfu.fused_traverse(wo, wd, m.T_MAX, accel, step="serial"),
-                                                lambda: tfu.fused_traverse(wo, wd, m.T_MAX, accel, step="slots"))))
-    print(f"  K5 {what}: slots step {ms['slots']:.4f} ms, serial step {ms['serial']:.4f} ms (in turns serial, "
-          f"slots, slots, serial, 3 calls a turn; {ms['serial'] / ms['slots']:.2f}x)", flush=True)
-    return ms, tested, got[tfu.STEP]
-
-
-def k5_split(wo, wd, accel, what, sub=None, mhz=None):
-    """K5's time per block on one wave, for both scan kinds under the
-    default step: columns 0-6 of each kind equal to the plain version's (on
-    the rays ``sub``, every ray if None), the profile entry's clock64 split
-    (set-up scan, pick and stage, slot loop, list updates and rescans) of
-    the slowest block and the mean over blocks, rescans and boxes
-    slab-tested per ray and per block, and the kernel's time, the default
-    kind in turns with the serial scan (serial, default, default, serial)
-    -> {scan: ms}."""
-    import torch
-
-    from owl_path_tracer_tpu_torch.ops import fused as tfu
-    from owl_path_tracer_tpu_torch.ops import math as m
-
-    b = tfu.BLOCK_RAYS
-    idx = torch.arange(wo.shape[0], device=wo.device) if sub is None else sub
-    want = tfu.fused_traverse_plain(wo[idx], wd[idx], m.T_MAX, accel)
-    ms = {}
-    for scan in tfu.SCANS:
-        got = tfu.fused_traverse(wo, wd, m.T_MAX, accel, scan=scan)
-        check(torch.equal(got[idx, :7], want[:, :7]),
-              f"K5 ({scan} scan) {what}: columns 0-6 differ from the plain version")
-        out, prof, counts = tfu.fused_traverse_profile(wo, wd, m.T_MAX, accel, scan=scan)
-        check(torch.equal(out[:, :7], got[:, :7]), f"K5 profile entry ({scan} scan) {what}: columns 0-6 differ")
-        prof = prof.double()
-        slow = int(torch.argmax(prof[:, 4]))
-        shares = ", ".join(f"{name} {100 * float(prof[slow, i] / prof[slow, 4]):.1f}% "
-                           f"(mean {100 * float((prof[:, i] / prof[:, 4]).mean()):.1f}%)"
-                           for i, name in enumerate(tfu.PROFILE_COLS[:4]))
-        per_block = counts.view(-1, b, 2).sum(1).double()
-        clock = f" = {float(prof[slow, 4]) / (mhz * 1e3):.3f} ms at {mhz:.0f} MHz" if mhz else ""
-        print(f"  K5 ({scan} scan) {what}: columns 0-6 equal to the plain version; slowest block "
-              f"{int(prof[slow, 4])} cycles{clock}, {int(prof[slow, 5])} steps: {shares}; rescans per ray mean "
-              f"{float(counts[:, 0].double().mean()):.3f} max {int(counts[:, 0].max())}, per block mean "
-              f"{float(per_block[:, 0].mean()):.1f} max {int(per_block[:, 0].max())} (slowest block "
-              f"{int(per_block[slow, 0])}); boxes slab-tested per ray mean {float(counts[:, 1].double().mean()):.1f} "
-              f"max {int(counts[:, 1].max())}, per block mean {float(per_block[:, 1].mean()):.0f} max "
-              f"{int(per_block[:, 1].max())}", flush=True)
-        if scan == "serial":
-            continue
-        serial_ms, ms[scan] = in_turns(lambda: tfu.fused_traverse(wo, wd, m.T_MAX, accel, scan="serial"),
-                                       lambda: tfu.fused_traverse(wo, wd, m.T_MAX, accel, scan=scan))
-        ms["serial"] = min(ms.get("serial", math.inf), serial_ms)
-        print(f"  K5 {what}: {scan} scan {ms[scan]:.3f} ms, serial scan {serial_ms:.3f} ms (in turns serial, "
-              f"{scan}, {scan}, serial; {serial_ms / ms[scan]:.2f}x)", flush=True)
-    return ms
+    got = tfu.fused_traverse(wo, wd, m.T_MAX, accel)
+    check(torch.equal(got[idx, :7], want[:, :7]), f"K5 {what}: columns 0-6 differ from the plain version")
+    out, prof, counts = tfu.fused_traverse_profile(wo, wd, m.T_MAX, accel)
+    check(torch.equal(out[:, :7], got[:, :7]), f"K5 profile entry {what}: columns differ")
+    prof = prof.double()
+    slow = int(torch.argmax(prof[:, 4]))
+    shares = ", ".join(f"{name} {100 * float(prof[slow, i] / prof[slow, 4]):.1f}% "
+                       f"(mean {100 * float((prof[:, i] / prof[:, 4]).mean()):.1f}%)"
+                       for i, name in enumerate(tfu.PROFILE_COLS[:4]))
+    clock = f" = {float(prof[slow, 4]) / (mhz * 1e3):.3f} ms at {mhz:.0f} MHz" if mhz else ""
+    per_block = counts.view(-1, tfu.BLOCK_RAYS, len(tfu.COUNT_COLS)).sum(1).double()
+    tested = float(counts[:, 2].double().mean())
+    print(f"  K5 {what}: slowest block {int(prof[slow, 4])} cycles{clock}, {int(prof[slow, 5])} steps, launch "
+          f"rank {int(prof[slow, 6])}, weight {int(prof[slow, 7])}: {shares}; mean block "
+          f"{float(prof[:, 4].mean()):.0f} cycles, {float(prof[:, 5].mean()):.2f} steps; clusters tested per ray "
+          f"mean {tested:.3f} max {int(counts[:, 2].max())}, per block mean {float(per_block[:, 2].mean()):.1f} "
+          f"max {int(per_block[:, 2].max())} (slowest block {int(per_block[slow, 2])}); rescans per ray mean "
+          f"{float(counts[:, 0].double().mean()):.3f} max {int(counts[:, 0].max())}, per block mean "
+          f"{float(per_block[:, 0].mean()):.1f} max {int(per_block[:, 0].max())}; boxes slab-tested per ray mean "
+          f"{float(counts[:, 1].double().mean()):.1f} max {int(counts[:, 1].max())}, per block mean "
+          f"{float(per_block[:, 1].mean()):.0f} max {int(per_block[:, 1].max())}", flush=True)
+    ms = cuda_ms(lambda: tfu.fused_traverse(wo, wd, m.T_MAX, accel))
+    return ms, tested, got
 
 
 def phase_4d(scene, settings, results, mhz):
     """K5 vs plain at the scan main path's shapes -> the fused accelerator.
-    On every wave both steps are held to the plain version and to each
-    other, timed in turns and split by the profile entry (k5_steps); the
-    kernels line takes the centre chunk's bounce wave, the heaviest, where
-    both scan kinds are also split and timed in turns with the serial scan;
-    a group-skip set-up scan (max_steps=0) slab-tests exactly the boxes the
-    plain list scan counts.  Then the 1.3M-triangle dragon (subdivision 8,
-    K above the 9,088 clusters one block's shared memory held before the
-    box rows moved to device memory): its centre chunk's bounce wave, the
-    kernel on all 65,536 rays, the plain version on every 8th block, both
-    steps the same way.  The default step must be the faster one on both
-    centre bounce waves."""
+    On every wave K5 is held to the plain version, timed and split by the
+    profile entry (k5_wave); the kernels line takes the centre chunk's
+    bounce wave, the heaviest; a group-skip set-up scan (max_steps=0)
+    slab-tests exactly the boxes the plain list scan counts.  Then the
+    1.3M-triangle dragon (subdivision 8, K above the 9,088 clusters one
+    block's shared memory held before the box rows moved to device memory):
+    its centre chunk's bounce wave, the kernel on all 65,536 rays, the plain
+    version on every 8th block."""
     import torch
 
     from owl_path_tracer_tpu_torch.models.scene import compile_scene
@@ -1812,26 +1696,23 @@ def phase_4d(scene, settings, results, mhz):
     accel = film.make_accel(scene, "fused")
     torch.cuda.synchronize()
     print(f"  fused accel: K={accel.num_clusters} C={accel.cluster_size} ({accel.groups.shape[1]} group boxes of "
-          f"{tfu.GROUP_SIZE}), built in {time.perf_counter() - t0:.2f} s; default scan {tfu.SCAN}, default step "
-          f"{tfu.STEP}", flush=True)
+          f"{tfu.GROUP_SIZE}), built in {time.perf_counter() - t0:.2f} s", flush=True)
     k5_resources(accel, "dragon7")
 
     def wave(what, wo, wd, fb, want, sub=None):
-        ms, tested, got = k5_steps(wo, wd, fb, what, want, sub, mhz)
+        ms, tested, got = k5_wave(wo, wd, fb, what, want, sub, mhz)
         # max_steps=0: the block set-up and each ray's first box scan only
         s_ms = cuda_ms(lambda: tfu.fused_traverse(wo, wd, m.T_MAX, fb, tfu.BLOCK_RAYS, 0))
         # the bound counts each ray's needed clusters from the kernel's own t
         # (equal to the plain version's where it was compared)
         bnd, need = fused_bound(tfu.pack_rays(wo, wd, m.T_MAX), got, fb)
         steps = got[:, 6].reshape(-1, tfu.BLOCK_RAYS)[:, 0]
-        shares = ", ".join(f"{step} {100 * bnd[0] / ms[step]:.2f}%" for step in tfu.STEPS)
         print(f"  K5 {what} ({wo.shape[0]} rays, block {tfu.BLOCK_RAYS}): {int(got[:, 4].sum())} hits, "
               f"{int((got[:, 5] == 0).sum())} unresolved, clusters retired/block mean {float(steps.mean()):.2f} max "
-              f"{int(steps.max())}, clusters needed/ray mean {need:.3f}, tested/ray {tested[tfu.STEP]:.3f}; "
-              f"{tfu.STEP} step {ms[tfu.STEP]:.4f} ms (set-up, max_steps 0: {s_ms:.4f}), "
-              f"{other_step(tfu.STEP)} step {ms[other_step(tfu.STEP)]:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}; "
-              f"reached: {shares})", flush=True)
-        return {"ms": ms[tfu.STEP], "ms_steps": ms, "setup_ms": s_ms, "bound": bnd, "tested": tested, "need": need}
+              f"{int(steps.max())}, clusters needed/ray mean {need:.3f}, tested/ray {tested:.3f}; {ms:.4f} ms "
+              f"(set-up, max_steps 0: {s_ms:.4f}); bound {bnd[0]:.4f} ms ({bnd[1]}; {100 * bnd[0] / ms:.2f}% "
+              "reached)", flush=True)
+        return {"ms": ms, "setup_ms": s_ms, "bound": bnd, "tested": tested, "need": need}
 
     for name, (wo, wd) in scan_waves(scene, settings, accel).items():
         want = tfu.fused_traverse_plain(wo, wd, m.T_MAX, accel)
@@ -1842,16 +1723,14 @@ def phase_4d(scene, settings, results, mhz):
         results[f"k5 {name}"] = dict(r, plain_ms=p_ms)
         print(f"  K5 dragon7 {name} wave: plain version {p_ms:.3f} ms", flush=True)
         if name == "centre chunk bounce":
-            results["k5_scans dragon7"] = k5_split(wo, wd, accel, f"dragon7 {name} wave", mhz=mhz)
             # the set-up scan with group skips tests exactly the plain list scan's boxes
             n = 4096
-            for step in tfu.STEPS:
-                _, _, counts = tfu.fused_traverse_profile(wo[:n], wd[:n], m.T_MAX, accel, max_steps=0, step=step)
-                _, _, tests = tfu.nearest_lists(wo[:n], wd[:n], m.T_MAX, accel, groups=True)
-                check(torch.equal(counts[:, 1].long(), tests), f"K5 group-skip set-up scan ({step} step): boxes "
-                                                               "tested differ from the plain list scan's")
-            print(f"  K5 group-skip set-up scan on {n} rays, both steps: boxes slab-tested per ray equal to the "
-                  f"plain list scan's (mean {float(tests.double().mean()):.1f} of {accel.num_clusters} + "
+            _, _, counts = tfu.fused_traverse_profile(wo[:n], wd[:n], m.T_MAX, accel, max_steps=0)
+            _, _, tests = tfu.nearest_lists(wo[:n], wd[:n], m.T_MAX, accel, groups=True)
+            check(torch.equal(counts[:, 1].long(), tests),
+                  "K5 group-skip set-up scan: boxes tested differ from the plain list scan's")
+            print(f"  K5 group-skip set-up scan on {n} rays: boxes slab-tested per ray equal to the plain list "
+                  f"scan's (mean {float(tests.double().mean()):.1f} of {accel.num_clusters} + "
                   f"{accel.groups.shape[1]} group boxes)", flush=True)
 
     t0 = time.perf_counter()
@@ -1871,11 +1750,6 @@ def phase_4d(scene, settings, results, mhz):
     results["k5 dragon8"] = wave("dragon8 centre chunk bounce wave", wo, wd, big_accel, want, sub)
     print(f"  K5 dragon8: columns 0-6 identical to the plain version on {sub.numel()} rays (every 8th block)",
           flush=True)
-    results["k5_scans dragon8"] = k5_split(wo, wd, big_accel, "dragon8 centre chunk bounce wave", sub, mhz)
-    for key in ("k5 centre chunk bounce", "k5 dragon8"):
-        ms = results[key]["ms_steps"]
-        check(ms[tfu.STEP] < ms[other_step(tfu.STEP)], f"{key}: the default step {tfu.STEP} is not the faster "
-                                                       f"one in turns ({ms})")
     return accel, big, (wo, wd)
 
 
@@ -1924,36 +1798,31 @@ def limit_rays(dev, block=BLOCK, seed=5):
     return mesh, pack_rays(o, d, 1e10), pack_rays(o, d, dist, shadow), shadow
 
 
-def old_row_limit(fb, mode, block, limit, with_attrs=True, exact=False, serial=False):
+def old_row_limit(fb, mode, block, limit, with_attrs=True, serial=False):
     """The most clusters K whose frontier row [K] f32 (padded to a multiple
     of 4) would have fitted in shared memory beside the rest of the entry's
     block (the kernel library's count) under ``limit``: the cluster limit
     each entry had while its row lay in shared memory."""
     from owl_path_tracer_tpu_torch.ops import fused2
 
-    spare = limit - fused2.block_bytes(fb, mode, block, with_attrs, exact, serial, global_row=True)
+    spare = limit - fused2.block_bytes(fb, mode, block, with_attrs, serial, global_row=True)
     return max(spare // 4 & ~3, 0)
 
 
-def limit_case(what, fb, rays, want, block, mode, attrs, exact=False, serial=False, shadow=None):
+def limit_case(what, fb, rays, want, block, mode, attrs, serial=False, shadow=None):
     """One fused2 entry at K above its old shared-row limit: the frontier
     rows must go to device memory, and the outputs meet the plain version
-    by the entry's usual rule (component bit for bit
-    up to true ties between clusters; the MXU forms by compare_near_tie,
-    with the sums' rounding kind and compare_flags for the tensor forms:
-    the exact forms differ only where an exact walk never tests a cluster
-    the block retires, on bf16 planes at most 0.5% of the rows) ->
-    (outputs, old limit)."""
+    by the entry's usual rule (component bit for bit up to true ties between
+    clusters; the MXU entries by compare_near_tie and compare_flags with
+    the sums' rounding kind) -> (outputs, old limit)."""
     from owl_path_tracer_tpu_torch.ops import fused2
 
     limit = fused2.smem_limit(rays.device)
     k, c = fb.num_clusters, fb.cluster_size
-    old = old_row_limit(fb, mode, block, limit, attrs, exact, serial)
-    form = fused2.row_form(fb, mode, block, rays.device, attrs, exact, serial)
+    old = old_row_limit(fb, mode, block, limit, attrs, serial)
+    form = fused2.row_form(fb, mode, block, rays.device, attrs, serial)
     check(k > old and form == "global", f"{what}: K={k}, old limit {old}, row form {form}")
-    got = fused2.fused2_traverse_packed(rays, fb, block=block, mode=mode, with_attrs=attrs, exact=exact,
-                                        serial=serial)
-    tensor = fb.mxu and not exact
+    got = fused2.fused2_traverse_packed(rays, fb, block=block, mode=mode, with_attrs=attrs, serial=serial)
     lanes = ~shadow if mode == "mixed" else None
     if mode == "any_hit":
         check(bool((got[:, 5] == 1).all()), f"{what}: rays unresolved")
@@ -1964,7 +1833,7 @@ def limit_case(what, fb, rays, want, block, mode, attrs, exact=False, serial=Fal
     else:
         g, w, r = (got, want, rays) if lanes is None else (got[lanes], want[lanes], rays[lanes])
         if fb.mxu:
-            compare_near_tie(g, w, r, fb, what, blob=attrs, tensor=tensor)
+            compare_near_tie(g, w, r, fb, what, blob=attrs, tensor=True)
         else:
             compare(g, w, allow_ties=True)
         if lanes is not None:
@@ -1983,7 +1852,7 @@ def limit_case(what, fb, rays, want, block, mode, attrs, exact=False, serial=Fal
 def above_old_limit(dev, results, block):
     """Phase 4e, first part: every fused2 entry on the LIMIT_TRIS soup (K
     above every entry's old shared-row limit; its rows in device memory)
-    against the plain version, the serial yardsticks and the profile entry
+    against the plain version, the serial bodies and the profile entry
     against the slot-parallel body bit for bit -> the component build."""
     import dataclasses
 
@@ -2010,9 +1879,6 @@ def above_old_limit(dev, results, block):
             sh = shadow if mode == "mixed" else None
             name = fused2._entry(fb, mode, attrs)
             got, olds[name] = limit_case(name, fb, r, want, block, mode, attrs, shadow=sh)
-            if fb.layout != "component" and mode == "closest":
-                name = fused2._entry(fb, mode, attrs, exact=True)
-                _, olds[name] = limit_case(name, fb, r, want, block, mode, attrs, exact=True)
             if fb.layout == "component" and attrs:
                 name = fused2._entry(fb, mode, attrs, serial=True)
                 serial, olds[name] = limit_case(name, fb, r, want, block, mode, attrs, serial=True, shadow=sh)
@@ -2367,10 +2233,8 @@ def phase_5d(dev):
 
 
 def phase_6d(scene, settings, accel, lanes):
-    """The scan main path, then the wavefront, on the fused accelerator,
-    then the scan frame through the other step (the yardstick), which must
-    trace the same rays and give the same image -> K5 launches of the scan
-    frame by entry."""
+    """The scan main path, then the wavefront, on the fused accelerator ->
+    K5 launches of the scan frame by entry."""
     import torch
 
     from owl_path_tracer_tpu_torch.ops import fused as tfu
@@ -2383,14 +2247,14 @@ def phase_6d(scene, settings, accel, lanes):
     start = time.perf_counter()
     fl = film.add_samples(scene, settings, film.new_film(settings, device=scene.vertices.device),
                           settings.max_samples, pixel_chunk=SCAN_CHUNK, accel=accel)
-    img = fl_img = film.finalize(fl)
+    img = film.finalize(fl)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     launches, unresolved = dict(tfu.LAUNCHES), tfu.UNRESOLVED_RAYS
     chunks = -(-settings.width * settings.height // SCAN_CHUNK)
     expect = chunks * settings.max_samples * settings.max_path_depth
-    entry = tfu.STEP_ENTRIES[tfu.STEP]
-    check(launches == {**{name: 0 for name in launches}, entry: expect},
+    entry = tfu.ENTRY
+    check(launches == {entry: expect},
           f"scan frame launched K5 {launches}, expected {expect} of {entry}")
     check(bool(torch.isfinite(img).all()) and img.shape == (settings.height, settings.width, 3), "scan frame image")
     check(0.0 < img.mean().item() < 10.0, f"scan frame: implausible image mean {img.mean().item()}")
@@ -2411,35 +2275,13 @@ def phase_6d(scene, settings, accel, lanes):
     print(f"  wavefront, fused, {lanes} lanes: {rays} rays in {seconds:.3f} s = {rays / seconds / 1e6:.3f} Mrays/s; "
           f"K5 launches {tfu.LAUNCHES[entry]}, unresolved rays {tfu.UNRESOLVED_RAYS}, image mean "
           f"{img.mean().item():.6f}", flush=True)
-    # the scan frame through the yardstick step: the same rays, the same image
-    default = tfu.STEP
-    tfu.STEP = other_step(default)
-    try:
-        start = time.perf_counter()
-        yard = film.add_samples(scene, settings, film.new_film(settings, device=scene.vertices.device),
-                                settings.max_samples, pixel_chunk=SCAN_CHUNK, accel=accel)
-        yard_img = film.finalize(yard)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - start
-    finally:
-        tfu.STEP = default
-    check(yard.rays_traced == fl.rays_traced, f"scan frame: {fl.rays_traced} rays with the {default} step, "
-                                              f"{yard.rays_traced} with the {other_step(default)} step")
-    differ = int((yard_img != fl_img).sum())
-    check(differ == 0, f"scan frame: {differ} film values differ between the two steps")
-    print(f"  scan frame through the {other_step(default)} step (the yardstick): {yard.rays_traced} rays in "
-          f"{seconds:.3f} s = {yard.rays_traced / seconds / 1e6:.3f} Mrays/s, the same rays and image as the "
-          f"{default} step", flush=True)
     return launches
 
 
 def phase_6e():
-    """The CLI in process on assets/settings.json's scene, then again
-    through the other step (the yardstick), which must trace the same rays
-    and write the same PNG -> K5 launches of the first run by entry."""
+    """The CLI in process on assets/settings.json's scene -> K5 launches by
+    entry."""
     import json
-
-    import numpy as np
 
     from owl_path_tracer_tpu_torch.models.scene import compile_scene
     from owl_path_tracer_tpu_torch.ops import fused as tfu
@@ -2454,7 +2296,7 @@ def phase_6e():
           "the car scene the CLI loads has no texture")
     check(cfg["scene"] == scene, f"settings.json renders {cfg['scene']!r}, not {scene!r}")
     out = ROOT / "chiprun_out" / "smoke_cli"
-    # the rays each run traces: the films the CLI's render_image accumulates
+    # the rays the CLI traces: the films its render_image accumulates
     rays = []
     add_samples = film.add_samples
 
@@ -2463,40 +2305,27 @@ def phase_6e():
         rays.append(fl.rays_traced)
         return fl
 
-    def render(out_dir):
-        rays.clear()
-        start = time.perf_counter()
-        paths = cli.main(["--assets", str(ROOT / "assets"), "--out", str(out_dir), "--intersector", "fused",
-                          "--no-sweep", "--spp", str(CLI_SPP)])
-        return paths, time.perf_counter() - start, sum(rays)
-
-    default = tfu.STEP
     film.add_samples = counted
     try:
         tfu.reset_counts()
-        paths, seconds, n_rays = render(out)
+        start = time.perf_counter()
+        paths = cli.main(["--assets", str(ROOT / "assets"), "--out", str(out), "--intersector", "fused",
+                          "--no-sweep", "--spp", str(CLI_SPP)])
+        seconds, n_rays = time.perf_counter() - start, sum(rays)
         launches = dict(tfu.LAUNCHES)
-        tfu.STEP = other_step(default)
-        yard_paths, yard_seconds, yard_rays = render(out / f"{other_step(default)}_step")
     finally:
         film.add_samples = add_samples
-        tfu.STEP = default
     width, height = cfg["buffer_size"]
     check([p.name for p in paths] == [f"{scene}.png"], f"CLI wrote {paths}")
     img = read_png(paths[0])
     check(img.shape == (height, width, 4), f"CLI PNG is {img.shape[1]}x{img.shape[0]}, expected {width}x{height}")
     check(img[..., :3].mean() > 0, "CLI PNG is black")
-    entry = tfu.STEP_ENTRIES[default]
-    check(launches[entry] > 0 and sum(launches.values()) == launches[entry], f"the CLI launched K5 {launches}")
+    entry = tfu.ENTRY
+    check(n_rays > 0 and launches[entry] > 0, f"the CLI traced {n_rays} rays with K5 launches {launches}")
     print(f"  CLI {scene} {width}x{height} depth {cfg['max_path_depth']} spp {CLI_SPP} (settings.json: "
           f"{cfg['max_samples']}, cut for time), textured Ground, --intersector fused: {paths[0].name} "
           f"{img.shape[1]}x{img.shape[0]}, mean {img[..., :3].mean():.3f}/255, {n_rays} rays, {seconds:.3f} s, "
           f"K5 launches {launches[entry]} of {entry}, unresolved rays {tfu.UNRESOLVED_RAYS}", flush=True)
-    check(n_rays > 0 and yard_rays == n_rays, f"CLI: {n_rays} rays with the {default} step, {yard_rays} with the "
-                                              f"{other_step(default)} step")
-    check(np.array_equal(read_png(yard_paths[0]), img), "CLI: the two steps' PNGs differ")
-    print(f"  CLI through the {other_step(default)} step (the yardstick): {yard_rays} rays, {yard_seconds:.3f} s, "
-          "the same rays and PNG", flush=True)
     return launches
 
 
@@ -3632,17 +3461,16 @@ def main():
             if any(w in line for w in ("registers", "smem", "spill", "Compiling entry")):
                 print("  ptxas:", line.strip())
         print(f"built {path.name} in {seconds:.2f} s")
-    # the MXU entries (layout 1 f32, 2 bf16): the tensor-core forms hold HMMA,
-    # the CUDA-core forms (the exact yardsticks) none
+    # the MXU entries (layout 1 f32, 2 bf16) run on the tensor cores: each
+    # holds HMMA
     hmma = hmma_counts(builds[0][0])
     names = {0: "closest", 1: "any-hit", 2: "mixed"}
-    for (mode_i, layout_i, attrs_i, tensor_i), count in sorted(hmma.items()):
+    for (mode_i, layout_i, attrs_i), count in sorted(hmma.items()):
         if layout_i in (1, 2):
             what = f"{'f32' if layout_i == 1 else 'bf16'} {names[mode_i]}{'' if attrs_i else ' (no attributes)'}"
-            print(f"  SASS: fused2_kernel {what} {'tensor cores' if tensor_i else 'CUDA cores'}: {count} HMMA "
-                  "instructions")
-            check((count > 0) == bool(tensor_i), f"{what} tensor={tensor_i}: {count} HMMA")
-    for layout_i, want in ((1, 6), (2, 4)):
+            print(f"  SASS: fused2_kernel {what}: {count} HMMA instructions")
+            check(count > 0, f"{what}: no HMMA instruction")
+    for layout_i, want in ((1, 4), (2, 3)):
         check(sum(1 for key in hmma if key[1] == layout_i) == want,
               f"expected {want} instantiations of layout {layout_i} in the SASS, got {hmma}")
     component_resources()
@@ -4025,14 +3853,6 @@ def main():
             mxu_entry(layout, kind, "occluded", f"{kind} separate", f"{kind} any_hit", 0.0),
             mxu_entry(layout, kind, "sweep_mixed", f"{kind} deferred", f"{kind} mixed", err),
         ]
-    # the exact CUDA-core forms of MXU closest hit, timed in turns with the
-    # tensor-core forms on the same bounce wave; no main path launches them
-    for kind, name in (("fused2", "fused2_mxu_exact_closest_hit"),
-                       ("fused2-bf16", "fused2_mxu_bf16_exact_closest_hit")):
-        x = results[f"{kind} closest bounce"]
-        kernels.append(entry(name, mxu[kind].get(f"owlpt_{name}", 0),
-                             max(x["exact"]["err"], results[f"{kind} closest primary"]["exact"]["err"]),
-                             x["exact"]["ms"], x["plain_ms"], x["bound"]))
     # K4 is an entry point off the main paths: its launches on the dragon
     # main path of its layout (phase 6, component; phase 6c, fused2)
     r = results["K4 component"]
@@ -4043,20 +3863,14 @@ def main():
                 max(results["k4_err"], r["err"]), r["ms"], r["plain_ms"], r["bound"])
     row["bound_tf32_ms"], row["bound_tf32_by"] = r["bound_tf32"]
     kernels.append(row)
-    # its exact CUDA-core form, timed in turns with it; no path launches it
-    kernels.append(entry("fused2_mxu_exact_closest_hit_noattr",
-                         mxu["fused2"].get("owlpt_fused2_mxu_exact_closest_hit_noattr", 0), r["exact"]["err"],
-                         r["exact"]["ms"], r["plain_ms"], r["bound"]))
-    # K5 in both steps: the slots step and the serial step (the yardstick,
-    # timed in turns with it); launches are the scan main path's (phase 6d),
-    # the CLI's beside them (6e); the dragon8 wave's times and bound too
+    # K5: launches are the scan main path's (phase 6d), the CLI's beside them
+    # (6e); the dragon8 wave's time and bound too
     k5, k5_big = results["k5 centre chunk bounce"], results["k5 dragon8"]
-    for step, name in (("slots", "fused_traverse"), ("serial", "fused_traverse_serial_step")):
-        row = dict(entry(name, k5_launches[tfu.STEP_ENTRIES[step]], results["k5_err"], k5["ms_steps"][step],
-                         k5["plain_ms"], k5["bound"]), source=FUSED_SOURCE, replaces=FUSED_REPLACES)
-        row["cli_launches"] = cli_launches[tfu.STEP_ENTRIES[step]]
-        row["dragon8_ms"], row["dragon8_bound_ms"] = k5_big["ms_steps"][step], k5_big["bound"][0]
-        kernels.append(row)
+    row = dict(entry("fused_traverse", k5_launches[tfu.ENTRY], results["k5_err"], k5["ms"], k5["plain_ms"],
+                     k5["bound"]), source=FUSED_SOURCE, replaces=FUSED_REPLACES)
+    row["cli_launches"] = cli_launches[tfu.ENTRY]
+    row["dragon8_ms"], row["dragon8_bound_ms"] = k5_big["ms"], k5_big["bound"][0]
+    kernels.append(row)
     # K6 runs on no render path: its launches are the probe run's (phase 4f),
     # the tensor form's; the exact form is its yardstick, timed in turns
     k6 = results["k6"]

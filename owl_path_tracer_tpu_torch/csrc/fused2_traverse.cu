@@ -19,13 +19,15 @@
 // attrs [K,32,C] f32, boxes [8,K]; rays [N,8] (o, d, tmax, shadow flag) ->
 // out [N,32] (t u v tri hit resolved steps wcid wslot, 0..., attr rows 0-15).
 // One templated body serves every (mode, layout, attrs) combination, as the
-// Pallas kernel's static flags do, and on MXU planes the tensor-core or the
-// CUDA-core slot test; each has its own extern "C" entry point.  The
-// component entries (K1-K4) run a second body, slot-parallel (slot_kernel
-// below): the same block algorithm, with the slots of a cluster tested in
-// parallel; the one-thread-per-ray body stays on the component layout as
-// the yardstick entries owlpt_fused2_serial_closest_hit and
-// owlpt_fused2_serial_sweep_mixed (no render path launches them).
+// Pallas kernel's static flags do: on MXU planes it tests the slots on the
+// tensor cores, on component planes on CUDA cores; each combination has its
+// own extern "C" entry point.  The component entries (K1-K4) run a second
+// body, slot-parallel (slot_kernel below): the same block algorithm, with
+// the slots of a cluster tested in parallel; the one-thread-per-ray body
+// stays on the component layout as the entries
+// owlpt_fused2_serial_closest_hit and owlpt_fused2_serial_sweep_mixed (no
+// render path launches them), the reference of the slot-parallel body's
+// steps and resolved columns in the card tests.
 //
 // The block algorithm, one CUDA block per `block` rays (in the serial body
 // one thread per ray):
@@ -71,24 +73,16 @@
 //            whatever shares its block (up to the visiting order of a tie).
 //
 // Arithmetic.  Component slots follow ops/intersect.py mt_components
-// operation for operation (1/det then multiply, sums left to right).  MXU
-// slots on CUDA cores (the yardstick entries owlpt_fused2_mxu_exact_closest_hit,
-// owlpt_fused2_mxu_exact_closest_hit_noattr and
-// owlpt_fused2_mxu_bf16_exact_closest_hit) sum feature x plane products in
-// ascending plane-row order from each group's first non-zero row (group 0
-// rows 0-2, groups 1-2 rows 0-5, group 3 rows 6-9; the other rows are zero,
-// and adding their zero products changes no float32 sum), in float32, as
-// ops/fused2.py's plain version does; bf16 planes widen exactly to float32
-// and the ray features are rounded to bf16 (nearest even) first, as the
-// reference rounds its feature matrix, so every product is exact and only
-// the sums round.  Built with --fmad=false and IEEE division, so no product
-// is contracted into an FMA and these entries agree bit for bit with the
-// plain PyTorch version on every cluster both test.
+// operation for operation (1/det then multiply, sums left to right), built
+// with --fmad=false and IEEE division, so no product is contracted into an
+// FMA and the component entries agree bit for bit with the plain PyTorch
+// version on every cluster both test.
 //
-// The MXU entries of the main path (closest hit, any-hit, mixed, on bf16 and
-// on f32 planes) and K4 on f32 planes take the feature products on the
-// tensor cores instead (TensorOps and the staging in tensor_ops.cuh, shared
-// with the latency probe; tensor_test below):
+// The MXU entries (closest hit, any-hit, mixed, on bf16 and on f32 planes,
+// and K4 on f32 planes) take the feature products on the tensor cores
+// (TensorOps and the staging in tensor_ops.cuh, shared with the latency
+// probe; tensor_test below); bf16 planes round the ray features to bf16
+// (nearest even) first, as the reference rounds its feature matrix:
 //   * each warp owns two 16-ray m-tiles; each ray's features sit in mma A
 //     fragments for the whole launch;
 //   * a ring of two cluster buffers in shared memory holds the staged
@@ -149,23 +143,20 @@
 // over-retirement, which the reference's pick rule sets.
 // MXU: 2 x 16 x 4 = 128 product
 // FLOP per ray and slot as the reference's matmul counts them, plus the
-// 28-operation window and winner chain.  On CUDA cores (the exact
-// yardsticks) both are fp32 work (67 TFLOP/s), the products the larger share
-// (19 non-zero multiply-add pairs, separate under --fmad=false).  On the
-// tensor cores the products run at the bf16 (989 TFLOP/s) or TF32 (495
-// TFLOP/s, three products per f32 product) rate and the window on CUDA
-// cores paces the loop: about 48 fp32 instruction slots per warp and n-tile
-// against 4 bf16 or 12 TF32 mma.sync (f32 adds 12 splits of the B values),
-// so wgmma's higher product rate would buy nothing yet.  A ray tests every cluster its block retires while it is
-// still searching, which is at least the clusters its own exact query needs
+// 28-operation window and winner chain.  The products run at the bf16 (989
+// TFLOP/s) or TF32 (495 TFLOP/s, three products per f32 product) rate and
+// the window on CUDA cores paces the loop: about 48 fp32 instruction slots
+// per warp and n-tile against 4 bf16 or 12 TF32 mma.sync (f32 adds 12
+// splits of the B values), so wgmma's higher product rate would buy nothing
+// yet.  A ray tests every cluster its block retires while it is still
+// searching, which is at least the clusters its own exact query needs
 // (chip_smoke.py's bound counts those); any-hit and shadow lanes stop at
 // their first hit (on the tensor path, at the end of the n-tile that found
 // it).  For coherent blocks the per-iteration block reductions (pick over
 // K, max of the bound) come next.  Plane bytes per retired cluster
-// (component 10 x C floats, 20 KB at C=512; MXU 19 x C values, 38 KB f32 /
-// 19 KB bf16, or on the bf16 tensor path 10 x 4C bf16, 40 KB) are read once per
-// block, not once per ray, and stay L2-resident for the scene sizes of the
-// main path.
+// (component 10 x C floats, 20 KB at C=512; MXU f32 19 x C floats, 38 KB;
+// bf16 10 x 4C bf16, 40 KB) are read once per block, not once per ray, and
+// stay L2-resident for the scene sizes of the main path.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -383,7 +374,7 @@ __device__ __forceinline__ void tensor_test(const TensorOps<kLayout>& ops, const
           if (t < lt[mt][h]) {
             lt[mt][h] = t;
             ls[mt][h] = 8 * j + 2 * q + (e & 1);
-            if (kLoopUV) {  // the CUDA-core loop's u / dd, v / dd
+            if (kLoopUV) {  // the winner's u = u*det / det, v = v*det / det
               lu[mt][h] = u / dd;
               lv[mt][h] = v / dd;
             }
@@ -507,12 +498,6 @@ struct PhaseClock {
   }
 };
 
-// Staged rows per cluster on CUDA cores.
-template <int kLayout>
-__host__ __device__ constexpr int staged_rows() {
-  return kLayout == kComponent ? kMtRows : kMxuRows;
-}
-
 // The block's frontier row bent [k] f32 lies in dynamic shared memory (the
 // shared form) wherever the block's bytes fit under the device's opt-in
 // limit, else in device memory (the global form): row blk of a scratch
@@ -525,35 +510,36 @@ __host__ __device__ constexpr int staged_rows() {
 // reads it in fused2_kernel; slot_kernel's CTAs share it, see there).
 //
 // Dynamic shared memory of one block, in fused2_kernel's carve-up order.
-// CUDA cores: bent [k] (padded to 4; none in the global form), the staged
-// cluster [rows, c] f32, the ray rows [8, b], reductions [64].  Tensor
-// cores: a ring of two clusters (tensor_buffer_bytes each: bf16
-// [10][tensor_row_bytes(c)] bytes, f32 [19][f32_row_words(c)] floats), a
-// 16-byte zero row, then bent, rays and reductions as above.
-template <int kLayout, bool kTensor>
+// Component layout (CUDA cores): bent [k] (padded to 4; none in the global
+// form), the staged cluster [10, c] f32, the ray rows [8, b], reductions
+// [64].  MXU layouts (tensor cores): a ring of two clusters
+// (tensor_buffer_bytes each: bf16 [10][tensor_row_bytes(c)] bytes, f32
+// [19][f32_row_words(c)] floats), a 16-byte zero row, then bent, rays and
+// reductions as above.
+template <int kLayout>
 size_t shared_bytes(int k, int c, int b, bool global_row) {
   const size_t row = global_row ? 0 : static_cast<size_t>((k + 3) & ~3);
   const size_t tail = (row + 8 * static_cast<size_t>(b) + 64) * sizeof(float);
-  if (kTensor) return 2 * static_cast<size_t>(tensor_buffer_bytes<kLayout>(c)) + 16 + tail;
-  return static_cast<size_t>(staged_rows<kLayout>()) * c * sizeof(float) + tail;
+  if (kLayout != kComponent) return 2 * static_cast<size_t>(tensor_buffer_bytes<kLayout>(c)) + 16 + tail;
+  return static_cast<size_t>(kMtRows) * c * sizeof(float) + tail;
 }
 
-template <int kMode, int kLayout, bool kAttrs, bool kTensor, bool kProfile, bool kGlobalRow>
+template <int kMode, int kLayout, bool kAttrs, bool kProfile, bool kGlobalRow>
 __global__ void fused2_kernel(
     const float* __restrict__ rays, const float* __restrict__ boxes,
     const void* __restrict__ planes, const float* __restrict__ attrs,
     float* __restrict__ out, float* __restrict__ rows, int k, int c, int max_steps, int refresh, int fanout,
     long long* __restrict__ profile) {
-  constexpr bool kMxu = kLayout != kComponent;
-  static_assert(!kTensor || (kMxu && (kMode != kAnyHit || !kAttrs)),
-                "the tensor-core test serves the MXU entries (any-hit reads no attributes)");
+  // the MXU layouts test their slots on the tensor cores, the component
+  // layout on CUDA cores
+  constexpr bool kTensor = kLayout != kComponent;
+  static_assert(kMode != kAnyHit || !kAttrs, "any-hit reads no attributes");
   // closest hit without attributes: the loop's t/u/v and the in-plane tri id
   constexpr bool kLoopUV = kMode == kClosest && !kAttrs;
   static_assert(!kProfile || kLayout == kComponent, "the profile serves the component layout");
   PhaseClock<kProfile> clock;
   // the tensor-core operands of this layout (unused on CUDA cores)
   constexpr int kOpsLayout = kLayout == kMxuF32 ? kMxuF32 : kMxuBf16;
-  constexpr int kRows = staged_rows<kLayout>();
   extern __shared__ __align__(16) float smem[];
   const int b = blockDim.x;
   const int tid = threadIdx.x;
@@ -568,8 +554,8 @@ __global__ void fused2_kernel(
   // template flag, so each instantiation reads the row in one known
   // address space)
   float* bent = kGlobalRow ? rows + static_cast<long long>(blockIdx.x) * k : tail;
-  float* s_plane = tail + (kGlobalRow ? 0 : ((k + 3) & ~3));  // [kRows, c], 16-byte aligned (CUDA cores)
-  float* s_ray = s_plane + (kTensor ? 0 : kRows * c);  // [8, b]: o, 1/d, tmax, cap
+  float* s_plane = tail + (kGlobalRow ? 0 : ((k + 3) & ~3));  // [10, c], 16-byte aligned (CUDA cores)
+  float* s_ray = s_plane + (kTensor ? 0 : kMtRows * c);  // [8, b]: o, 1/d, tmax, cap
   float* red_f = s_ray + 8 * b;         // [32]
   int* red_i = reinterpret_cast<int*>(red_f + 32);  // [32]
   if (kTensor && tid < 4) reinterpret_cast<unsigned*>(zero_row)[tid] = 0u;
@@ -582,17 +568,19 @@ __global__ void fused2_kernel(
   const bool shadow = kMode == kMixed && r[7] > 0.0f;
   const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
 
-  // MXU ray features d, m = o x d, o, 1 (reference op order), bf16-rounded
-  // for bf16 planes
-  float f[10];
-  ray_features(ox, oy, oz, dx, dy, dz, f);
-  if (kLayout == kMxuBf16) {
-#pragma unroll
-    for (int q = 0; q < 10; ++q) f[q] = round_bf16(f[q]);
-  }
-  // tensor path: this lane's A fragments and B addressing (TensorOps)
+  // tensor path: this lane's A fragments and B addressing (TensorOps), from
+  // the MXU ray features d, m = o x d, o, 1 (reference op order),
+  // bf16-rounded for bf16 planes
   TensorOps<kOpsLayout> ops;
-  if constexpr (kTensor) ops.init(f, c);
+  if constexpr (kTensor) {
+    float f[10];
+    ray_features(ox, oy, oz, dx, dy, dz, f);
+    if (kLayout == kMxuBf16) {
+#pragma unroll
+      for (int q = 0; q < 10; ++q) f[q] = round_bf16(f[q]);
+    }
+    ops.init(f, c);
+  }
 
   // ── scene gate: the AABB of all real boxes (pads sit at >= 1e30) ──
   float lo[3], hi[3];
@@ -719,24 +707,13 @@ __global__ void fused2_kernel(
         }
         // stage this cluster's plane rows in smem
         clock.mark(kPhPick);
-        if (!kMxu) {
-          const float* src = static_cast<const float*>(planes) + static_cast<long long>(cur) * kPlaneRows * c;
-          if ((c & 3) == 0) {
-            const float4* src4 = reinterpret_cast<const float4*>(src);
-            float4* dst4 = reinterpret_cast<float4*>(s_plane);
-            for (int q = tid; q < kMtRows * c / 4; q += b) dst4[q] = src4[q];
-          } else {
-            for (int q = tid; q < kMtRows * c; q += b) s_plane[q] = src[q];
-          }
+        const float* src = static_cast<const float*>(planes) + static_cast<long long>(cur) * kPlaneRows * c;
+        if ((c & 3) == 0) {
+          const float4* src4 = reinterpret_cast<const float4*>(src);
+          float4* dst4 = reinterpret_cast<float4*>(s_plane);
+          for (int q = tid; q < kMtRows * c / 4; q += b) dst4[q] = src4[q];
         } else {
-          const long long base = static_cast<long long>(cur) * kPlaneRows * 4 * c;
-          for (int q = tid; q < kRows * c; q += b) {
-            const int srow = q / c, slot = q - srow * c;
-            int row, group;
-            mxu_source(srow, row, group);
-            s_plane[q] = plane_value<kLayout>(planes, base + static_cast<long long>(row) * 4 * c +
-                                                          group * c + slot);
-          }
+          for (int q = tid; q < kMtRows * c; q += b) s_plane[q] = src[q];
         }
         __syncthreads();
         clock.mark(kPhStage);
@@ -745,47 +722,13 @@ __global__ void fused2_kernel(
           float tc = kInf, tu = 0.0f, tv = 0.0f;
           int wcol = 0;
           for (int s = 0; s < c; ++s) {
-            bool ok;
-            float t = kInf, u = 0.0f, v = 0.0f;
-            if (!kMxu) {
-              float det;
-              ok = mt_components(
-                  ox, oy, oz, dx, dy, dz,
-                  s_plane[s], s_plane[c + s], s_plane[2 * c + s],
-                  s_plane[3 * c + s], s_plane[4 * c + s], s_plane[5 * c + s],
-                  s_plane[6 * c + s], s_plane[7 * c + s], s_plane[8 * c + s],
-                  kTMin, best_t, t, u, v, det) && s_plane[9 * c + s] >= 0.0f;
-            } else {
-              const float* sp = s_plane + s;
-              float det = f[0] * sp[0];
-              det = det + f[1] * sp[c];
-              det = det + f[2] * sp[2 * c];
-              float ua = f[0] * sp[3 * c], vb = f[0] * sp[9 * c];
-#pragma unroll
-              for (int q = 1; q < 6; ++q) {
-                ua = ua + f[q] * sp[(3 + q) * c];
-                vb = vb + f[q] * sp[(9 + q) * c];
-              }
-              float tcd = f[6] * sp[15 * c];
-              tcd = tcd + f[7] * sp[16 * c];
-              tcd = tcd + f[8] * sp[17 * c];
-              tcd = tcd + f[9] * sp[18 * c];
-              // fused2.py:616-632: |det| window, no tid term (pads are zero)
-              const float sgn = det < 0.0f ? -1.0f : 1.0f;
-              const float dd = det * sgn;
-              ua = ua * sgn;
-              vb = vb * sgn;
-              tcd = tcd * sgn;
-              ok = dd >= kEpsDet && ua >= 0.0f && vb >= 0.0f && ua + vb <= dd &&
-                   tcd > dd * kTMin && tcd < dd * best_t;
-              if (ok) {
-                t = tcd / dd;
-                if (!kAttrs) {  // the no-attrs mode reports the winner's u, v
-                  u = ua / dd;
-                  v = vb / dd;
-                }
-              }
-            }
+            float t, u, v, det;
+            const bool ok = mt_components(
+                ox, oy, oz, dx, dy, dz,
+                s_plane[s], s_plane[c + s], s_plane[2 * c + s],
+                s_plane[3 * c + s], s_plane[4 * c + s], s_plane[5 * c + s],
+                s_plane[6 * c + s], s_plane[7 * c + s], s_plane[8 * c + s],
+                kTMin, best_t, t, u, v, det) && s_plane[9 * c + s] >= 0.0f;
             if (kMode == kAnyHit) {
               if (ok) { hit = true; break; }
             } else if (ok && t < tc) {
@@ -795,7 +738,7 @@ __global__ void fused2_kernel(
           if (kMode != kAnyHit && tc < best_t) {
             best_t = tc; best_u = tu; best_v = tv;
             hit = true; wcid = cur; wslot = wcol;
-            if (!kAttrs && !kMxu) best_tri = s_plane[9 * c + wcol];
+            if (!kAttrs) best_tri = s_plane[9 * c + wcol];
           }
         }
         __syncthreads();  // s_plane is restaged next
@@ -837,8 +780,8 @@ __global__ void fused2_kernel(
   } else {
     // no-attrs mode: the in-plane tri id (MXU planes: row 10 of group 0)
     if (kMode == kClosest && hit)
-      tri = kMxu ? plane_value<kLayout>(planes, (static_cast<long long>(wcid) * kPlaneRows + 10) * 4 * c + wslot)
-                 : best_tri;
+      tri = kTensor ? plane_value<kLayout>(planes, (static_cast<long long>(wcid) * kPlaneRows + 10) * 4 * c + wslot)
+                    : best_tri;
 #pragma unroll
     for (int row = 0; row < 16; ++row) o[16 + row] = 0.0f;
   }
@@ -1030,7 +973,7 @@ __global__ void order_blocks(const int* __restrict__ entered, int* __restrict__ 
 // The component entries' body, slot-parallel (K1 closest + attributes, K2
 // any-hit, K3 mixed, K4 closest without attributes).  The block's picks,
 // frontier, prune bound, refresh, overflow rule and payload are the serial
-// body's (fused2_kernel on the component layout, kept as the yardstick
+// body's (fused2_kernel on the component layout, kept as the reference
 // entries owlpt_fused2_serial_*), run by kSlotThreads threads over the b
 // rays' rows in shared memory.  A block of rays is a thread block cluster of
 // slot_ctas(c, mode) CTAs: each holds all of the block's ray state and runs
@@ -1411,7 +1354,7 @@ __global__ void tf32_sums_kernel(const float* __restrict__ rays, const float* __
 
 // The serial body (fused2_kernel) on `stream`; `rows` (null: the shared
 // form) is the global form's scratch [n / block, k] f32.
-template <int kMode, int kLayout, bool kAttrs, bool kTensor, bool kProfile = false>
+template <int kMode, int kLayout, bool kAttrs, bool kProfile = false>
 int launch(const float* rays, const float* boxes, const void* planes, const float* attrs,
            float* out, float* rows, long long n, int k, int c, int block, int max_steps, int refresh,
            int fanout, void* stream, long long* profile = nullptr) {
@@ -1420,9 +1363,9 @@ int launch(const float* rays, const float* boxes, const void* planes, const floa
       c <= 0 || refresh <= 0 || n / block > 0x7fffffffLL || fanout < 1 || fanout > kMaxFanout ||
       (!kMxu && fanout != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = shared_bytes<kLayout, kTensor>(k, c, block, rows != nullptr);
-  const auto kernel = rows ? fused2_kernel<kMode, kLayout, kAttrs, kTensor, kProfile, true>
-                           : fused2_kernel<kMode, kLayout, kAttrs, kTensor, kProfile, false>;
+  const size_t smem = shared_bytes<kLayout>(k, c, block, rows != nullptr);
+  const auto kernel = rows ? fused2_kernel<kMode, kLayout, kAttrs, kProfile, true>
+                           : fused2_kernel<kMode, kLayout, kAttrs, kProfile, false>;
   // every launch sets its own bytes: a resource query or a launch at
   // another K may have left the attribute below them
   const cudaError_t e = cudaFuncSetAttribute(
@@ -1501,11 +1444,11 @@ int kernel_resources(Kernel kernel, int threads, size_t smem, int* out) {
   return static_cast<int>(e);
 }
 
-template <int kMode, int kLayout, bool kAttrs, bool kTensor>
+template <int kMode, int kLayout, bool kAttrs>
 int resources(int k, int c, int block, int global_row, int* out) {
-  return kernel_resources(global_row ? fused2_kernel<kMode, kLayout, kAttrs, kTensor, false, true>
-                                    : fused2_kernel<kMode, kLayout, kAttrs, kTensor, false, false>,
-                          block, shared_bytes<kLayout, kTensor>(k, c, block, global_row != 0), out);
+  return kernel_resources(global_row ? fused2_kernel<kMode, kLayout, kAttrs, false, true>
+                                    : fused2_kernel<kMode, kLayout, kAttrs, false, false>,
+                          block, shared_bytes<kLayout>(k, c, block, global_row != 0), out);
 }
 
 template <int kMode, bool kAttrs>
@@ -1521,9 +1464,9 @@ template <int kMode, bool kAttrs>
 int launch_profile(bool serial, const float* rays, const float* boxes, const void* planes, const float* attrs,
                    float* out, int* order, float* bent0, int* entered, long long n, int k, int c, int block,
                    int max_steps, int refresh, int global_row, long long* profile, void* stream) {
-  return serial ? launch<kMode, kComponent, kAttrs, false, true>(rays, boxes, planes, attrs, out,
-                                                                 global_row ? bent0 : nullptr, n, k, c, block,
-                                                                 max_steps, refresh, 1, stream, profile)
+  return serial ? launch<kMode, kComponent, kAttrs, true>(rays, boxes, planes, attrs, out,
+                                                          global_row ? bent0 : nullptr, n, k, c, block,
+                                                          max_steps, refresh, 1, stream, profile)
                 : launch_slot<kMode, kAttrs, true>(rays, boxes, planes, attrs, out, order, bent0, entered, n, k, c,
                                                    block, max_steps, refresh, 1, global_row, stream, profile);
 }
@@ -1567,7 +1510,7 @@ extern "C" void owlpt_fused2_slot_shape(int c, int mode, int* out) {
 // Diagnostic (no render path): a component entry with clock64 phase times
 // per block of rays -> profile [N / block, kProfileCols] (int64;
 // PhaseClock).  mode 0 closest, 1 any-hit, 2 mixed; with_attrs 0 only with
-// closest (K4); serial 1 runs the serial body (the yardstick; order and
+// closest (K4); serial 1 runs the serial body (the reference; order and
 // entered unused, bent0 its rows scratch in the global form), 0 the
 // slot-parallel one (its scratch as for launch_slot; the profile's setup
 // phase then counts the copy of the first frontier, not frontier_kernel);
@@ -1598,18 +1541,18 @@ extern "C" int owlpt_fused2_profile(const float* rays, const float* boxes, const
 // entry's _resources(k, c, block, global_row, out) reports the form asked
 // for, and _shared_bytes(k, c, block, global_row) the dynamic shared memory
 // one block (one CTA) of that form needs: the wrapper picks the form by it.
-#define OWLPT_FUSED2_ENTRY(name, mode, layout, with_attrs, tensor)                                \
+#define OWLPT_FUSED2_ENTRY(name, mode, layout, with_attrs)                                        \
   extern "C" int name(const float* rays, const float* boxes, const void* planes,                  \
                       const float* attrs, float* out, float* rows, long long n, int k, int c,      \
                       int block, int max_steps, int refresh, int fanout, void* stream) {           \
-    return launch<mode, layout, with_attrs, tensor>(rays, boxes, planes, attrs, out, rows, n, k, c, \
-                                                    block, max_steps, refresh, fanout, stream);     \
+    return launch<mode, layout, with_attrs>(rays, boxes, planes, attrs, out, rows, n, k, c, block, \
+                                            max_steps, refresh, fanout, stream);                   \
   }                                                                                                \
   extern "C" int name##_resources(int k, int c, int block, int global_row, int* out) {             \
-    return resources<mode, layout, with_attrs, tensor>(k, c, block, global_row, out);              \
+    return resources<mode, layout, with_attrs>(k, c, block, global_row, out);                      \
   }                                                                                                \
   extern "C" long long name##_shared_bytes(int k, int c, int block, int global_row) {              \
-    return static_cast<long long>(shared_bytes<layout, tensor>(k, c, block, global_row != 0));     \
+    return static_cast<long long>(shared_bytes<layout>(k, c, block, global_row != 0));             \
   }
 
 #define OWLPT_FUSED2_SLOT_ENTRY(name, mode, with_attrs)                                             \
@@ -1634,24 +1577,17 @@ OWLPT_FUSED2_SLOT_ENTRY(owlpt_fused2_occluded, kAnyHit, false)
 OWLPT_FUSED2_SLOT_ENTRY(owlpt_fused2_sweep_mixed, kMixed, true)
 OWLPT_FUSED2_SLOT_ENTRY(owlpt_fused2_closest_hit_noattr, kClosest, false)
 // component layout, the serial body (one thread per ray, the slots of each
-// cluster in turn): K1's and K3's in-call speed yardsticks and bit-exact
-// witnesses; no render path calls them
-OWLPT_FUSED2_ENTRY(owlpt_fused2_serial_closest_hit, kClosest, kComponent, true, false)
-OWLPT_FUSED2_ENTRY(owlpt_fused2_serial_sweep_mixed, kMixed, kComponent, true, false)
+// cluster in turn): the bit-exact witnesses of K1's and K3's slot-parallel
+// body; no render path calls them
+OWLPT_FUSED2_ENTRY(owlpt_fused2_serial_closest_hit, kClosest, kComponent, true)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_serial_sweep_mixed, kMixed, kComponent, true)
 // MXU layout, f32 planes: K1b in its three modes and K4 (closest hit without
-// attributes) on the tensor cores (3xTF32), and closest hit with and
-// without attributes on CUDA cores in the plain version's arithmetic (the
-// in-call speed yardsticks and bit-exact witnesses of the tensor forms)
-OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_closest_hit, kClosest, kMxuF32, true, true)
-OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_occluded, kAnyHit, kMxuF32, false, true)
-OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_sweep_mixed, kMixed, kMxuF32, true, true)
-OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_closest_hit_noattr, kClosest, kMxuF32, false, true)
-OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_exact_closest_hit, kClosest, kMxuF32, true, false)
-OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_exact_closest_hit_noattr, kClosest, kMxuF32, false, false)
-// MXU layout, bf16 planes: K1b in its three modes on the tensor cores, and
-// closest hit on CUDA cores in the plain version's arithmetic (the in-call
-// speed yardstick and bit-exact witness of the tensor form)
-OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_bf16_closest_hit, kClosest, kMxuBf16, true, true)
-OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_bf16_occluded, kAnyHit, kMxuBf16, false, true)
-OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_bf16_sweep_mixed, kMixed, kMxuBf16, true, true)
-OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_bf16_exact_closest_hit, kClosest, kMxuBf16, true, false)
+// attributes) on the tensor cores (3xTF32)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_closest_hit, kClosest, kMxuF32, true)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_occluded, kAnyHit, kMxuF32, false)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_sweep_mixed, kMixed, kMxuF32, true)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_closest_hit_noattr, kClosest, kMxuF32, false)
+// MXU layout, bf16 planes: K1b in its three modes on the tensor cores
+OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_bf16_closest_hit, kClosest, kMxuBf16, true)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_bf16_occluded, kAnyHit, kMxuBf16, false)
+OWLPT_FUSED2_ENTRY(owlpt_fused2_mxu_bf16_sweep_mixed, kMixed, kMxuBf16, true)

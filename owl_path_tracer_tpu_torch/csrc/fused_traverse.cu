@@ -40,27 +40,23 @@
 // comparison and pick is the reference's.  So K has no limit of its own,
 // as in the reference.
 //
-// The scans (Scan below; the default, ops/fused.py SCAN, is kWarpGroups).
-// Measured on the dragon7 / dragon8 centre bounce waves (PERF.md, K5)
-// with every ray scanning all K boxes itself (kSerial), a thread
+// The list scans.  Measured on the dragon7 / dragon8 centre bounce waves
+// (PERF.md, K5) with every ray scanning all K boxes itself, a thread
 // slab-tested 2,804 / 11,359 boxes on average, and the set-up scan was half
 // the time of the average block; rescans are rare (0.04-0.06 per ray) but
 // each stalled its warp for a K-box scan and the block at the next barrier.
 // Group boxes (G = 32 clusters each) let a scan skip every member of a group
 // that the ray enters no nearer than its list's last entry, exactly (a
 // member never enters before its group): 162 / 438 boxes per ray.  A rescan
-// is shared by the warp, each lane taking every 32nd group, and kCand rounds
-// of a warp argmin merge the lanes' lists.  Both kinds build the same lists,
-// so every output column is the same for both; kSerial stays as the
-// yardstick that the default is timed against.
+// is shared by the warp (warp_member_scan).  The lists are those of a scan
+// of every box (ops/fused.py nearest_lists is the plain version of both).
 //
-// The step (Step below; the default, ops/fused.py STEP, is kSlotStep).
-// What bounds it on this card: the serial step (kSerialStep: fused_kernel,
-// entry owlpt_fused_traverse_serial_step, kept unchanged as the yardstick)
-// is paced by its slowest block, which retires 80 / 142 clusters on the
-// dragon7 / dragon8 centre bounce waves against a mean of 21 / 36 and runs
-// nearly alone at the end of a wave of 512 blocks (fewer than the card
-// holds at once).  Per step that block waits on three things, all latency,
+// The step.  What bounded the step this kernel replaced (one thread per
+// ray, testing its slots in turn) on this card: it was paced by its slowest
+// block, which retires 80 / 142 clusters on the dragon7 / dragon8 centre
+// bounce waves against a mean of 21 / 36 and runs nearly alone at the end of
+// a wave of 512 blocks (fewer than the card holds at once).  Per step that
+// block waited on three things, all latency,
 // none throughput (a ray tests 2.4-2.5 clusters on those waves, about the
 // clusters its exact query needs, and the card's issue rate is far from
 // used): one thread per ray tests its C slots one after another, each a
@@ -86,21 +82,19 @@
 //     (lane, lane + 32, ...), four at a time in three passes (det, 1/det,
 //     the rest), so that the chains overlap; every slot uses the window
 //     fixed at the step's start, and a shuffle argmin on (t, slot) picks the
-//     lowest slot of the lowest t, the serial loop's strict-< winner; the
+//     lowest slot of the lowest t, a slot loop's strict-< winner; the
 //     winning lane leaves (t, u, v, tri) for the ray's own thread, which
 //     applies it after one barrier;
 //   * a rescan is the warp's, one ray at a time (warp_member_scan): the
 //     lanes slab-test 32 group boxes at once and the members of an entered
 //     group at once, so a rescan costs a few rounds of loads instead of one
-//     lane's members in a row.  The set-up scan stays one thread per ray,
-//     as in fused_kernel: run by warp_member_scan it lost on the coherent
-//     primary waves (whose lanes enter the same groups and test their
-//     members together anyway) and gained nothing measurable on the bounce
-//     waves, whether for every warp or only for warps whose rays enter
-//     groups of their own.
+//     lane's members in a row.  The set-up scan stays one thread per ray:
+//     run by warp_member_scan it lost on the coherent primary waves (whose
+//     lanes enter the same groups and test their members together anyway)
+//     and gained nothing measurable on the bounce waves, whether for every
+//     warp or only for warps whose rays enter groups of their own.
 // So a step costs the block work in proportion to the rays that enter the
-// cluster, not to the warps that hold one.  Both steps give the same output
-// columns bit for bit; the profile entry splits both the same way.
+// cluster, not to the warps that hold one.
 
 // Arithmetic.  Moller-Trumbore follows ops/intersect.py mt_components
 // operation for operation (1/det then multiply, sums left to right); built
@@ -116,8 +110,8 @@
 // before its best hit (the reference's pick rule: 14x the needed clusters
 // per block on dragon8).  Plane rows (10 x C floats) are read once per
 // block and retired cluster, by the copy engine in the slot-parallel step.
-// Shared memory (shared_bytes, step_shared_bytes below) is a few KB per
-// block, so registers set the blocks per SM.
+// Shared memory (step_shared_bytes below) is a few KB per block, so
+// registers set the blocks per SM.
 
 #include <cuda_runtime.h>
 #include <cmath>
@@ -214,21 +208,14 @@ struct Nearest {
   bool full;  // the scan found kCand finite entries: there may be more
 };
 
-// How a list is (re)built.  Both kinds build the same list, the kCand
-// smallest (entry, id) pairs over the un-retired clusters (a scan in
-// ascending j keeps an equal entry's lower id first):
-//   kSerial      each thread scans all K boxes for its own ray, set-up scan
-//                and rescans alike;
-//   kWarpGroups  each thread's set-up scan tests the group boxes (the exact
-//                bounds of G consecutive clusters) and only the members of a
-//                group whose entry is below its list's last entry: a
-//                member's slab entry is never below its group's (the slab
-//                ops and their roundings are monotone in the bounds), so the
-//                skip is exact.  A rescan is done by the whole warp, one
-//                needing ray at a time: lane l takes groups l, l + 32, ...,
-//                skipping as above, keeps its own kCand smallest, and kCand
-//                rounds of a warp (entry, id) argmin merge them.
-enum Scan { kSerial = 0, kWarpGroups = 1 };
+// How a list is (re)built: the kCand smallest (entry, id) pairs over the
+// un-retired clusters (a scan in ascending j keeps an equal entry's lower
+// id first).  Each thread's set-up scan tests the group boxes (the exact
+// bounds of G consecutive clusters) and only the members of a group whose
+// entry is below its list's last entry: a member's slab entry is never
+// below its group's (the slab ops and their roundings are monotone in the
+// bounds), so the skip is exact.  A rescan is done by the whole warp
+// (warp_member_scan).
 
 // Retired bit of cluster j.
 __device__ __forceinline__ bool retired(const unsigned* s_dead, int j) {
@@ -270,15 +257,15 @@ __device__ __forceinline__ int scan_range(const Ray& r, const float* __restrict_
   return tests;
 }
 
-// Scan groups gi = g0, g0 + gstep, ... (G = gsize clusters each) into nb,
-// each group's members only where the group's entry is below nb's last
-// entry; returns the boxes tested (groups and members).
+// Scan the groups (G = gsize clusters each) into nb, each group's members
+// only where the group's entry is below nb's last entry; returns the boxes
+// tested (groups and members).
 __device__ __forceinline__ int scan_groups(const Ray& r, const float* __restrict__ boxes,
                                            const float* __restrict__ groups, const unsigned* s_dead, int k,
-                                           int gsize, int g0, int gstep, Nearest& nb) {
+                                           int gsize, Nearest& nb) {
   const int kg = (k + gsize - 1) / gsize;
   int tests = 0;
-  for (int gi = g0; gi < kg; gi += gstep) {
+  for (int gi = 0; gi < kg; ++gi) {
     ++tests;
     if (!(entry(r, groups, kg, gi) < nb.e[kCand - 1])) continue;  // no member enters before it
     tests += scan_range(r, boxes, s_dead, k, gi * gsize, min(k, (gi + 1) * gsize), nb);
@@ -293,70 +280,13 @@ __device__ __forceinline__ void finish(Nearest& nb) {
   nb.full = nb.left == kCand;
 }
 
-// One thread's scan of its own ray -> nb; returns the boxes tested.
-template <bool kG>
+// One thread's set-up scan of its own ray -> nb; returns the boxes tested.
 __device__ int scan(const Ray& r, const float* __restrict__ boxes, const float* __restrict__ groups,
                     const unsigned* s_dead, int k, int gsize, Nearest& nb) {
   clear(nb, k);
-  const int tests = kG ? scan_groups(r, boxes, groups, s_dead, k, gsize, 0, 1, nb)
-                       : scan_range(r, boxes, s_dead, k, 0, k, nb);
+  const int tests = scan_groups(r, boxes, groups, s_dead, k, gsize, nb);
   finish(nb);
   return tests;
-}
-
-// (value, id) minimum over the warp; equal values keep the lower id.
-__device__ __forceinline__ void warp_argmin(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-    if (ov < v || (ov == v && oi < i)) { v = ov; i = oi; }
-  }
-}
-
-// The warp rebuilds the list of every lane with `need`, one lane at a time
-// (every lane of the warp calls this), with the group skips; adds the boxes
-// tested to that lane's `tests`.
-__device__ void warp_rescan(const Ray& r, bool need, const float* __restrict__ boxes,
-                            const float* __restrict__ groups, const unsigned* s_dead, int k, int gsize, Nearest& nb,
-                            int& tests) {
-  const int lane = threadIdx.x & 31;
-  unsigned pending = __ballot_sync(0xffffffffu, need);
-  while (pending) {  // uniform over the warp
-    const int src = __ffs(pending) - 1;
-    pending &= pending - 1;
-    Ray q;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      q.o[a] = __shfl_sync(0xffffffffu, r.o[a], src);
-      q.inv[a] = __shfl_sync(0xffffffffu, r.inv[a], src);
-      q.oi[a] = __shfl_sync(0xffffffffu, r.oi[a], src);
-    }
-    q.tmax = __shfl_sync(0xffffffffu, r.tmax, src);
-    Nearest loc;
-    clear(loc, k);
-    const int mine = scan_groups(q, boxes, groups, s_dead, k, gsize, lane, 32, loc);
-    const int all = static_cast<int>(__reduce_add_sync(0xffffffffu, static_cast<unsigned>(mine)));
-    // kCand rounds: the warp's smallest (entry, id) head; its lane pops it
-    // (ids are distinct over the lanes; empty heads are (inf, k) everywhere)
-#pragma unroll
-    for (int w = 0; w < kCand; ++w) {
-      float v = loc.e[0];
-      int id = loc.id[0];
-      warp_argmin(v, id);
-      if (v < kInf && loc.id[0] == id) {
-#pragma unroll
-        for (int i = 0; i + 1 < kCand; ++i) { loc.e[i] = loc.e[i + 1]; loc.id[i] = loc.id[i + 1]; }
-        loc.e[kCand - 1] = kInf;
-        loc.id[kCand - 1] = k;
-      }
-      if (lane == src) { nb.e[w] = v; nb.id[w] = v < kInf ? id : k; }
-    }
-    if (lane == src) {
-      finish(nb);
-      tests += all;
-    }
-  }
 }
 
 // The nearest cluster was retired: drop it and any retired ones after it;
@@ -373,166 +303,16 @@ __device__ __forceinline__ bool pop(const unsigned* s_dead, int k, Nearest& nb) 
   return nb.left == 0 && nb.full;
 }
 
-// Block-wide integer minimum; every thread gets it.  red holds one slot per
-// warp; the trailing barrier lets the caller reuse it at once.
-__device__ int block_min(int v, int* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  v = __reduce_min_sync(0xffffffffu, v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  int r = red[0];
-  for (int w = 1; w < nw; ++w) r = min(r, red[w]);
-  __syncthreads();
-  return r;
-}
-
-// Dynamic shared memory of one block, in fused_kernel's carve-up order: one
-// cluster's ten plane rows [10,C], 32 reduction slots, a retired bit per
-// cluster (32-bit words).
-size_t shared_bytes(int k, int c) {
-  return 4 * (static_cast<size_t>(kMtRows) * c + 32 + (static_cast<size_t>(k) + 31) / 32);
-}
-
 // Profile columns per block (kProfile), row = the block of rays: cycles of
 // the set-up scan, of pick and staging, of the slot tests with the retirement, and of the list
 // updates with their rescans (each phase up to the barrier after it, so a
 // phase's time is its slowest thread's), the block's total cycles, its
 // retirement steps, its launch rank (blockIdx.x of the CTA that ran it) and
-// its weight (the slot-parallel step's pre-pass; -1 in the serial step).
+// its weight (the pre-pass's).
 constexpr int kProfileCols = 8;
 // Count columns per ray (kProfile): its rescans, the boxes it slab-tested
 // and the clusters whose slots it tested.
 constexpr int kCountCols = 3;
-
-template <int kScan, bool kProfile>
-__global__ void fused_kernel(const float* __restrict__ rays, const float* __restrict__ boxes,
-                             const float* __restrict__ groups, const float* __restrict__ planes,
-                             float* __restrict__ out, int k, int c, int gsize, int max_steps,
-                             long long* __restrict__ profile, int* __restrict__ counts) {
-  constexpr bool kG = kScan == kWarpGroups;
-  extern __shared__ float smem[];
-  const int b = blockDim.x;
-  const int tid = threadIdx.x;
-  float* s_plane = smem;                                     // [10, c]
-  int* red = reinterpret_cast<int*>(s_plane + kMtRows * c);  // [32]
-  unsigned* s_dead = reinterpret_cast<unsigned*>(red + 32);  // [(k + 31) / 32] retired bits
-
-  const long long t_start = kProfile ? clock_now() : 0;
-  long long t_phase[4] = {0, 0, 0, 0};  // set-up scan, pick and stage, slot loop, list updates
-  for (int q = tid; q < (k + 31) / 32; q += b) s_dead[q] = 0u;
-
-  const long long row = static_cast<long long>(blockIdx.x) * b + tid;
-  const float* rr = rays + row * kCols;
-  Ray r;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    r.o[a] = rr[a];
-    r.inv[a] = inv_dir(rr[3 + a]);
-    r.oi[a] = r.o[a] * r.inv[a];
-  }
-  const float dx = rr[3], dy = rr[4], dz = rr[5];
-  r.tmax = rr[6];
-  __syncthreads();
-
-  float best_t = r.tmax, best_u = 0.0f, best_v = 0.0f, best_tri = -1.0f;
-  bool hit = false;
-  int steps = 0, rescans = 0, tested = 0;
-  Nearest nb;  // nb.e[0], nb.id[0]: the nearest entry (inf, k when none is left)
-  int tests = scan<kG>(r, boxes, groups, s_dead, k, gsize, nb);
-  long long t_mark = 0;
-  if (kProfile) {
-    __syncthreads();
-    t_mark = clock_now();
-    t_phase[0] = t_mark - t_start;
-  }
-
-  for (int i = 0; i < max_steps; ++i) {
-    const int cstar = block_min(nb.e[0] < best_t ? nb.id[0] : k, red);
-    if (cstar >= k) break;  // no active ray: the block is done (uniform)
-    const float* src = planes + static_cast<long long>(cstar) * kPlaneRows * c;
-    for (int q = tid; q < kMtRows * c; q += b) s_plane[q] = src[q];
-    __syncthreads();
-    if (kProfile) {
-      const long long t = clock_now();
-      t_phase[1] += t - t_mark;
-      t_mark = t;
-    }
-
-    if (entry(r, boxes, k, cstar) < best_t) {
-      ++tested;
-      float tc = kInf, tu = 0.0f, tv = 0.0f, ttri = 0.0f;
-      for (int s = 0; s < c; ++s) {
-        float t, u, v;
-        const bool ok = mt_components(
-            r.o[0], r.o[1], r.o[2], dx, dy, dz,
-            s_plane[s], s_plane[c + s], s_plane[2 * c + s],
-            s_plane[3 * c + s], s_plane[4 * c + s], s_plane[5 * c + s],
-            s_plane[6 * c + s], s_plane[7 * c + s], s_plane[8 * c + s],
-            kTMin, best_t, t, u, v) && s_plane[9 * c + s] >= 0.0f;
-        if (ok && t < tc) { tc = t; tu = u; tv = v; ttri = s_plane[9 * c + s]; }
-      }
-      if (tc < best_t) {
-        best_t = tc; best_u = tu; best_v = tv; best_tri = ttri;
-        hit = true;
-      }
-    }
-    ++steps;
-    __syncthreads();  // s_plane is restaged next iteration
-    if (tid == 0) s_dead[cstar >> 5] |= 1u << (cstar & 31);  // retire for the whole block
-    __syncthreads();
-    if (kProfile) {
-      const long long t = clock_now();
-      t_phase[2] += t - t_mark;
-      t_mark = t;
-    }
-    // only a still-active ray needs its next nearest entry: entries only
-    // grow and best t only shrinks, so an inactive ray stays inactive (and
-    // resolved) with its stale nearest entry
-    bool need = false;
-    if (nb.id[0] == cstar && nb.e[0] < best_t) need = pop(s_dead, k, nb);
-    rescans += need;
-    if constexpr (kG) {
-      warp_rescan(r, need, boxes, groups, s_dead, k, gsize, nb, tests);
-    } else if (need) {
-      tests += scan<kG>(r, boxes, groups, s_dead, k, gsize, nb);
-    }
-    if (kProfile) {
-      __syncthreads();
-      const long long t = clock_now();
-      t_phase[3] += t - t_mark;
-      t_mark = t;
-    }
-  }
-
-  float* o = out + row * kCols;
-  o[0] = best_t;
-  o[1] = best_u;
-  o[2] = best_v;
-  o[3] = best_tri;
-  o[4] = hit ? 1.0f : 0.0f;
-  o[5] = nb.e[0] < best_t ? 0.0f : 1.0f;  // a nearer candidate is left: unresolved
-  o[6] = static_cast<float>(steps);
-  o[7] = 0.0f;
-  if (kProfile) {
-    counts[kCountCols * row] = rescans;
-    counts[kCountCols * row + 1] = tests;
-    counts[kCountCols * row + 2] = tested;
-    __syncthreads();
-    if (tid == 0) {
-      long long* p = profile + static_cast<long long>(blockIdx.x) * kProfileCols;
-#pragma unroll
-      for (int x = 0; x < 4; ++x) p[x] = t_phase[x];
-      p[4] = clock_now() - t_start;
-      p[5] = steps;
-      p[6] = blockIdx.x;
-      p[7] = -1;
-    }
-  }
-}
-
-// ── the slot-parallel step ───────────────────────────────────────────────
-
-enum Step { kSerialStep = 0, kSlotStep = 1 };
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -797,14 +577,12 @@ size_t step_shared_bytes(int k, int c, int b) {
 
 // The slot-parallel step (see the note at the top): the CTA blockIdx.x runs
 // the block of rays order[blockIdx.x]; weight is read by the profile only.
-// Outputs and profile rows as fused_kernel's.
-template <int kScan, bool kProfile>
+template <bool kProfile>
 __global__ void slot_kernel(const float* __restrict__ rays, const float* __restrict__ boxes,
                             const float* __restrict__ groups, const float* __restrict__ planes,
                             const int* __restrict__ order, const int* __restrict__ weight, float* __restrict__ out,
                             int k, int c, int gsize, int max_steps, long long* __restrict__ profile,
                             int* __restrict__ counts) {
-  constexpr bool kG = kScan == kWarpGroups;
   extern __shared__ __align__(16) float smem[];
   const int b = blockDim.x, tid = threadIdx.x, warp = tid >> 5, nw = b >> 5;
   const unsigned pbytes = plane_bytes(c);
@@ -838,7 +616,7 @@ __global__ void slot_kernel(const float* __restrict__ rays, const float* __restr
   bool hit = false;
   int steps = 0, rescans = 0, tested = 0;
   Nearest nb;  // nb.e[0], nb.id[0]: the nearest entry (inf, k when none is left)
-  int tests = scan<kG>(r, boxes, groups, s_dead, k, gsize, nb);
+  int tests = scan(r, boxes, groups, s_dead, k, gsize, nb);
   long long t_mark = 0;
   if (kProfile) {
     __syncthreads();
@@ -892,15 +670,13 @@ __global__ void slot_kernel(const float* __restrict__ rays, const float* __restr
       t_phase[2] += t - t_mark;
       t_mark = t;
     }
-    // only a still-active ray needs its next nearest entry (fused_kernel)
+    // only a still-active ray needs its next nearest entry: entries only
+    // grow and best t only shrinks, so an inactive ray stays inactive (and
+    // resolved) with its stale nearest entry
     bool need = false;
     if (nb.id[0] == cstar && nb.e[0] < best_t) need = pop(s_dead, k, nb);
     rescans += need;
-    if constexpr (kG) {
-      warp_member_scan(r, need, boxes, groups, s_dead, k, gsize, nb, tests);
-    } else if (need) {
-      tests += scan<kG>(r, boxes, groups, s_dead, k, gsize, nb);
-    }
+    warp_member_scan(r, need, boxes, groups, s_dead, k, gsize, nb, tests);
     if (kProfile) {
       __syncthreads();
       const long long t = clock_now();
@@ -937,68 +713,28 @@ __global__ void slot_kernel(const float* __restrict__ rays, const float* __restr
 
 // ── launches ──────────────────────────────────────────────────────────────
 
-template <int kScan, bool kProfile>
-void* kernel_of(int step) {
-  return step == kSlotStep ? reinterpret_cast<void*>(slot_kernel<kScan, kProfile>)
-                           : reinterpret_cast<void*>(fused_kernel<kScan, kProfile>);
-}
-
-// The instantiation of (scan kind, step) (nullptr if none).
-template <bool kProfile>
-void* kernel_for(int scan, int step) {
-  if (step != kSerialStep && step != kSlotStep) return nullptr;
-  switch (scan) {
-    case kSerial: return kernel_of<kSerial, kProfile>(step);
-    case kWarpGroups: return kernel_of<kWarpGroups, kProfile>(step);
-    default: return nullptr;
-  }
-}
-
-size_t shared_bytes_of(int k, int c, int block, int step) {
-  return step == kSlotStep ? step_shared_bytes(k, c, block) : shared_bytes(k, c);
-}
-
 bool bad_shape(long long n, int k, int c, int gsize, int block, int max_steps) {
   return n <= 0 || block < 32 || block > 1024 || (block & 31) || n % block || k <= 0 || c <= 0 || gsize <= 0 ||
          max_steps < 0 || n / block > 0x7fffffffLL;
 }
 
-// The serial step: one launch of fused_kernel.
+// Three launches on `stream`: the block weights (weight_kernel, into the
+// scratch weight [n / block] int32), the blocks' order (order_blocks, into
+// order [n / block] int32), then slot_kernel.  planes must be 16-byte
+// aligned (the bulk copy's source).
 int launch(bool profile_on, const float* rays, const float* boxes, const float* groups, const float* planes,
-           float* out, long long n, int k, int c, int gsize, int block, int max_steps, int scan,
+           float* out, int* weight, int* order, long long n, int k, int c, int gsize, int block, int max_steps,
            long long* profile, int* counts, void* stream) {
-  if (bad_shape(n, k, c, gsize, block, max_steps)) return static_cast<int>(cudaErrorInvalidValue);
-  void* kernel = profile_on ? kernel_for<true>(scan, kSerialStep) : kernel_for<false>(scan, kSerialStep);
-  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  // every launch sets its own bytes: a resource query at a smaller K may
-  // have left the attribute below them
-  const size_t smem = shared_bytes(k, c);
-  const cudaError_t set =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (set != cudaSuccess) return static_cast<int>(set);
-  const unsigned grid = static_cast<unsigned>(n / block);
-  void* args[] = {&rays, &boxes, &groups, &planes, &out, &k, &c, &gsize, &max_steps, &profile, &counts};
-  const cudaError_t e = cudaLaunchKernel(kernel, dim3(grid), dim3(block), args, smem,
-                                         static_cast<cudaStream_t>(stream));
-  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
-}
-
-// The slot-parallel step, three launches on `stream`: the block weights
-// (weight_kernel, into the scratch weight [n / block] int32), the blocks'
-// order (order_blocks, into order [n / block] int32), then slot_kernel.
-// planes must be 16-byte aligned (the bulk copy's source).
-int launch_slots(bool profile_on, const float* rays, const float* boxes, const float* groups,
-                 const float* planes, float* out, int* weight, int* order, long long n, int k, int c, int gsize,
-                 int block, int max_steps, int scan, long long* profile, int* counts, void* stream) {
   if (bad_shape(n, k, c, gsize, block, max_steps) || !weight || !order ||
       (reinterpret_cast<unsigned long long>(planes) & 15ull) || (profile_on && (!profile || !counts)))
     return static_cast<int>(cudaErrorInvalidValue);
-  void* kernel = profile_on ? kernel_for<true>(scan, kSlotStep) : kernel_for<false>(scan, kSlotStep);
-  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  void* kernel =
+      profile_on ? reinterpret_cast<void*>(slot_kernel<true>) : reinterpret_cast<void*>(slot_kernel<false>);
   const auto st = static_cast<cudaStream_t>(stream);
   const int blocks = static_cast<int>(n / block);
   const size_t weight_smem = 4 * ((static_cast<size_t>((k + gsize - 1) / gsize) + 31) / 32 + 32);
-  // every launch sets its own bytes (see launch)
+  // every launch sets its own bytes: a resource query at a smaller K may
+  // have left the attribute below them
   cudaError_t e = cudaFuncSetAttribute(weight_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(weight_smem));
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1018,13 +754,11 @@ int launch_slots(bool profile_on, const float* rays, const float* boxes, const f
 }  // namespace
 
 // Registers per thread, dynamic shared bytes per block and resident blocks
-// per SM of (scan kind `scan`, step `step`) at (k, c, block) on the current
-// device -> out[0..2] (the slot-parallel step: its slot_kernel); returns the
-// CUDA error.
-extern "C" int owlpt_fused_traverse_resources(int k, int c, int block, int scan, int step, int* out) {
-  const size_t smem = shared_bytes_of(k, c, block, step);
-  const void* kernel = kernel_for<false>(scan, step);
-  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+// per SM of slot_kernel at (k, c, block) on the current device -> out[0..2];
+// returns the CUDA error.
+extern "C" int owlpt_fused_traverse_resources(int k, int c, int block, int* out) {
+  const size_t smem = step_shared_bytes(k, c, block);
+  const void* kernel = reinterpret_cast<const void*>(slot_kernel<false>);
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
@@ -1036,37 +770,22 @@ extern "C" int owlpt_fused_traverse_resources(int k, int c, int block, int scan,
   return static_cast<int>(e);
 }
 
-// The slot-parallel step (the default): weight and order [n / block] int32
-// are the wrapper's scratch.
+// The traversal: weight and order [n / block] int32 are the wrapper's scratch.
 extern "C" int owlpt_fused_traverse(const float* rays, const float* boxes, const float* groups,
                                     const float* planes, float* out, int* weight, int* order, long long n, int k,
-                                    int c, int gsize, int block, int max_steps, int scan, void* stream) {
-  return launch_slots(false, rays, boxes, groups, planes, out, weight, order, n, k, c, gsize, block, max_steps,
-                      scan, nullptr, nullptr, stream);
+                                    int c, int gsize, int block, int max_steps, void* stream) {
+  return launch(false, rays, boxes, groups, planes, out, weight, order, n, k, c, gsize, block, max_steps, nullptr,
+                nullptr, stream);
 }
 
-// The serial step (fused_kernel), the yardstick the slot-parallel step is timed
-// against; no render path calls it.
-extern "C" int owlpt_fused_traverse_serial_step(const float* rays, const float* boxes, const float* groups,
-                                                const float* planes, float* out, long long n, int k, int c,
-                                                int gsize, int block, int max_steps, int scan, void* stream) {
-  return launch(false, rays, boxes, groups, planes, out, n, k, c, gsize, block, max_steps, scan, nullptr, nullptr,
-                stream);
-}
-
-// Diagnostic (no render path): the traversal of step `step` with clock64
-// phase times per block -> profile [N / block, kProfileCols] (int64), and per
-// ray its rescans, boxes slab-tested and clusters tested -> counts [N, 3]
-// (int32); the
-// scratch as for owlpt_fused_traverse (unused by the serial step).
+// Diagnostic (no render path): the traversal with clock64 phase times per
+// block -> profile [N / block, kProfileCols] (int64), and per ray its
+// rescans, boxes slab-tested and clusters tested -> counts [N, 3] (int32);
+// the scratch as for owlpt_fused_traverse.
 extern "C" int owlpt_fused_traverse_profile(const float* rays, const float* boxes, const float* groups,
                                             const float* planes, float* out, int* weight, int* order, long long n,
-                                            int k, int c, int gsize, int block, int max_steps, int scan, int step,
-                                            long long* profile, int* counts, void* stream) {
-  if (step == kSlotStep)
-    return launch_slots(true, rays, boxes, groups, planes, out, weight, order, n, k, c, gsize, block, max_steps,
-                        scan, profile, counts, stream);
-  if (step != kSerialStep) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(true, rays, boxes, groups, planes, out, n, k, c, gsize, block, max_steps, scan, profile, counts,
-                stream);
+                                            int k, int c, int gsize, int block, int max_steps, long long* profile,
+                                            int* counts, void* stream) {
+  return launch(true, rays, boxes, groups, planes, out, weight, order, n, k, c, gsize, block, max_steps, profile,
+                counts, stream);
 }

@@ -15,24 +15,19 @@ retirements leaves the rays that still have a nearer entry unresolved, and
 :func:`fused_closest_hit` answers those with the exact cluster query.
 
 In the kernel each thread keeps its ray's KCAND nearest un-retired entries
-and scans the boxes again when they are used up.  Its default scan skips
-every member of a group of GROUP_SIZE consecutive clusters whose group box
+and scans the boxes again when they are used up.  Its scan skips every
+member of a group of GROUP_SIZE consecutive clusters whose group box
 (:func:`group_boxes`, the exact bounds of its members) the ray enters no
 nearer than its list's last entry, and a rescan is shared by the whole warp;
-``scan="serial"`` (SCANS), every thread scanning all K boxes itself, is kept
-as the yardstick it is timed against.  Both build the same lists, so the
-outputs do not depend on the scan (:func:`nearest_lists` is the plain
-version of a scan).
+the lists are those of a scan of every box (:func:`nearest_lists` is the
+plain version of both).
 
-The block-wide step comes in two kinds (STEPS), which give the same outputs.
-The default, "slots" (entry ENTRY), starts the blocks heaviest first, by a
-pre-pass that weighs each block by the group boxes its rays enter
+The kernel (entry ENTRY) starts the blocks heaviest first, by a pre-pass
+that weighs each block by the group boxes its rays enter
 (:func:`block_weights` and :func:`block_order` are its plain versions),
 stages each picked cluster by one bulk copy, splits the tests of the rays
 that enter it over the lanes of a warp, one lane per slot, and shares each
-rescan over the warp, one member box per lane.  "serial" (SERIAL_ENTRY) is
-the kernel before that, one thread testing its ray's slots in turn, kept as
-the yardstick that the default is timed against; no render path calls it.
+rescan over the warp, one member box per lane.
 
 :func:`fused_traverse` launches the CUDA kernel (``csrc/fused_traverse.cu``)
 for CUDA tensors and raises if it cannot; for CPU tensors it takes
@@ -64,19 +59,10 @@ OUT_COLS = 8
 # entries a kernel thread lists per scan, and clusters per group box
 KCAND = 8
 GROUP_SIZE = 32
-# the kernel's list scans (csrc/fused_traverse.cu Scan): both give the same
-# outputs; "serial" is the form before group boxes and warp rescans
-SCANS = {"serial": 0, "warp_groups": 1}
-SCAN = "warp_groups"
-# the kernel's block-wide steps (csrc/fused_traverse.cu Step): both give the
-# same outputs; "serial" is the step before the slot-parallel one
-STEPS = {"serial": 0, "slots": 1}
-STEP = "slots"
 # profile columns per block (fused_traverse_profile), rows by block of rays:
 # clock64 cycles of the set-up scan, pick and staging, the slot tests, the
 # list updates and rescans, the whole block, its retirement steps, its
-# launch rank and its weight (the slots step's pre-pass, block_weights; -1
-# in the serial step)
+# launch rank and its weight (the pre-pass's, block_weights)
 PROFILE_COLS = ("setup", "pick_stage", "slot_loop", "rescans", "total", "steps", "rank", "weight")
 # count columns per ray (fused_traverse_profile): its rescans, the boxes it
 # slab-tested, and the clusters whose slots it tested (it entered the
@@ -85,12 +71,10 @@ COUNT_COLS = ("rescans", "boxes", "clusters")
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "fused_traverse.cu"
 ENTRY = "owlpt_fused_traverse"
-SERIAL_ENTRY = "owlpt_fused_traverse_serial_step"
-STEP_ENTRIES = {"serial": SERIAL_ENTRY, "slots": ENTRY}
 PROFILE_ENTRY = "owlpt_fused_traverse_profile"
 
 # launches of the CUDA kernel by entry (one per call that ran it)
-LAUNCHES = {ENTRY: 0, SERIAL_ENTRY: 0}
+LAUNCHES = {ENTRY: 0}
 # rays answered by the exact cluster query because their block ran out of steps
 UNRESOLVED_RAYS = 0
 
@@ -229,10 +213,10 @@ def nearest_lists(ray_o, ray_d, t_max, fb: FusedBVH, retired=None, groups: bool 
     many boxes a thread's scan slab-tests -> (entries [N,KCAND] (inf where
     none), ids [N,KCAND] (K where none), boxes tested [N]).
 
-    ``groups`` scans as the kernel's default set-up scan: group by group in
+    ``groups`` scans as the kernel's set-up scan: group by group in
     ascending id, a group's box first, its un-retired members only where the
-    group's entry is below the list's last entry; else every un-retired box
-    (the serial scan).  The lists are the same either way."""
+    group's entry is below the list's last entry; else every un-retired box.
+    The lists are the same either way."""
     n, k = ray_o.shape[0], fb.num_clusters
     t_max = torch.as_tensor(t_max, dtype=torch.float32, device=ray_o.device).expand(n)
     live = torch.ones(k, dtype=torch.bool, device=ray_o.device) if retired is None else ~retired
@@ -262,7 +246,7 @@ def nearest_lists(ray_o, ray_d, t_max, fb: FusedBVH, retired=None, groups: bool 
 
 
 def block_weights(ray_o, ray_d, t_max, fb: FusedBVH, block: int = BLOCK_RAYS):
-    """Plain version of the slots step's block weights: per block of
+    """Plain version of the kernel's block weights: per block of
     ``block`` rays the number of distinct group boxes (:func:`group_boxes`)
     that its rays enter within their t_max -> [N / block] int64."""
     n = ray_o.shape[0]
@@ -274,18 +258,10 @@ def block_weights(ray_o, ray_d, t_max, fb: FusedBVH, block: int = BLOCK_RAYS):
 
 
 def block_order(weights):
-    """Plain version of the slots step's block order: the blocks by weight,
+    """Plain version of the kernel's block order: the blocks by weight,
     heaviest first, equal weights in block order -> order [G] int64, where
     order[rank] is the block launched at that rank."""
     return torch.sort(torch.as_tensor(weights), descending=True, stable=True).indices
-
-
-def _step_kind(step: str | None) -> str:
-    """``step``, or the default STEP for None; raises for an unknown kind."""
-    step = STEP if step is None else step
-    if step not in STEPS:
-        raise ValueError(f"unknown step kind {step!r}; expected one of {tuple(STEPS)}")
-    return step
 
 
 def build_kernels() -> tuple:
@@ -295,54 +271,40 @@ def build_kernels() -> tuple:
     if _cuda_lib is None:
         lib = ctypes.CDLL(str(path))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        scratch = [ptr] * 2  # weight, order (the slots step)
-        shape = [i64] + [i32] * 6  # n, k, c, gsize, block, max_steps, scan
-        for name, args in ((ENTRY, [ptr] * 5 + scratch + shape + [ptr]),
-                           (SERIAL_ENTRY, [ptr] * 5 + shape + [ptr]),
-                           (PROFILE_ENTRY, [ptr] * 5 + scratch + shape + [i32] + [ptr] * 3)):
+        head = [ptr] * 7 + [i64] + [i32] * 5  # rays ... out, weight, order; n, k, c, gsize, block, max_steps
+        for name, args in ((ENTRY, head + [ptr]), (PROFILE_ENTRY, head + [ptr] * 3)):
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
             fn.argtypes = args
         fn = getattr(lib, f"{ENTRY}_resources")
         fn.restype = ctypes.c_int
-        fn.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
+        fn.argtypes = [i32] * 3 + [ctypes.POINTER(i32)]
         _cuda_lib = lib
     return path, seconds, log
 
 
-def kernel_resources(fb: FusedBVH, block: int = BLOCK_RAYS, scan: str = SCAN, step: str | None = None) -> dict:
+def kernel_resources(fb: FusedBVH, block: int = BLOCK_RAYS) -> dict:
     """Threads and CTAs per block of rays, registers, shared bytes and
-    blocks per SM of the kernel's ``scan`` kind and ``step`` (the slots
-    step: its traversal kernel, not the pre-pass) at ``fb``'s K and C, on
-    the current CUDA device."""
-    step = _step_kind(step)
-    if scan not in SCANS:
-        raise ValueError(f"unknown scan kind {scan!r}; expected one of {tuple(SCANS)}")
+    blocks per SM of the kernel (its traversal kernel, not the pre-pass) at
+    ``fb``'s K and C, on the current CUDA device."""
     if not torch.cuda.is_available():
         raise RuntimeError("the fused kernel's resources need a CUDA device")
     if _cuda_lib is None:
         build_kernels()
     out = (ctypes.c_int * 3)()
-    err = getattr(_cuda_lib, f"{ENTRY}_resources")(fb.num_clusters, fb.cluster_size, block, SCANS[scan],
-                                                   STEPS[step], out)
-    name = STEP_ENTRIES[step]
+    err = getattr(_cuda_lib, f"{ENTRY}_resources")(fb.num_clusters, fb.cluster_size, block, out)
     if err != 0:
-        raise RuntimeError(f"kernel {name} ({scan}): resource query failed: CUDA error {err}")
-    return {"entry": name, "scan": scan, "threads": block, "ctas": 1, "registers": out[0],
-            "shared_bytes": out[1], "blocks_per_sm": out[2]}
+        raise RuntimeError(f"kernel {ENTRY}: resource query failed: CUDA error {err}")
+    return {"entry": ENTRY, "threads": block, "ctas": 1, "registers": out[0], "shared_bytes": out[1],
+            "blocks_per_sm": out[2]}
 
 
-def _fused_traverse_cuda(rays, fb: FusedBVH, block: int, max_steps: int, scan: str = SCAN,
-                         step: str | None = None, profile: bool = False):
-    """Launch the kernel of ``step`` (``profile``: the diagnostic entry,
-    which also returns the per-block profile and per-ray counts) on the
-    current stream -> [N,8] (no sync)."""
-    step = _step_kind(step)
+def _fused_traverse_cuda(rays, fb: FusedBVH, block: int, max_steps: int, profile: bool = False):
+    """Launch the kernel (``profile``: the diagnostic entry, which also
+    returns the per-block profile and per-ray counts) on the current stream
+    -> [N,8] (no sync)."""
     if rays.device.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError(f"the fused kernel needs CUDA tensors on a CUDA device; got {rays.device}")
-    if scan not in SCANS:
-        raise ValueError(f"unknown scan kind {scan!r}; expected one of {tuple(SCANS)}")
-    name = STEP_ENTRIES[step]
     n = rays.shape[0]
     k, c = fb.num_clusters, fb.cluster_size
     if block % 32 or not 32 <= block <= 1024 or n % block:
@@ -358,45 +320,36 @@ def _fused_traverse_cuda(rays, fb: FusedBVH, block: int, max_steps: int, scan: s
         return (out, *stats) if profile else out
     if _cuda_lib is None:
         build_kernels()
-    # the slots step's scratch: the blocks' weights and their launch order
+    # the pre-pass's scratch: the blocks' weights and their launch order
     weight = torch.empty(n // block, dtype=torch.int32, device=rays.device)
     order = torch.empty(n // block, dtype=torch.int32, device=rays.device)
     with torch.cuda.device(rays.device):
         stream = torch.cuda.current_stream().cuda_stream
-        head = (rays.data_ptr(), fb.boxes.data_ptr(), fb.groups.data_ptr(), fb.planes.data_ptr(), out.data_ptr())
-        scratch = (weight.data_ptr(), order.data_ptr())
-        shape = (n, k, c, GROUP_SIZE, block, max_steps, SCANS[scan])
+        head = (rays.data_ptr(), fb.boxes.data_ptr(), fb.groups.data_ptr(), fb.planes.data_ptr(), out.data_ptr(),
+                weight.data_ptr(), order.data_ptr(), n, k, c, GROUP_SIZE, block, max_steps)
         if profile:
-            err = getattr(_cuda_lib, PROFILE_ENTRY)(*head, *scratch, *shape, STEPS[step], stats[0].data_ptr(),
-                                                    stats[1].data_ptr(), stream)
-        elif name == ENTRY:
-            err = getattr(_cuda_lib, ENTRY)(*head, *scratch, *shape, stream)
+            err = getattr(_cuda_lib, PROFILE_ENTRY)(*head, stats[0].data_ptr(), stats[1].data_ptr(), stream)
         else:
-            err = getattr(_cuda_lib, SERIAL_ENTRY)(*head, *shape, stream)
+            err = getattr(_cuda_lib, ENTRY)(*head, stream)
     if err != 0:
-        raise RuntimeError(f"fused kernel {PROFILE_ENTRY if profile else name} launch failed: CUDA error {err}")
+        raise RuntimeError(f"fused kernel {PROFILE_ENTRY if profile else ENTRY} launch failed: CUDA error {err}")
     if profile:
         return (out, *stats)
-    LAUNCHES[name] += 1
+    LAUNCHES[ENTRY] += 1
     return out
 
 
-def fused_traverse(ray_o, ray_d, t_max, fb: FusedBVH, block: int = BLOCK_RAYS,
-                   max_steps: int = MAX_STEPS, scan: str = SCAN, step: str | None = None):
+def fused_traverse(ray_o, ray_d, t_max, fb: FusedBVH, block: int = BLOCK_RAYS, max_steps: int = MAX_STEPS):
     """Raw sweep: [N] rays (``t_max`` scalar or [N]) -> [N,8] (t, u, v, tri,
-    hit, resolved, steps, 0): the kernel (its list scan ``scan``, SCANS; its
-    block-wide ``step``, STEPS, default STEP) for CUDA tensors, the plain
-    version for CPU tensors.  N must be a multiple of ``block``."""
+    hit, resolved, steps, 0): the kernel for CUDA tensors, the plain version
+    for CPU tensors.  N must be a multiple of ``block``."""
     if ray_o.device.type == "cpu":
-        _step_kind(step)
-        if scan not in SCANS:
-            raise ValueError(f"unknown scan kind {scan!r}; expected one of {tuple(SCANS)}")
         return fused_traverse_plain(ray_o, ray_d, t_max, fb, block, max_steps)
-    return _fused_traverse_cuda(pack_rays(ray_o, ray_d, t_max), fb, block, max_steps, scan, step)
+    return _fused_traverse_cuda(pack_rays(ray_o, ray_d, t_max), fb, block, max_steps)
 
 
 def fused_traverse_profile(ray_o, ray_d, t_max, fb: FusedBVH, block: int = BLOCK_RAYS,
-                           max_steps: int = MAX_STEPS, scan: str = SCAN, step: str | None = None):
+                           max_steps: int = MAX_STEPS):
     """The kernel's diagnostic entry (CUDA tensors only, no render path):
     the sweep with clock64 phase times -> (out [N,8] as fused_traverse,
     profile [N/block, PROFILE_COLS] int64 cycles, steps, launch rank and
@@ -404,7 +357,7 @@ def fused_traverse_profile(ray_o, ray_d, t_max, fb: FusedBVH, block: int = BLOCK
     boxes slab-tested and clusters tested).  Not counted in LAUNCHES."""
     if ray_o.device.type != "cuda":
         raise RuntimeError(f"the fused kernel's profile needs CUDA tensors; got {ray_o.device}")
-    return _fused_traverse_cuda(pack_rays(ray_o, ray_d, t_max), fb, block, max_steps, scan, step, profile=True)
+    return _fused_traverse_cuda(pack_rays(ray_o, ray_d, t_max), fb, block, max_steps, profile=True)
 
 
 def fused_closest_hit(ray_o, ray_d, fb: FusedBVH, t_min: float = m.T_MIN, t_max=m.T_MAX,

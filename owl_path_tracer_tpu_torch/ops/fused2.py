@@ -24,22 +24,19 @@ lanes whose column 7 is 1; K3, K1b).  The component entries run the
 slot-parallel body (a cluster's slots tested in parallel by a thread block
 cluster of CTAs per block of rays, heavy blocks first); ``serial=True``
 (closest hit with attributes, mixed) runs the serial body instead, one
-thread per ray, with the same outputs bit for bit: the in-call yardstick,
-off every render path.  :func:`fused2_traverse_profile` (the profile entry)
+thread per ray, with the same outputs bit for bit: the reference of the
+slot-parallel body's steps and resolved columns in the card tests, off every
+render path.  :func:`fused2_traverse_profile` (the profile entry)
 splits either body's time per block by clock64.  On the MXU layout the
 three modes take the feature products on the tensor cores (bf16 planes:
 bf16 products; f32 planes: 3xTF32, each operand split into two TF32
 terms), and so does closest hit without attributes (K4) on f32 planes;
 their sums may differ from the plain version's by a few ulps of the summed
-magnitudes
-(:func:`mxu_slot_sums` gives the plain sums and their magnitudes,
-:func:`mxu_tensor_sums` the f32 tensor-core ones on the card);
-``exact=True`` runs closest hit (with or without attributes) on CUDA cores
-in the plain version's arithmetic instead (the in-call yardstick of the
-tensor form, off every render path).  A block keeps its frontier row
-``[K]`` in shared memory where the block's bytes fit under the device's
-opt-in limit and lose no block per SM by it, else in device memory
-(:func:`row_form`), so the kernels take
+magnitudes (:func:`mxu_slot_sums` gives the plain sums and their magnitudes,
+:func:`mxu_tensor_sums` the f32 tensor-core ones on the card).  A block
+keeps its frontier row ``[K]`` in shared memory where the block's bytes fit
+under the device's opt-in limit and lose no block per SM by it, else in
+device memory (:func:`row_form`), so the kernels take
 any K the reference takes; what cannot launch at all raises a ValueError
 that names K, C, the block and the bytes.  :func:`fused2_traverse_packed` launches
 it for CUDA tensors and raises if it cannot; for CPU tensors it takes the
@@ -119,22 +116,16 @@ _ENTRY = {
     ("component", "mixed", True): "owlpt_fused2_sweep_mixed",
     ("component", "closest", False): "owlpt_fused2_closest_hit_noattr",
     # the serial component body (one thread per ray), kept as K1's and K3's
-    # in-call yardstick and bit-exact witness (serial=True)
+    # bit-exact witness (serial=True)
     ("component_serial", "closest", True): "owlpt_fused2_serial_closest_hit",
     ("component_serial", "mixed", True): "owlpt_fused2_serial_sweep_mixed",
     ("mxu_f32", "closest", True): "owlpt_fused2_mxu_closest_hit",
     ("mxu_f32", "any_hit", False): "owlpt_fused2_mxu_occluded",
     ("mxu_f32", "mixed", True): "owlpt_fused2_mxu_sweep_mixed",
     ("mxu_f32", "closest", False): "owlpt_fused2_mxu_closest_hit_noattr",
-    # f32 closest hit with and without attributes on CUDA cores, bit-exact
-    # to the plain version (exact=True)
-    ("mxu_f32_exact", "closest", True): "owlpt_fused2_mxu_exact_closest_hit",
-    ("mxu_f32_exact", "closest", False): "owlpt_fused2_mxu_exact_closest_hit_noattr",
     ("mxu_bf16", "closest", True): "owlpt_fused2_mxu_bf16_closest_hit",
     ("mxu_bf16", "any_hit", False): "owlpt_fused2_mxu_bf16_occluded",
     ("mxu_bf16", "mixed", True): "owlpt_fused2_mxu_bf16_sweep_mixed",
-    # bf16 closest hit on CUDA cores, bit-exact to the plain version (exact=True)
-    ("mxu_bf16_exact", "closest", True): "owlpt_fused2_mxu_bf16_exact_closest_hit",
 }
 
 # the slot-parallel component entries (K1-K4) take scratch besides the
@@ -523,23 +514,16 @@ def _check_mode(mode: str, fb: Fused2BVH, with_attrs: bool = True):
         raise ValueError("bf16 planes require with_attrs=True for closest-hit sweeps")
 
 
-def _entry(fb: Fused2BVH, mode: str, with_attrs: bool, exact: bool = False, serial: bool = False) -> str:
+def _entry(fb: Fused2BVH, mode: str, with_attrs: bool, serial: bool = False) -> str:
     """Kernel entry point of a layout and mode (any-hit reads no attributes,
-    mixed always does); ``exact`` picks the CUDA-core form of MXU closest
-    hit (with attributes, or without on f32 planes), ``serial`` the serial
-    body of component closest hit or mixed."""
+    mixed always does); ``serial`` picks the serial body of component closest
+    hit or mixed."""
     attrs = mode == "mixed" or (mode == "closest" and with_attrs)
     if serial:
-        if fb.mxu or exact or (mode, attrs) not in (("closest", True), ("mixed", True)):
+        if fb.mxu or (mode, attrs) not in (("closest", True), ("mixed", True)):
             raise ValueError("serial=True is the serial body of closest hit with attributes or of the mixed sweep on "
                              f"component planes; got layout {fb.layout}, mode {mode!r}, with_attrs={with_attrs}")
         return _ENTRY[("component_serial", mode, attrs)]
-    if exact:
-        key = (f"{fb.layout}_exact", mode, attrs)
-        if key not in _ENTRY:
-            raise ValueError("exact=True is the CUDA-core form of closest hit on MXU planes (without attributes: "
-                             f"f32 planes); got layout {fb.layout}, mode {mode!r}, with_attrs={with_attrs}")
-        return _ENTRY[key]
     return _ENTRY[(fb.layout, mode, attrs)]
 
 
@@ -561,11 +545,10 @@ MXU_ROWS = ((0, 0, 3), (1, 0, 6), (2, 0, 6), (3, 6, 10))
 
 def _feature_sums(feat, planes, cid, cols, groups=MXU_ROWS, absolute=False):
     """Per column group, sum_r feat[:, r] * planes[cid, r, g*C + cols] over
-    the group's non-zero rows in ascending order, in float32 -- the CUDA-core
-    kernels' order, so the two agree bit for bit (the zero rows would add
-    exact zeros; bf16 planes widen exactly).  ``cols`` is ``slice(0, C)``
-    ([n,C] sums) or an [n] slot index ([n] sums).  ``absolute``: the sums of
-    |feat * plane| in the same order."""
+    the group's non-zero rows in ascending order, in float32 (the zero rows
+    would add exact zeros; bf16 planes widen exactly).  ``cols`` is
+    ``slice(0, C)`` ([n,C] sums) or an [n] slot index ([n] sums).
+    ``absolute``: the sums of |feat * plane| in the same order."""
     c = planes.shape[2] // 4
     term = torch.abs if absolute else (lambda x: x)  # noqa: E731
     sums = []
@@ -720,20 +703,20 @@ def fused2_traverse_packed_plain(rays, fb: Fused2BVH, mode: str = "closest", wit
 
 # ── shared memory and the frontier row ────────────────────────────────────
 
-def _sized_entry(fb: Fused2BVH, mode: str, with_attrs: bool, exact: bool, serial: bool) -> str:
+def _sized_entry(fb: Fused2BVH, mode: str, with_attrs: bool, serial: bool) -> str:
     """The entry whose counts stand for a launch of ``fb``'s layout and
     ``mode``; with ``serial`` the serial body's, in any mode (the profile
     entry runs it in every mode)."""
-    return _ENTRY[("component_serial", "closest", True)] if serial else _entry(fb, mode, with_attrs, exact)
+    return _ENTRY[("component_serial", "closest", True)] if serial else _entry(fb, mode, with_attrs)
 
 
-def block_bytes(fb: Fused2BVH, mode: str, block: int, with_attrs: bool = True, exact: bool = False,
-                serial: bool = False, global_row: bool = False) -> int:
+def block_bytes(fb: Fused2BVH, mode: str, block: int, with_attrs: bool = True, serial: bool = False,
+                global_row: bool = False) -> int:
     """Dynamic shared memory of one block (one CTA of the slot-parallel
     body) of the entry that ``fb``'s layout and ``mode`` launch at ``fb``'s
     K, with the frontier row in shared memory or (``global_row``) in device
     memory, as the kernel library counts it (``<entry>_shared_bytes``)."""
-    name = _sized_entry(fb, mode, with_attrs, exact, serial)
+    name = _sized_entry(fb, mode, with_attrs, serial)
     if _cuda_lib is None:
         build_kernels()
     return getattr(_cuda_lib, f"{name}_shared_bytes")(fb.num_clusters, fb.cluster_size, block, int(global_row))
@@ -770,8 +753,8 @@ def pick_row_form(what: str, k: int, c: int, block: int, nbytes: dict, limit: in
         f"of {limit} bytes")
 
 
-def row_form(fb: Fused2BVH, mode: str, block: int, device, with_attrs: bool = True, exact: bool = False,
-             serial: bool = False, force: str | None = None) -> str:
+def row_form(fb: Fused2BVH, mode: str, block: int, device, with_attrs: bool = True, serial: bool = False,
+             force: str | None = None) -> str:
     """:func:`pick_row_form` for the entry of ``fb``'s layout and ``mode``
     at ``fb``'s K on the CUDA ``device``, from the kernel library's byte
     counts of both forms and, where both fit, the blocks per SM the CUDA
@@ -780,13 +763,13 @@ def row_form(fb: Fused2BVH, mode: str, block: int, device, with_attrs: bool = Tr
     index = device if isinstance(device, int) else torch.device(device).index
     index = torch.cuda.current_device() if index is None else index
     limit = _smem_limit(index)
-    nbytes = {form: block_bytes(fb, mode, block, with_attrs, exact, serial, form == "global") for form in ROW_FORMS}
+    nbytes = {form: block_bytes(fb, mode, block, with_attrs, serial, form == "global") for form in ROW_FORMS}
     blocks = None
     if force is None and nbytes["shared"] <= limit:
-        name = _sized_entry(fb, mode, with_attrs, exact, serial)
+        name = _sized_entry(fb, mode, with_attrs, serial)
         blocks = {form: _blocks_per_sm(name, fb.num_clusters, fb.cluster_size, block, form == "global", index)
                   for form in ROW_FORMS}
-    what = f"{fb.layout} {mode}{' exact' if exact else ''}{' serial' if serial else ''}"
+    what = f"{fb.layout} {mode}{' serial' if serial else ''}"
     return pick_row_form(what, fb.num_clusters, fb.cluster_size, block, nbytes, limit, force, blocks)
 
 
@@ -841,16 +824,16 @@ def build_kernels() -> tuple:
 
 
 def kernel_resources(fb: Fused2BVH, mode: str = "closest", block: int = BLOCK_RAYS, with_attrs: bool = True,
-                     exact: bool = False, serial: bool = False, row: str | None = None) -> dict:
+                     serial: bool = False, row: str | None = None) -> dict:
     """Registers, shared bytes and blocks per SM (``native.kernel_resources``),
     threads per CTA, CTAs per block of rays and the frontier row's form
     ("row") of the entry that ``fb``'s layout and ``mode`` launch for blocks
     of ``block`` rays on the current CUDA device, in the form that launches
     (:func:`row_form`; ``row`` asks for one)."""
-    name = _entry(fb, mode, with_attrs, exact, serial)
+    name = _entry(fb, mode, with_attrs, serial)
     if _cuda_lib is None:
         build_kernels()
-    form = row_form(fb, mode, block, torch.cuda.current_device(), with_attrs, exact, serial, row)
+    form = row_form(fb, mode, block, torch.cuda.current_device(), with_attrs, serial, row)
     res = _kernel_resources(_cuda_lib, name, fb.num_clusters, fb.cluster_size, block, int(form == "global"))
     res["threads"], res["ctas"], res["row"] = block, 1, form
     if not fb.mxu and not serial:  # the slot-parallel body
@@ -879,8 +862,8 @@ def _check_operand(name, x, shape, device, dtype=torch.float32):
 
 
 def _fused2_traverse_cuda(rays, fb: Fused2BVH, block: int, max_steps: int, mode: str = "closest",
-                          fanout: int = FANOUT, with_attrs: bool = True, exact: bool = False, serial: bool = False,
-                          profile: bool = False, row: str | None = None):
+                          fanout: int = FANOUT, with_attrs: bool = True, serial: bool = False, profile: bool = False,
+                          row: str | None = None):
     """Launch the kernel entry of ``fb``'s layout and ``mode`` on the current
     stream -> [N,32] (no sync); with ``profile`` the profile entry instead
     (component layout) -> ([N,32], [N/block, PROFILE_COLS] int64).  The
@@ -888,11 +871,11 @@ def _fused2_traverse_cuda(rays, fb: Fused2BVH, block: int, max_steps: int, mode:
     global form at small K)."""
     _check_mode(mode, fb, with_attrs)
     if profile:
-        if fb.mxu or exact:
+        if fb.mxu:
             raise ValueError(f"the profile entry runs the component layout; got {fb.layout}")
         name = PROFILE_ENTRY
     else:
-        name = _entry(fb, mode, with_attrs, exact, serial)
+        name = _entry(fb, mode, with_attrs, serial)
     if rays.device.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError(f"the fused2 kernel needs CUDA tensors on a CUDA device; got {rays.device}")
     n = rays.shape[0]
@@ -913,7 +896,7 @@ def _fused2_traverse_cuda(rays, fb: Fused2BVH, block: int, max_steps: int, mode:
     if _cuda_lib is None:
         build_kernels()
     # before any launch: the form of the frontier rows, or a ValueError
-    glob = row_form(fb, mode, block, rays.device, with_attrs, exact, serial, row) == "global"
+    glob = row_form(fb, mode, block, rays.device, with_attrs, serial, row) == "global"
     blocks = n // block
     args = (rays.data_ptr(), fb.boxes.data_ptr(), fb.planes.data_ptr(), fb.attrs.data_ptr(), out.data_ptr())
     if profile or name in _SLOT_ENTRIES:
@@ -986,22 +969,20 @@ def fused2_traverse(ray_o, ray_d, t_max, fb: Fused2BVH, block: int = BLOCK_RAYS,
 
 def fused2_traverse_packed(rays, fb: Fused2BVH, block: int = BLOCK_RAYS, max_steps: int = MAX_STEPS,
                            mode: str = "closest", fanout: int = FANOUT, with_attrs: bool = True,
-                           exact: bool = False, serial: bool = False):
+                           serial: bool = False):
     """[N,8] packed rays -> [N,32] in ``mode``: the kernel for CUDA tensors,
     the plain version for CPU tensors.  N must be a multiple of ``block``.
     ``fanout`` (clusters retired per loop iteration, MXU layout only) does
     not change the answers; ``with_attrs=False`` is closest hit without
-    attributes (K4); ``exact=True`` (MXU planes, closest hit with
-    attributes, or without on f32 planes) launches the CUDA-core form of
-    the kernel instead of the tensor-core one; ``serial=True`` (component planes, closest hit with
+    attributes (K4); ``serial=True`` (component planes, closest hit with
     attributes or mixed) launches the serial body (one thread per ray)
     instead of the slot-parallel one, with the same outputs."""
     rays = rays.detach()  # no kernel has a backward pass; the plain version gets none either
     if rays.device.type == "cpu":
-        if exact or serial:
-            _entry(fb, mode, with_attrs, exact, serial)  # the same argument check as on the card
+        if serial:
+            _entry(fb, mode, with_attrs, serial)  # the same argument check as on the card
         return fused2_traverse_packed_plain(rays, fb, mode, with_attrs)
-    return _fused2_traverse_cuda(rays, fb, block, max_steps, mode, fanout, with_attrs, exact, serial)
+    return _fused2_traverse_cuda(rays, fb, block, max_steps, mode, fanout, with_attrs, serial)
 
 
 def fused2_traverse_profile(rays, fb: Fused2BVH, block: int = BLOCK_RAYS, max_steps: int = MAX_STEPS,

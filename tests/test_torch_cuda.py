@@ -2,15 +2,13 @@
 any-hit, mixed) on the component layout (K1-K3; its slot-parallel body
 against the serial body bit for bit in every column, and the profile
 entry's cycles and outputs) and the MXU feature layout
-with f32 and bf16 planes (K1b; on bf16 the tensor-core form and the exact
-CUDA-core form of closest hit), and without attributes (K4; on f32 MXU
-planes its tensor-core form and its exact form), every fused2 entry above
+with f32 and bf16 planes (K1b, on the tensor cores), and without attributes
+(K4; on f32 MXU planes on the tensor cores), every fused2 entry above
 its old cluster limit and with its frontier rows forced into device
 memory (bit-equal to the rows in shared memory; at C=512 above the old
-limit, shared by 4 CTAs), the fused kernel (K5, in both block-wide steps,
-each also against the other, also above the cluster count one block's
-shared memory once held, with the slots step's heavy-first order) and the
-latency probe (K6, its exact form bit-equal and its tensor form within
+limit, shared by 4 CTAs), the fused kernel (K5, also above the cluster
+count one block's shared memory once held, with its heavy-first order) and
+the latency probe (K6, its exact form bit-equal and its tensor form within
 the sums' rounding), against their plain versions, and frames
 (wavefront without and with NEE, stopped and resumed from a checkpoint, and
 the scan renderer on the fused kernel) rendered on the card against the same
@@ -38,11 +36,10 @@ Imports nothing of JAX (the card's machine has none).  Every test is marked
 triangle, winner cluster/slot and attribute blob exact; t/u/v to rtol 5e-6
 (both sides evaluate mt_components in the same op order without FMAs, so
 they agree bit for bit in practice); images by the golden rule of
-tests/test_golden.py.  The tensor-core form of K1b on bf16 planes sums the
-feature products in the tensor cores' order and rounding, so it is held to
-chip_smoke.py's near-tie rule with the sums' rounding kind
-(``compare_near_tie(..., tensor=True)``); the exact form to the plain
-version's winners on every row.
+tests/test_golden.py.  K1b and K4 on MXU planes sum the feature products in
+the tensor cores' order and rounding, so they are held to chip_smoke.py's
+near-tie rule with the sums' rounding kind
+(``compare_near_tie(..., tensor=True)``).
 """
 import collections
 import contextlib
@@ -311,17 +308,14 @@ def test_slot_body_launch_shape(cuda_device, c, ctas, any_hit_ctas):
         assert frontier_row.slot_ctas(c, mode) == want  # the byte count's copy of the shape
 
 
-# every fused2 entry by layout: (mode, with_attrs, exact, serial, profile)
+# every fused2 entry by layout: (mode, with_attrs, serial, profile)
 ROW_ENTRIES = {
-    "component": [("closest", True, False, False, False), ("any_hit", False, False, False, False),
-                  ("mixed", True, False, False, False), ("closest", False, False, False, False),
-                  ("closest", True, False, True, False), ("mixed", True, False, True, False),
-                  ("closest", True, False, False, True), ("closest", True, False, True, True)],
-    "mxu_f32": [("closest", True, False, False, False), ("any_hit", False, False, False, False),
-                ("mixed", True, False, False, False), ("closest", False, False, False, False),
-                ("closest", True, True, False, False), ("closest", False, True, False, False)],
-    "mxu_bf16": [("closest", True, False, False, False), ("any_hit", False, False, False, False),
-                 ("mixed", True, False, False, False), ("closest", True, True, False, False)],
+    "component": [("closest", True, False, False), ("any_hit", False, False, False), ("mixed", True, False, False),
+                  ("closest", False, False, False), ("closest", True, True, False), ("mixed", True, True, False),
+                  ("closest", True, False, True), ("closest", True, True, True)],
+    "mxu_f32": [("closest", True, False, False), ("any_hit", False, False, False), ("mixed", True, False, False),
+                ("closest", False, False, False)],
+    "mxu_bf16": [("closest", True, False, False), ("any_hit", False, False, False), ("mixed", True, False, False)],
 }
 
 
@@ -346,7 +340,7 @@ def test_global_row_equals_shared_row(component_soups, cuda_device, layout, bloc
                                        plane_dtype=torch.bfloat16 if layout == "mxu_bf16" else torch.float32)
     fb = builds[key].to(cuda_device)
     limit = tf2.smem_limit(cuda_device)
-    for mode, attrs, exact, serial, profile in ROW_ENTRIES[layout]:
+    for mode, attrs, serial, profile in ROW_ENTRIES[layout]:
         args = [torch.as_tensor(x, device=cuda_device) for x in (o, d, dist if mode == "mixed" else tmax)]
         o_p, d_p, t_p, n = tf2._pad_rays(*args, block)
         sh = torch.cat([torch.as_tensor(shadow, device=cuda_device), torch.zeros(o_p.shape[0] - n, dtype=torch.bool,
@@ -354,11 +348,11 @@ def test_global_row_equals_shared_row(component_soups, cuda_device, layout, bloc
         rays = tf2.pack_rays(o_p, d_p, t_p, sh if mode == "mixed" else None)
         outs = {}
         for form in tf2.ROW_FORMS:
-            nbytes = tf2.block_bytes(fb, mode, block, attrs, exact, serial, form == "global")
-            assert nbytes == frontier_row.block_bytes(fb.layout, mode, fb.num_clusters, c, block, exact, serial,
+            nbytes = tf2.block_bytes(fb, mode, block, attrs, serial, form == "global")
+            assert nbytes == frontier_row.block_bytes(fb.layout, mode, fb.num_clusters, c, block, serial,
                                                       form == "global")
             run = lambda: tf2._fused2_traverse_cuda(rays, fb, block, tf2.MAX_STEPS, mode, with_attrs=attrs,  # noqa
-                                                    exact=exact, serial=serial, profile=profile, row=form)
+                                                    serial=serial, profile=profile, row=form)
             if nbytes > limit:
                 with pytest.raises(ValueError, match=f"K={fb.num_clusters} .*{nbytes} bytes .*limit of {limit}"):
                     run()
@@ -366,15 +360,15 @@ def test_global_row_equals_shared_row(component_soups, cuda_device, layout, bloc
             got = [run() for _ in range(3 if form == "global" else 1)]
             outs[form] = [x[0] for x in got] if profile else got
             if not profile:
-                res = tf2.kernel_resources(fb, mode, block, attrs, exact, serial, row=form)
+                res = tf2.kernel_resources(fb, mode, block, attrs, serial, row=form)
                 assert res["shared_bytes"] == nbytes and res["row"] == form
         torch.cuda.synchronize()
         if layout == "component" or c <= 1024:
-            assert set(outs) == set(tf2.ROW_FORMS), (mode, attrs, exact, serial)
+            assert set(outs) == set(tf2.ROW_FORMS), (mode, attrs, serial)
         for form, got in outs.items():
             for other in got:
                 assert chip_smoke.differing_columns(next(iter(outs.values()))[0], other) == {}, \
-                    (form, mode, attrs, exact, serial, profile)
+                    (form, mode, attrs, serial, profile)
 
 
 def test_every_entry_above_the_old_cluster_limit(cuda_device):
@@ -386,7 +380,7 @@ def test_every_entry_above_the_old_cluster_limit(cuda_device):
     results = {}
     chip_smoke.above_old_limit(cuda_device, results, 256)
     limits = results["limit"]["old_limits"]
-    assert len(limits) == 16 and all(results["limit"]["k"] > old for old in limits.values())
+    assert len(limits) == len(tf2._ENTRY) and all(results["limit"]["k"] > old for old in limits.values())
 
 
 def test_four_ctas_share_one_row_above_the_old_limit(cuda_device):
@@ -494,27 +488,6 @@ def test_mxu_kernel_matches_plain(soup, mxu_soups, cuda_device, block, dtype, mo
         torch.testing.assert_close(got[sh_p, 4], want[sh_p, 4], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("block", [128, 256])
-def test_f32_exact_kernel_matches_plain(soup, mxu_soups, cuda_device, block):
-    """The exact CUDA-core form of K1b f32 closest hit (the tensor form's
-    yardstick): the plain version's arithmetic, equal to it on every ray of
-    the soup, counted under its own entry; the tensor form's entry is not
-    launched by it."""
-    fb = mxu_soups["f32"].to(cuda_device)
-    _, o, d, tmax = soup
-    args = [torch.as_tensor(x[:300], device=cuda_device) for x in (o, d, tmax)]
-    rays = tf2.pack_rays(*tf2._pad_rays(*args, block)[:3])
-    name, tensor = "owlpt_fused2_mxu_exact_closest_hit", "owlpt_fused2_mxu_closest_hit"
-    launches, tensor_launches = tf2.LAUNCHES[name], tf2.LAUNCHES[tensor]
-    got = tf2.fused2_traverse_packed(rays, fb, block=block, exact=True)
-    assert tf2.LAUNCHES[name] == launches + 1 and tf2.LAUNCHES[tensor] == tensor_launches
-    want = tf2.fused2_traverse_packed_plain(rays, fb)
-    torch.cuda.synchronize()
-    assert_kernel_output_matches(got, want)
-    with pytest.raises(ValueError, match="exact=True"):
-        tf2.fused2_traverse_packed(rays, fb, block=block, mode="mixed", exact=True)
-
-
 def test_f32_tensor_sums_within_gamma(soup, mxu_soups, cuda_device):
     """The f32 tensor-core feature sums (the diagnostic entry, the
     traversal's own staging and products) lie within SUM_GAMMA_F32 of the
@@ -526,26 +499,6 @@ def test_f32_tensor_sums_within_gamma(soup, mxu_soups, cuda_device):
     want = tf2.fused2_traverse_packed_plain(rays, fb)
     worst, count = chip_smoke.tensor_sums_ratio(rays, want, fb, warps=rays.shape[0] // 32)
     assert count > 0 and 0.0 <= worst <= chip_smoke.SUM_GAMMA_F32
-
-
-@pytest.mark.parametrize("block", [128, 256])
-def test_bf16_exact_kernel_matches_plain(soup, mxu_soups, cuda_device, block):
-    """The exact CUDA-core form of K1b bf16 closest hit (the tensor form's
-    yardstick): the plain version's arithmetic, equal to it on every ray of
-    the soup, counted under its own entry."""
-    fb = mxu_soups["bf16"].to(cuda_device)
-    _, o, d, tmax = soup
-    args = [torch.as_tensor(x[:300], device=cuda_device) for x in (o, d, tmax)]
-    rays = tf2.pack_rays(*tf2._pad_rays(*args, block)[:3])
-    name = "owlpt_fused2_mxu_bf16_exact_closest_hit"
-    launches = tf2.LAUNCHES[name]
-    got = tf2.fused2_traverse_packed(rays, fb, block=block, exact=True)
-    assert tf2.LAUNCHES[name] == launches + 1
-    want = tf2.fused2_traverse_packed_plain(rays, fb)
-    torch.cuda.synchronize()
-    assert_kernel_output_matches(got, want)
-    with pytest.raises(ValueError, match="exact=True"):
-        tf2.fused2_traverse_packed(rays, fb, block=block, mode="any_hit", exact=True)
 
 
 @pytest.mark.parametrize("mode", ["closest", "any_hit", "mixed"])
@@ -628,8 +581,7 @@ def dragon_f32(dragon_waves):
 def test_f32_tensor_kernel_on_dragon_wave(dragon_waves, dragon_f32, block, wave):
     """K1b f32 (tensor cores, 3xTF32) closest hit on a sorted dragon wave
     under the near-tie rule with the sums' rounding kind (SUM_GAMMA_F32;
-    explained rows at most 0.5%, rounded up); the exact form under the rule
-    without it; fanout 1 and 2 bit for bit."""
+    explained rows at most 0.5%, rounded up); fanout 1 and 2 bit for bit."""
     _, waves, _ = dragon_waves
     o, d = waves[wave]
     t = torch.full((o.shape[0],), 1e10, device=o.device)
@@ -638,8 +590,6 @@ def test_f32_tensor_kernel_on_dragon_wave(dragon_waves, dragon_f32, block, wave)
     got = tf2.fused2_traverse_packed(rays, dragon_f32, block=block)
     chip_smoke.compare_near_tie(got, want, rays, dragon_f32, f"dragon {wave} f32", tensor=True)
     assert chip_smoke.same_outputs(tf2.fused2_traverse_packed(rays, dragon_f32, block=block, fanout=1), got)
-    exact = tf2.fused2_traverse_packed(rays, dragon_f32, block=block, exact=True)
-    chip_smoke.compare_near_tie(exact, want, rays, dragon_f32, f"dragon {wave} f32, exact form")
 
 
 @pytest.mark.parametrize("block", [128, 256])
@@ -660,7 +610,7 @@ def test_f32_tensor_any_hit_and_mixed_on_dragon_wave(dragon_waves, dragon_f32, b
 def test_bf16_tensor_kernel_on_dragon_wave(dragon_waves, block, wave):
     """K1b bf16 (tensor cores) closest hit on a sorted dragon wave under the
     near-tie rule with the sums' rounding kind (explained rows at most 0.5%,
-    rounded up); the exact form under the rule without it."""
+    rounded up)."""
     accel, waves, _ = dragon_waves
     o, d = waves[wave]
     t = torch.full((o.shape[0],), 1e10, device=o.device)
@@ -668,8 +618,6 @@ def test_bf16_tensor_kernel_on_dragon_wave(dragon_waves, block, wave):
     want = tf2.fused2_traverse_packed_plain(rays, accel)
     got = tf2.fused2_traverse_packed(rays, accel, block=block)
     chip_smoke.compare_near_tie(got, want, rays, accel, f"dragon {wave}", tensor=True)
-    exact = tf2.fused2_traverse_packed(rays, accel, block=block, exact=True)
-    chip_smoke.compare_near_tie(exact, want, rays, accel, f"dragon {wave}, exact form")
 
 
 @pytest.mark.parametrize("block", [128, 256])
@@ -705,19 +653,16 @@ def _any_hit_and_mixed(dragon_waves, accel, block, tensor_flags=False):
         assert (rays[sh][got[sh, 4] != want[sh, 4], 0:3] == wavefront.PARK).all()
 
 
-@pytest.mark.parametrize("layout", ["component", "f32"])
-def test_no_attrs_kernel_matches_plain(soup, mxu_soups, cuda_device, layout):
-    """K4: loop t/u/v and the in-plane tri id, a zero blob; on f32 MXU
-    planes its exact CUDA-core form (the tensor form's yardstick, the
-    plain version's arithmetic), counted under its own entry."""
-    fb = (soup[0] if layout == "component" else mxu_soups[layout]).to(cuda_device)
+def test_no_attrs_kernel_matches_plain(soup, mxu_soups, cuda_device):
+    """K4 on component planes: loop t/u/v and the in-plane tri id, a zero
+    blob, counted under its own entry; bf16 planes refuse it."""
+    fb = soup[0].to(cuda_device)
     _, o, d, tmax = soup
     args = [torch.as_tensor(x[:300], device=cuda_device) for x in (o, d, tmax)]
     rays = tf2.pack_rays(*tf2._pad_rays(*args, 128)[:3])
-    exact = layout == "f32"
-    name = tf2._entry(fb, "closest", False, exact=exact)
+    name = tf2._entry(fb, "closest", False)
     launches = tf2.LAUNCHES[name]
-    got = tf2.fused2_traverse_packed(rays, fb, block=128, with_attrs=False, exact=exact)
+    got = tf2.fused2_traverse_packed(rays, fb, block=128, with_attrs=False)
     assert tf2.LAUNCHES[name] == launches + 1
     want = tf2.fused2_traverse_packed_plain(rays, fb, with_attrs=False)
     torch.cuda.synchronize()
@@ -732,8 +677,7 @@ def test_no_attrs_tensor_kernel_matches_plain(soup, mxu_soups, cuda_device, bloc
     """K4 on f32 MXU planes on the tensor cores (3xTF32): winners under the
     near-tie rule with the sums' rounding kind, the loop t/u/v within the
     sums' rounding of the plain version's, a zero blob; fanout 1 and 2
-    identical; the rows where it agrees with its exact form carry the exact
-    form's tri, winner cluster and slot."""
+    identical."""
     fb = mxu_soups["f32"].to(cuda_device)
     _, o, d, tmax = soup
     args = [torch.as_tensor(x, device=cuda_device) for x in (o, d, tmax)]
@@ -742,7 +686,6 @@ def test_no_attrs_tensor_kernel_matches_plain(soup, mxu_soups, cuda_device, bloc
     launches = tf2.LAUNCHES[name]
     got = {fo: tf2.fused2_traverse_packed(rays, fb, block=block, with_attrs=False, fanout=fo) for fo in (1, 2)}
     assert tf2.LAUNCHES[name] == launches + 2
-    exact = tf2.fused2_traverse_packed(rays, fb, block=block, with_attrs=False, exact=True)
     want = tf2.fused2_traverse_packed_plain(rays, fb, with_attrs=False)
     torch.cuda.synchronize()
     keep = [c for c in range(32) if c != 6]
@@ -750,10 +693,6 @@ def test_no_attrs_tensor_kernel_matches_plain(soup, mxu_soups, cuda_device, bloc
     got = got[2]
     assert (got[:, 16:32] == 0).all() and (got[:, 5] == 1).all()
     chip_smoke.compare_near_tie(got, want, rays, fb, "K4 f32 tensor soup", blob=False, tensor=True)
-    same = got[:, 3] == exact[:, 3]
-    assert same.float().mean() > 0.99
-    for col in (4, 7, 8):
-        assert torch.equal(got[same, col], exact[same, col])
 
 
 @pytest.mark.parametrize("kind", ["fused2", "fused2-bf16"])
@@ -796,57 +735,49 @@ def _fused_soup_rays(soup, device, block, scalar):
 
 @pytest.mark.parametrize("scalar", [False, True], ids=["per_ray_tmax", "scalar_tmax"])
 @pytest.mark.parametrize("block", [128, 256])
-@pytest.mark.parametrize("step", list(tfu.STEPS))
-def test_fused_kernel_matches_plain(soup, fused_soup, cuda_device, block, scalar, step):
-    """K5, both steps: columns 0-6 bit-equal to the plain version (same
-    entries, picks and retirements; Moller-Trumbore in one op order without
-    FMAs) and to the other step, with the wrapper's padding rays; each
-    launch is counted under its step's entry."""
+def test_fused_kernel_matches_plain(soup, fused_soup, cuda_device, block, scalar):
+    """K5: columns 0-6 bit-equal to the plain version (same entries, picks
+    and retirements; Moller-Trumbore in one op order without FMAs), with the
+    wrapper's padding rays; each launch is counted under its entry."""
     fb = fused_soup.to(cuda_device)
     o, d, t = _fused_soup_rays(soup, cuda_device, block, scalar)
-    launches = dict(tfu.LAUNCHES)
-    got = tfu.fused_traverse(o, d, t, fb, block, step=step)
-    entry = tfu.STEP_ENTRIES[step]
-    assert tfu.LAUNCHES == {**launches, entry: launches[entry] + 1}
+    launches = tfu.LAUNCHES[tfu.ENTRY]
+    got = tfu.fused_traverse(o, d, t, fb, block)
+    assert tfu.LAUNCHES == {tfu.ENTRY: launches + 1}
     want = tfu.fused_traverse_plain(o, d, t, fb, block)
-    other = tfu.fused_traverse(o, d, t, fb, block, step=next(s for s in tfu.STEPS if s != step))
     torch.cuda.synchronize()
-    assert torch.equal(got[:, :7], want[:, :7]) and (got[:, 7] == 0).all() and torch.equal(got, other)
+    assert torch.equal(got[:, :7], want[:, :7]) and (got[:, 7] == 0).all()
     assert (got[:, 5] == 1).all() and 0 < int(got[:300, 4].sum()) < 300
 
 
 @pytest.mark.parametrize("max_steps", [0, 1, 3])
-@pytest.mark.parametrize("step", list(tfu.STEPS))
-def test_fused_steps_cut_short_match_plain(soup, fused_soup, cuda_device, max_steps, step):
-    """Both steps at max_steps 0, 1 and 3 (rows left unresolved, steps
-    capped): columns 0-6 bit-equal to the plain version and to the other
-    step, at blocks 128 and 256 with per-ray t_max."""
+def test_fused_steps_cut_short_match_plain(soup, fused_soup, cuda_device, max_steps):
+    """K5 at max_steps 0, 1 and 3 (rows left unresolved, steps capped):
+    columns 0-6 bit-equal to the plain version, at blocks 128 and 256 with
+    per-ray t_max."""
     fb = fused_soup.to(cuda_device)
     for block in (128, 256):
         o, d, t = _fused_soup_rays(soup, cuda_device, block, False)
-        got = tfu.fused_traverse(o, d, t, fb, block, max_steps, step=step)
+        got = tfu.fused_traverse(o, d, t, fb, block, max_steps)
         want = tfu.fused_traverse_plain(o, d, t, fb, block, max_steps)
-        other = tfu.fused_traverse(o, d, t, fb, block, max_steps, step=next(s for s in tfu.STEPS if s != step))
         torch.cuda.synchronize()
-        assert torch.equal(got[:, :7], want[:, :7]) and torch.equal(got, other)
+        assert torch.equal(got[:, :7], want[:, :7])
         assert (got[:, 6] <= max_steps).all()
         if max_steps < 3:
             assert (got[:, 5] == 0).any()
 
 
-@pytest.mark.parametrize("step", list(tfu.STEPS))
-def test_fused_block_with_no_active_ray(soup, fused_soup, cuda_device, step):
+def test_fused_block_with_no_active_ray(soup, fused_soup, cuda_device):
     """A block whose rays enter no box (every ray from far above, straight
     up) between two live blocks: it retires nothing (steps 0, every row
-    resolved, no hit) while the others run, and both steps equal the plain
-    version."""
+    resolved, no hit) while the others run, equal to the plain version."""
     fb = fused_soup.to(cuda_device)
     o, d, t = _fused_soup_rays(soup, cuda_device, 128, False)
     o, d, t = o[:256].clone(), d[:256].clone(), t[:256].clone()
     o[128:256] = torch.tensor([0.0, 0.0, 100.0], device=cuda_device)
     d[128:256] = torch.tensor([0.0, 0.0, 1.0], device=cuda_device)
     o, d, t = torch.cat([o, o[:128]]), torch.cat([d, d[:128]]), torch.cat([t, t[:128]])
-    got = tfu.fused_traverse(o, d, t, fb, 128, step=step)
+    got = tfu.fused_traverse(o, d, t, fb, 128)
     want = tfu.fused_traverse_plain(o, d, t, fb, 128)
     torch.cuda.synchronize()
     assert torch.equal(got[:, :7], want[:, :7])
@@ -856,13 +787,11 @@ def test_fused_block_with_no_active_ray(soup, fused_soup, cuda_device, step):
 
 
 def test_fused_heavy_blocks_first(soup, cuda_device):
-    """The slots step's pre-pass and order, on the soup's triangles in
-    clusters of C=8 (16 group boxes) with t_max growing block by block:
-    the profile's weight per block
-    equals block_weights, its launch ranks are a permutation of the blocks
-    in block_order's order (heaviest first, ties in block order), and the
-    outputs equal the plain version's; the serial step launches in block
-    order with weight -1."""
+    """K5's pre-pass and order, on the soup's triangles in clusters of C=8
+    (16 group boxes) with t_max growing block by block: the profile's
+    weight per block equals block_weights, its launch ranks are a
+    permutation of the blocks in block_order's order (heaviest first, ties
+    in block order), and the outputs equal the plain version's."""
     r = np.random.default_rng(0)
     tri = r.uniform(-4, 4, (3000, 1, 3)) + r.normal(0, 0.4, (3000, 3, 3))
     verts = tri.reshape(-1, 3).astype(np.float32)
@@ -874,7 +803,7 @@ def test_fused_heavy_blocks_first(soup, cuda_device):
     o, d = (torch.as_tensor(x[:n], device=cuda_device) for x in (o, d))
     # t_max grows block by block, so the blocks enter more and more group boxes
     tmax = torch.linspace(0.25, 6.0, n // 32, device=cuda_device).repeat_interleave(32)
-    out, prof, _ = tfu.fused_traverse_profile(o, d, tmax, fb, 32, step="slots")
+    out, prof, _ = tfu.fused_traverse_profile(o, d, tmax, fb, 32)
     assert torch.equal(out[:, :7], tfu.fused_traverse_plain(o, d, tmax, fb, 32)[:, :7])
     weights = tfu.block_weights(o, d, tmax, fb, 32)
     rank, weight = prof[:, 6], prof[:, 7]
@@ -882,30 +811,24 @@ def test_fused_heavy_blocks_first(soup, cuda_device):
     order = tfu.block_order(weights)
     assert torch.equal(torch.sort(rank).values, torch.arange(n // 32, device=cuda_device))
     assert torch.equal(order[rank], torch.arange(n // 32, device=cuda_device))
-    _, prof, _ = tfu.fused_traverse_profile(o, d, tmax, fb, 32, step="serial")
-    assert torch.equal(prof[:, 6], torch.arange(n // 32, device=cuda_device)) and (prof[:, 7] == -1).all()
 
 
-@pytest.mark.parametrize("step", list(tfu.STEPS))
-def test_fused_overflow_matches_cpu(soup, fused_soup, cuda_device, monkeypatch, step):
+def test_fused_overflow_matches_cpu(soup, fused_soup, cuda_device):
     """max_steps=3 leaves rows unresolved; the wrapper answers them with the
-    exact cluster query, equal to the CPU wrapper's answers (the card's
-    sweep through ``step``, the default taken from fused.STEP)."""
-    monkeypatch.setattr(tfu, "STEP", step)
+    exact cluster query, equal to the CPU wrapper's answers."""
     _, o, d, tmax = soup
     args = [torch.as_tensor(x) for x in (o, d, tmax)]
     cuda = [x.to(cuda_device) for x in args]
-    launches = tfu.LAUNCHES[tfu.STEP_ENTRIES[step]]
+    launches = tfu.LAUNCHES[tfu.ENTRY]
     raw = tfu.fused_traverse(*[x[:384] for x in cuda], fused_soup.to(cuda_device), 128, 3)
-    assert (raw[:, 5] == 0).any() and tfu.LAUNCHES[tfu.STEP_ENTRIES[step]] == launches + 1
+    assert (raw[:, 5] == 0).any() and tfu.LAUNCHES[tfu.ENTRY] == launches + 1
     got = tfu.fused_closest_hit(cuda[0], cuda[1], fused_soup.to(cuda_device), t_max=cuda[2], max_steps=3)
     want = tfu.fused_closest_hit(args[0], args[1], fused_soup, t_max=args[2], max_steps=3)
     assert torch.equal(got.tri.cpu(), want.tri) and torch.equal(got.t.cpu(), want.t)
     assert torch.equal(got.uv.cpu(), want.uv)
 
 
-@pytest.mark.parametrize("step", list(tfu.STEPS))
-def test_fused_kernel_above_old_cluster_limit(cuda_device, step):
+def test_fused_kernel_above_old_cluster_limit(cuda_device):
     """K5 reads the box rows from device memory and keeps one retired bit per
     cluster: 80,000 random triangles in clusters of C=8 give K above the
     9,280 clusters that one block's shared memory held at C=8 when the boxes
@@ -921,7 +844,7 @@ def test_fused_kernel_above_old_cluster_limit(cuda_device, step):
     o = torch.as_tensor(r.uniform(-25, 25, (n, 3)).astype(np.float32), device=cuda_device)
     d = torch.nn.functional.normalize(torch.as_tensor(r.normal(size=(n, 3)).astype(np.float32), device=cuda_device),
                                       dim=-1)
-    got = tfu.fused_traverse(o, d, 1e10, fb, step=step)
+    got = tfu.fused_traverse(o, d, 1e10, fb)
     want = tfu.fused_traverse_plain(o, d, 1e10, fb)
     torch.cuda.synchronize()
     assert torch.equal(got[:, :7], want[:, :7])  # resolved (col 5) and steps (col 6) too
@@ -957,42 +880,34 @@ def rescan_scene():
 RESCAN_STEPS = 1024
 
 
-@pytest.mark.parametrize("step", list(tfu.STEPS))
-@pytest.mark.parametrize("scan", list(tfu.SCANS))
-def test_fused_scan_kinds_match_plain_with_rescans(rescan_scene, scan, step):
-    """K5 with both list-scan kinds and both steps: columns 0-6 (steps and
-    resolved too) bit-equal to the plain version where rays rescan several
-    times; the profile entry gives the same outputs and steps, the same
-    rescans as the serial scan, and (group skips) slab-tests fewer boxes."""
+def test_fused_scan_kinds_match_plain_with_rescans(rescan_scene):
+    """K5 where rays rescan several times: columns 0-6 (steps and resolved
+    too) bit-equal to the plain version; the profile entry gives the same
+    outputs and steps, and its group skips slab-test fewer boxes than a
+    scan of every box does in its set-up scans alone (K per ray)."""
     fb, o, d, want = rescan_scene
     assert fb.num_clusters > 9500
-    got = tfu.fused_traverse(o, d, 1e10, fb, max_steps=RESCAN_STEPS, scan=scan, step=step)
+    got = tfu.fused_traverse(o, d, 1e10, fb, max_steps=RESCAN_STEPS)
     assert torch.equal(got[:, :7], want[:, :7])
     assert 0 < int(got[:, 4].sum()) and (got[:, 5] == 1).all()
-    out, prof, counts = tfu.fused_traverse_profile(o, d, 1e10, fb, max_steps=RESCAN_STEPS, scan=scan, step=step)
+    out, prof, counts = tfu.fused_traverse_profile(o, d, 1e10, fb, max_steps=RESCAN_STEPS)
     assert torch.equal(out[:, :7], got[:, :7])
     assert float(counts[:, 0].float().mean()) > 2.0, "several rescans per ray"
     assert (prof[:, 4] > 0).all() and torch.equal(prof[:, 5].float(), got.view(-1, tfu.BLOCK_RAYS, 8)[:, 0, 6])
-    serial = tfu.fused_traverse_profile(o, d, 1e10, fb, max_steps=RESCAN_STEPS, scan="serial", step=step)[2]
-    assert torch.equal(counts[:, 0], serial[:, 0])
-    if scan == "warp_groups":
-        assert int(counts[:, 1].sum()) < int(serial[:, 1].sum())
+    assert int(counts[:, 1].sum()) < fb.num_clusters * o.shape[0]
 
 
-@pytest.mark.parametrize("step", list(tfu.STEPS))
-@pytest.mark.parametrize("scan", list(tfu.SCANS))
-def test_fused_group_entered_with_no_member_entered(cuda_device, scan, step):
+def test_fused_group_entered_with_no_member_entered(cuda_device):
     """chip_smoke.corner_groups: every ray enters group 0's box and none of
-    its members; both scan kinds and both steps give the plain version's
-    columns 0-6 (a hit on cluster 32 at t = 4), and the group-skip set-up
-    scan tests the plain list scan's boxes."""
+    its members; K5 gives the plain version's columns 0-6 (a hit on cluster
+    32 at t = 4), and the group-skip set-up scan tests the plain list scan's
+    boxes."""
     fb, o, d = chip_smoke.corner_groups(cuda_device)
-    got = tfu.fused_traverse(o, d, 1e10, fb, scan=scan, step=step)
+    got = tfu.fused_traverse(o, d, 1e10, fb)
     want = tfu.fused_traverse_plain(o, d, 1e10, fb)
     assert torch.equal(got[:, :7], want[:, :7]) and (got[:, 0] == 4.0).all() and (got[:, 3] == 32).all()
-    _, _, counts = tfu.fused_traverse_profile(o, d, 1e10, fb, max_steps=0, scan=scan, step=step)
-    if scan == "warp_groups":
-        assert torch.equal(counts[:, 1].long(), tfu.nearest_lists(o, d, 1e10, fb, groups=True)[2])
+    _, _, counts = tfu.fused_traverse_profile(o, d, 1e10, fb, max_steps=0)
+    assert torch.equal(counts[:, 1].long(), tfu.nearest_lists(o, d, 1e10, fb, groups=True)[2])
 
 
 @pytest.mark.parametrize("kind", ["fused2", "component"])

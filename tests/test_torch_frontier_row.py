@@ -15,9 +15,9 @@ no answer of the plain version.
 
 The old cluster limits (the most K whose row fits in shared memory) are
 the table that the repair lifted: at block 256 on an H100 (232,448 bytes),
-C=512: 35,436 clusters (bf16 tensor entries), 36,236 (f32 tensor), 46,272
-(exact CUDA-core), 49,052 (slot-parallel closest hit and mixed), 41,372
-(slot-parallel any-hit); C=128: 50,796, 50,828, 53,568, 49,052, 49,052.
+C=512: 35,436 clusters (bf16 tensor entries), 36,236 (f32 tensor), 49,052
+(slot-parallel closest hit and mixed), 41,372 (slot-parallel any-hit);
+C=128: 50,796, 50,828, 49,052, 49,052.
 """
 import numpy as np
 import pytest
@@ -33,9 +33,8 @@ BLOCK = 256
 # cluster of up to 4 CTAs per block of rays, each testing at least 4 32-slot
 # chunks of a cluster; any-hit keeps one CTA up to 64 chunks
 SLOT_CLUSTER, MIN_CTA_CHUNKS, ANY_HIT_CHUNKS = 4, 4, 64
-# rows a block stages per cluster on CUDA cores: component p0 e1 e2 + tri
-# id; MXU the 19 non-zero feature rows
-STAGED_ROWS = {"component": 10, "mxu_f32": 19, "mxu_bf16": 19}
+# rows the serial component body stages per cluster: p0 e1 e2 + tri id
+STAGED_ROWS = 10
 
 
 def slot_ctas(c: int, mode: str) -> int:
@@ -57,7 +56,7 @@ def tensor_buffer_bytes(layout: str, c: int) -> int:
     return 19 * (cols + ((8 - cols) & 31)) * 4
 
 
-def block_bytes(layout: str, mode: str, k: int, c: int, block: int, exact: bool = False, serial: bool = False,
+def block_bytes(layout: str, mode: str, k: int, c: int, block: int, serial: bool = False,
                 global_row: bool = False) -> int:
     """Dynamic shared memory of one block (one CTA of the slot-parallel
     body): the frontier row [K] f32, padded to a multiple of 4, unless
@@ -69,35 +68,34 @@ def block_bytes(layout: str, mode: str, k: int, c: int, block: int, exact: bool 
         span = (((c + 31) >> 5) + ctas - 1) // ctas * 32
         return 4 * 2 * 10 * span + 16 * 2 * block + 8 * 2 * block + 4 * (row + 8 * block + 5 * block + 36 + 64)
     tail = 4 * (row + 8 * block + 64)
-    if layout != "component" and not exact:  # the tensor-core ring of two clusters and a zero row
+    if layout != "component":  # the tensor-core ring of two clusters and a zero row
         return 2 * tensor_buffer_bytes(layout, c) + 16 + tail
-    return 4 * STAGED_ROWS[layout] * c + tail
+    return 4 * STAGED_ROWS * c + tail
 
 
-def old_limit(layout, mode, c, exact=False):
+def old_limit(layout, mode, c):
     """The most K whose row fits in shared memory (the shared form's limit)."""
-    return max((H100_SMEM - block_bytes(layout, mode, 0, c, BLOCK, exact)) // 4 & ~3, 0)
+    return max((H100_SMEM - block_bytes(layout, mode, 0, c, BLOCK)) // 4 & ~3, 0)
 
 
-def form(layout, mode, k, c, exact=False, force=None):
+def form(layout, mode, k, c, force=None):
     """fused2.pick_row_form on this file's byte counts at an H100's limit."""
-    nbytes = {f: block_bytes(layout, mode, k, c, BLOCK, exact, global_row=f == "global") for f in tf2.ROW_FORMS}
+    nbytes = {f: block_bytes(layout, mode, k, c, BLOCK, global_row=f == "global") for f in tf2.ROW_FORMS}
     return tf2.pick_row_form(f"{layout} {mode}", k, c, BLOCK, nbytes, H100_SMEM, force)
 
 
-# (layout, mode, exact) of each column of the table
+# (layout, mode) of each column of the table
 COLUMNS = {
-    "bf16 tensor": ("mxu_bf16", "closest", False),
-    "f32 tensor": ("mxu_f32", "closest", False),
-    "exact CUDA-core": ("mxu_f32", "closest", True),
-    "slot-parallel closest / mixed": ("component", "closest", False),
-    "slot-parallel any-hit": ("component", "any_hit", False),
+    "bf16 tensor": ("mxu_bf16", "closest"),
+    "f32 tensor": ("mxu_f32", "closest"),
+    "slot-parallel closest / mixed": ("component", "closest"),
+    "slot-parallel any-hit": ("component", "any_hit"),
 }
 TABLE = {
-    512: {"bf16 tensor": 35436, "f32 tensor": 36236, "exact CUDA-core": 46272,
-          "slot-parallel closest / mixed": 49052, "slot-parallel any-hit": 41372},
-    128: {"bf16 tensor": 50796, "f32 tensor": 50828, "exact CUDA-core": 53568,
-          "slot-parallel closest / mixed": 49052, "slot-parallel any-hit": 49052},
+    512: {"bf16 tensor": 35436, "f32 tensor": 36236, "slot-parallel closest / mixed": 49052,
+          "slot-parallel any-hit": 41372},
+    128: {"bf16 tensor": 50796, "f32 tensor": 50828, "slot-parallel closest / mixed": 49052,
+          "slot-parallel any-hit": 49052},
 }
 
 
@@ -107,12 +105,12 @@ def test_old_limit_table(column, c):
     """The byte count gives ROADMAP's table of old cluster limits; the
     mixed sweep's equals closest hit's, and K one above the limit is the
     first K whose row no longer fits."""
-    layout, mode, exact = COLUMNS[column]
+    layout, mode = COLUMNS[column]
     want = TABLE[c][column]
-    assert old_limit(layout, mode, c, exact) == want
-    assert block_bytes(layout, mode, want, c, BLOCK, exact) <= H100_SMEM
-    assert block_bytes(layout, mode, want + 1, c, BLOCK, exact) > H100_SMEM
-    if mode == "closest" and not exact:
+    assert old_limit(layout, mode, c) == want
+    assert block_bytes(layout, mode, want, c, BLOCK) <= H100_SMEM
+    assert block_bytes(layout, mode, want + 1, c, BLOCK) > H100_SMEM
+    if mode == "closest":
         assert old_limit(layout, "mixed", c) == want
 
 
@@ -122,24 +120,23 @@ def test_row_form_goes_to_device_memory_above_the_limit(column, c):
     """Up to the old limit the row stays in shared memory; above it the
     global form launches, whose bytes do not depend on K (the row is gone
     from shared memory), at any K."""
-    layout, mode, exact = COLUMNS[column]
+    layout, mode = COLUMNS[column]
     old = TABLE[c][column]
-    assert form(layout, mode, old, c, exact) == "shared"
+    assert form(layout, mode, old, c) == "shared"
     for k in (old + 1, 4 * old, 10**6):
-        assert form(layout, mode, k, c, exact) == "global"
-    global_bytes = {block_bytes(layout, mode, k, c, BLOCK, exact, global_row=True) for k in (1, old, 10**6)}
+        assert form(layout, mode, k, c) == "global"
+    global_bytes = {block_bytes(layout, mode, k, c, BLOCK, global_row=True) for k in (1, old, 10**6)}
     assert len(global_bytes) == 1 and global_bytes.pop() <= H100_SMEM
 
 
 def test_global_form_bytes_leave_out_the_padded_row():
     """The shared form counts the row [K] padded to a multiple of 4 floats;
     the global form counts none of it, for every body."""
-    for layout, mode, exact, serial in (("mxu_bf16", "closest", False, False), ("mxu_f32", "any_hit", False, False),
-                                        ("mxu_f32", "closest", True, False), ("component", "mixed", False, False),
-                                        ("component", "closest", False, True)):
+    for layout, mode, serial in (("mxu_bf16", "closest", False), ("mxu_f32", "any_hit", False),
+                                 ("component", "mixed", False), ("component", "closest", True)):
         for k in (1, 5, 768, 1001):
-            shared = block_bytes(layout, mode, k, 512, BLOCK, exact, serial)
-            glob = block_bytes(layout, mode, k, 512, BLOCK, exact, serial, global_row=True)
+            shared = block_bytes(layout, mode, k, 512, BLOCK, serial)
+            glob = block_bytes(layout, mode, k, 512, BLOCK, serial, global_row=True)
             assert shared - glob == 4 * ((k + 3) & ~3)
 
 

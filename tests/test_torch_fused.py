@@ -241,9 +241,3 @@ def test_group_entered_with_no_member_entered():
     assert (tests_g == 2 + 64).all()  # both groups entered: every member tested
     out = tfu.fused_traverse(o, d, tmax, fb)
     assert (out[:, 4] == 1).all() and (out[:, 0] == 4.0).all() and (out[:, 3] == 32).all()
-
-
-def test_unknown_scan_kind_raises(setup):
-    _, tfb, o, d, tmax = setup
-    with pytest.raises(ValueError, match="scan kind"):
-        tfu.fused_traverse(torch.as_tensor(o[:128]), torch.as_tensor(d[:128]), 1e10, tfb, 128, scan="tree")

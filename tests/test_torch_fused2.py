@@ -7,6 +7,9 @@ atol 1e-6 (XLA may contract the Moller-Trumbore sums into FMAs, the port
 never does).  The CUDA kernel itself is held against the plain version on a
 card by tests/test_torch_cuda.py.
 """
+import re
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -242,6 +245,42 @@ def test_serial_selection_on_the_cpu_is_the_plain_version(setup, mode):
     assert tf2._entry(tfb, mode, True, serial=True) == f"owlpt_fused2_serial_{'closest_hit' if mode == 'closest' else 'sweep_mixed'}"
     got = tf2.fused2_traverse_packed(rays, tfb, mode=mode, serial=True)
     assert torch.equal(got, tf2.fused2_traverse_packed_plain(rays, tfb, mode))
+
+
+# the kernel source's entry declarations: OWLPT_FUSED2_ENTRY (the serial
+# body on component planes, the tensor-core body on MXU planes) and
+# OWLPT_FUSED2_SLOT_ENTRY (the slot-parallel component body)
+_SOURCE_MODES = {"kClosest": "closest", "kAnyHit": "any_hit", "kMixed": "mixed"}
+_SOURCE_LAYOUTS = {"kComponent": "component_serial", "kMxuF32": "mxu_f32", "kMxuBf16": "mxu_bf16"}
+
+
+def _declared_entries():
+    """{entry name: (layout, mode, with_attrs)} as csrc/fused2_traverse.cu declares them."""
+    src = tf2.CSRC.read_text()
+    out = {}
+    for name, mode, layout, attrs in re.findall(r"^OWLPT_FUSED2_ENTRY\((\w+), (\w+), (\w+), (true|false)\)$", src,
+                                                re.M):
+        out[name] = (_SOURCE_LAYOUTS[layout], _SOURCE_MODES[mode], attrs == "true")
+    for name, mode, attrs in re.findall(r"^OWLPT_FUSED2_SLOT_ENTRY\((\w+), (\w+), (true|false)\)$", src, re.M):
+        out[name] = ("component", _SOURCE_MODES[mode], attrs == "true")
+    return out
+
+
+@pytest.mark.parametrize("key", list(tf2._ENTRY), ids=lambda k: "-".join(map(str, k)))
+def test_entry_table_is_the_sources(key):
+    """Each key of the entry table names its entry through _entry, the
+    kernel source declares that entry with the key's layout, mode and
+    attributes (the slot-parallel component entries by their own macro),
+    and the source declares no traversal entry the table lacks."""
+    layout, mode, attrs = key
+    serial = layout == "component_serial"
+    fb = types.SimpleNamespace(layout="component" if serial else layout, mxu=layout.startswith("mxu"))
+    name = tf2._ENTRY[key]
+    assert tf2._entry(fb, mode, attrs, serial=serial) == name
+    declared = _declared_entries()
+    assert declared[name] == key
+    assert set(declared) == set(tf2._ENTRY.values())
+    assert (name in tf2._SLOT_ENTRIES) == (layout == "component")
 
 
 @pytest.fixture(scope="module")

@@ -1,12 +1,12 @@
-"""The host side of K5's two block-wide steps (``ops/fused.py`` STEPS): the
-step registry and its entries, the plain versions of the slots step's
-pre-pass (``block_weights``) and block order (``block_order``) against
-direct counts and the kernel's rank rule, and the wrappers' checks, which
-raise without a CUDA device instead of falling back.
+"""The host side of K5's block-wide step (``ops/fused.py``): its entries and
+their registry, the plain versions of the pre-pass (``block_weights``) and
+block order (``block_order``) against direct counts and the kernel's rank
+rule, and the wrappers' checks, which raise without a CUDA device instead of
+falling back.
 
-The kernels themselves run only on a card: ``tests/test_torch_cuda.py``
-holds both steps to the plain version and to each other there.  Counts and
-orders are integers and compared exactly.
+The kernel itself runs only on a card: ``tests/test_torch_cuda.py`` holds it
+to the plain version there.  Counts and orders are integers and compared
+exactly.
 """
 import re
 
@@ -46,14 +46,13 @@ def scene():
 
 
 def test_step_registry():
-    """Two steps, each with its own entry, both counted in LAUNCHES and
-    reset by reset_counts; the default is one of them; the profile rows
-    carry each block's launch rank and weight."""
-    assert set(tfu.STEPS) == {"serial", "slots"} and tfu.STEP in tfu.STEPS
-    assert sorted(tfu.STEPS.values()) == [0, 1]
-    assert set(tfu.STEP_ENTRIES) == set(tfu.STEPS)
-    assert tfu.STEP_ENTRIES["slots"] == tfu.ENTRY and tfu.STEP_ENTRIES["serial"] == tfu.SERIAL_ENTRY
-    assert set(tfu.LAUNCHES) == set(tfu.STEP_ENTRIES.values())
+    """One traversal entry, counted in LAUNCHES and reset by reset_counts
+    (the profile entry is not counted); the profile rows carry each block's
+    phases, steps, launch rank and weight, the count rows each ray's
+    rescans, boxes and clusters tested."""
+    assert tfu.ENTRY == "owlpt_fused_traverse" and tfu.PROFILE_ENTRY == "owlpt_fused_traverse_profile"
+    assert set(tfu.LAUNCHES) == {tfu.ENTRY}
+    assert tfu.COUNT_COLS == ("rescans", "boxes", "clusters")
     assert tfu.PROFILE_COLS[:6] == ("setup", "pick_stage", "slot_loop", "rescans", "total", "steps")
     assert tfu.PROFILE_COLS[6:] == ("rank", "weight")
     saved = dict(tfu.LAUNCHES)
@@ -67,47 +66,33 @@ def test_step_registry():
 
 
 def test_source_declares_the_registry():
-    """The kernel source's Step enum, entries and profile widths are the
-    registry's: each step id is the enum's, each entry an extern "C"
-    function, kProfileCols is len(PROFILE_COLS) and kCountCols
+    """The kernel source's entries and profile widths are the registry's:
+    the traversal, profile and resource entries are its only extern "C"
+    functions, kProfileCols is len(PROFILE_COLS) and kCountCols
     len(COUNT_COLS)."""
     src = tfu.CSRC.read_text()
-    enum = re.search(r"enum Step \{ kSerialStep = (\d+), kSlotStep = (\d+) \};", src)
-    assert enum and (int(enum.group(1)), int(enum.group(2))) == (tfu.STEPS["serial"], tfu.STEPS["slots"])
-    for name in (*tfu.STEP_ENTRIES.values(), tfu.PROFILE_ENTRY, f"{tfu.ENTRY}_resources"):
-        assert re.search(rf'extern "C" int {name}\(', src), name
+    declared = set(re.findall(r'extern "C" int (\w+)\(', src))
+    assert declared == {tfu.ENTRY, tfu.PROFILE_ENTRY, f"{tfu.ENTRY}_resources"}
     assert re.search(rf"constexpr int kProfileCols = {len(tfu.PROFILE_COLS)};", src)
     assert re.search(rf"constexpr int kCountCols = {len(tfu.COUNT_COLS)};", src)
 
 
-@pytest.mark.parametrize("step", ["serial", "slots", None])
 @pytest.mark.parametrize("max_steps", [0, 1, 3, tfu.MAX_STEPS])
-def test_cpu_tensors_take_the_plain_version_for_every_step(scene, step, max_steps):
-    """On CPU tensors every step kind gives the plain version's output and
-    launches nothing."""
+def test_cpu_tensors_take_the_plain_version_for_every_step(scene, max_steps):
+    """On CPU tensors the sweep gives the plain version's output at every
+    max_steps and launches nothing."""
     fb, o, d, tmax = scene
     launches = dict(tfu.LAUNCHES)
-    got = tfu.fused_traverse(o, d, tmax, fb, 64, max_steps, step=step)
+    got = tfu.fused_traverse(o, d, tmax, fb, 64, max_steps)
     want = tfu.fused_traverse_plain(o, d, tmax, fb, 64, max_steps)
     assert torch.equal(got, want) and tfu.LAUNCHES == launches
     assert (got[:, 6] <= max_steps).all()
 
 
-def test_unknown_step_raises(scene):
-    fb, o, d, tmax = scene
-    with pytest.raises(ValueError, match="step kind"):
-        tfu.fused_traverse(o, d, tmax, fb, 64, step="warp")
-    with pytest.raises(ValueError, match="step kind"):
-        tfu._fused_traverse_cuda(tfu.pack_rays(o, d, tmax), fb, 64, 8, step="warp")
-    with pytest.raises(ValueError, match="step kind"):
-        tfu.kernel_resources(fb, step="warp")
-
-
-@pytest.mark.parametrize("step", list(tfu.STEPS))
-def test_cuda_requests_raise_without_a_device(scene, monkeypatch, step):
-    """Without a CUDA device the kernel path of either step raises, and so
-    do the profile entry and the resource query; the plain version is not
-    called and no launch is counted."""
+def test_cuda_requests_raise_without_a_device(scene, monkeypatch):
+    """Without a CUDA device the kernel path raises, and so do the profile
+    entry and the resource query; the plain version is not called and no
+    launch is counted."""
     fb, o, d, tmax = scene
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
@@ -118,13 +103,13 @@ def test_cuda_requests_raise_without_a_device(scene, monkeypatch, step):
     launches = dict(tfu.LAUNCHES)
     meta = lambda x: torch.zeros(x.shape, device="meta")  # noqa: E731
     with pytest.raises(RuntimeError, match="CUDA"):
-        tfu.fused_traverse(meta(o), meta(d), meta(tmax), fb.to("meta"), 64, step=step)
+        tfu.fused_traverse(meta(o), meta(d), meta(tmax), fb.to("meta"), 64)
     with pytest.raises(RuntimeError, match="CUDA"):
-        tfu._fused_traverse_cuda(tfu.pack_rays(o, d, tmax), fb, 64, 8, step=step)
+        tfu._fused_traverse_cuda(tfu.pack_rays(o, d, tmax), fb, 64, 8)
     with pytest.raises(RuntimeError, match="CUDA"):
-        tfu.fused_traverse_profile(o, d, tmax, fb, 64, step=step)
+        tfu.fused_traverse_profile(o, d, tmax, fb, 64)
     with pytest.raises(RuntimeError, match="CUDA"):
-        tfu.kernel_resources(fb, 64, step=step)
+        tfu.kernel_resources(fb, 64)
     assert tfu.LAUNCHES == launches
 
 
