@@ -55,7 +55,7 @@ SPANS = (
     "owlpt.bank",  # banking a wavefront step's finished paths into the film
     "owlpt.regen",  # new work ids, spawned primary rays and the selects of the next pool state
     "owlpt.film",  # accumulating the scan loop's samples
-    "owlpt.sync.status",  # the wavefront's status read after each launch
+    "owlpt.sync.status",  # the wavefront pool's status read: after each launch, and each step once the frame could end
     "owlpt.sync.resolved",  # the nonzero of a sweep's resolved column (fused2 closest hit and any-hit, K5)
     "owlpt.sync.rays",  # a frame's ray count read to the host
     "owlpt.sync.scene",  # the frame's scene reads: the sort mode's mesh read-back, the texture test

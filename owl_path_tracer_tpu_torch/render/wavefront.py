@@ -39,9 +39,12 @@ Differences from the JAX package, all exact in value:
     on the card deterministically, each pixel's finished lanes accumulated
     in lane order without atomics;
   * the ray counter and work ids are int64, so they cannot wrap;
-  * the host loop reads each launch's status before the next launch: the
-    fused2 wrapper synchronizes every step (to find unresolved rays), so the
-    JAX package's overlap of the next dispatch with the previous status read
+  * the host reads the pool's status after each launch, and after each step
+    once the frame could have finished (its queue handed out and one step
+    more run); a launch ends at the first read that finds the frame
+    finished, so a frame runs no step past its last busy one.  The fused2
+    wrapper synchronizes every step (to find unresolved rays), so the JAX
+    package's overlap of the next dispatch with the previous status read
     would buy nothing;
   * a drain that ends with paths still in flight raises instead of writing a
     checkpoint that would drop them, and the checkpoint's guard also holds a
@@ -80,6 +83,16 @@ PARK = 1e8
 # launches a checkpoint's drain may take before it gives up (a path lives at
 # most depth + 2 steps, a launch is at least 2 steps)
 DRAIN_LAUNCHES = 64
+
+# _run_chunk's launches, the steps they ran, and the steps of a launch left
+# unrun because the frame had finished ("cut")
+STEPS = {"launches": 0, "run": 0, "cut": 0}
+
+
+def reset_counts():
+    """Set the launch and step counts to 0."""
+    for name in STEPS:
+        STEPS[name] = 0
 
 
 @dataclasses.dataclass
@@ -282,12 +295,31 @@ def wavefront_step(scene: Scene, settings: RenderSettings, st: PoolState, inters
                 **shadow,
             )
 
+
+def _status(settings: RenderSettings, st: PoolState, work_hi: int):
+    """The pool's status [work_done, busy] on the host, read under
+    ``owlpt.sync.status``; the strided film's work is done when every lane
+    has walked its slice."""
+    if st.acc.dim() == 3:
+        work_done = st.work_local.min() >= st.acc.shape[0] * settings.max_samples
+    else:
+        work_done = st.work_counter >= work_hi
+    # a pending shadow ray keeps the frame busy: its zombie lane has not banked
+    status = torch.stack([work_done, (st.alive | st.sh_active).any()])
+    with span("owlpt.sync.status"):
+        return status.cpu()
+
+
 def _run_chunk(scene: Scene, settings: RenderSettings, st: PoolState, accel,
                enable_textures: bool, work_hi: int, iters: int, fused2_block=None,
                fused2_sort=False, sample_base: int = 0, lights=None, env_light=None,
-               fused_nee: bool = False, fused2_fanout=None, work_map=None, local_spp: int | None = None):
-    """``iters`` wavefront steps -> (pool, status [work_done, busy]); the
-    strided film's work is done when every lane has walked its slice."""
+               fused_nee: bool = False, fused2_fanout=None, work_map=None, local_spp: int | None = None,
+               stop_from: int | None = None):
+    """``iters`` wavefront steps -> (pool, status [work_done, busy] on the
+    host).  With ``stop_from`` the status is also read after every step from
+    the ``stop_from``-th on, and the launch ends at the first read that finds
+    the frame finished (work done, not busy); without it, or before a frame
+    finishes, the launch runs all ``iters`` steps."""
     intersect_fn, occlude_fn = integrator.make_intersectors(
         scene, accel, fused2_block=fused2_block, fused2_sort=fused2_sort, fused2_fanout=fused2_fanout
     )
@@ -295,16 +327,18 @@ def _run_chunk(scene: Scene, settings: RenderSettings, st: PoolState, accel,
     if settings.use_nee and fused_nee:
         mixed_fn = integrator.make_mixed_sweep_fn(accel, fused2_block=fused2_block, fused2_sort=fused2_sort,
                                                   fused2_fanout=fused2_fanout)
-    for _ in range(iters):
+    STEPS["launches"] += 1
+    for i in range(1, iters + 1):
         st = wavefront_step(scene, settings, st, intersect_fn, enable_textures, work_hi, sample_base,
                             lights=lights, occlude_fn=occlude_fn, env_light=env_light,
                             mixed_fn=mixed_fn, work_map=work_map, local_spp=local_spp)
-    if st.acc.dim() == 3:
-        work_done = st.work_local.min() >= st.acc.shape[0] * settings.max_samples
-    else:
-        work_done = st.work_counter >= work_hi
-    # a pending shadow ray keeps the frame busy: its zombie lane has not banked
-    return st, torch.stack([work_done, (st.alive | st.sh_active).any()])
+        STEPS["run"] += 1
+        if i == iters or (stop_from is not None and i >= stop_from):
+            status = _status(settings, st, work_hi)
+            work_done, busy = status.tolist()
+            if i == iters or (work_done and not busy):
+                STEPS["cut"] += iters - i
+                return st, status
 
 
 def render_image_wavefront(scene: Scene, settings: RenderSettings, accel=None, lanes: int = 131072,
@@ -348,30 +382,37 @@ def render_image_wavefront(scene: Scene, settings: RenderSettings, accel=None, l
             strided_pixels = total_work // lanes // spp
         st = new_pool(settings, lanes, strided_pixels=strided_pixels, device=scene.vertices.device)
     est_steps = (total_work + lanes - 1) // lanes + settings.max_path_depth + 3
+    iters = max(2, min(iters_per_launch, est_steps))
     chunk = functools.partial(
         _run_chunk, scene, settings, accel=accel, enable_textures=enable_textures,
-        iters=max(2, min(iters_per_launch, est_steps)), fused2_block=fused2_block, fused2_sort=fused2_sort,
+        iters=iters, fused2_block=fused2_block, fused2_sort=fused2_sort,
         sample_base=sample_base, lights=lights, env_light=env_light, fused_nee=fused_nee,
         fused2_fanout=fused2_fanout,
     )
     guard = None
+    work_lo = 0
     if checkpoint_path is not None:
         if strided_pixels is not None:
             raise ValueError("checkpointing requires the queue film (strided=False)")
         guard = checkpoint_guard(scene, settings, accel, lanes, fused2_sort, fused_nee, sample_base)
         if os.path.exists(checkpoint_path):
             st = _resume(st, checkpoint_path, guard)
+            work_lo = int(st.work_counter)
             if progress:
-                done = int(st.work_counter)
-                print(f"[wavefront] resumed at work item {done}/{total_work} ({100.0 * done / total_work:.1f}%)",
-                      flush=True)
+                print(f"[wavefront] resumed at work item {work_lo}/{total_work} "
+                      f"({100.0 * work_lo / total_work:.1f}%)", flush=True)
+    # no frame finishes before its queue is handed out (at most one item a
+    # lane a step) and one step more has traced the last items: the status
+    # is read after every step from then on
+    first_read = (total_work - work_lo + lanes - 1) // lanes + 1
+    steps = 0
     last_ck = time.monotonic()
     for _ in range(max_launches):
-        st, status = chunk(st, work_hi=total_work)
-        with span("owlpt.sync.status"):
-            work_done, busy = status.tolist()
+        st, status = chunk(st, work_hi=total_work, stop_from=max(1, first_read - steps))
+        work_done, busy = status.tolist()
         if work_done and not busy:
             break
+        steps += iters  # a launch that leaves its frame unfinished runs all its steps
         if checkpoint_path is not None and time.monotonic() - last_ck > checkpoint_every_s:
             t_drain = time.perf_counter()
             st = _drain(chunk, st)  # ends on a host read of the pool's status

@@ -20,7 +20,8 @@ the card against the CPU, the sharded wavefront at world size 1 over NCCL
 against the unsharded one, the debug layer's checks on CUDA tensors,
 a frame of each benchmark cell's path with every synchronising call inside
 an ``owlpt.sync.*`` range and every bounce step shaded in one launch of the
-shading kernel, and that kernel against the plain ``_shade_bounce`` on
+shading kernel, each wavefront cell's frame ending at its last busy step
+(bit-equal to launches that run all their steps), and that kernel against the plain ``_shade_bounce`` on
 random bounces (every lobe and case; the lane's fate, depth, LCG state and
 lobe exact, the rest to rtol 1e-5 / atol 1e-6), and the deferred NEE
 shading kernel against the plain ``_shade_bounce_nee`` on random NEE
@@ -1283,6 +1284,42 @@ def test_cell_paths_shade_every_step_in_the_kernel(cuda_device, tmp_path, kind):
     assert shade.LAUNCHES == {shade.ENTRY: 0 if nee else steps, shade.PLAIN_CUDA: 0,
                               shade.ENTRY_NEE: steps if nee else 0, shade.PLAIN_CUDA_NEE: 0}
     assert entered["owlpt.sync.sky"] == entered["owlpt.sync.normal"] == entered["owlpt.sync.env_color"] == 0
+
+
+@pytest.mark.parametrize("kind", ["wavefront", "nee-deferred"])
+def test_cell_frame_ends_at_its_last_busy_step(cuda_device, tmp_path, monkeypatch, kind):
+    """A frame of each wavefront cell's path (``_cell_frame``) runs no step
+    past its last busy one (a lane alive or a shadow ray pending before
+    it), with every synchronising call outside the ``owlpt.sync.*`` ranges
+    raising; its image and rays equal, bit for bit, those of launches that
+    each run all their steps until the status read after a launch says the
+    frame is done."""
+    frame = _cell_frame(kind, tmp_path)
+    frame()
+    busy, step = [], wavefront.wavefront_step
+
+    def record(scene, settings, st, *a, **k):
+        busy.append((st.alive | st.sh_active).any())  # read after the frame: no sync inside it
+        return step(scene, settings, st, *a, **k)
+
+    monkeypatch.setattr(wavefront, "wavefront_step", record)
+    wavefront.reset_counts()
+    with _syncs_only_in_sync_spans() as entered:
+        img, rays = frame()
+    ended = dict(wavefront.STEPS)
+    busy = torch.stack(busy).tolist()
+    last_busy = max(i for i, b in enumerate(busy) if b)
+    assert entered["owlpt.step"] == len(busy) == ended["run"] == last_busy + 1
+    monkeypatch.setattr(wavefront, "wavefront_step", step)
+    run = wavefront._run_chunk
+    monkeypatch.setattr(wavefront, "_run_chunk", lambda *a, stop_from=None, **k: run(*a, **k))
+    wavefront.reset_counts()
+    img_fixed, rays_fixed = frame()
+    fixed = dict(wavefront.STEPS)
+    print(f"{kind}: steps {ended['run']} (cut {ended['cut']}) against {fixed['run']} in "
+          f"{ended['launches']} launches; status reads {entered['owlpt.sync.status']}")
+    assert torch.equal(img, img_fixed) and rays == rays_fixed > 0
+    assert fixed["cut"] == 0 and fixed["run"] == ended["run"] + ended["cut"]
 
 
 _SHADE_INT = ("alive", "depth", "rng", "prev_lobe")

@@ -99,15 +99,22 @@ def _inside(spans, outer, name):
 
 def test_wavefront_frame_opens_its_spans_per_frame_step_launch_and_sweep(programs):
     """fused2's plain path, sorted, in launches of 4 steps: the frame once, a
-    step per step of every launch, the status read per launch, the sort and
-    the resolved column's read per sweep, and in each step one query, one
-    shading, one banking and one regeneration."""
+    step per step of every launch (every launch but the last runs its 4, the
+    last no more), the status read between steps, after each from the first
+    that could end the frame (its queue handed out, one step more run), the
+    sort and the resolved column's read per sweep, and in each step one
+    query, one shading, one banking and one regeneration."""
     prog = programs["wavefront"]
+    wavefront.reset_counts()
     spans, _, _ = _spans(prog, "wavefront", iters_per_launch=4)
-    launches = _count(spans, "owlpt.sync.status")
+    launches = wavefront.STEPS["launches"]
     steps = _count(spans, "owlpt.step")
     assert _count(spans, "owlpt.frame") == 1 and launches >= 2
-    assert steps == launches * 4
+    assert (launches - 1) * 4 < steps <= launches * 4 and wavefront.STEPS["run"] == steps
+    s = prog.settings
+    first_read = -(-s.width * s.height * s.max_samples // prog.cell.traffic["lanes"]) + 1
+    assert first_read <= 4 and _count(spans, "owlpt.sync.status") == steps - first_read + 1
+    assert _inside(spans, "owlpt.step", "owlpt.sync.status") == [0] * steps
     for name in ("owlpt.intersect", "owlpt.sort", "owlpt.sync.resolved", "owlpt.shade", "owlpt.bank",
                  "owlpt.regen"):
         assert _count(spans, name) == steps, name
