@@ -377,7 +377,9 @@ def fused_closest_hit(ray_o, ray_d, fb: FusedBVH, t_min: float = m.T_MIN, t_max=
     ray_o_p, ray_d_p, t_max_p = ray_o, ray_d, t_max
     if pad:
         ray_o_p = torch.cat([ray_o, torch.zeros((pad, 3), dtype=torch.float32, device=dev)])
-        ray_d_p = torch.cat([ray_d, torch.tensor([0.0, 0.0, 1.0], device=dev).expand(pad, 3)])
+        up = torch.zeros((pad, 3), dtype=torch.float32, device=dev)
+        up[:, 2] = 1.0  # a fill on the device: no copy from the host, no sync
+        ray_d_p = torch.cat([ray_d, up])
         if not scalar:
             t_max_p = torch.cat([t_max, torch.full((pad,), m.T_MIN, dtype=torch.float32, device=dev)])
     out = fused_traverse(ray_o_p, ray_d_p, t_max_p, fb, block, max_steps)[:n]

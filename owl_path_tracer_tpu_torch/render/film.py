@@ -123,10 +123,10 @@ def scene_lights(scene: Scene, settings: RenderSettings):
 def add_samples(scene: Scene, settings: RenderSettings, film: Film, num_samples: int,
                 pixel_chunk: int = 65536, accel=None, fused2_block: int | None = None) -> Film:
     """Accumulate ``num_samples`` more samples per pixel into a new film,
-    ``pixel_chunk`` pixels at a time (``accel=None``: the brute sweep).  The last chunk is padded to the full
-    chunk with copies of the last pixel, as in the JAX package (whose padded
-    lanes count in ``rays_traced`` too).  ``fused2_block`` is the fused2
-    kernel's rays per block."""
+    ``pixel_chunk`` pixels at a time (``accel=None``: the brute sweep); the
+    last chunk holds the pixels left.  (The JAX package pads it to a whole
+    chunk with copies of the last pixel, whose rays its ``rays_traced``
+    counts too.)  ``fused2_block`` is the fused2 kernel's rays per block."""
     with span("owlpt.frame"):
         enable_textures = scene_has_textures(scene)
         intersect_fn, occlude_fn = integrator.make_intersectors(scene, accel, fused2_block=fused2_block)
@@ -138,13 +138,12 @@ def add_samples(scene: Scene, settings: RenderSettings, film: Film, num_samples:
         rays = torch.zeros((), dtype=torch.int64, device=dev)
     for lo in range(0, total, pixel_chunk):
         hi = min(lo + pixel_chunk, total)
-        idx = torch.arange(lo, lo + pixel_chunk, device=dev).clamp(max=total - 1)
-        s, r, n_rays = integrator.sample_sum(scene, settings, px[idx], state[idx], num_samples, intersect_fn,
+        s, r, n_rays = integrator.sample_sum(scene, settings, px[lo:hi], state[lo:hi], num_samples, intersect_fn,
                                              enable_textures, lights=lights, occlude_fn=occlude_fn,
                                              env_light=env_light)
         with span("owlpt.film"):
-            acc[lo:hi] += s[: hi - lo]
-            state[lo:hi] = r[: hi - lo]
+            acc[lo:hi] += s
+            state[lo:hi] = r
         rays = rays + n_rays
     with span("owlpt.sync.rays"):
         rays = int(rays)

@@ -103,6 +103,56 @@ def test_progressive_equals_one_shot():
     assert film.rays_traced == one.rays_traced > 8 * 256
 
 
+def test_a_short_last_chunk_counts_only_its_pixels():
+    """A frame whose last chunk is short (256 pixels in chunks of 96) against
+    the same frame in one chunk: the same image, stream and live rays.  (The
+    JAX package pads the last chunk with copies of the last pixel and counts
+    their rays too.)"""
+    scene = _sphere_scene(16)
+    s = tscene.RenderSettings(width=16, height=16, max_samples=1, max_path_depth=3,
+                              environment_color=(1, 1, 1), environment_intensity=0.7)
+    accel = tfilm.make_accel(scene, "fused", cluster_size=64)
+    whole = tfilm.add_samples(scene, s, tfilm.new_film(s, device="cpu"), 1, pixel_chunk=256, accel=accel)
+    short = tfilm.add_samples(scene, s, tfilm.new_film(s, device="cpu"), 1, pixel_chunk=96, accel=accel)
+    assert torch.equal(short.acc, whole.acc) and torch.equal(short.rng, whole.rng)
+    assert short.rays_traced == whole.rays_traced > 256
+
+
+@pytest.fixture(scope="module")
+def short_chunk_jax():
+    """cornell-box at 16x16 through the JAX package's scan renderer, in one
+    chunk and in chunks of 96 (the last one 64 pixels, padded by 32 copies of
+    the last pixel)."""
+    js = jscene.RenderSettings(width=16, height=16, max_samples=2, max_path_depth=3, environment_auto=True)
+    jsc = jscene.compile_scene(ASSETS, "cornell-box", (16, 16))
+    accel = jfilm.make_accel(jsc, "cluster", cluster_size=64)
+    whole = jfilm.add_samples(jsc, js, jfilm.new_film(js), 2, pixel_chunk=256, accel=accel)
+    padded = jfilm.add_samples(jsc, js, jfilm.new_film(js), 2, pixel_chunk=96, accel=accel)
+    return js, whole, padded
+
+
+@pytest.mark.parametrize("kind", ["cluster", "fused"])
+def test_short_last_chunk_matches_jax(short_chunk_jax, kind):
+    """A frame whose last chunk is short (16x16 in chunks of 96), port vs the
+    JAX package on the same chunks: the image by the golden rule and the LCG
+    streams equal.  The one intended difference is ``rays_traced``: the JAX
+    package runs the short chunk padded with 32 copies of the last pixel and
+    counts their rays, the port runs it at its own size.  So the port is held
+    to the JAX count less the padded lanes' rays (the JAX package's own
+    padded-less-whole difference: 32 copies of one path's rays)."""
+    js, whole, padded = short_chunk_jax
+    pad_rays = padded.rays_traced - whole.rays_traced
+    assert pad_rays > 0 and pad_rays % 32 == 0
+    s = _port_settings(js)
+    sc = tscene.compile_scene(ASSETS, "cornell-box", (16, 16), device="cpu")
+    got = tfilm.add_samples(sc, s, tfilm.new_film(s, device="cpu"), 2, pixel_chunk=96,
+                            accel=tfilm.make_accel(sc, kind, cluster_size=64))
+    assert_golden_rule(tfilm.finalize(got).numpy(), jfilm.finalize(padded), f"short last chunk on {kind}")
+    np.testing.assert_array_equal(got.rng.numpy(), padded.rng.astype(np.int64))
+    want_rays = padded.rays_traced - pad_rays
+    assert abs(got.rays_traced - want_rays) <= 0.005 * want_rays
+
+
 def test_nee_scan_render_matches_jax():
     """use_nee=True through the scan renderer on cluster (the occlusion path
     of the scan renderer), port vs JAX package."""
